@@ -1,0 +1,73 @@
+"""Plain PyTorch versions of the EB kernels (the ``ref.py`` contract).
+
+Same semantics as the JAX package's oracles: ``bucketize_ref`` and
+``ternary_match_ref`` mirror its ``kernels/ref.py``, and ``fused_eb_ref``
+its jnp composition of encode, pack and match.  The CPU tests compare
+these with the JAX package bit for bit; on the card the CUDA kernels are
+compared with these.
+
+Packed uint32 key words are carried as int32 bit patterns: ``&``, ``==``
+and ``<<`` (which wraps into the sign bit) give the uint32 results, and
+torch's ``uint32`` lacks ``<<``, ``~`` and ``max`` on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+__all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
+           "fused_eb_ref", "as_i32"]
+
+
+def as_i32(x: int) -> int:
+    """A uint32 constant as the int32 with the same bits."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def bucketize_ref(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """codes[b, f] = #{t : thresholds[f, t] <= values[b, f]}.
+
+    ``thresholds`` is [F, T] int32 padded with INT32_MAX; values [B, F].
+    """
+    return (values[:, :, None] >= thresholds[None, :, :]).sum(-1).to(torch.int32)
+
+
+def ternary_match_ref(keys: torch.Tensor, values: torch.Tensor,
+                      masks: torch.Tensor, prio_action: torch.Tensor,
+                      default_action: int) -> torch.Tensor:
+    """TCAM lookup.  keys [B, W]; rows (values, masks) [N, W], int32 bits.
+
+    ``prio_action[n] = priority[n] * 256 + action[n]``.  Returns the action
+    of the highest-priority matching row, else ``default_action``.
+    """
+    if values.shape[0] == 0:  # all rows folded into the default action
+        return torch.full((keys.shape[0],), int(default_action), dtype=torch.int32,
+                          device=keys.device)
+    hit = ((keys[:, None, :] & masks[None]) == values[None]).all(-1)
+    score = torch.where(hit, prio_action[None, :], -1)  # [B, N]
+    best = score.max(dim=1).values
+    return torch.where(best >= 0, best % 256, int(default_action)).to(torch.int32)
+
+
+def pack_codes_ref(codes: torch.Tensor, layout: Sequence[Tuple[int, int, int]],
+                   n_words: int) -> torch.Tensor:
+    """Pack codes [B, F] into key words [B, n_words] by (word, off, width)."""
+    words = [torch.zeros(codes.shape[0], dtype=torch.int32, device=codes.device)
+             for _ in range(n_words)]
+    for f, (word, off, width) in enumerate(layout):
+        field = codes[:, f].to(torch.int32) & as_i32((1 << width) - 1)
+        words[word] = words[word] | (field << off)
+    return torch.stack(words, dim=1)
+
+
+def fused_eb_ref(values: torch.Tensor, thresholds: torch.Tensor,
+                 rows_v: torch.Tensor, rows_m: torch.Tensor,
+                 prio_action: torch.Tensor, layout: torch.Tensor,
+                 default_action: int, identity: bool = False) -> torch.Tensor:
+    """Encode (or identity codes), pack by ``layout`` [F, 3], then match."""
+    codes = values if identity else bucketize_ref(values, thresholds)
+    lay = [tuple(r) for r in layout.tolist()]
+    keys = pack_codes_ref(codes, lay, rows_v.shape[1])
+    return ternary_match_ref(keys, rows_v, rows_m, prio_action, default_action)
