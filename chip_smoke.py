@@ -15,7 +15,20 @@ Phases, in order; the first failure exits non-zero:
 5. per-kernel times (CUDA events, median) beside the plain version's, the
    least time the card could take, and for ``bucketize`` one
    ``torch.searchsorted`` call as the library yardstick; flows/s of both
-   predict paths.
+   predict paths;
+6. LB path: ``plant`` svm, nb, kmeans, pca and ae, lookup-based, size L
+   on unsw and predict 2^20 flows through ``auto``: one ``lb_lookup``
+   launch per predict; labels (pca/ae: int32 sums bitwise, float outputs
+   within 1e-5) equal the plain path on the card, and on the first 65,536
+   flows the numpy reference;
+7. DM path: bnn direct-map size L, trained on the card: two
+   ``bnn_popcount_matmul`` launches per predict, labels equal the plain
+   path, the numpy reference and the native model; dt and rf direct-map
+   size L walk their trees in plain torch on the card, labels equal numpy
+   and native.  Then ``lb_lookup`` (kmeans-LB L) and
+   ``bnn_popcount_matmul`` (BNN-L layer 1) are timed like phase 5, with
+   ``F.embedding_bag`` and a bf16 ``torch.matmul`` of the ±1 matrices as
+   library yardsticks.
 
 Its last three lines are the kernels JSON, the card's ``name, power.limit``
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
@@ -44,11 +57,15 @@ INT32_MAX = np.iinfo(np.int32).max
 PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 67e12
 SOURCE = "src/repro_torch/kernels/csrc/eb_kernels.cu"
+LB_DM_SOURCE = "src/repro_torch/kernels/csrc/lb_dm_kernels.cu"
 REPLACES = {
     "bucketize": "src/repro/kernels/bucketize.py:32",
     "ternary_match": "src/repro/kernels/ternary_match.py:53",
     "fused_eb": "src/repro/kernels/fused_eb.py:66",
+    "lb_lookup": "src/repro/kernels/lb_lookup.py:39",
+    "bnn_popcount_matmul": "src/repro/kernels/bnn_mlp.py:33",
 }
+LB_MODELS = ("svm", "nb", "kmeans", "pca", "ae")
 
 
 def fail(msg: str) -> None:
@@ -155,6 +172,28 @@ def check_kernels(dev) -> int:
              ops.fused_eb_match(x, t, rv, rm, pa, lay, 77, identity),
              ref.fused_eb_ref(x, t, rv, rm, pa, lay, 77, identity))
         n += 1
+    # lb_lookup: the JAX sweep, the 48 KB shared-memory edge, and a LUT
+    # past it that is read through the cache
+    for B, F, V, K in ((1, 1, 2, 1), (100, 5, 64, 6), (257, 3, 256, 16),
+                       (3000, 8, 256, 16), (70000, 5, 256, 3)):
+        codes = i32(rng.integers(0, V, (B, F)), dev)
+        luts = i32(rng.integers(-(2**15), 2**15, (F, V, K)), dev)
+        same(f"lb_lookup {B}x{F}x{V}x{K}", ops.lb_lookup(codes, luts),
+             ref.lb_lookup_ref(codes, luts))
+        n += 1
+    # bnn_popcount_matmul: the JAX sweep (n_in bits -> words), words with
+    # bit 31 set, and a batch of many tiles
+    for B, n_in, N in ((1, 1, 1), (64, 40, 16), (100, 100, 3), (17, 64, 33),
+                       (70001, 40, 48)):
+        W = -(-n_in // 32)
+        x = rng.integers(0, 2**32, (B, W), dtype=np.uint32)
+        w = rng.integers(0, 2**32, (N, W), dtype=np.uint32)
+        x[0, 0] |= np.uint32(1 << 31)
+        w[0, -1] |= np.uint32(1 << 31)
+        x, w = i32(x, dev), i32(w, dev)
+        same(f"bnn_popcount_matmul {B}x{W} N={N}",
+             ops.bnn_popcount_matmul(x, w), ref.bnn_popcount_matmul_ref(x, w))
+        n += 1
     torch.cuda.synchronize(dev)
     return n
 
@@ -200,6 +239,106 @@ def drive(size: str, dev, batch: int) -> PathRun:
     if not np.array_equal(got, res.trained.predict(head)):
         fail(f"rf-{size}: labels differ from the native forest")
     return PathRun(res, x, fn, plain, backend, counts)
+
+
+def chunked(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over ``x`` in CHUNK-row pieces (the plain versions' memory)."""
+    return torch.cat([fn(x[i:i + CHUNK]) for i in range(0, x.shape[0], CHUNK)])
+
+
+def flows(ds, dev, batch: int):
+    """``batch`` flows drawn from the test split with ``default_rng(SEED)``:
+    (numpy int64, int32 on ``dev``)."""
+    rng = np.random.default_rng(SEED)
+    f = ds.X_test[rng.integers(0, len(ds.X_test), batch)]
+    return f, torch.as_tensor(f.astype(np.int32), device=dev)
+
+
+def drive_lb(dev, batch: int) -> Dict[str, PathRun]:
+    """plant each LB model at size L; predict ``batch`` flows through
+    ``auto`` with the launch counts set to 0 just before and read after."""
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+    from repro_torch.kernels import ops, ref
+
+    ds = load_dataset("unsw", n=6000)
+    head, x = flows(ds, dev, batch)
+    head = head[:CHUNK]
+    runs = {}
+    for model in LB_MODELS:
+        y = None if model in ("kmeans", "pca", "ae") else ds.y_train
+        res = plant(PlanterConfig(model=model, strategy="lb", size="L",
+                                  device=str(dev)), ds.X_train, y, ds.X_test)
+        backend = res.mapped.select_backend(dev)
+        fn = res.mapped.torch_predict("auto", device=dev)
+        torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        out = fn(x)
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        if counts["lb_lookup"] != 1 or sum(counts.values()) != 1:
+            fail(f"{model}-LB predict launched {counts}, want one lb_lookup")
+        plain = res.mapped.torch_predict("ref", device=dev)
+        want = chunked(plain, x)
+        lb = res.mapped.predict_np.__self__
+        if lb.mode == "raw":
+            # the int32 sums bitwise, then the dequantized float32 outputs
+            luts = torch.as_tensor(np.ascontiguousarray(lb.luts), device=dev)
+            codes = x.clamp(0, lb.luts.shape[1] - 1)
+            same(f"{model}-LB sums", ops.lb_lookup(codes, luts),
+                 chunked(lambda c: ref.lb_lookup_ref(c, luts), codes))
+            if out.dtype != torch.float32 or not torch.allclose(
+                    out, want, rtol=1e-5, atol=1e-5):
+                fail(f"{model}-LB outputs differ from the plain path")
+            if not np.allclose(out[:CHUNK].cpu().numpy(),
+                               res.mapped.predict(head), rtol=1e-5, atol=1e-5):
+                fail(f"{model}-LB outputs differ from the numpy reference")
+        else:
+            same(f"{model}-LB labels", out, want)
+            if not np.array_equal(out[:CHUNK].cpu().numpy(),
+                                  res.mapped.predict(head)):
+                fail(f"{model}-LB labels differ from the numpy reference")
+        runs[model] = PathRun(res, x, fn, plain, backend, counts)
+    return runs
+
+
+def drive_dm(dev, batch: int) -> Dict[str, PathRun]:
+    """bnn-DM size L through ``auto`` (two ``bnn_popcount_matmul``
+    launches), and dt/rf-DM size L through their plain-torch walk."""
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+    from repro_torch.kernels import ops
+
+    ds = load_dataset("unsw", n=6000)
+    head, x = flows(ds, dev, batch)
+    head = head[:CHUNK]
+    runs = {}
+    for model in ("bnn", "dt", "rf"):
+        res = plant(PlanterConfig(model=model, strategy="dm", size="L",
+                                  device=str(dev)),
+                    ds.X_train, ds.y_train, ds.X_test)
+        backend = res.mapped.select_backend(dev)
+        fn = res.mapped.torch_predict("auto", device=dev)
+        torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        labels = fn(x)
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        kernel = 2 if model == "bnn" else 0
+        if (counts["bnn_popcount_matmul"] != kernel
+                or sum(counts.values()) != kernel):
+            fail(f"{model}-DM predict launched {counts}, want {kernel} "
+                 "bnn_popcount_matmul")
+        plain = res.mapped.torch_predict("ref", device=dev)
+        if model == "bnn":
+            same("bnn-DM labels", labels, chunked(plain, x))
+        got = labels[:CHUNK].cpu().numpy()
+        if not np.array_equal(got, res.mapped.predict(head)):
+            fail(f"{model}-DM labels differ from the numpy reference")
+        if not np.array_equal(got, res.trained.predict(head)):
+            fail(f"{model}-DM labels differ from the native model")
+        runs[model] = PathRun(res, x, fn, plain, backend, counts)
+    return runs
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -273,6 +412,91 @@ def kernel_rows(staged, fused, dev):
             "shape": {"B": B, "F": F, "T": T, "N": N, "W": W},
         })
     return rows
+
+
+def lb_dm_kernel_rows(lb_runs, dm_runs, dev):
+    """Time ``lb_lookup`` on kmeans-LB L (the widest K) and
+    ``bnn_popcount_matmul`` on BNN-L layer 1, at 2^20 flows."""
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    run = lb_runs["kmeans"]
+    lb = run.res.mapped.predict_np.__self__
+    luts = torch.as_tensor(np.ascontiguousarray(lb.luts), device=dev)
+    F, V, K = luts.shape
+    codes = run.x.clamp(0, V - 1)
+    B = codes.shape[0]
+    offsets = torch.arange(F, device=dev) * V
+    bag = (codes.long() + offsets).contiguous()
+    weight = luts.reshape(F * V, K).float()
+    rows.append(dict(
+        name="lb_lookup", args=(codes, luts), kern=ops.lb_lookup,
+        plain=ref.lb_lookup_ref, run=run, source=LB_DM_SOURCE,
+        n_bytes=B * F * 4 + F * V * K * 4 + B * K * 4, n_ops=B * F * K,
+        library=lambda: torch.nn.functional.embedding_bag(bag, weight,
+                                                          mode="sum"),
+        shape={"B": B, "F": F, "V": V, "K": K}))
+
+    run = dm_runs["bnn"]
+    bnn = run.res.mapped.predict_np.__self__
+    w_np, n_in = bnn.packed.layers[0]
+    w = torch.as_tensor(np.ascontiguousarray(w_np).view(np.int32), device=dev)
+    shifts = torch.arange(bnn.in_bits, dtype=torch.int32, device=dev)
+    bits = ((run.x[..., None] >> shifts) & 1).reshape(B, -1)
+    x = ops.pack_bits(bits)
+    N, W = w.shape
+    x_pm = (bits * 2 - 1).to(torch.bfloat16)
+    w_pm = torch.as_tensor(run.res.trained.binary_weights()[0].T,
+                           dtype=torch.bfloat16, device=dev).contiguous()
+    rows.append(dict(
+        name="bnn_popcount_matmul", args=(x, w), kern=ops.bnn_popcount_matmul,
+        plain=ref.bnn_popcount_matmul_ref, run=run, source=LB_DM_SOURCE,
+        n_bytes=B * W * 4 + N * W * 4 + B * N * 4, n_ops=B * N * W * 4,
+        library=lambda: torch.matmul(x_pm, w_pm.T),
+        shape={"B": B, "W": W, "N": N, "n_in": n_in}))
+
+    out = []
+    for r in rows:
+        kern, plain, args = r["kern"], r["plain"], r["args"]
+        got = kern(*args)
+        want = chunked(lambda a: plain(a, *args[1:]), args[0])
+        same(f"{r['name']} at main-path shapes", got, want)
+        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+        b_ms, b_by = bound_ms(r["n_bytes"], r["n_ops"])
+        out.append({
+            "name": r["name"], "route": "cuda", "source": r["source"],
+            "replaces": REPLACES[r["name"]],
+            "launches": r["run"].launches[r["name"]],
+            "bitwise": True, "max_abs_err": err,
+            "ms": time_ms(lambda: kern(*args)),
+            "plain_ms": time_ms(lambda: plain(*args), reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(r["library"]), "shape": r["shape"],
+        })
+    return out
+
+
+def lb_dm_kernels_only(run: PathRun, dev) -> Callable:
+    """The LB / DM-BNN predict's kernel launches alone, on the inputs that
+    predict gives them (clipped codes; packed input and hidden bits)."""
+    from repro_torch.kernels import ops
+
+    model = run.res.mapped.predict_np.__self__
+    if run.res.mapped.strategy == "lb":
+        luts = torch.as_tensor(np.ascontiguousarray(model.luts), device=dev)
+        codes = run.x.clamp(0, luts.shape[1] - 1)
+        return lambda: ops.lb_lookup(codes, luts)
+    shifts = torch.arange(model.in_bits, dtype=torch.int32, device=dev)
+    h = ops.pack_bits(((run.x[..., None] >> shifts) & 1).reshape(
+        run.x.shape[0], -1))
+    args = []
+    for w_np, n_in in model.packed.layers:
+        w = torch.as_tensor(np.ascontiguousarray(w_np).view(np.int32),
+                            device=dev)
+        args.append((h, w))
+        dot = 2 * (ops.bnn_popcount_matmul(h, w) - (32 * w.shape[1] - n_in)) - n_in
+        h = ops.pack_bits(dot >= 0)
+    return lambda: [ops.bnn_popcount_matmul(*a) for a in args]
 
 
 def flows_per_s(fn, x) -> float:
@@ -353,6 +577,30 @@ def main() -> None:
               f"{BATCH} flows {predict_ms:.4f} ms on the card, of which its "
               f"kernel launches {kernel_ms:.4f} ms; plain on the card: "
               f"{flows_per_s(run.plain, run.x[:CHUNK]):.0f} flows/s ({card})")
+
+    lb_runs = drive_lb(dev, BATCH)
+    for model, run in lb_runs.items():
+        lb = run.res.mapped.predict_np.__self__
+        print(f"[6 LB path] {model}-LB L: LUT {list(lb.luts.shape)} mode "
+              f"{lb.mode}, backend={run.backend}, {BATCH} flows, launches "
+              f"{run.launches}, == plain == numpy; "
+              f"{flows_per_s(run.fn, run.x):.0f} flows/s, one predict "
+              f"{time_ms(lambda: run.fn(run.x), reps=10):.4f} ms, of which "
+              f"its kernel launch {time_ms(lb_dm_kernels_only(run, dev)):.4f}"
+              f" ms ({card})")
+    dm_runs = drive_dm(dev, BATCH)
+    for model, run in dm_runs.items():
+        print(f"[7 DM path] {model}-DM L: {run.res.mapped.resources().entries} "
+              f"entries, backend={run.backend}, {BATCH} flows, launches "
+              f"{run.launches}, labels == numpy == native"
+              f"{' == plain' if model == 'bnn' else ''}, train "
+              f"{run.res.train_seconds:.2f} s; "
+              f"{flows_per_s(run.fn, run.x):.0f} flows/s, one predict "
+              f"{time_ms(lambda: run.fn(run.x), reps=10):.4f} ms"
+              + (f", of which its kernel launches "
+                 f"{time_ms(lb_dm_kernels_only(run, dev)):.4f} ms"
+                 if model == "bnn" else " (no kernel)") + f" ({card})")
+    rows += lb_dm_kernel_rows(lb_runs, dm_runs, dev)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

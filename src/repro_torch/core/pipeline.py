@@ -10,9 +10,10 @@ logical stages").
 ``MappedModel`` is the deployable artifact: accounting + a numpy reference
 predictor + a PyTorch predictor factory.  Backends: ``"ref"`` runs the
 plain PyTorch versions of the kernels on the given device, ``"cuda"`` the
-staged CUDA kernels (``bucketize`` + ``ternary_match``), ``"cuda_fused"``
-one ``fused_eb`` launch per table, and ``"auto"`` picks with
-``select_backend``.
+model's CUDA kernels (EB: staged ``bucketize`` + ``ternary_match``; LB:
+``lb_lookup``; DM-BNN: ``bnn_popcount_matmul``; the DM tree walk has no
+kernel), ``"cuda_fused"`` one ``fused_eb`` launch per table (EB only), and
+``"auto"`` picks with ``select_backend``.
 """
 from __future__ import annotations
 
@@ -74,10 +75,11 @@ class MappedModel:
     """A trained model mapped to the M/A pipeline."""
 
     model_kind: str  # e.g. 'rf'
-    strategy: str  # 'eb' (this slice)
+    strategy: str  # 'eb' | 'lb' | 'dm'
     pipeline: Pipeline
     predict_np: Callable[[np.ndarray], np.ndarray]
-    # (backend, device) -> predictor taking [B, F] int values, giving [B] int32
+    # (backend, device) -> predictor taking [B, F] int values, giving [B]
+    # int32 labels ([B, K] float32 outputs for LB ``raw`` models)
     make_torch_fn: Callable[[str, torch.device], Callable]
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     convert_seconds: float = 0.0
@@ -93,6 +95,9 @@ class MappedModel:
         dev = resolve_device(device)
         if backend == "auto":
             backend = self.select_backend(dev)
+        if backend == "cuda_fused" and self.strategy != "eb":
+            raise ValueError(f"'cuda_fused' is the EB fused kernel; a "
+                             f"{self.strategy.upper()} model takes 'cuda'")
         return self.make_torch_fn(backend, dev)
 
     def resources(self) -> Resources:
@@ -112,11 +117,14 @@ class MappedModel:
         """Pick the predictor backend for ``device``.
 
         On ``cuda`` an EB model that is gate-sized gets the one-launch
-        ``fused_eb`` kernel and any other EB model the staged kernels; the
-        plain version is never picked on the card.  On the CPU the plain
-        version is the only one.
+        ``fused_eb`` kernel, any other EB model the staged kernels, and an
+        LB or DM model its own kernels (``"cuda"``); the plain version is
+        never picked on the card.  On the CPU the plain version is the only
+        one.
         """
         if torch.device(device).type == "cpu":
             return "ref"
+        if self.strategy != "eb":
+            return "cuda"
         return "cuda_fused" if self.gate_sized() else "cuda"
 

@@ -4,9 +4,6 @@ Mirrors the paper's seven workflow steps (Fig. 2): ① load dataset ② train
 ③ map to tables ④ compile ⑤ load to target (tables onto the device)
 ⑥ table entries installed ⑦ auto-generated functionality test
 (mapped-vs-native parity check).
-
-This slice maps encode-based (EB) models only; a lookup-based or
-direct-map request raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,7 +15,7 @@ import numpy as np
 
 from .. import ml
 from ..device import resolve_device
-from . import encode_based
+from . import direct_map, encode_based, lookup_based
 from .pipeline import MappedModel
 
 # (model, strategy) -> mapper(trained_model, n_features, in_bits, **kw)
@@ -27,11 +24,15 @@ MAPPERS: Dict[Tuple[str, str], Callable] = {
     ("rf", "eb"): encode_based.map_rf_eb,
     ("xgb", "eb"): encode_based.map_xgb_eb,
     ("iforest", "eb"): encode_based.map_iforest_eb,
+    ("dt", "dm"): direct_map.map_dt_dm,
+    ("rf", "dm"): direct_map.map_rf_dm,
+    ("bnn", "dm"): direct_map.map_bnn_dm,
+    ("svm", "lb"): lookup_based.map_svm_lb,
+    ("nb", "lb"): lookup_based.map_nb_lb,
+    ("kmeans", "lb"): lookup_based.map_kmeans_lb,
+    ("pca", "lb"): lookup_based.map_pca_lb,
+    ("ae", "lb"): lookup_based.map_ae_lb,
 }
-
-# where the strategies this slice does not carry are due
-NOT_PORTED = ("lookup-based (LB) and direct-map (DM) mappings are not "
-              "ported yet: ROADMAP.md queue A, item 1 (slice 1b)")
 
 # default strategy per model (paper Table 2)
 DEFAULT_STRATEGY = {
@@ -95,6 +96,7 @@ class PlanterConfig:
         merged = dict(size[cfg.model])
         merged.update(cfg.train_params)
         cfg.train_params = merged
+        cfg.convert_params = dict(cfg.convert_params)  # plant adds defaults
         return cfg
 
 
@@ -108,30 +110,43 @@ class PlanterResult:
     parity: float  # mapped-vs-native agreement on the test split
 
 
-def _check_ported(cfg: PlanterConfig) -> None:
-    if cfg.strategy != "eb" or cfg.model not in ml.MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"{cfg.model}/{cfg.strategy}: {NOT_PORTED}")
-
-
 def train_model(cfg: PlanterConfig, X: np.ndarray, y: Optional[np.ndarray]):
-    _check_ported(cfg)
     model = ml.MODEL_REGISTRY[cfg.model](**cfg.train_params)
-    if cfg.model == "kmeans":
-        return model.fit(X)
+    if cfg.model in ("kmeans", "pca", "ae") or (cfg.model == "iforest"
+                                                and y is None):
+        return model.fit(X)  # unsupervised
+    if cfg.model == "bnn":  # trains on the target device
+        return model.fit(X, y, device=cfg.device)
     return model.fit(X, y)
 
 
 def convert_model(cfg: PlanterConfig, trained, n_features: int) -> MappedModel:
-    _check_ported(cfg)
     kw: Dict[str, Any] = dict(cfg.convert_params)
-    if cfg.model in ("knn", "kmeans"):
+    if cfg.model in ("knn", "kmeans") and cfg.strategy == "eb":
         depth = kw.pop("km_depth", SIZE_PARAMS[cfg.size]["convert"]["km_depth"])
         mapper = (encode_based.map_knn_eb if cfg.model == "knn"
                   else encode_based.map_kmeans_eb)
         return mapper(trained, n_features, cfg.in_bits, max_depth=depth, **kw)
+    if cfg.strategy == "lb":
+        kw.setdefault("action_bits", cfg.action_bits)
     return MAPPERS[(cfg.model, cfg.strategy)](trained, n_features, cfg.in_bits,
                                              **kw)
+
+
+def _parity(native: np.ndarray, dev: np.ndarray) -> float:
+    """Classifiers: exact agreement.  Dimensional reduction: mean |Pearson
+    r| per component (paper E.1), or 1 - relative error if they collapse."""
+    if native.ndim == 1:
+        return float((native == dev).mean())
+    cors = []
+    for j in range(native.shape[1]):
+        if native[:, j].std() > 1e-9 and dev[:, j].std() > 1e-9:
+            cors.append(abs(np.corrcoef(native[:, j], dev[:, j])[0, 1]))
+    if cors:
+        return float(np.mean(cors))
+    err = np.abs(native - dev).max()
+    scale = max(np.abs(native).max(), 1e-9)
+    return float(max(0.0, 1.0 - err / scale))
 
 
 def plant(
@@ -147,6 +162,9 @@ def plant(
     """
     cfg = cfg.resolved()
     resolve_device(cfg.device)
+    if cfg.strategy == "lb":  # LB quantizer budgets the observed domain
+        cfg.convert_params.setdefault(
+            "feature_max", np.asarray(X_train).max(axis=0))
     t0 = time.perf_counter()
     trained = train_model(cfg, X_train, y_train)
     t1 = time.perf_counter()
@@ -154,8 +172,8 @@ def plant(
     t2 = time.perf_counter()
     parity = float("nan")
     if X_test is not None and hasattr(trained, "predict"):
-        native = np.asarray(trained.predict(X_test))
-        parity = float((native == np.asarray(mapped.predict(X_test))).mean())
+        parity = _parity(np.asarray(trained.predict(X_test)),
+                         np.asarray(mapped.predict(X_test)))
     return PlanterResult(
         config=cfg, trained=trained, mapped=mapped,
         train_seconds=t1 - t0, convert_seconds=t2 - t1, parity=parity,

@@ -1,22 +1,34 @@
 """Hand-written CUDA kernels for the Planter data-plane primitives.
 
 Each kernel ships as ``<name>.py`` (checks, launch counter, ctypes call
-into ``csrc/eb_kernels.cu``), with its plain PyTorch version in ``ref.py``
-and device dispatch in ``ops.py``.  The CUDA sources are built on first
-use, never at import.
+into ``csrc/``), with its plain PyTorch version in ``ref.py`` and device
+dispatch in ``ops.py``.  The CUDA sources are built on first use, never at
+import.
 
 * ``bucketize.py``     — EB feature encode (replaces ``bucketize_pallas``).
 * ``ternary_match.py`` — TCAM decision table (``ternary_match_pallas``).
 * ``fused_eb.py``      — encode + pack + match in one launch
   (``fused_eb_pallas``); the gate kernel of gate-sized tables.
+* ``lb_lookup.py``     — LB feature tables + accumulate
+  (``lb_lookup_pallas``).
+* ``bnn_mlp.py``       — DM-BNN XNOR-popcount layer
+  (``bnn_popcount_matmul_pallas``).
+
+The first three live in ``csrc/eb_kernels.cu``, the last two in
+``csrc/lb_dm_kernels.cu``.
 """
 from .ops import (
+    bnn_forward,
+    bnn_popcount_matmul,
     bucketize,
     fused_eb_match,
     launch_counts,
+    lb_lookup,
+    pack_bits,
     reset_launch_counts,
     ternary_match,
 )
 
-__all__ = ["bucketize", "ternary_match", "fused_eb_match", "launch_counts",
+__all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
+           "bnn_popcount_matmul", "pack_bits", "bnn_forward", "launch_counts",
            "reset_launch_counts"]

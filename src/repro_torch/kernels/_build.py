@@ -38,6 +38,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "eb_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _P],
     },
+    "lb_dm_kernels": {
+        "lb_lookup": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "bnn_popcount_matmul": [_P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

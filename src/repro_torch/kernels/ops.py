@@ -1,4 +1,4 @@
-"""Public EB ops with device dispatch.
+"""Public kernel ops with device dispatch.
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor goes to
 the hand-written kernel, or the call raises.  There is no other path: no
@@ -6,19 +6,24 @@ fallback from a kernel that fails to build or launch.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
+from . import bnn_mlp as _bnn_mlp
 from . import bucketize as _bucketize
 from . import fused_eb as _fused_eb
+from . import lb_lookup as _lb_lookup
+from . import ref
 from . import ternary_match as _ternary_match
 
-__all__ = ["bucketize", "ternary_match", "fused_eb_match", "launch_counts",
+__all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
+           "bnn_popcount_matmul", "pack_bits", "bnn_forward", "launch_counts",
            "reset_launch_counts"]
 
 _KERNELS = {"bucketize": _bucketize, "ternary_match": _ternary_match,
-            "fused_eb": _fused_eb}
+            "fused_eb": _fused_eb, "lb_lookup": _lb_lookup,
+            "bnn_popcount_matmul": _bnn_mlp}
 
 
 def bucketize(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
@@ -41,6 +46,46 @@ def fused_eb_match(values, thresholds, rows_v, rows_m, prio_action, layout,
                           dtype=torch.int32, device=values.device)
     return _fused_eb.fused_eb(values, thresholds, rows_v, rows_m, prio_action,
                               layout, default_action, identity)
+
+
+def lb_lookup(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """LB accumulate: out[b, k] = sum_f luts[f, codes[b, f], k]."""
+    return _lb_lookup.lb_lookup(codes, luts)
+
+
+def bnn_popcount_matmul(x_packed: torch.Tensor,
+                        w_packed: torch.Tensor) -> torch.Tensor:
+    """XNOR-popcount counts [B, N] of packed rows x [B, W] and w [N, W]."""
+    return _bnn_mlp.bnn_popcount_matmul(x_packed, w_packed)
+
+
+def pack_bits(bits01: torch.Tensor) -> torch.Tensor:
+    """0/1 [..., N] -> words [..., ceil(N/32)], LSB-first (plain torch)."""
+    return ref.pack_bits_ref(bits01)
+
+
+def bnn_forward(x_packed: torch.Tensor,
+                layers: Sequence[Tuple[torch.Tensor, int]],
+                plain: bool = False) -> torch.Tensor:
+    """Full DM-BNN forward per paper Eq. 8.
+
+    ``layers[i] = (w_packed [N, W], n_in)`` with ``n_in`` the true fan-in.
+    Pad bits are zero in x and w, so each of the ``32*W - n_in`` pad bits
+    counts as a match and is subtracted: ``dot = 2*(counts - pad) - n_in``
+    is x.w over ±1 vectors.  Hidden layers apply SIGN and repack; the final
+    layer returns the raw int32 scores.  ``plain=True`` runs the plain
+    version of the popcount matmul on any device.
+    """
+    matmul = ref.bnn_popcount_matmul_ref if plain else bnn_popcount_matmul
+    h = x_packed
+    for i, (w_packed, n_in) in enumerate(layers):
+        counts = matmul(h, w_packed)
+        pad_bits = 32 * w_packed.shape[1] - n_in
+        dot = 2 * (counts - pad_bits) - n_in
+        if i == len(layers) - 1:
+            return dot
+        h = pack_bits(dot >= 0)
+    raise ValueError("bnn_forward needs at least one layer")
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the EB kernels (the ``ref.py`` contract).
+"""Plain PyTorch versions of the kernels (the ``ref.py`` contract).
 
-Same semantics as the JAX package's oracles: ``bucketize_ref`` and
-``ternary_match_ref`` mirror its ``kernels/ref.py``, and ``fused_eb_ref``
-its jnp composition of encode, pack and match.  The CPU tests compare
-these with the JAX package bit for bit; on the card the CUDA kernels are
-compared with these.
+Same semantics as the JAX package's oracles: ``bucketize_ref``,
+``ternary_match_ref``, ``lb_lookup_ref`` and ``bnn_popcount_matmul_ref``
+mirror its ``kernels/ref.py``, ``fused_eb_ref`` its jnp composition of
+encode, pack and match, and ``pack_bits_ref`` its ``ops.pack_bits_jnp``.
+The CPU tests compare these with the JAX package bit for bit; on the card
+the CUDA kernels are compared with these.
 
 Packed uint32 key words are carried as int32 bit patterns: ``&``, ``==``
 and ``<<`` (which wraps into the sign bit) give the uint32 results, and
@@ -17,7 +18,8 @@ from typing import Sequence, Tuple
 import torch
 
 __all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
-           "fused_eb_ref", "as_i32"]
+           "fused_eb_ref", "lb_lookup_ref", "popcount32",
+           "bnn_popcount_matmul_ref", "pack_bits_ref", "as_i32"]
 
 
 def as_i32(x: int) -> int:
@@ -71,3 +73,64 @@ def fused_eb_ref(values: torch.Tensor, thresholds: torch.Tensor,
     lay = [tuple(r) for r in layout.tolist()]
     keys = pack_codes_ref(codes, lay, rows_v.shape[1])
     return ternary_match_ref(keys, rows_v, rows_m, prio_action, default_action)
+
+
+def lb_lookup_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """out[b, k] = sum_f luts[f, codes[b, f], k].  codes [B, F]; luts [F, V, K].
+
+    The sum runs in int64 and is cast back to int32, which wraps as the
+    JAX package's int32 sum does.
+    """
+    F = luts.shape[0]
+    f_idx = torch.arange(F, device=codes.device)[None, :]
+    gathered = luts[f_idx, codes.long()]  # [B, F, K]
+    return gathered.sum(dim=1).to(torch.int32)
+
+
+_M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (int32 bit patterns), as int64.
+
+    SWAR count in int64 on the zero-extended word, so no shift drags the
+    sign bit in and no step overflows; no multiplication.
+    """
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & _M1)
+    v = (v & _M2) + ((v >> 2) & _M2)
+    v = (v + (v >> 4)) & _M4
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return v & 0x3F
+
+
+def bnn_popcount_matmul_ref(x_packed: torch.Tensor,
+                            w_packed: torch.Tensor) -> torch.Tensor:
+    """counts[b, n] = sum_w popcount(~(x[b, w] ^ w[n, w])) over packed words.
+
+    x_packed [B, W], w_packed [N, W] (uint32 bits as int32) -> [B, N] int32.
+    Pad bits count as matches; ``ops.bnn_forward`` subtracts them.
+    """
+    xnor = ~(x_packed[:, None, :] ^ w_packed[None, :, :])
+    return popcount32(xnor).sum(dim=-1).to(torch.int32)
+
+
+def pack_bits_ref(bits01: torch.Tensor) -> torch.Tensor:
+    """Pack 0/1 [..., N] -> words [..., ceil(N/32)] (uint32 bits as int32).
+
+    LSB-first, as ``core.tables.pack_bits_uint32``.  The shifted bits are
+    OR-reduced (halving five times), never summed: a word with bit 31 set
+    would overflow an int32 sum.
+    """
+    n = bits01.shape[-1]
+    pad = (-n) % 32
+    b = (bits01 != 0).to(torch.int32)
+    if pad:
+        b = torch.nn.functional.pad(b, (0, pad))
+    b = b.reshape(*b.shape[:-1], -1, 32)
+    words = b << torch.arange(32, dtype=torch.int32, device=b.device)
+    while words.shape[-1] > 1:
+        half = words.shape[-1] // 2
+        words = words[..., :half] | words[..., half:]
+    return words[..., 0]

@@ -1,10 +1,14 @@
 """Host-side trainers (the paper's Model Trainer component).
 
-This slice carries the trainers of the encode-based (EB) path only; the
-lookup-based and direct-map trainers come with their mappers.
+The numpy trainers are copies of the JAX package's; ``bnn`` trains in
+PyTorch on the device ``plant`` is given.
 """
+from .bayes import CategoricalNB
+from .bnn import BinarizedMLP, bits_pm1
 from .forest import IsolationForest, RandomForestClassifier, XGBoostClassifier
+from .linear import Autoencoder, LinearSVM, PCA
 from .neighbors import KMeans, KNeighborsClassifier
+from .ngram import NGramModel
 from .tree import DecisionTreeClassifier, XGBRegressionTree
 
 MODEL_REGISTRY = {
@@ -12,12 +16,19 @@ MODEL_REGISTRY = {
     "rf": RandomForestClassifier,
     "xgb": XGBoostClassifier,
     "iforest": IsolationForest,
+    "ngram": NGramModel,
+    "svm": LinearSVM,
+    "nb": CategoricalNB,
     "kmeans": KMeans,
     "knn": KNeighborsClassifier,
+    "pca": PCA,
+    "ae": Autoencoder,
+    "bnn": BinarizedMLP,
 }
 
 __all__ = [
     "DecisionTreeClassifier", "XGBRegressionTree", "RandomForestClassifier",
-    "XGBoostClassifier", "IsolationForest", "KMeans", "KNeighborsClassifier",
-    "MODEL_REGISTRY",
+    "XGBoostClassifier", "IsolationForest", "LinearSVM", "PCA", "Autoencoder",
+    "CategoricalNB", "KMeans", "KNeighborsClassifier", "BinarizedMLP",
+    "NGramModel", "bits_pm1", "MODEL_REGISTRY",
 ]

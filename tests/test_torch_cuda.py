@@ -64,6 +64,23 @@ def _fused_case(seed, B, F, T, N, identity):
     return vals, thr, rv, rm, pa, layout, W
 
 
+def _lb_case(seed, B, F, V, K, lim=2**15):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, V, (B, F)).astype(np.int32)
+    luts = rng.integers(-lim, lim, (F, V, K)).astype(np.int32)
+    return codes, luts
+
+
+def _bnn_case(seed, B, n_in, n_out):
+    """±1 inputs [B, n_in] and weights [n_out, n_in], packed LSB-first."""
+    from repro_torch.core.tables import pack_bits_uint32
+
+    rng = np.random.default_rng(seed)
+    xb = rng.integers(0, 2, (B, n_in)) * 2 - 1
+    w = rng.integers(0, 2, (n_out, n_in)) * 2 - 1
+    return xb, w, pack_bits_uint32(xb), pack_bits_uint32(w)
+
+
 # ------------------------------------------------------- on the card only
 @pytest.fixture
 def cuda_device():
@@ -107,3 +124,49 @@ def test_cuda_predict_paths_launch_their_kernels(cuda_device):
         counts = ops.launch_counts()
         assert all(counts[k] > 0 for k in kernels), counts
         np.testing.assert_array_equal(got, want, err_msg=backend)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,V,K", [(1, 1, 2, 1), (100, 5, 64, 6),
+                                     (257, 3, 256, 16), (3000, 8, 256, 16),
+                                     (2049, 5, 256, 3)])
+def test_cuda_lb_lookup_equals_plain(cuda_device, B, F, V, K):
+    codes, luts = (_t(a).to(cuda_device) for a in _lb_case(B + K, B, F, V, K))
+    assert torch.equal(ops.lb_lookup(codes, luts), ref.lb_lookup_ref(codes, luts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n_in,n_out", [(1, 1, 1), (64, 40, 16),
+                                          (100, 100, 3), (17, 64, 33)])
+def test_cuda_bnn_popcount_matmul_equals_plain(cuda_device, B, n_in, n_out):
+    *_, xp, wp = _bnn_case(B + n_out, B, n_in, n_out)
+    xp[0, 0] |= np.uint32(1 << 31)  # a word with bit 31 set
+    x, w = _t(xp).to(cuda_device), _t(wp).to(cuda_device)
+    assert torch.equal(ops.bnn_popcount_matmul(x, w),
+                       ref.bnn_popcount_matmul_ref(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,strategy,kernel,per_predict", [
+    ("kmeans", "lb", "lb_lookup", 1), ("svm", "lb", "lb_lookup", 1),
+    ("pca", "lb", "lb_lookup", 1), ("bnn", "dm", "bnn_popcount_matmul", 2)])
+def test_cuda_lb_dm_predict_launches_its_kernel(cuda_device, model, strategy,
+                                                kernel, per_predict):
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+
+    ds = load_dataset("unsw", n=1500)
+    y = None if model in ("kmeans", "pca") else ds.y_train
+    cfg = PlanterConfig(model=model, strategy=strategy, size="S",
+                        train_params={"epochs": 3} if model == "bnn" else {})
+    res = plant(cfg, ds.X_train, y)
+    assert res.mapped.select_backend(cuda_device) == "cuda"
+    fn = res.mapped.torch_predict("auto", device=cuda_device)
+    ops.reset_launch_counts()
+    got = fn(ds.X_test).cpu().numpy()
+    assert ops.launch_counts()[kernel] == per_predict
+    want = res.mapped.predict(ds.X_test)
+    if got.dtype.kind == "f":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)

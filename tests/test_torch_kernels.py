@@ -15,8 +15,10 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core.tables import key_layout, pack_codes  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
+    _bnn_case,
     _bucketize_case,
     _fused_case,
+    _lb_case,
     _match_case,
     _t,
 )
@@ -100,3 +102,84 @@ def test_pack_codes_equals_numpy_reference():
     got = ref.pack_codes_ref(torch.as_tensor(codes.astype(np.int64)), layout, W)
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   pack_codes(codes, widths))
+
+
+@pytest.mark.parametrize("B,F,V,K,action_bits", [(1, 1, 2, 1, 16),
+                                                 (100, 5, 64, 6, 16),
+                                                 (257, 3, 256, 16, 16),
+                                                 (300, 5, 256, 3, 24)])
+def test_lb_lookup_equals_jax(B, F, V, K, action_bits):
+    codes, luts = _lb_case(B + K, B, F, V, K, lim=2 ** (action_bits - 1))
+    got = ref.lb_lookup_ref(_t(codes), _t(luts))
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ops.lb_lookup(_t(codes), _t(luts)))
+    for backend in JAX_BACKENDS:
+        want = np.asarray(jops.lb_lookup(codes, luts, backend=backend,
+                                         action_bits=action_bits))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_lb_lookup_wraps_as_int32():
+    """Sums past int32 wrap in both packages (the JAX sum is int32)."""
+    codes = np.zeros((2, 3), np.int32)
+    luts = np.full((3, 1, 1), 2**30 + 7, np.int32)
+    got = ref.lb_lookup_ref(_t(codes), _t(luts)).numpy()
+    want = np.asarray(jops.lb_lookup(codes, luts, backend="jnp"))
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0] == np.int64(3 * (2**30 + 7)).astype(np.int32)
+
+
+@pytest.mark.parametrize("B,n_in,n_out", [(1, 1, 1), (64, 40, 16),
+                                          (100, 100, 3), (17, 64, 33)])
+def test_bnn_popcount_and_forward_equal_jax(B, n_in, n_out):
+    xb, w, xp, wp = _bnn_case(B + n_in + n_out, B, n_in, n_out)
+    x, wt = _t(xp), _t(wp)
+    counts = ref.bnn_popcount_matmul_ref(x, wt)
+    assert counts.dtype == torch.int32
+    assert torch.equal(counts, ops.bnn_popcount_matmul(x, wt))
+    got = ops.bnn_forward(x, [(wt, n_in)]).numpy()
+    np.testing.assert_array_equal(got, xb @ w.T)
+    for backend in JAX_BACKENDS:
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(
+            jops.bnn_popcount_matmul(xp, wp, backend=backend)))
+        np.testing.assert_array_equal(got, np.asarray(
+            jops.bnn_forward(xp, [(wp, n_in)], backend)))
+    np.testing.assert_array_equal(
+        ref.pack_bits_ref(torch.as_tensor(xb > 0)).numpy().view(np.uint32),
+        np.asarray(jops.pack_bits_jnp(np.asarray(xb > 0, np.uint32))))
+
+
+def test_bnn_two_layer_forward_equals_jax():
+    B, n_in, h, k = 32, 24, 16, 3
+    xb, w1, xp, w1p = _bnn_case(5, B, n_in, h)
+    _, w2, _, w2p = _bnn_case(6, 1, h, k)
+    expect = np.where(xb @ w1.T >= 0, 1, -1) @ w2.T
+    layers = [(_t(w1p), n_in), (_t(w2p), h)]
+    for plain in (False, True):
+        got = ops.bnn_forward(_t(xp), layers, plain=plain).numpy()
+        np.testing.assert_array_equal(got, expect)
+    for backend in JAX_BACKENDS:
+        want = jops.bnn_forward(xp, [(w1p, n_in), (w2p, h)], backend)
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("word,bits", [(0, 0), (0xFFFFFFFF, 32),
+                                       (0x80000000, 1), (0x7FFFFFFF, 31)])
+def test_swar_popcount_edges(word, bits):
+    w = _t(np.array([[word]], np.uint32))
+    assert ref.popcount32(w).item() == bits
+    ones = np.array([[0xFFFFFFFF]], np.uint32)  # ~(x ^ ~0) == x
+    got = ref.bnn_popcount_matmul_ref(w, _t(ones)).item()
+    want = np.asarray(jops.bnn_popcount_matmul(
+        np.array([[word]], np.uint32), ones, backend="jnp"))
+    assert got == bits == want.item()
+
+
+def test_pack_bits_sets_bit_31_without_overflow():
+    bits = torch.zeros((2, 40), dtype=torch.int32)
+    bits[0, 31] = 1
+    bits[1, :32] = 1
+    words = ref.pack_bits_ref(bits).numpy().view(np.uint32)
+    np.testing.assert_array_equal(words, [[0x80000000, 0], [0xFFFFFFFF, 0]])
+    want = jops.pack_bits_jnp(bits.numpy().astype(np.uint32))
+    np.testing.assert_array_equal(words, np.asarray(want))

@@ -6,9 +6,12 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from repro.core.planter import MAPPERS as JAX_MAPPERS  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -94,15 +97,82 @@ def test_non_hopper_card_is_refused(monkeypatch):
 
 
 def test_lb_and_dm_requests_name_the_roadmap_item():
+    """LB and DM requests (raised naming ROADMAP queue A item 1 until that
+    slice was ported) plant and predict on the CPU, with the strategy
+    named or left to the Table-2 default (svm -> LB, bnn -> DM)."""
     from repro_torch.core import PlanterConfig, plant
     from repro_torch.data import load_dataset
 
     ds = load_dataset("unsw", n=300)
     for model, strategy in (("svm", None), ("kmeans", "lb"), ("rf", "dm"),
                             ("bnn", None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-            plant(PlanterConfig(model=model, strategy=strategy, size="S",
-                                device="cpu"), ds.X_train, ds.y_train)
+        y = None if model == "kmeans" else ds.y_train
+        cfg = PlanterConfig(model=model, strategy=strategy, size="S",
+                            device="cpu", train_params={"epochs": 1}
+                            if model == "bnn" else {})
+        res = plant(cfg, ds.X_train, y)
+        assert res.mapped.strategy == (strategy or {"svm": "lb",
+                                                    "bnn": "dm"}[model])
+        labels = res.mapped.torch_predict(device="cpu")(ds.X_test).numpy()
+        np.testing.assert_array_equal(labels, res.mapped.predict(ds.X_test))
+
+
+def test_planter_keys_equal_the_jax_package():
+    from repro import ml as jax_ml
+    from repro.core import planter as jax_planter
+    from repro_torch import ml
+    from repro_torch.core import DEFAULT_STRATEGY, MAPPERS, SIZE_PARAMS
+
+    assert set(MAPPERS) == set(jax_planter.MAPPERS) and len(MAPPERS) == 12
+    assert set(ml.MODEL_REGISTRY) == set(jax_ml.MODEL_REGISTRY)
+    assert DEFAULT_STRATEGY == jax_planter.DEFAULT_STRATEGY
+    assert SIZE_PARAMS == jax_planter.SIZE_PARAMS
+
+
+@pytest.mark.parametrize("model,strategy", sorted(JAX_MAPPERS))
+def test_every_mapper_key_plants_on_cpu(model, strategy):
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+
+    ds = load_dataset("unsw", n=300)
+    y = None if model in ("kmeans", "pca", "ae") else ds.y_train
+    cfg = PlanterConfig(model=model, strategy=strategy, size="S", device="cpu",
+                        train_params={"epochs": 1} if model == "bnn" else {})
+    res = plant(cfg, ds.X_train, y, ds.X_test)
+    assert res.mapped.strategy == strategy
+    assert res.mapped.select_backend("cpu") == "ref"
+    out = res.mapped.torch_predict("auto", device="cpu")(ds.X_test).numpy()
+    want = res.mapped.predict(ds.X_test)
+    if model in ("pca", "ae"):
+        assert out.dtype == np.float32 and out.shape == want.shape
+        np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(out, want)
+
+
+def test_select_backend_gives_lb_and_dm_their_kernels(monkeypatch):
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+
+    ds = load_dataset("unsw", n=300)
+    planted = {
+        s: plant(PlanterConfig(model=m, strategy=s, size="S", device="cpu",
+                               train_params={"epochs": 1} if m == "bnn"
+                               else {}), ds.X_train, ds.y_train).mapped
+        for m, s in (("nb", "lb"), ("bnn", "dm"), ("dt", "eb"))}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d: (9, 0))
+    for strategy in ("lb", "dm"):
+        mapped = planted[strategy]
+        assert mapped.gate_sized()  # small, yet not the EB fused kernel
+        assert mapped.select_backend("cuda") == "cuda"
+        assert mapped.select_backend("cpu") == "ref"
+        with pytest.raises(ValueError, match="cuda_fused"):
+            mapped.torch_predict("cuda_fused", device="cuda")
+        with pytest.raises(ValueError, match="cuda_fused"):
+            mapped.torch_predict("cuda_fused", device="cpu")
+    assert planted["eb"].select_backend("cuda") == "cuda_fused"
 
 
 def test_cpu_tensors_take_the_plain_versions_and_inputs_are_checked():
@@ -114,7 +184,13 @@ def test_cpu_tensors_take_the_plain_versions_and_inputs_are_checked():
     t = torch.full((2, 3), 5, dtype=torch.int32)
     assert ops.bucketize(v, t).sum().item() == 0
     assert ops.launch_counts() == {"bucketize": 0, "ternary_match": 0,
-                                   "fused_eb": 0}
+                                   "fused_eb": 0, "lb_lookup": 0,
+                                   "bnn_popcount_matmul": 0}
+    codes = torch.zeros((4, 2), dtype=torch.int32)
+    luts = torch.ones((2, 3, 5), dtype=torch.int32)
+    assert ops.lb_lookup(codes, luts).tolist() == [[2] * 5] * 4
+    assert ops.bnn_popcount_matmul(v, t[:, :2]).shape == (4, 2)
+    assert sum(ops.launch_counts().values()) == 0
     cpu = torch.device("cpu")
     with pytest.raises(TypeError, match="int32"):
         require(v.to(torch.int64), "values", 2, cpu)
@@ -142,3 +218,17 @@ def test_quickstart_torch_defaults_to_cuda():
             print("RAISED", exc)
     """))
     assert "RAISED CUDA is not available" in r.stdout, r.stderr
+
+
+def test_plant_leaves_the_callers_config_unchanged():
+    """An LB plant's feature_max default does not land in the caller's
+    convert_params, so a reused config quantizes each dataset afresh."""
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+
+    ds = load_dataset("unsw", n=300)
+    cfg = PlanterConfig(model="nb", size="S", device="cpu")
+    res = plant(cfg, ds.X_train, ds.y_train)
+    assert cfg.convert_params == {}
+    np.testing.assert_array_equal(res.config.convert_params["feature_max"],
+                                  ds.X_train.max(axis=0))
