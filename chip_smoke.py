@@ -28,7 +28,33 @@ Phases, in order; the first failure exits non-zero:
    and native.  Then ``lb_lookup`` (kmeans-LB L) and
    ``bnn_popcount_matmul`` (BNN-L layer 1) are timed like phase 5, with
    ``F.embedding_bag`` and a bf16 ``torch.matmul`` of the ±1 matrices as
-   library yardsticks.
+   library yardsticks;
+8. ``paged_attention``: the kernel against its plain version over a grid
+   (C 1 and 8, page 8 and 16, H/KV 12/2 and 4/4, bf16 and int8 pools,
+   window 0 and 13, table entries past the pool) within one bf16 ulp of
+   the output's largest magnitude; its rows bitwise invariant to the batch
+   (a slot alone vs in a batch of 16), the chunk (C = 8 vs C = 1 calls) and
+   the physical page order; timed at the serve decode shape (16 slots, 64
+   pages of 16, bf16, every position weighed) beside its plain version and
+   a gather + ``F.scaled_dot_product_attention`` yardstick;
+9. serve: qwen2-1.5b at full width and depth, weights random-init from
+   ``--seed`` (default 0), through ``ServeEngine`` + ``ContinuousBatcher``
+   over the paged cache (16 slots, cache 1024, page 16) with an rf-S
+   admission gate on unsw features: 32 requests, prompt lengths drawn in
+   [16, 256] from the seed, 32 tokens each.  ``paged_attention`` launches
+   equal steps x 28, ``fused_eb`` launched at admission, served + dropped
+   = submitted; tokens/s and ms per step; a torch.profiler window for the
+   device's busy and idle share;
+10. serve parity, on limits fixed before any run: (a) the same workload
+   through the ``"torch"`` backend, capturing the attention inputs of all
+   28 layers at steps 0, 64, 128 and 192: the kernel on each within one
+   bf16 ulp of the plain output's largest magnitude; (b) the served
+   streams teacher-forced through the kernel path and the plain path over
+   at least 512 generated positions: at each, ``max|logits_kernel -
+   logits_plain| <= 0.03 * max|logits_plain|`` (delta), and a greedy flip
+   only where the plain top-2 margin is within 2 delta (the flips and the
+   greedy agreement rate are printed, not gated); (c) ``share_prefix``
+   streams bitwise equal to unshared ones; (d) one ``kv_int8`` run.
 
 Its last three lines are the kernels JSON, the card's ``name, power.limit``
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
@@ -36,6 +62,8 @@ of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
+import collections
 import dataclasses
 import json
 import statistics
@@ -58,12 +86,16 @@ PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 67e12
 SOURCE = "src/repro_torch/kernels/csrc/eb_kernels.cu"
 LB_DM_SOURCE = "src/repro_torch/kernels/csrc/lb_dm_kernels.cu"
+PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), FLOP/s
+PEAK_BF16_FLOPS = 989e12
 REPLACES = {
     "bucketize": "src/repro/kernels/bucketize.py:32",
     "ternary_match": "src/repro/kernels/ternary_match.py:53",
     "fused_eb": "src/repro/kernels/fused_eb.py:66",
     "lb_lookup": "src/repro/kernels/lb_lookup.py:39",
     "bnn_popcount_matmul": "src/repro/kernels/bnn_mlp.py:33",
+    "paged_attention": "src/repro/kernels/paged_attention.py:107",
 }
 LB_MODELS = ("svm", "nb", "kmeans", "pca", "ae")
 
@@ -531,7 +563,475 @@ def kernels_only(run: PathRun, dev) -> Callable:
         ops.ternary_match(keys, v, m, pa, d) for v, m, pa, d in tbls]
 
 
+# ------------------------------------------------- phase 8: paged_attention
+def pa_case(rng, dev, B, C, H, KV, hd, page, n_ps, quantized, past=True):
+    """q, pools (bf16, or int8 with float32 scales), a shuffled block table
+    (with entries past the pool when ``past``) and positions, on ``dev``."""
+    N = B * n_ps
+    q = torch.as_tensor(rng.normal(0, 1, (B, C, H, hd)), dtype=torch.bfloat16,
+                        device=dev)
+    tbl = rng.permutation(N).reshape(B, n_ps).astype(np.int32)
+    if past:
+        tbl[0, -1] = N + 3
+        tbl[-1, 0] = N
+    pos0 = rng.integers(0, n_ps * page - C + 1, B)
+    pos = (pos0[:, None] + np.arange(C)[None]).astype(np.int32)
+    shape = (N, page, KV, hd)
+    if quantized:
+        pools = [torch.as_tensor(rng.integers(-127, 128, shape),
+                                 dtype=torch.int8, device=dev)
+                 for _ in range(2)]
+        scales = [torch.as_tensor(rng.uniform(0.005, 0.02, shape[:-1] + (1,)),
+                                  dtype=torch.float32, device=dev)
+                  for _ in range(2)]
+    else:
+        pools = [torch.as_tensor(rng.normal(0, 1, shape),
+                                 dtype=torch.bfloat16, device=dev)
+                 for _ in range(2)]
+        scales = [None, None]
+    return (q, pools[0], pools[1], torch.as_tensor(tbl, device=dev),
+            torch.as_tensor(pos, device=dev), scales[0], scales[1])
+
+
+def bf16_ulp(want: torch.Tensor) -> float:
+    """One bf16 ulp of ``want``'s largest magnitude: the kernel's limit
+    against its plain version (both round to bf16 at the same places
+    after float32 sums taken in other orders)."""
+    m = want.float().abs().max().item()
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def pa_err_ulps(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in bf16 ulps of max |want|; fail past one."""
+    err = (got.float() - want.float()).abs().max().item()
+    ulp = bf16_ulp(want)
+    if not torch.isfinite(got).all() or not err <= ulp:
+        fail(f"{name}: kernel differs from its plain version by {err} > one "
+             f"bf16 ulp ({ulp})")
+    return err / ulp if ulp else 0.0
+
+
+def check_paged_attention(dev) -> str:
+    """Kernel vs plain over the case grid, then the three invariances."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(7)
+    n, worst = 0, 0.0
+    for C in (1, 8):
+        for page, n_ps in ((16, 6), (8, 12)):
+            for H, KV in ((12, 2), (4, 4)):
+                for quantized in (False, True):
+                    for window in (0, 13):
+                        args = pa_case(rng, dev, 3, C, H, KV, 128, page, n_ps,
+                                       quantized)
+                        q, k, v, tbl, pos, ks, vs = args
+                        worst = max(worst, pa_err_ulps(
+                            f"paged_attention C={C} page={page} H={H} KV={KV} "
+                            f"int8={quantized} window={window}",
+                            ops.paged_attention(q, k, v, tbl, pos, window, ks,
+                                                vs),
+                            ref.paged_attention_ref(q, k, v, tbl, pos, window,
+                                                    ks, vs)))
+                        n += 1
+    # the invariances, bitwise, at the serve decode shape
+    B, H, KV, hd, page, n_ps = 16, 12, 2, 128, 16, 64
+    q, k, v, tbl, pos, _, _ = pa_case(rng, dev, B, 1, H, KV, hd, page, n_ps,
+                                      False)
+    full = ops.paged_attention(q, k, v, tbl, pos, 0)
+    for b in (0, 7, 15):  # a slot alone vs in the batch of 16
+        alone = ops.paged_attention(q[b:b + 1].contiguous(), k, v,
+                                    tbl[b:b + 1].contiguous(),
+                                    pos[b:b + 1].contiguous(), 0)
+        same(f"paged_attention slot {b} alone vs in a batch of {B}",
+             alone[0], full[b])
+    q8, k8, v8, tbl8, pos8, _, _ = pa_case(rng, dev, 4, 8, H, KV, hd, page,
+                                           n_ps, False)
+    chunk = ops.paged_attention(q8, k8, v8, tbl8, pos8, 13)
+    for c in range(8):  # a chunk of 8 vs eight C = 1 calls, same pool
+        one = ops.paged_attention(q8[:, c:c + 1].contiguous(), k8, v8, tbl8,
+                                  pos8[:, c:c + 1].contiguous(), 13)
+        same(f"paged_attention chunk row {c} vs C = 1", one[:, 0],
+             chunk[:, c])
+    perm = torch.as_tensor(rng.permutation(k.shape[0]), device=dev)
+    k2, v2 = torch.empty_like(k), torch.empty_like(v)
+    k2[perm], v2[perm] = k, v  # physical page p moves to perm[p]
+    tbl2 = perm[tbl.clamp(0, k.shape[0] - 1).long()].to(torch.int32)
+    same("paged_attention under permuted physical pages",
+         ops.paged_attention(q, k2, v2, tbl2, pos, 0), full)
+    torch.cuda.synchronize(dev)
+    return (f"{n} grid cases within one bf16 ulp of the output's largest "
+            f"magnitude (worst {worst:.2f} ulp); rows bitwise invariant to "
+            f"B (3 slots alone vs in a batch of {B}), C (8 rows vs C = 1) "
+            f"and the physical page order")
+
+
+def paged_attention_row(dev):
+    """Time the kernel at the serve decode shape (16 slots, 64 pages of
+    16, bf16 pools, every slot at the end of its table, so every K and V
+    row is weighed): the kernel, its plain version, and gather + SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import paged_attention_hbm_bytes
+    from repro_torch.nn.attn_backend import position_mask, repeat_kv
+
+    B, C, H, KV, hd, page, n_ps = 16, 1, 12, 2, 128, 16, 64
+    S = n_ps * page
+    rng = np.random.default_rng(SEED)
+    q, k, v, tbl, _, _, _ = pa_case(rng, dev, B, C, H, KV, hd, page, n_ps,
+                                    False, past=False)
+    pos = torch.full((B, C), S - 1, dtype=torch.int32, device=dev)
+    args = (q, k, v, tbl, pos, 0)
+    got, want = ops.paged_attention(*args), ref.paged_attention_ref(*args)
+    pa_err_ulps("paged_attention at the serve decode shape", got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    gtbl = tbl.long()
+
+    def library():
+        kf = repeat_kv(k[gtbl].reshape(B, S, KV, hd), H).transpose(1, 2)
+        vf = repeat_kv(v[gtbl].reshape(B, S, KV, hd), H).transpose(1, 2)
+        mask = position_mask(pos, torch.arange(S, device=dev)[None], 0,
+                             True)[:, None].to(q.dtype)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kf, vf,
+                                              attn_mask=mask).transpose(1, 2)
+
+    n_bytes = paged_attention_hbm_bytes(B, C, H, KV, hd, n_ps, page,
+                                        pool_bytes=2, quantized=False,
+                                        act_bytes=2)
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = 4 * B * C * H * hd * S / PEAK_BF16_FLOPS * 1e3  # q.k and P.V
+    return {
+        "name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
+        "replaces": REPLACES["paged_attention"], "launches": None,
+        "bitwise": False, "max_abs_err": err,
+        "ms": time_ms(lambda: ops.paged_attention(*args)),
+        "plain_ms": time_ms(lambda: ref.paged_attention_ref(*args)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_ms(library),
+        "library_max_abs_err": (library().float() - want.float()).abs().max()
+        .item(),
+        "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd, "page": page,
+                  "n_ps": n_ps, "bytes": n_bytes},
+    }
+
+
+# ------------------------------------------------------ phases 9 and 10
+SERVE = dict(max_batch=16, cache_len=1024, page_size=16)
+SERVE_REQUESTS, SERVE_TOKENS = 32, 32
+PROMPT_LENS = (16, 256)  # prompt lengths are drawn in this closed range
+# the parity contract of phase 10, fixed before any run
+CAPTURE_STEPS = (0, 64, 128, 192)  # serve steps whose attention is captured
+LOGIT_TOL = 0.03  # delta = LOGIT_TOL * max |plain logits|, per position
+MIN_POSITIONS = 512  # teacher-forced generated positions, at least
+SHARED_PREFIX = 72  # tokens every prompt of the share_prefix check shares
+
+
+@dataclasses.dataclass
+class ServeRun:
+    cfg: Any
+    params: Any
+    gate: Any
+    prompts: list
+    feats: np.ndarray
+    cb: Any  # the ContinuousBatcher after the run
+    seconds: float
+    launches: Dict[str, int]
+
+
+def serve_workload(cfg, params, gate, prompts, feats, dev, attn_impl="auto"):
+    """The phase-9 traffic through ServeEngine + ContinuousBatcher:
+    (batcher after the run, seconds, kernel launches during it)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
+                                          ServeEngine)
+
+    engine = ServeEngine(cfg, params, ServeConfig(**SERVE,
+                                                  attn_impl=attn_impl),
+                         gate=gate, device=dev)
+    cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=SERVE_TOKENS)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, (p, f) in enumerate(zip(prompts, feats)):
+        cb.submit(rid, p, features=f)
+    cb.run(max_steps=20000)
+    torch.cuda.synchronize(dev)
+    return cb, time.perf_counter() - t0, ops.launch_counts()
+
+
+def drive_serve(dev, seed: int) -> ServeRun:
+    """qwen2-1.5b at full width through ServeEngine + ContinuousBatcher."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_config
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+    from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
+                                          ServeEngine)
+
+    cfg = get_config("qwen2-1.5b")
+    params = M.init_params(cfg, seed, dev)
+    ds = load_dataset("unsw", n=4000)
+    gate = plant(PlanterConfig(model="rf", size="S", device=str(dev)),
+                 ds.X_train, ds.y_train, ds.X_test).mapped
+    if gate.select_backend(dev) != "cuda_fused":
+        fail(f"the rf-S gate takes {gate.select_backend(dev)}, not cuda_fused")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                                     SERVE_REQUESTS)]
+    feats = ds.X_test[np.arange(SERVE_REQUESTS) % len(ds.X_test)]
+    warm = ContinuousBatcher(ServeEngine(cfg, params, ServeConfig(**SERVE),
+                                         device=dev),
+                             eos_token=-1, max_tokens=4)
+    warm.submit("warm-up", prompts[0][:8])
+    warm.run(max_steps=100)
+    cb, seconds, counts = serve_workload(cfg, params, gate, prompts, feats,
+                                         dev)
+    return ServeRun(cfg, params, gate, prompts, feats, cb, seconds, counts)
+
+
+def check_serve(run: ServeRun) -> str:
+    cb, cfg = run.cb, run.cfg
+    if run.launches["paged_attention"] != cb.steps * cfg.n_layers:
+        fail(f"paged_attention launched {run.launches['paged_attention']} "
+             f"times in {cb.steps} steps of {cfg.n_layers} layers")
+    if run.launches["fused_eb"] < SERVE_REQUESTS:
+        fail(f"fused_eb launched {run.launches['fused_eb']} times for "
+             f"{SERVE_REQUESTS} admissions")
+    others = {k: n for k, n in run.launches.items()
+              if n and k not in ("paged_attention", "fused_eb")}
+    if others:
+        fail(f"the serve path launched other kernels: {others}")
+    served, dropped = set(cb.done), set(cb.dropped)
+    if served & dropped or len(served) + len(dropped) != SERVE_REQUESTS:
+        fail(f"served {len(served)} + dropped {len(dropped)} != "
+             f"{SERVE_REQUESTS} requests")
+    keep = run.gate.predict(run.feats) != 1
+    rejected = {r for r, why in cb.drop_reasons.items() if why == "gate-reject"}
+    if rejected != set(np.where(~keep)[0].tolist()):
+        fail("gate-reject drops differ from the gate's numpy verdicts")
+    if set(cb.drop_reasons.values()) - {"gate-reject", "quarantined"}:
+        fail(f"unexpected drops: {cb.drop_reasons}")
+    for rid, toks in cb.done.items():
+        if len(toks) != SERVE_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"request {rid}: {len(toks)} tokens, or out of vocab")
+    n_tok = sum(len(t) for t in cb.done.values())
+    return (f"{len(served)} served, {len(dropped)} dropped "
+            f"({dict(collections.Counter(cb.drop_reasons.values()))}), "
+            f"{n_tok} tokens in {cb.steps} steps, {run.seconds:.3f} s: "
+            f"{n_tok / run.seconds:.1f} tokens/s, "
+            f"{run.seconds / cb.steps * 1e3:.3f} ms per step; launches "
+            f"{ {k: n for k, n in run.launches.items() if n} }")
+
+
+def profile_serve(run: ServeRun, dev, steps: int = 24) -> str:
+    """Where a serve step's time goes, at 16 live slots: ``steps`` host-
+    batcher steps timed with the host clock, then ``steps`` more under
+    torch.profiler for the device time by kernel; the device's idle share
+    is 1 - device time / the unprofiled wall time of a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
+                                          ServeEngine)
+
+    engine = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE),
+                         device=dev)
+    cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=2 * steps + 8)
+    for rid in range(SERVE["max_batch"]):
+        cb.submit(rid, run.prompts[rid][:16])
+    cb.run(max_steps=4)  # every slot live and warm
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    cb.run(max_steps=steps)
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cb.run(max_steps=steps)
+        torch.cuda.synchronize(dev)
+    by = collections.Counter()
+    for evt in prof.key_averages():
+        # kernels only: a CPU op (aten::mm) carries its kernels' time too
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        ms = evt.self_device_time_total / 1e3 / steps
+        name = evt.key.lower()
+        by["paged_attention" if "paged_attention" in name else
+           "matmul" if any(w in name for w in (
+               "gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul"))
+           else "other"] += ms
+    busy = sum(by.values())
+    if busy <= 0:
+        return "device time not measured (the profiler saw no kernels)"
+    return (f"{steps} steps of {SERVE['max_batch']} live slots: "
+            f"{wall:.3f} ms per step (host clock, unprofiled); device ms per "
+            f"step { {k: round(v, 4) for k, v in by.items()} } (profiler), "
+            f"so the device idles {1 - busy / wall:.3f} of the step")
+
+
+def check_captured_attention(run: ServeRun, dev) -> str:
+    """(a) The workload through the plain ``"torch"`` backend; at the
+    CAPTURE_STEPS every layer's attention inputs also go through the
+    kernel, which must lie within one bf16 ulp of the plain output."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn import attn_backend as AB
+
+    plain = AB.get("torch")
+    calls, worst, n = [0], [0.0], [0]
+
+    def capturing(q, kv, *, n_heads, head_dim, window):
+        out = plain(q, kv, n_heads=n_heads, head_dim=head_dim, window=window)
+        step, layer = divmod(calls[0], run.cfg.n_layers)
+        calls[0] += 1
+        if step in CAPTURE_STEPS:
+            got = ops.paged_attention(q, kv.k, kv.v, kv.block_tbl, kv.pos,
+                                      window, kv.k_scale, kv.v_scale)
+            worst[0] = max(worst[0], pa_err_ulps(
+                f"captured attention, step {step} layer {layer}", got, out))
+            n[0] += 1
+        return out
+
+    AB.register("torch-capture", capturing)
+    cb, _, _ = serve_workload(run.cfg, run.params, run.gate, run.prompts,
+                              run.feats, dev, attn_impl="torch-capture")
+    want = len(CAPTURE_STEPS) * run.cfg.n_layers
+    if n[0] != want:
+        fail(f"captured {n[0]} layer calls, expected {want} (the plain run "
+             f"took {cb.steps} steps)")
+    agree = [np.mean(np.array(cb.done[r]) == np.array(run.cb.done[r]))
+             for r in sorted(set(cb.done) & set(run.cb.done))]
+    return (f"(a) plain-backend serve run, {cb.steps} steps: the kernel on "
+            f"the captured inputs of all {run.cfg.n_layers} layers at steps "
+            f"{CAPTURE_STEPS} ({n[0]} calls) within one bf16 ulp of the "
+            f"plain output (worst {worst[0]:.2f} ulp); its served streams "
+            f"agree with the kernel run's on {np.mean(agree):.4f} of tokens")
+
+
+def check_teacher_forced(run: ServeRun, dev, chunk: int = 32) -> str:
+    """(b) The kernel run's served streams (prompt + generated) through the
+    kernel path and the plain path on fresh pools, ``chunk`` tokens a
+    step: float32 logits at every position that predicts a generated
+    token, held to delta = LOGIT_TOL * max |plain logits| there."""
+    from repro_torch.arch import model as M
+
+    cfg, done = run.cfg, run.cb.done
+    rids = sorted(done)
+    seqs = [run.prompts[r] + done[r] for r in rids]
+    B, n_ps = len(seqs), SERVE["cache_len"] // SERVE["page_size"]
+    tbl = torch.arange(B * n_ps, dtype=torch.int32,
+                       device=dev).reshape(B, n_ps)
+    L = max(len(s) for s in seqs)
+    toks = np.zeros((B, L), np.int32)
+    for b, s in enumerate(seqs):
+        toks[b, : len(s)] = s
+    out = {}
+    for impl in ("cuda", "torch"):
+        kv = M.init_paged_kv(cfg, B * n_ps, SERVE["page_size"], device=dev)
+        rows = {}  # (slot, position) -> logits predicting the next token
+        for t0 in range(0, L, chunk):
+            n_new = np.array([min(chunk, max(0, len(s) - t0)) for s in seqs],
+                             np.int32)
+            lg, kv = M.paged_decode_step(
+                run.params, kv, tbl,
+                torch.full((B,), t0, dtype=torch.int32, device=dev),
+                torch.as_tensor(toks[:, t0:t0 + chunk], device=dev),
+                torch.as_tensor(n_new, device=dev), cfg, attn_impl=impl,
+                all_positions=True)
+            for b, r in enumerate(rids):  # positions predicting generated
+                P = len(run.prompts[r])
+                for j in range(int(n_new[b])):
+                    if P - 1 <= t0 + j < len(seqs[b]) - 1:
+                        rows[(b, t0 + j)] = lg[b, j].clone()
+            del lg
+        out[impl] = rows
+        del kv
+    keys = sorted(out["cuda"])
+    a = torch.stack([out["cuda"][k] for k in keys])
+    c = torch.stack([out["torch"][k] for k in keys])
+    served = torch.as_tensor([seqs[b][t + 1] for b, t in keys], device=dev)
+    n_pos = a.shape[0]
+    if n_pos < MIN_POSITIONS:
+        fail(f"teacher-forced over {n_pos} generated positions, fewer than "
+             f"{MIN_POSITIONS}")
+    diff = (a - c).abs().amax(-1)
+    delta = LOGIT_TOL * c.abs().amax(-1)
+    ratio = (diff / delta).max().item()
+    if not (diff <= delta).all():
+        fail(f"teacher-forced logits: {int((diff > delta).sum())} of {n_pos} "
+             f"positions differ by more than delta (worst {ratio:.3f} delta)")
+    top2 = c.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    flip = a.argmax(-1) != c.argmax(-1)
+    loose = flip & (margin > 2 * delta)
+    if loose.any():
+        fail(f"{int(loose.sum())} greedy flips where the plain top-2 margin "
+             f"exceeds 2 delta")
+    del out
+    return (f"(b) teacher-forced over {n_pos} generated positions: max "
+            f"|logits_kernel - logits_plain| within {ratio:.3f} delta at the "
+            f"worst position (mean {(diff / delta).mean().item():.3f}); "
+            f"{int(flip.sum())} greedy flips, all within 2 delta; greedy "
+            f"agreement {1 - flip.float().mean().item():.4f} (not a gate: "
+            f"{(margin <= 2 * delta).float().mean().item():.3f} of positions "
+            f"have a plain top-2 margin within 2 delta); kernel path greedy "
+            f"== served on {(a.argmax(-1) == served).float().mean().item():.4f}"
+            f" of positions")
+
+
+def serve_variant(run: ServeRun, dev, prompts, waves, **kw) -> Any:
+    """A ContinuousBatcher over a fresh engine (own pool) with ``kw`` set,
+    fed ``prompts`` in ``waves`` (lists of indices), 8 tokens each."""
+    from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
+                                          ServeEngine)
+
+    engine = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE, **kw),
+                         device=dev)
+    cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=8)
+    for wave in waves:
+        for rid in wave:
+            cb.submit(rid, prompts[rid])
+        cb.run(max_steps=5000)
+    return cb
+
+
+def check_shared_and_int8(run: ServeRun, dev) -> str:
+    """(c) share_prefix streams bitwise equal to unshared ones; (d) one
+    kv_int8 run completes."""
+    rng = np.random.default_rng(SEED + 1)
+    prefix = rng.integers(1, run.cfg.vocab_size, SHARED_PREFIX).tolist()
+    prompts = [prefix + rng.integers(1, run.cfg.vocab_size,
+                                     int(rng.integers(1, 20))).tolist()
+               for _ in range(24)]
+    waves = [range(16), range(16, 24)]  # the first wave fills the trie
+    plain = serve_variant(run, dev, prompts, waves)
+    shared = serve_variant(run, dev, prompts, waves, share_prefix=True)
+    # a greedy token in the padded vocab columns quarantines its request,
+    # as in the JAX package: such drops must match too
+    if (shared.done != plain.done or shared.dropped != plain.dropped
+            or len(plain.done) + len(plain.dropped) != len(prompts)):
+        fail("share_prefix streams differ from the unshared ones")
+    if shared.pool.stats["shared_tokens"] <= 0:
+        fail("share_prefix run shared no prefix tokens")
+    i8 = serve_variant(run, dev, prompts, [range(8)], kv_int8=True)
+    if (len(i8.done) + len(i8.dropped) != 8
+            or set(i8.drop_reasons.values()) - {"quarantined"}
+            or not all(len(t) == 8 for t in i8.done.values())):
+        fail(f"kv_int8 run served {len(i8.done)} of 8 requests "
+             f"({i8.drop_reasons})")
+    return (f"(c) share_prefix == unshared bitwise over {len(prompts)} "
+            f"requests ({shared.pool.stats['shared_tokens']} prompt tokens "
+            f"shared); (d) kv_int8 served {len(i8.done)} of 8 "
+            f"({len(i8.dropped)} quarantined)")
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="seed of the serve phases' weights and traffic")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     sys.path.insert(0, str(ROOT / "src"))
@@ -541,6 +1041,9 @@ def main() -> None:
     except ImportError as exc:
         fail(f"the repro_torch package is not beside this script ({exc})")
     dev = resolve_device("cuda")
+    # the plain versions' float32 products run in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = ", ".join(card_info())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
 
@@ -601,6 +1104,29 @@ def main() -> None:
                  f"{time_ms(lb_dm_kernels_only(run, dev)):.4f} ms"
                  if model == "bnn" else " (no kernel)") + f" ({card})")
     rows += lb_dm_kernel_rows(lb_runs, dm_runs, dev)
+
+    print(f"[8 paged_attention] {check_paged_attention(dev)}")
+    pa_row = paged_attention_row(dev)
+    print(f"[8 paged_attention timing] decode shape {pa_row['shape']}: "
+          f"kernel {pa_row['ms']:.4f} ms, plain {pa_row['plain_ms']:.4f} ms, "
+          f"gather + SDPA {pa_row['library_ms']:.4f} ms, bound "
+          f"{pa_row['bound_ms']:.4f} ms ({pa_row['bound_by']}) ({card})")
+    serve = drive_serve(dev, args.seed)
+    cfg = serve.cfg
+    print(f"[9 serve] qwen2-1.5b at full width and depth ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+          f"KV, hd {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_padded}), RANDOM weights from seed {args.seed} "
+          f"(nothing downloaded), {SERVE}, rf-S gate on unsw, "
+          f"{SERVE_REQUESTS} requests (prompts {PROMPT_LENS[0]}-"
+          f"{PROMPT_LENS[1]} tokens, seed {args.seed}) x {SERVE_TOKENS} "
+          f"tokens: {check_serve(serve)} ({card})")
+    print(f"[9 serve profile] {profile_serve(serve, dev)} ({card})")
+    print(f"[10 serve parity] {check_captured_attention(serve, dev)}")
+    print(f"[10 serve parity] {check_teacher_forced(serve, dev)}")
+    print(f"[10 serve parity] {check_shared_and_int8(serve, dev)}")
+    pa_row["launches"] = serve.launches["paged_attention"]
+    rows.append(pa_row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

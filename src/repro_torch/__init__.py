@@ -8,8 +8,11 @@ It carries Planter's plant -> predict path for every mapping: ``data``,
 the trainers in ``ml``, ``core`` (tables, pipeline, the encode-based,
 lookup-based and direct-map mappers, planter) and the ``bucketize``,
 ``ternary_match``, ``fused_eb``, ``lb_lookup`` and ``bnn_popcount_matmul``
-kernels.  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"`` (see ``device.py``).
+kernels; and the host-driven paged serve path of the dense LM family:
+``configs``, ``arch`` (model, weight conversion, sampling), ``nn``,
+``serve`` (engine, page pool, faults) and the ``paged_attention``
+kernel.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"`` (see ``device.py``).
 """
 from .device import card_info, resolve_device
 

@@ -13,9 +13,11 @@ import.
   (``lb_lookup_pallas``).
 * ``bnn_mlp.py``       — DM-BNN XNOR-popcount layer
   (``bnn_popcount_matmul_pallas``).
+* ``paged_attention.py`` — paged attention over the block-table KV cache
+  of the serve path (``paged_attention``).
 
-The first three live in ``csrc/eb_kernels.cu``, the last two in
-``csrc/lb_dm_kernels.cu``.
+The first three live in ``csrc/eb_kernels.cu``, the next two in
+``csrc/lb_dm_kernels.cu``, the last in ``csrc/paged_attention.cu``.
 """
 from .ops import (
     bnn_forward,
@@ -25,10 +27,11 @@ from .ops import (
     launch_counts,
     lb_lookup,
     pack_bits,
+    paged_attention,
     reset_launch_counts,
     ternary_match,
 )
 
 __all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
-           "bnn_popcount_matmul", "pack_bits", "bnn_forward", "launch_counts",
-           "reset_launch_counts"]
+           "bnn_popcount_matmul", "pack_bits", "bnn_forward",
+           "paged_attention", "launch_counts", "reset_launch_counts"]

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each source: name -> argtypes (all return cudaError_t);
 # every source also exports ``const char* error_string(int)``
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -41,6 +41,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "lb_dm_kernels": {
         "lb_lookup": [_P, _P, _P, _I, _I, _I, _I, _P],
         "bnn_popcount_matmul": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "paged_attention": {
+        "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
 }
 

@@ -14,16 +14,18 @@ from . import bnn_mlp as _bnn_mlp
 from . import bucketize as _bucketize
 from . import fused_eb as _fused_eb
 from . import lb_lookup as _lb_lookup
+from . import paged_attention as _paged_attention
 from . import ref
 from . import ternary_match as _ternary_match
 
 __all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
-           "bnn_popcount_matmul", "pack_bits", "bnn_forward", "launch_counts",
-           "reset_launch_counts"]
+           "bnn_popcount_matmul", "pack_bits", "bnn_forward",
+           "paged_attention", "launch_counts", "reset_launch_counts"]
 
 _KERNELS = {"bucketize": _bucketize, "ternary_match": _ternary_match,
             "fused_eb": _fused_eb, "lb_lookup": _lb_lookup,
-            "bnn_popcount_matmul": _bnn_mlp}
+            "bnn_popcount_matmul": _bnn_mlp,
+            "paged_attention": _paged_attention}
 
 
 def bucketize(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
@@ -86,6 +88,10 @@ def bnn_forward(x_packed: torch.Tensor,
             return dot
         h = pack_bits(dot >= 0)
     raise ValueError("bnn_forward needs at least one layer")
+
+
+# attend q [B, C, H, hd] over a paged pool through its block table
+paged_attention = _paged_attention.paged_attention
 
 
 def launch_counts() -> Dict[str, int]:

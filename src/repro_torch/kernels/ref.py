@@ -3,9 +3,11 @@
 Same semantics as the JAX package's oracles: ``bucketize_ref``,
 ``ternary_match_ref``, ``lb_lookup_ref`` and ``bnn_popcount_matmul_ref``
 mirror its ``kernels/ref.py``, ``fused_eb_ref`` its jnp composition of
-encode, pack and match, and ``pack_bits_ref`` its ``ops.pack_bits_jnp``.
-The CPU tests compare these with the JAX package bit for bit; on the card
-the CUDA kernels are compared with these.
+encode, pack and match, ``pack_bits_ref`` its ``ops.pack_bits_jnp``, and
+``paged_attention_ref`` its jnp paged-attention oracle
+(``nn.attn_backend._attend_jnp``).  The CPU tests compare the integer ones
+with the JAX package bit for bit and the float one within a stated
+tolerance; on the card the CUDA kernels are compared with these.
 
 Packed uint32 key words are carried as int32 bit patterns: ``&``, ``==``
 and ``<<`` (which wraps into the sign bit) give the uint32 results, and
@@ -13,13 +15,15 @@ torch's ``uint32`` lacks ``<<``, ``~`` and ``max`` on the CPU.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
            "fused_eb_ref", "lb_lookup_ref", "popcount32",
-           "bnn_popcount_matmul_ref", "pack_bits_ref", "as_i32"]
+           "bnn_popcount_matmul_ref", "pack_bits_ref", "paged_attention_ref",
+           "as_i32"]
 
 
 def as_i32(x: int) -> int:
@@ -134,3 +138,50 @@ def pack_bits_ref(bits01: torch.Tensor) -> torch.Tensor:
         half = words.shape[-1] // 2
         words = words[..., :half] | words[..., half:]
     return words[..., 0]
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tbl: torch.Tensor,
+                        positions: torch.Tensor, window,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attend ``q [B, C, H, hd]`` over a paged pool through its block table.
+
+    The jnp oracle's op sequence and roundings: gather the logical
+    ``[B, n_ps*page, KV, hd]`` view through the clipped table, dequantize in
+    ``q.dtype`` (``k.astype(dt) * scale.astype(dt)``), repeat the KV heads;
+    ``q.k`` accumulated in float32 and rounded to ``q.dtype``; divided by
+    sqrt(hd) in float32, the position mask added; softmax
+    (``exp(s - max) / sum``) in float32, the probabilities rounded to
+    ``q.dtype``; ``P.V`` accumulated in float32 and rounded to ``q.dtype``.
+
+    The products run in float32 (bf16 products are exact there), so the
+    accumulation does not depend on a library's bf16 reduction settings,
+    and sqrt(hd) is a tensor: CUDA divides a tensor by a host scalar as a
+    multiplication by its reciprocal, which can differ in the last bit.
+    """
+    from ..nn.attn_backend import position_mask, repeat_kv
+
+    dt = q.dtype
+    B, C, H, hd = q.shape
+    N, page = k_pages.shape[0], k_pages.shape[1]
+    n_ps = block_tbl.shape[1]
+    S = n_ps * page
+    gtbl = block_tbl.clamp(0, N - 1).long()
+
+    def view(pages, scale):
+        x = pages[gtbl]
+        if scale is not None:
+            x = x.to(dt) * scale[gtbl].to(dt)
+        x = repeat_kv(x.reshape(B, S, *pages.shape[2:]).to(dt), H)
+        return x.float()
+
+    kf, vf = view(k_pages, k_scale), view(v_pages, v_scale)
+    k_pos = torch.arange(S, device=q.device)[None].expand(B, S)
+    mask = position_mask(positions, k_pos, window, causal=True)  # [B, C, S]
+    sqrt_hd = torch.full((), np.sqrt(hd), dtype=torch.float32, device=q.device)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), kf).to(dt)
+    s = s.float() / sqrt_hd + mask[:, None, :, :]
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    probs = (e / torch.sum(e, dim=-1, keepdim=True)).to(dt)
+    return torch.einsum("bhqs,bshd->bqhd", probs.float(), vf).to(dt)

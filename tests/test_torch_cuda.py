@@ -170,3 +170,116 @@ def test_cuda_lb_dm_predict_launches_its_kernel(cuda_device, model, strategy,
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+def _pa_case(dev, seed, B, C, H, KV, hd, page, n_ps, quantized):
+    """bf16 q, bf16 or int8 (+ scales) pools, a shuffled block table with
+    an entry past the pool, positions; on ``dev``."""
+    rng = np.random.default_rng(seed)
+    N = B * n_ps
+    tbl = rng.permutation(N).reshape(B, n_ps).astype(np.int32)
+    tbl[0, -1] = N + 1
+    pos0 = rng.integers(0, n_ps * page - C + 1, B)
+    pos = (pos0[:, None] + np.arange(C)[None]).astype(np.int32)
+    shape = (N, page, KV, hd)
+
+    def t(a, dt):
+        return torch.as_tensor(a, device=dev).to(dt)
+
+    q = t(rng.normal(0, 1, (B, C, H, hd)), torch.bfloat16)
+    if quantized:
+        k, v = (t(rng.integers(-127, 128, shape), torch.int8) for _ in "kv")
+        ks, vs = (t(rng.uniform(0.005, 0.02, shape[:-1] + (1,)),
+                    torch.float32) for _ in "kv")
+    else:
+        k, v = (t(rng.normal(0, 1, shape), torch.bfloat16) for _ in "kv")
+        ks = vs = None
+    return q, k, v, t(tbl, torch.int32), t(pos, torch.int32), ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("H,KV,page", [(12, 2, 16), (4, 4, 8)])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("window", [0, 13])
+def test_cuda_paged_attention_equals_plain(cuda_device, C, H, KV, page,
+                                           quantized, window):
+    """Within one bf16 ulp of the output's largest magnitude (the kernel
+    sums in float32 in another order than the plain version)."""
+    q, k, v, tbl, pos, ks, vs = _pa_case(cuda_device, C + H, 3, C, H, KV,
+                                         128, page, 96 // page, quantized)
+    got = ops.paged_attention(q, k, v, tbl, pos, window, ks, vs)
+    want = ref.paged_attention_ref(q, k, v, tbl, pos, window, ks, vs)
+    ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_rows_are_invariant(cuda_device):
+    """Bitwise: a slot alone vs in a batch, chunk rows vs C = 1 calls, and
+    permuted physical pages."""
+    dev = cuda_device
+    q, k, v, tbl, pos, _, _ = _pa_case(dev, 1, 16, 8, 12, 2, 128, 16, 8,
+                                       False)
+    full = ops.paged_attention(q, k, v, tbl, pos, 0)
+    for b in (0, 9):
+        alone = ops.paged_attention(q[b:b + 1].contiguous(), k, v,
+                                    tbl[b:b + 1].contiguous(),
+                                    pos[b:b + 1].contiguous(), 0)
+        assert torch.equal(alone[0], full[b])
+    for c in range(8):
+        one = ops.paged_attention(q[:, c:c + 1].contiguous(), k, v, tbl,
+                                  pos[:, c:c + 1].contiguous(), 0)
+        assert torch.equal(one[:, 0], full[:, c])
+    perm = torch.randperm(k.shape[0], device=dev)
+    k2, v2 = torch.empty_like(k), torch.empty_like(v)
+    k2[perm], v2[perm] = k, v
+    tbl2 = perm[tbl.clamp(0, k.shape[0] - 1).long()].to(torch.int32)
+    assert torch.equal(ops.paged_attention(q, k2, v2, tbl2, pos, 0), full)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_refuses_scores_past_shared_memory(cuda_device):
+    """A group's [G, S] scores past the card's opt-in shared memory (6 heads
+    x 16,384 positions x 4 bytes) raise and count no launch; the refusal
+    leaves no error behind for the next launch."""
+    big = _pa_case(cuda_device, 2, 1, 1, 12, 2, 128, 16, 1024, False)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="S = 16384"):
+        ops.paged_attention(*big[:5], 0)
+    assert ops.launch_counts()["paged_attention"] == 0
+    q, k, v, tbl, pos, _, _ = _pa_case(cuda_device, 3, 2, 1, 12, 2, 128, 16,
+                                       4, False)
+    got = ops.paged_attention(q, k, v, tbl, pos, 0)
+    want = ref.paged_attention_ref(q, k, v, tbl, pos, 0)
+    ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.cuda
+def test_cuda_serve_launches_paged_attention_per_layer(cuda_device):
+    """The host batcher over the paged cache on the card: one
+    paged_attention launch per layer per step, fused_eb at admission."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+    from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
+                                          ServeEngine)
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    ds = load_dataset("unsw", n=1500)
+    gate = plant(PlanterConfig(model="rf", size="S"), ds.X_train,
+                 ds.y_train).mapped
+    engine = ServeEngine(cfg, M.init_params(cfg, 0, cuda_device),
+                         ServeConfig(max_batch=4, cache_len=32, page_size=8),
+                         gate=gate, device=cuda_device)
+    cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=4)
+    ops.reset_launch_counts()
+    for rid in range(6):
+        cb.submit(rid, [rid + 1] * (rid + 2), features=ds.X_test[rid])
+    done = cb.run(max_steps=200)
+    counts = ops.launch_counts()
+    assert counts["paged_attention"] == cb.steps * cfg.n_layers > 0
+    assert counts["fused_eb"] > 0
+    assert len(done) + len(cb.dropped) == 6

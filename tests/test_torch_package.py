@@ -37,6 +37,12 @@ def test_imports_every_module_without_jax():
         leaked = [m for m, mod in sys.modules.items() if mod is not None
                   and (m == "repro" or m.startswith(("repro.", "jax")))]
         assert not leaked, leaked
+        serve_slice = {"repro_torch." + m for m in (
+            "arch.config", "arch.model", "arch.convert", "arch.sampling",
+            "configs.registry", "configs.qwen2_1_5b", "nn.common", "nn.mlp",
+            "nn.attn_backend", "nn.attention", "kernels.paged_attention",
+            "serve.engine", "serve.pages", "serve.faults", "launch.serve")}
+        assert serve_slice <= set(names), serve_slice - set(names)
         print("CLEAN", len(names))
     """)
     r = _run("-c", code)
@@ -46,7 +52,7 @@ def test_imports_every_module_without_jax():
 
 def test_no_jax_or_repro_import_in_source():
     bad = []
-    for path in sorted(PKG.rglob("*.py")):
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -185,11 +191,19 @@ def test_cpu_tensors_take_the_plain_versions_and_inputs_are_checked():
     assert ops.bucketize(v, t).sum().item() == 0
     assert ops.launch_counts() == {"bucketize": 0, "ternary_match": 0,
                                    "fused_eb": 0, "lb_lookup": 0,
-                                   "bnn_popcount_matmul": 0}
+                                   "bnn_popcount_matmul": 0,
+                                   "paged_attention": 0}
     codes = torch.zeros((4, 2), dtype=torch.int32)
     luts = torch.ones((2, 3, 5), dtype=torch.int32)
     assert ops.lb_lookup(codes, luts).tolist() == [[2] * 5] * 4
     assert ops.bnn_popcount_matmul(v, t[:, :2]).shape == (4, 2)
+    q = torch.ones((2, 1, 4, 8), dtype=torch.bfloat16)
+    pages = torch.ones((3, 4, 2, 8), dtype=torch.bfloat16)
+    tbl = torch.tensor([[0, 1], [2, 5]], dtype=torch.int32)  # 5: past the pool
+    pos = torch.tensor([[3], [6]], dtype=torch.int32)
+    out = ops.paged_attention(q, pages, pages, tbl, pos, 0)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.equal(out, torch.ones_like(q))  # softmax-weighted ones
     assert sum(ops.launch_counts().values()) == 0
     cpu = torch.device("cpu")
     with pytest.raises(TypeError, match="int32"):
