@@ -6,29 +6,36 @@ Phases, in order; the first failure exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, bitwise,
-   at the sweep shapes of the kernel tests plus edge cases;
+   at the sweep shapes of the kernel tests plus edge cases: ``bucketize``
+   at T = 1, T not a power of two, rows past 48 KB and past the shared-
+   memory budget, INT32_MAX values, a view at an offset;
+   ``bnn_popcount_matmul``'s modes (packed or feature input x counts, sign
+   words or scores) at W 1-4 and 10, N 48 and 33, 600,001 rows;
 3. main path: ``plant`` rf, encode-based, size L on unsw (not gate-sized,
    so ``torch_predict("auto")`` runs ``bucketize`` + ``ternary_match``)
    and predict 2^20 flows; labels equal the plain path on the card, and on
    the first 65,536 flows the numpy reference and the native forest;
 4. fused path: the same for rf size M (gate-sized, so ``fused_eb``);
-5. per-kernel times (CUDA events, median) beside the plain version's, the
-   least time the card could take, and for ``bucketize`` one
-   ``torch.searchsorted`` call as the library yardstick; flows/s of both
-   predict paths;
+5. per-kernel times (CUDA events around one call, median, which include
+   the host's launch overhead; and the profiler's device time) beside the
+   plain version's, the least time the card could take, and for
+   ``bucketize`` one ``torch.searchsorted`` call as the library yardstick;
+   flows/s of both predict paths;
 6. LB path: ``plant`` svm, nb, kmeans, pca and ae, lookup-based, size L
    on unsw and predict 2^20 flows through ``auto``: one ``lb_lookup``
    launch per predict; labels (pca/ae: int32 sums bitwise, float outputs
    within 1e-5) equal the plain path on the card, and on the first 65,536
    flows the numpy reference;
 7. DM path: bnn direct-map size L, trained on the card: two
-   ``bnn_popcount_matmul`` launches per predict, labels equal the plain
-   path, the numpy reference and the native model; dt and rf direct-map
-   size L walk their trees in plain torch on the card, labels equal numpy
-   and native.  Then ``lb_lookup`` (kmeans-LB L) and
-   ``bnn_popcount_matmul`` (BNN-L layer 1) are timed like phase 5, with
-   ``F.embedding_bag`` and a bf16 ``torch.matmul`` of the ±1 matrices as
-   library yardsticks;
+   ``bnn_popcount_matmul`` launches per predict (layer 1 packs the
+   features and its signs, layer 2 writes the scores), labels equal the
+   plain path, the numpy reference and the native model; dt and rf
+   direct-map size L walk their trees in plain torch on the card, labels
+   equal numpy and native.  Then ``lb_lookup`` (kmeans-LB L) and
+   ``bnn_popcount_matmul`` (BNN-L layer 1, counts mode) are timed like
+   phase 5, with ``F.embedding_bag`` and a bf16 ``torch.matmul`` of the ±1
+   matrices as library yardsticks, and the predict's two fused launches
+   beside their bounds (the ``fused`` list of the kernel's JSON row);
 8. ``paged_attention``: the kernel against its plain version over a grid
    (C 1 and 8, page 8 and 16, H/KV 12/2 and 4/4, bf16 and int8 pools,
    window 0 and 13, table entries past the pool) within one bf16 ulp of
@@ -137,19 +144,26 @@ def check_kernels(dev) -> int:
 
     rng = np.random.default_rng(42)
     n = 0
-    # bucketize: test sweep, INT32_MAX against padding, thresholds beyond
-    # one shared-memory tile (F*T > 12,288)
+    # bucketize: test sweep, INT32_MAX against padding; T = 1, T not a
+    # power of two, rows past 48 KB (opt-in, 64 KB) and past the shared-
+    # memory budget (read through L1, 256 KB), many persistent strides; a
+    # view at an unaligned offset (element by element)
     cases = [(B, F, T) for B in (1, 7, 256, 1000)
-             for F, T in ((1, 1), (5, 9), (8, 32))] + [(3000, 8, 2000)]
+             for F, T in ((1, 1), (5, 9), (8, 32))] + [
+                 (3000, 8, 2000), (BATCH + 3, 5, 1), (100003, 5, 37),
+                 (20001, 8, 8000)]
     for B, F, T in cases:
-        vals = rng.integers(0, 2**16, (B, F)).astype(np.int32)
+        vals = rng.integers(0, 2**16, (B + 1, F)).astype(np.int32)
         thr = np.sort(rng.integers(0, 2**16, (F, T)), axis=1).astype(np.int32)
         thr[:, T // 2:] = INT32_MAX  # padded tail
-        vals[0, 0] = INT32_MAX
-        v, t = i32(vals, dev), i32(thr, dev)
-        same(f"bucketize {B}x{F}x{T}", ops.bucketize(v, t),
-             ref.bucketize_ref(v, t))
-        n += 1
+        vals[:2, 0] = INT32_MAX
+        vals[::7, -1] = INT32_MAX
+        vals[1::5, 0] = -3
+        big, t = i32(vals, dev), i32(thr, dev)
+        for name, v in (("", big[:B]), (" view at an offset", big[1:])):
+            same(f"bucketize {B}x{F}x{T}{name}", ops.bucketize(v, t),
+                 chunked(lambda c: ref.bucketize_ref(c, t), v))
+            n += 1
     # ternary_match: test sweep, W = 3 and 5 (run-time word count), N
     # beyond one shared-memory tile and not a multiple of any tile, B = 1
     for B, N, W in ((1, 1, 1), (64, 100, 1), (200, 700, 2), (33, 513, 3),
@@ -226,7 +240,38 @@ def check_kernels(dev) -> int:
         same(f"bnn_popcount_matmul {B}x{W} N={N}",
              ops.bnn_popcount_matmul(x, w), ref.bnn_popcount_matmul_ref(x, w))
         n += 1
+    n += check_bnn_modes(rng, dev)
     torch.cuda.synchronize(dev)
+    return n
+
+
+# W -> (in_bits, F) of a feature input that packs into W words
+BNN_FEATURES = {1: (8, 3), 2: (8, 5), 3: (7, 13), 4: (5, 25), 10: (9, 35)}
+
+
+def check_bnn_modes(rng, dev, B: int = 600001) -> int:
+    """bnn_popcount_matmul's modes against their plain versions: packed or
+    feature input (prologue) x counts, sign words or scores, at W 1-4 (one
+    vector load) and 10 (run-time chunks), N a multiple of 4 and not, B
+    past many persistent strides; features past in_bits and negative."""
+    from repro_torch.kernels import ops, ref
+
+    n = 0
+    for W, (in_bits, F) in BNN_FEATURES.items():
+        for N in (48, 33):
+            w = i32(rng.integers(0, 2**32, (N, W), dtype=np.uint32), dev)
+            feats = rng.integers(0, 2**in_bits, (B, F)).astype(np.int32)
+            feats[::11] = rng.integers(-2**31, 2**31, (len(feats[::11]), F))
+            packed = rng.integers(0, 2**32, (B, W), dtype=np.uint32)
+            for x, bits, n_in in ((i32(packed, dev), 0, 32 * W - 5),
+                                  (i32(feats, dev), in_bits, F * in_bits)):
+                for ep in ("counts", "sign", "score"):
+                    same(f"bnn_popcount_matmul {B}x{W} N={N} in_bits={bits}"
+                         f" {ep}",
+                         ops.bnn_popcount_matmul(x, w, bits, ep, n_in),
+                         chunked(lambda c: ref.bnn_popcount_matmul_ref(
+                             c, w, bits, ep, n_in), x))
+                    n += 1
     return n
 
 
@@ -390,6 +435,26 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20):
+    """Mean device time per call of the kernels ``fn`` launches, from
+    torch.profiler (CUPTI): the card's own time, without the host's launch
+    overhead that a single call's CUDA events also span while the card
+    idles.  None when the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return us / reps / 1e3 if us > 0 else None
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_INT32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -411,13 +476,15 @@ def kernel_rows(staged, fused, dev):
         B, F = x.shape
         T = thr.shape[1]
         N, W = rv.shape
-        library_ms = None
+        library_ms = library_device_ms = None
         if name == "bucketize":
             args = (x, thr)
             kern, plain = ops.bucketize, ref.bucketize_ref
             n_bytes, n_ops = 2 * B * F * 4 + F * T * 4, B * F * T
             vt = x.T.contiguous()
             library_ms = time_ms(lambda: torch.searchsorted(thr, vt, right=True))
+            library_device_ms = device_ms(
+                lambda: torch.searchsorted(thr, vt, right=True))
         elif name == "ternary_match":
             keys = ref.pack_codes_ref(ref.bucketize_ref(x, thr), layout, W)
             args = (keys, rv, rm, pa, d)
@@ -439,8 +506,10 @@ def kernel_rows(staged, fused, dev):
             "replaces": REPLACES[name], "launches": run.launches[name],
             "bitwise": True, "max_abs_err": err,
             "ms": time_ms(lambda: kern(*args)),
+            "device_ms": device_ms(lambda: kern(*args)),
             "plain_ms": time_ms(lambda: plain(*args), reps=5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "shape": {"B": B, "F": F, "T": T, "N": N, "W": W},
         })
     return rows
@@ -471,12 +540,13 @@ def lb_dm_kernel_rows(lb_runs, dm_runs, dev):
 
     run = dm_runs["bnn"]
     bnn = run.res.mapped.predict_np.__self__
-    w_np, n_in = bnn.packed.layers[0]
-    w = torch.as_tensor(np.ascontiguousarray(w_np).view(np.int32), device=dev)
+    (w, n_in), (w2, n_in2) = bnn_layers(bnn, dev)
     shifts = torch.arange(bnn.in_bits, dtype=torch.int32, device=dev)
     bits = ((run.x[..., None] >> shifts) & 1).reshape(B, -1)
     x = ops.pack_bits(bits)
     N, W = w.shape
+    N2, W2 = w2.shape
+    F = run.x.shape[1]
     x_pm = (bits * 2 - 1).to(torch.bfloat16)
     w_pm = torch.as_tensor(run.res.trained.binary_weights()[0].T,
                            dtype=torch.bfloat16, device=dev).contiguous()
@@ -485,7 +555,20 @@ def lb_dm_kernel_rows(lb_runs, dm_runs, dev):
         plain=ref.bnn_popcount_matmul_ref, run=run, source=LB_DM_SOURCE,
         n_bytes=B * W * 4 + N * W * 4 + B * N * 4, n_ops=B * N * W * 4,
         library=lambda: torch.matmul(x_pm, w_pm.T),
-        shape={"B": B, "W": W, "N": N, "n_in": n_in}))
+        shape={"B": B, "W": W, "N": N, "n_in": n_in, "mode": "counts"}))
+    # the predict's own launches: layer 1 builds its input words from the
+    # features and packs its signs, layer 2 writes the scores
+    h = ops.bnn_popcount_matmul(run.x, w, bnn.in_bits, "sign", n_in)
+    fused = [
+        dict(layer=1, args=(run.x, w, bnn.in_bits, "sign", n_in),
+             n_bytes=B * F * 4 + N * W * 4 + B * -(-N // 32) * 4,
+             n_ops=B * N * W * 4,
+             shape={"B": B, "F": F, "in_bits": bnn.in_bits, "W": W, "N": N,
+                    "mode": "features -> sign words"}),
+        dict(layer=2, args=(h, w2, 0, "score", n_in2),
+             n_bytes=B * W2 * 4 + N2 * W2 * 4 + B * N2 * 4,
+             n_ops=B * N2 * W2 * 4,
+             shape={"B": B, "W": W2, "N": N2, "mode": "packed -> scores"})]
 
     out = []
     for r in rows:
@@ -501,16 +584,48 @@ def lb_dm_kernel_rows(lb_runs, dm_runs, dev):
             "launches": r["run"].launches[r["name"]],
             "bitwise": True, "max_abs_err": err,
             "ms": time_ms(lambda: kern(*args)),
+            "device_ms": device_ms(lambda: kern(*args)),
             "plain_ms": time_ms(lambda: plain(*args), reps=5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(r["library"]), "shape": r["shape"],
+            "library_ms": time_ms(r["library"]),
+            "library_device_ms": device_ms(r["library"]), "shape": r["shape"],
         })
+    out[-1]["fused"] = [fused_layer_row(f) for f in fused]
     return out
+
+
+def bnn_layers(bnn, dev):
+    """The DM-BNN's packed layers on ``dev``: [(w [N, W] int32, n_in)]."""
+    return [(torch.as_tensor(np.ascontiguousarray(w).view(np.int32),
+                             device=dev), int(n_in))
+            for w, n_in in bnn.packed.layers]
+
+
+def fused_layer_row(f) -> Dict[str, Any]:
+    """One fused bnn_popcount_matmul launch of the predict against its
+    plain version, bitwise, and timed beside its bound."""
+    from repro_torch.kernels import ops, ref
+
+    args = f["args"]
+    got = ops.bnn_popcount_matmul(*args)
+    want = chunked(lambda a: ref.bnn_popcount_matmul_ref(a, *args[1:]),
+                   args[0])
+    same(f"bnn_popcount_matmul layer {f['layer']} ({f['shape']['mode']})",
+         got, want)
+    b_ms, b_by = bound_ms(f["n_bytes"], f["n_ops"])
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    return {"layer": f["layer"], "max_abs_err": err,
+            "ms": time_ms(lambda: ops.bnn_popcount_matmul(*args)),
+            "device_ms": device_ms(lambda: ops.bnn_popcount_matmul(*args)),
+            "plain_ms": time_ms(lambda: ref.bnn_popcount_matmul_ref(*args),
+                                reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": f["shape"]}
 
 
 def lb_dm_kernels_only(run: PathRun, dev) -> Callable:
     """The LB / DM-BNN predict's kernel launches alone, on the inputs that
-    predict gives them (clipped codes; packed input and hidden bits)."""
+    predict gives them (clipped codes; the features into layer 1, which
+    packs its signs, and those words into the last layer's scores)."""
     from repro_torch.kernels import ops
 
     model = run.res.mapped.predict_np.__self__
@@ -518,16 +633,13 @@ def lb_dm_kernels_only(run: PathRun, dev) -> Callable:
         luts = torch.as_tensor(np.ascontiguousarray(model.luts), device=dev)
         codes = run.x.clamp(0, luts.shape[1] - 1)
         return lambda: ops.lb_lookup(codes, luts)
-    shifts = torch.arange(model.in_bits, dtype=torch.int32, device=dev)
-    h = ops.pack_bits(((run.x[..., None] >> shifts) & 1).reshape(
-        run.x.shape[0], -1))
-    args = []
-    for w_np, n_in in model.packed.layers:
-        w = torch.as_tensor(np.ascontiguousarray(w_np).view(np.int32),
-                            device=dev)
-        args.append((h, w))
-        dot = 2 * (ops.bnn_popcount_matmul(h, w) - (32 * w.shape[1] - n_in)) - n_in
-        h = ops.pack_bits(dot >= 0)
+    args, h = [], run.x
+    layers = bnn_layers(model, dev)
+    for i, (w, n_in) in enumerate(layers):
+        last = i == len(layers) - 1
+        args.append((h, w, model.in_bits if i == 0 else 0,
+                     "score" if last else "sign", n_in))
+        h = ops.bnn_popcount_matmul(*args[-1])
     return lambda: [ops.bnn_popcount_matmul(*a) for a in args]
 
 
@@ -705,10 +817,12 @@ def paged_attention_row(dev):
         "replaces": REPLACES["paged_attention"], "launches": None,
         "bitwise": False, "max_abs_err": err,
         "ms": time_ms(lambda: ops.paged_attention(*args)),
+        "device_ms": device_ms(lambda: ops.paged_attention(*args)),
         "plain_ms": time_ms(lambda: ref.paged_attention_ref(*args)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": time_ms(library),
+        "library_device_ms": device_ms(library),
         "library_max_abs_err": (library().float() - want.float()).abs().max()
         .item(),
         "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd, "page": page,
@@ -1104,6 +1218,14 @@ def main() -> None:
                  f"{time_ms(lb_dm_kernels_only(run, dev)):.4f} ms"
                  if model == "bnn" else " (no kernel)") + f" ({card})")
     rows += lb_dm_kernel_rows(lb_runs, dm_runs, dev)
+    for f in rows[-1]["fused"]:
+        print(f"[7 bnn fused layer {f['layer']}] {f['shape']['mode']}: "
+              f"{f['ms']:.4f} ms (device {f['device_ms']}), bound "
+              f"{f['bound_ms']:.4f} ms ({f['bound_by']}), plain "
+              f"{f['plain_ms']:.4f} ms; counts mode {rows[-1]['ms']:.4f} ms "
+              f"(device {rows[-1]['device_ms']}), bf16 matmul "
+              f"{rows[-1]['library_ms']:.4f} ms (device "
+              f"{rows[-1]['library_device_ms']}) ({card})")
 
     print(f"[8 paged_attention] {check_paged_attention(dev)}")
     pa_row = paged_attention_row(dev)

@@ -5,7 +5,8 @@ stage per depth level (pForest/SwitchTree), BNNs run as XNOR+popcount
 layers (toNIC/N3IC).  Memory-light, stage-hungry — the paper's scalability
 trade-off, which our stage accounting reproduces.
 
-The BNN predictor runs the ``bnn_popcount_matmul`` kernel once per layer;
+The BNN predictor runs the ``bnn_popcount_matmul`` kernel once per layer,
+with the input bit packing, the sign and the repacking fused in;
 the tree walk has no kernel (none in the JAX package either) and is a
 plain-torch gather/compare loop on the device.
 """
@@ -183,23 +184,23 @@ class DMBnn:
         return scores.argmax(axis=1)
 
     def make_torch_fn(self, backend: str, device: torch.device) -> Callable:
-        """Labels [B] int32 on ``device``: the input bits are packed in plain
-        torch, then ``"cuda"`` runs one ``bnn_popcount_matmul`` launch per
-        layer (its plain version on a CPU device) and ``"ref"`` the plain
-        version on any device."""
+        """Labels [B] int32 on ``device``: ``"cuda"`` runs one
+        ``bnn_popcount_matmul`` launch per layer, the first packing the
+        input bits itself, each hidden layer packing its signs and the last
+        writing the scores (their plain versions on a CPU device); ``"ref"``
+        runs the plain versions on any device.  The argmax is plain torch."""
         if backend not in ("cuda", "ref"):
             raise ValueError(f"backend {backend!r} is not a DM backend "
                              "('cuda' or 'ref')")
         layers = [(torch.as_tensor(np.ascontiguousarray(w, np.uint32)
                                    .view(np.int32), device=device), int(n_in))
                   for w, n_in in self.packed.layers]
-        shifts = torch.arange(self.in_bits, dtype=torch.int32, device=device)
-        plain = backend == "ref"
+        in_bits, plain = self.in_bits, backend == "ref"
 
         def fn(x) -> torch.Tensor:
             x = torch.as_tensor(x).to(device=device, dtype=torch.int32)
-            bits = ((x[..., None] >> shifts) & 1).reshape(x.shape[0], -1)
-            scores = ops.bnn_forward(ops.pack_bits(bits), layers, plain=plain)
+            scores = ops.bnn_forward(x.contiguous(), layers, plain=plain,
+                                     in_bits=in_bits)
             return scores.argmax(dim=1).to(torch.int32)
 
         return fn

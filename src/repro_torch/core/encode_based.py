@@ -57,12 +57,21 @@ def _code_widths(ftables: Sequence[FeatureTable]) -> List[int]:
     return [max(1, int(np.ceil(np.log2(max(2, ft.n_codes))))) for ft in ftables]
 
 
+def _unsorted_rows(rows: Sequence[np.ndarray]) -> List[int]:
+    return [f for f, r in enumerate(rows) if np.any(np.diff(r) < 0)]
+
+
 def _thresholds_matrix(ftables: Sequence[FeatureTable]) -> np.ndarray:
-    """[F, T] int32 padded with INT32_MAX for the bucketize kernel."""
+    """[F, T] int32 padded with INT32_MAX for the bucketize kernel, whose
+    binary search needs every row non-decreasing: checked here, once."""
     T = max(1, max(len(ft.thresholds) for ft in ftables))
     out = np.full((len(ftables), T), INT32_MAX, np.int32)
     for f, ft in enumerate(ftables):
         out[f, : len(ft.thresholds)] = ft.thresholds
+    bad = _unsorted_rows(out)
+    if bad:
+        raise ValueError(f"threshold rows {bad} are not non-decreasing "
+                         "(as int32): bucketize needs sorted rows")
     return out
 
 
@@ -284,7 +293,8 @@ def eb_ensemble_from_arrays(d: Dict[str, Any]) -> EBTreeEnsemble:
     JAX package) made.  ``d`` holds:
 
     * ``thresholds``: one sorted int array per feature (all empty for the
-      KM/KNN identity encoding) and ``in_bits``;
+      KM/KNN identity encoding; an unsorted one raises ``ValueError``) and
+      ``in_bits``;
     * ``tables``: one dict per table with ``values`` and ``masks``
       ([N, W] uint32), ``priorities``, ``actions`` ([N] int32) and
       ``default_action``;
@@ -295,6 +305,9 @@ def eb_ensemble_from_arrays(d: Dict[str, Any]) -> EBTreeEnsemble:
     """
     in_bits = int(d["in_bits"])
     thresholds = [np.asarray(t, np.int64) for t in d["thresholds"]]
+    bad = _unsorted_rows(thresholds)
+    if bad:
+        raise ValueError(f"thresholds of features {bad} are not sorted")
     if all(len(t) == 0 for t in thresholds):
         ftables = _identity_ftables(len(thresholds), in_bits)
     else:

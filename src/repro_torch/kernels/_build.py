@@ -40,7 +40,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "lb_dm_kernels": {
         "lb_lookup": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "bnn_popcount_matmul": [_P, _P, _P, _I, _I, _I, _P],
+        "bnn_popcount_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "paged_attention": {
         "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -19,3 +19,9 @@ def require(t: torch.Tensor, name: str, ndim: int, device: torch.device) -> None
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on 16 bytes (a
+    view at an offset), for kernels that load 8- or 16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -8,11 +8,25 @@
 //
 // Integer contract (bitwise with the plain versions in ../ref.py):
 //   codes[b, f] = #{t : thr[f, t] <= v[b, f]} over ALL T columns, the
-//                 INT32_MAX padding included (so v == INT32_MAX counts it);
+//                 INT32_MAX padding included (so v == INT32_MAX counts it).
+//                 Precondition of bucketize: every row thr[f, :] is
+//                 non-decreasing (the EB mappers sort the thresholds and pad
+//                 the rows at the end; encode_based._thresholds_matrix and
+//                 eb_ensemble_from_arrays check it on the host).  Its binary
+//                 search then gives exactly that count; fused_eb counts
+//                 every column and needs no order;
 //   match: best = max over rows n with (key & m[n]) == v[n] in every word
 //          of pa[n] = prio * 256 + action, starting at -1; the result is
 //          best & 255 when best >= 0, else the default action.
 // Priorities are unique, so the max does not depend on the row order.
+//
+// bucketize is bound on this card by device-memory bytes (B*F int32 in and
+// out) once its work is log2(T) compares an element: a persistent grid
+// stages the [F, T] rows once per block in shared memory (opting in past
+// 48 KB, read through L1 past kThrSmemMaxBytes), each thread takes 4
+// consecutive flat elements with one 16-byte load and store, and runs four
+// interleaved branchless upper_bound searches, its feature index advanced
+// by the grid stride rather than taken modulo F.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -24,34 +38,101 @@ constexpr int kThreads = 256;
 constexpr int kSmemBytes = 48 * 1024;
 // fused_eb stages the thresholds in shared memory when they fit this share.
 constexpr int kThrSmemBytes = 16 * 1024;
+// bucketize stages its rows in shared memory up to this size (two blocks an
+// SM); larger rows are read through L1.
+constexpr int kThrSmemMaxBytes = 96 * 1024;
 // Widest key the kernels take, in 32-bit words (1024-bit keys).
 constexpr int kMaxWords = 32;
 
 // ------------------------------------------------------------- bucketize
-// One thread per (b, f).  The block walks the flattened [F*T] threshold
-// array in shared-memory tiles; each thread counts the part of its own
-// feature's row that falls inside the tile.
-__global__ void bucketize_kernel(const int32_t* __restrict__ values,
-                                 const int32_t* __restrict__ thr,
-                                 int32_t* __restrict__ out,
-                                 long long total, int F, int T, int tile) {
-  extern __shared__ int32_t s_thr[];
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = idx < total;
-  const int f = active ? (int)(idx % F) : 0;
-  const int32_t v = active ? values[idx] : 0;
-  const int row_lo = f * T, row_hi = row_lo + T;
-  const int n_thr = F * T;
-  int count = 0;
-  for (int base = 0; base < n_thr; base += tile) {
-    const int len = min(tile, n_thr - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < len; i += blockDim.x) s_thr[i] = thr[base + i];
-    __syncthreads();
-    const int lo = max(row_lo, base), hi = min(row_hi, base + len);
-    for (int i = lo; i < hi; ++i) count += (v >= s_thr[i - base]);
+// A grid that covers ``items`` threads' work, capped at what stays resident
+// on every SM at once (persistent blocks; the kernel grid-strides).  The
+// cap is asked of the occupancy calculator once per kernel, device and
+// shared-memory size, not at every launch.
+template <auto Kernel>
+int persistent_grid(long long items, size_t smem) {
+  static int cached_dev = -1, cap = 0;
+  static size_t cached_smem = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != cached_dev || smem != cached_smem) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms < 1)
+      sms = 132;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                      kThreads, smem) !=
+            cudaSuccess ||
+        per_sm < 1)
+      per_sm = 1;
+    cached_dev = dev;
+    cached_smem = smem;
+    cap = sms * per_sm;
   }
-  if (active) out[idx] = count;
+  const long long need = (items + kThreads - 1) / kThreads;
+  return (int)(need < cap ? (need > 0 ? need : 1) : cap);
+}
+
+// One thread per 4 consecutive flat elements of values [B*F] (VEC: one
+// 16-byte load and store, the last partial quad element by element).
+// Element e belongs to feature e % F, tracked incrementally.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    bucketize_kernel(const int32_t* __restrict__ values,
+                     const int32_t* __restrict__ thr, int32_t* __restrict__ out,
+                     long long total, int F, int T, int thr_in_smem) {
+  extern __shared__ __align__(16) int32_t s_thr[];
+  const int32_t* rows = thr;
+  if (thr_in_smem) {
+    const int n = F * T;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s_thr[i] = thr[i];
+    __syncthreads();
+    rows = s_thr;
+  }
+  const long long n_quads = (total + 3) / 4;
+  const long long q0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  int f = (int)((4 * q0) % F);             // feature of element 4 * q
+  const int df = (int)((4 * stride) % F);  // its advance per step
+  for (long long q = q0; q < n_quads; q += stride) {
+    const long long e0 = 4 * q;
+    const bool full = e0 + 4 <= total;
+    int v[4];
+    if (VEC && full) {
+      const int4 t = *reinterpret_cast<const int4*>(values + e0);
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = e0 + k < total ? values[e0 + k] : 0;
+    }
+    int row[4], base[4];
+#pragma unroll
+    for (int k = 0, fk = f; k < 4; ++k) {
+      row[k] = base[k] = fk * T;
+      if (++fk == F) fk = 0;
+    }
+    // upper_bound: the answer lies in [base, base + n]; halve n each step
+    for (int n = T; n > 1;) {
+      const int half = n >> 1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        base[k] += rows[base[k] + half] <= v[k] ? half : 0;
+      n -= half;
+    }
+    int c[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      c[k] = base[k] - row[k] + (rows[base[k]] <= v[k] ? 1 : 0);
+    if (VEC && full) {
+      *reinterpret_cast<int4*>(out + e0) = make_int4(c[0], c[1], c[2], c[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (e0 + k < total) out[e0 + k] = c[k];
+    }
+    f += df;
+    if (f >= F) f -= F;
+  }
 }
 
 // ------------------------------------------------------------ row match
@@ -203,6 +284,29 @@ __global__ void fused_eb_kernel(const int32_t* __restrict__ values,
   if (active) out[b] = best >= 0 ? (best & 255) : default_action;
 }
 
+// The rows go to shared memory up to kThrSmemMaxBytes (opting in past
+// 48 KB), else the kernel reads them through L1.
+template <bool VEC>
+int launch_bucketize(const int32_t* values, const int32_t* thr, int32_t* out,
+                     long long total, int F, int T, cudaStream_t s) {
+  constexpr auto kernel = bucketize_kernel<VEC>;
+  const long long thr_bytes = (long long)F * T * 4;
+  int dev = 0, optin = kSmemBytes;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int thr_in_smem =
+      thr_bytes <= kThrSmemMaxBytes && thr_bytes <= optin ? 1 : 0;
+  const size_t smem = thr_in_smem ? (size_t)thr_bytes : 0;
+  if (smem > (size_t)kSmemBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<persistent_grid<kernel>((total + 3) / 4, smem), kThreads, smem,
+           s>>>(values, thr, out, total, F, T, thr_in_smem);
+  return (int)cudaGetLastError();
+}
+
 int row_tile(int N, int W, int budget) {
   const int per_row = 8 * W + 4;
   int tile = budget / per_row;
@@ -223,13 +327,12 @@ const char* error_string(int err) {
 int eb_bucketize(const int32_t* values, const int32_t* thr, int32_t* out,
                  int B, int F, int T, void* stream) {
   const long long total = (long long)B * F;
+  cudaStream_t s = (cudaStream_t)stream;
   if (total == 0) return (int)cudaGetLastError();
-  int tile = kSmemBytes / 4;
-  if (tile > F * T) tile = F * T;
-  bucketize_kernel<<<blocks_for(total), kThreads, tile * 4,
-                     (cudaStream_t)stream>>>(values, thr, out, total, F, T,
-                                             tile);
-  return (int)cudaGetLastError();
+  if (T == 0) return (int)cudaMemsetAsync(out, 0, (size_t)total * 4, s);
+  if ((uintptr_t)values % 16 == 0 && (uintptr_t)out % 16 == 0)
+    return launch_bucketize<true>(values, thr, out, total, F, T, s);
+  return launch_bucketize<false>(values, thr, out, total, F, T, s);
 }
 
 int eb_ternary_match(const uint32_t* keys, const uint32_t* rv,

@@ -55,10 +55,13 @@ def lb_lookup(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     return _lb_lookup.lb_lookup(codes, luts)
 
 
-def bnn_popcount_matmul(x_packed: torch.Tensor,
-                        w_packed: torch.Tensor) -> torch.Tensor:
-    """XNOR-popcount counts [B, N] of packed rows x [B, W] and w [N, W]."""
-    return _bnn_mlp.bnn_popcount_matmul(x_packed, w_packed)
+def bnn_popcount_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                        in_bits: int = 0, epilogue: str = "counts",
+                        n_in: int = 0) -> torch.Tensor:
+    """XNOR-popcount counts [B, N] of packed rows x [B, W] and w [N, W]; with
+    ``in_bits`` x is the features (input prologue), with ``epilogue`` the
+    layer's sign words or scores (``bnn_mlp.bnn_popcount_matmul``)."""
+    return _bnn_mlp.bnn_popcount_matmul(x, w_packed, in_bits, epilogue, n_in)
 
 
 def pack_bits(bits01: torch.Tensor) -> torch.Tensor:
@@ -66,28 +69,28 @@ def pack_bits(bits01: torch.Tensor) -> torch.Tensor:
     return ref.pack_bits_ref(bits01)
 
 
-def bnn_forward(x_packed: torch.Tensor,
+def bnn_forward(x: torch.Tensor,
                 layers: Sequence[Tuple[torch.Tensor, int]],
-                plain: bool = False) -> torch.Tensor:
-    """Full DM-BNN forward per paper Eq. 8.
+                plain: bool = False, in_bits: int = 0) -> torch.Tensor:
+    """Full DM-BNN forward per paper Eq. 8, one launch a layer.
 
     ``layers[i] = (w_packed [N, W], n_in)`` with ``n_in`` the true fan-in.
     Pad bits are zero in x and w, so each of the ``32*W - n_in`` pad bits
     counts as a match and is subtracted: ``dot = 2*(counts - pad) - n_in``
-    is x.w over ±1 vectors.  Hidden layers apply SIGN and repack; the final
-    layer returns the raw int32 scores.  ``plain=True`` runs the plain
-    version of the popcount matmul on any device.
+    is x.w over ±1 vectors.  Hidden layers apply SIGN and repack (the
+    ``"sign"`` epilogue); the final layer returns the raw int32 scores.
+    x is packed [B, W], or with ``in_bits`` the int32 features [B, F] that
+    the first layer packs itself.  ``plain=True`` runs the plain version of
+    each layer on any device.
     """
-    matmul = ref.bnn_popcount_matmul_ref if plain else bnn_popcount_matmul
-    h = x_packed
+    if not layers:
+        raise ValueError("bnn_forward needs at least one layer")
+    layer = ref.bnn_popcount_matmul_ref if plain else bnn_popcount_matmul
+    h, last = x, len(layers) - 1
     for i, (w_packed, n_in) in enumerate(layers):
-        counts = matmul(h, w_packed)
-        pad_bits = 32 * w_packed.shape[1] - n_in
-        dot = 2 * (counts - pad_bits) - n_in
-        if i == len(layers) - 1:
-            return dot
-        h = pack_bits(dot >= 0)
-    raise ValueError("bnn_forward needs at least one layer")
+        h = layer(h, w_packed, in_bits if i == 0 else 0,
+                  "score" if i == last else "sign", n_in)
+    return h
 
 
 # attend q [B, C, H, hd] over a paged pool through its block table

@@ -22,7 +22,8 @@ import torch
 
 __all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
            "fused_eb_ref", "lb_lookup_ref", "popcount32",
-           "bnn_popcount_matmul_ref", "pack_bits_ref", "paged_attention_ref",
+           "bnn_popcount_matmul_ref", "bnn_pack_input_ref", "BNN_EPILOGUES",
+           "pack_bits_ref", "paged_attention_ref",
            "as_i32"]
 
 
@@ -109,15 +110,40 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
     return v & 0x3F
 
 
-def bnn_popcount_matmul_ref(x_packed: torch.Tensor,
-                            w_packed: torch.Tensor) -> torch.Tensor:
+BNN_EPILOGUES = ("counts", "sign", "score")
+
+
+def bnn_pack_input_ref(x: torch.Tensor, in_bits: int) -> torch.Tensor:
+    """int32 features [B, F] -> packed words [B, ceil(F*in_bits/32)]: bit
+    ``f*in_bits + j`` is bit j of ``x[b, f]`` (two's complement; higher
+    bits dropped), LSB-first, pad bits zero."""
+    shifts = torch.arange(in_bits, dtype=torch.int32, device=x.device)
+    return pack_bits_ref(((x[..., None] >> shifts) & 1).flatten(-2))
+
+
+def bnn_popcount_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                            in_bits: int = 0, epilogue: str = "counts",
+                            n_in: int = 0) -> torch.Tensor:
     """counts[b, n] = sum_w popcount(~(x[b, w] ^ w[n, w])) over packed words.
 
-    x_packed [B, W], w_packed [N, W] (uint32 bits as int32) -> [B, N] int32.
-    Pad bits count as matches; ``ops.bnn_forward`` subtracts them.
+    x [B, W], w_packed [N, W] (uint32 bits as int32) -> [B, N] int32.  Pad
+    bits count as matches.  The kernel's two fused modes, step for step:
+
+    * ``in_bits > 0``: x is the int32 features [B, F], packed first by
+      ``bnn_pack_input_ref``;
+    * ``epilogue`` ``"sign"`` or ``"score"``: ``dot = 2*(counts - pad) -
+      n_in`` with ``pad = 32*W - n_in`` (the ``ops.bnn_forward`` arithmetic);
+      ``"score"`` returns dot [B, N], ``"sign"`` the packed ``dot >= 0``
+      words [B, ceil(N/32)].
     """
-    xnor = ~(x_packed[:, None, :] ^ w_packed[None, :, :])
-    return popcount32(xnor).sum(dim=-1).to(torch.int32)
+    h = bnn_pack_input_ref(x, in_bits) if in_bits else x
+    xnor = ~(h[:, None, :] ^ w_packed[None, :, :])
+    counts = popcount32(xnor).sum(dim=-1).to(torch.int32)
+    if epilogue == "counts":
+        return counts
+    pad_bits = 32 * w_packed.shape[1] - n_in
+    dot = 2 * (counts - pad_bits) - n_in
+    return dot if epilogue == "score" else pack_bits_ref(dot >= 0)
 
 
 def pack_bits_ref(bits01: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,11 @@ torch = pytest.importorskip("torch")
 
 from repro.core import PlanterConfig as JaxConfig  # noqa: E402
 from repro.core import plant as jax_plant  # noqa: E402
+from repro.core.direct_map import DMBnn as JaxDMBnn  # noqa: E402
+from repro.core.encode_based import \
+    _thresholds_matrix as jax_thresholds_matrix  # noqa: E402
 from repro.core.lookup_based import LBModel as JaxLBModel  # noqa: E402
+from repro.core.tables import PackedBnn as JaxPackedBnn  # noqa: E402
 from repro.data import load_dataset  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     PlanterConfig,
@@ -34,7 +38,11 @@ from repro_torch.core import (  # noqa: E402
     lookup_based,
     plant,
 )
-from repro_torch.core.encode_based import _mapped  # noqa: E402
+from repro_torch.core.encode_based import (  # noqa: E402
+    _mapped,
+    _thresholds_matrix,
+)
+from repro_torch.core.tables import FeatureTable, pack_bits_uint32  # noqa: E402
 
 MODELS = ["dt", "rf", "xgb", "iforest", "knn", "kmeans"]
 LB_DM = ["svm-lb", "nb-lb", "kmeans-lb", "pca-lb", "ae-lb", "dt-dm", "rf-dm",
@@ -268,3 +276,62 @@ def test_lb_combine_ties_take_the_first_index(mode):
     first = {"argmax": [0, 1, 0, 1], "argmin": [2, 0, 0, 1],
              "ovo_vote": [0, 0, 1, 0]}[mode]
     assert want.tolist() == first
+
+
+@pytest.mark.parametrize("size", ["S", "M", "L"])
+def test_thresholds_matrix_equals_jax_and_is_sorted(size):
+    """The bucketize kernel's binary search needs non-decreasing rows: the
+    matrices of the rf-EB plants are the JAX package's, sorted, padded at
+    the end with INT32_MAX."""
+    ds = load_dataset("unsw", n=1500)
+    ref = jax_plant(JaxConfig(model="rf", strategy="eb", size=size),
+                    ds.X_train, ds.y_train, ds.X_test)
+    port = plant(PlanterConfig(model="rf", strategy="eb", size=size,
+                               device="cpu"), ds.X_train, ds.y_train,
+                 ds.X_test)
+    want = jax_thresholds_matrix(ref.mapped.predict_np.__self__.ftables)
+    got = _thresholds_matrix(port.mapped.predict_np.__self__.ftables)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32 and (np.diff(got.astype(np.int64)) >= 0).all()
+    assert (got[:, -1] == np.iinfo(np.int32).max).any()
+
+
+@pytest.mark.parametrize("maker", ["eb_ensemble_from_arrays",
+                                   "_thresholds_matrix"])
+def test_unsorted_threshold_rows_raise(maker):
+    rows = [np.array([3, 9, 20]), np.array([7, 5])]  # feature 1 unsorted
+    with pytest.raises(ValueError, match=r"\[1\]"):
+        if maker == "_thresholds_matrix":
+            _thresholds_matrix([FeatureTable(r, 8) for r in rows])
+        else:
+            eb_ensemble_from_arrays({
+                "thresholds": rows, "in_bits": 8, "combine": "single",
+                "n_classes": 2,
+                "tables": [{"values": np.zeros((1, 1), np.uint32),
+                            "masks": np.zeros((1, 1), np.uint32),
+                            "priorities": np.zeros(1, np.int32),
+                            "actions": np.zeros(1, np.int32),
+                            "default_action": 0}]})
+
+
+@pytest.mark.parametrize("hidden", [(16,), (32,), (48,), (33, 16)])
+def test_bnn_dm_cpu_labels_equal_jax(hidden):
+    """Random ±1 layers of the S/M/L widths (and two hidden layers): the
+    port's predict on the CPU (fused-mode plain versions) equals the JAX
+    package's, on flows with values past in_bits and negative ones."""
+    rng = np.random.default_rng(sum(hidden))
+    ds = load_dataset("unsw", n=1500)
+    X = ds.X_test[:N_TEST].astype(np.int64)
+    X[:20] = rng.integers(-300, 600, (20, X.shape[1]))
+    dims = [X.shape[1] * ds.in_bits, *hidden, 2]
+    layers = [(pack_bits_uint32(rng.integers(0, 2, (n_out, n_in)) * 2 - 1),
+               n_in) for n_in, n_out in zip(dims[:-1], dims[1:])]
+    want = np.asarray(JaxDMBnn(JaxPackedBnn(layers), ds.in_bits,
+                               X.shape[1]).make_jax_fn("jnp")(X))
+    mapped = direct_map._mapped("bnn", dm_bnn_from_arrays(
+        layers, ds.in_bits, X.shape[1]))
+    np.testing.assert_array_equal(mapped.predict(X), want)
+    for backend in ("ref", "cuda", "auto"):
+        got = mapped.torch_predict(backend, device="cpu")(X)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=backend)

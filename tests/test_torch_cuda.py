@@ -146,6 +146,48 @@ def test_cuda_bnn_popcount_matmul_equals_plain(cuda_device, B, n_in, n_out):
                        ref.bnn_popcount_matmul_ref(x, w))
 
 
+# W -> (in_bits, F) of a feature input that packs into W words
+_BNN_FEATURES = {1: (8, 3), 2: (8, 5), 3: (7, 13), 4: (5, 25), 10: (9, 35)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", sorted(_BNN_FEATURES))
+@pytest.mark.parametrize("N", [48, 33])
+def test_cuda_bnn_modes_equal_plain(cuda_device, W, N):
+    """Packed or feature input (prologue) x counts, sign words or scores,
+    bitwise, over 300,001 rows (many persistent strides); W 1-4 take one
+    vector load, W = 10 the run-time chunks; features past in_bits and
+    negative."""
+    dev, B = cuda_device, 300001
+    rng = np.random.default_rng(W * 100 + N)
+    in_bits, F = _BNN_FEATURES[W]
+    w = _t(rng.integers(0, 2**32, (N, W), dtype=np.uint32)).to(dev)
+    feats = _t(rng.integers(-2**31, 2**31, (B, F))).to(dev)
+    packed = _t(rng.integers(0, 2**32, (B, W), dtype=np.uint32)).to(dev)
+    for x, bits, n_in in ((packed, 0, 32 * W - 5),
+                          (feats, in_bits, F * in_bits)):
+        for ep in ("counts", "sign", "score"):
+            got = ops.bnn_popcount_matmul(x, w, bits, ep, n_in)
+            want = torch.cat([
+                ref.bnn_popcount_matmul_ref(x[i:i + 65536], w, bits, ep, n_in)
+                for i in range(0, B, 65536)])
+            assert torch.equal(got, want), (bits, ep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,T", [(5000, 5, 1), (5000, 5, 37),
+                                   (3000, 8, 2000), (2001, 8, 8000),
+                                   (300001, 5, 28)])
+def test_cuda_bucketize_binary_search_equals_plain(cuda_device, B, F, T):
+    """T = 1, T not a power of two, rows past 48 KB (opt-in) and past the
+    shared-memory budget (through L1), many persistent strides; INT32_MAX
+    values against the padding; aligned and at an offset."""
+    vals, thr = _bucketize_case(B + T, B + 1, F, T, int32_max=True)
+    v, t = _t(vals).to(cuda_device), _t(thr).to(cuda_device)
+    for x in (v[:B], v[1:]):
+        assert torch.equal(ops.bucketize(x, t), ref.bucketize_ref(x, t))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model,strategy,kernel,per_predict", [
     ("kmeans", "lb", "lb_lookup", 1), ("svm", "lb", "lb_lookup", 1),

@@ -183,3 +183,83 @@ def test_pack_bits_sets_bit_31_without_overflow():
     np.testing.assert_array_equal(words, [[0x80000000, 0], [0xFFFFFFFF, 0]])
     want = jops.pack_bits_jnp(bits.numpy().astype(np.uint32))
     np.testing.assert_array_equal(words, np.asarray(want))
+
+
+# ------------------------------------- bnn_popcount_matmul's fused modes
+def _jax_pack_input(x, in_bits):
+    """The JAX package's DM-BNN input packing (``DMBnn.make_jax_fn``)."""
+    import jax.numpy as jnp
+
+    shifts = jnp.arange(in_bits, dtype=jnp.int32)
+    bits = ((jnp.asarray(x, jnp.int32)[..., None] >> shifts) & 1).reshape(
+        x.shape[0], -1)
+    return np.asarray(jops.pack_bits_jnp(bits.astype(jnp.uint32)))
+
+
+@pytest.mark.parametrize("in_bits,F", [(1, 5), (3, 7), (8, 5), (13, 5),
+                                       (32, 3)])
+def test_bnn_input_prologue_equals_jax_pack(in_bits, F):
+    """Feature values above 2^in_bits and negative ones keep their low
+    in_bits bits (two's complement) on both sides."""
+    rng = np.random.default_rng(in_bits * 10 + F)
+    x = rng.integers(-2**31, 2**31, (50, F)).astype(np.int32)
+    x[0] = 2**31 - 1
+    x[1] = -1
+    x[2] = 2**in_bits % 2**31  # just past the field
+    want = _jax_pack_input(x, in_bits)
+    words = ref.bnn_pack_input_ref(_t(x), in_bits)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    W = want.shape[1]
+    wp = rng.integers(0, 2**32, (7, W), dtype=np.uint32)
+    got = ops.bnn_popcount_matmul(_t(x), _t(wp), in_bits=in_bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jops.bnn_popcount_matmul(want, wp, backend="jnp")))
+
+
+# n_in -> (in_bits, F) of a feature input with that many bits
+_FEATURES_OF = {1: (1, 1), 40: (8, 5), 100: (10, 10)}
+
+
+@pytest.mark.parametrize("features", [False, True])
+@pytest.mark.parametrize("n_out", [1, 33, 48])
+@pytest.mark.parametrize("n_in", [1, 40, 100])
+def test_bnn_epilogues_equal_jax(n_in, n_out, features):
+    """The hidden epilogue's sign words, the score epilogue and a two-layer
+    forward (input packed, or packed by the prologue) against
+    ``jops.bnn_forward``'s arithmetic."""
+    xb, w1, xp, w1p = _bnn_case(n_in * 100 + n_out, 40, n_in, n_out)
+    _, w2, _, w2p = _bnn_case(n_out + 7, 1, n_out, 3)
+    kw = {}
+    x = _t(xp)
+    if features:
+        in_bits, F = _FEATURES_OF[n_in]
+        rng = np.random.default_rng(n_out)
+        feats = rng.integers(0, 2**in_bits, (40, F)).astype(np.int32)
+        feats[::3] += rng.integers(1, 4, (14, 1)).astype(np.int32) << in_bits
+        xp = _jax_pack_input(feats, in_bits)
+        xb = np.where(np.unpackbits(xp.view(np.uint8), axis=1,
+                                    bitorder="little")[:, :n_in] > 0, 1, -1)
+        x, kw = _t(feats), {"in_bits": in_bits}
+    dot = np.asarray(jops.bnn_forward(xp, [(w1p, n_in)], "jnp"))
+    np.testing.assert_array_equal(dot, xb @ w1.T)
+    signs = np.asarray(jops.pack_bits_jnp((dot >= 0).astype(np.uint32)))
+    got = ops.bnn_popcount_matmul(x, _t(w1p), epilogue="sign", n_in=n_in, **kw)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), signs)
+    got = ops.bnn_popcount_matmul(x, _t(w1p), epilogue="score", n_in=n_in, **kw)
+    np.testing.assert_array_equal(got.numpy(), dot)
+    layers = [(_t(w1p), n_in), (_t(w2p), n_out)]
+    for backend in JAX_BACKENDS:
+        want = np.asarray(jops.bnn_forward(xp, [(w1p, n_in), (w2p, n_out)],
+                                           backend))
+        for plain in (False, True):
+            got = ops.bnn_forward(x, layers, plain=plain,
+                                  in_bits=kw.get("in_bits", 0))
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kw", [{"epilogue": "relu"}, {"in_bits": 33},
+                                {"in_bits": -1}])
+def test_bnn_popcount_matmul_rejects_bad_modes(kw):
+    x = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.bnn_popcount_matmul(x, x, **kw)
