@@ -8,8 +8,9 @@ Phases, in order; the first failure exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, bitwise,
    at the sweep shapes of the kernel tests plus edge cases: ``bucketize``
    at T = 1, T not a power of two, rows past 48 KB and past the shared-
-   memory budget, INT32_MAX values, a view at an offset;
-   ``bnn_popcount_matmul``'s modes (packed or feature input x counts, sign
+   memory budget, INT32_MAX values, a view at an offset, threshold rows
+   in any order (compare-counted); ``lb_lookup`` with codes outside
+   [0, V), which add 0; ``bnn_popcount_matmul``'s modes (packed or feature input x counts, sign
    words or scores) at W 1-4 and 10, N 48 and 33, 600,001 rows;
 3. main path: ``plant`` rf, encode-based, size L on unsw (not gate-sized,
    so ``torch_predict("auto")`` runs ``bucketize`` + ``ternary_match``)
@@ -38,12 +39,14 @@ Phases, in order; the first failure exits non-zero:
    beside their bounds (the ``fused`` list of the kernel's JSON row);
 8. ``paged_attention``: the kernel against its plain version over a grid
    (C 1 and 8, page 8 and 16, H/KV 12/2 and 4/4, bf16 and int8 pools,
-   window 0 and 13, table entries past the pool) within one bf16 ulp of
-   the output's largest magnitude; its rows bitwise invariant to the batch
-   (a slot alone vs in a batch of 16), the chunk (C = 8 vs C = 1 calls) and
-   the physical page order; timed at the serve decode shape (16 slots, 64
-   pages of 16, bf16, every position weighed) beside its plain version and
-   a gather + ``F.scaled_dot_product_attention`` yardstick;
+   window 0 and 13, table entries past the pool, and a row at position -1
+   that sees no key) within one bf16 ulp of the output's largest
+   magnitude; its rows bitwise invariant to the batch (a slot alone vs in
+   a batch of 16), the chunk (C = 8 vs C = 1 calls), the physical page
+   order and other values in the rows past each slot's position; timed at
+   the serve decode shape (16 slots, 64 pages of 16, bf16) with every
+   position weighed and with 256 of 1,024 visible, each beside its plain
+   version and a gather + ``F.scaled_dot_product_attention`` yardstick;
 9. serve: qwen2-1.5b at full width and depth, weights random-init from
    ``--seed`` (default 0), through ``ServeEngine`` + ``ContinuousBatcher``
    over the paged cache (16 slots, cache 1024, page 16) with an rf-S
@@ -62,6 +65,10 @@ Phases, in order; the first failure exits non-zero:
    only where the plain top-2 margin is within 2 delta (the flips and the
    greedy agreement rate are printed, not gated); (c) ``share_prefix``
    streams bitwise equal to unshared ones; (d) one ``kv_int8`` run.
+
+Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
+peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
+printed on the first line beside the card).
 
 Its last three lines are the kernels JSON, the card's ``name, power.limit``
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
@@ -87,10 +94,14 @@ SEED = 0
 BATCH = 1 << 20  # flows per main-path predict
 CHUNK = 1 << 16  # rows per plain-version chunk on the card
 INT32_MAX = np.iinfo(np.int32).max
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s; the 32-bit
-# CUDA-core rate (67 T/s, quoted for float32) stands for int32 operations.
+# H100 SXM published peak (NVIDIA data sheet): HBM3 bytes/s.
 PEAK_BYTES = 3.35e12
-PEAK_INT32_OPS = 67e12
+# int32 operations/s: Hopper has 64 INT32 lanes an SM (half its 128 FP32
+# lanes), so 64 x the SMs x the SM clock nvidia-smi reports as its maximum;
+# ``main`` sets it from the card (16.7e12 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, whose clocks.max.sm is 1980 MHz).
+INT32_LANES_PER_SM = 64
+PEAK_INT32_OPS = 0.0
 SOURCE = "src/repro_torch/kernels/csrc/eb_kernels.cu"
 LB_DM_SOURCE = "src/repro_torch/kernels/csrc/lb_dm_kernels.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
@@ -105,6 +116,19 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:107",
 }
 LB_MODELS = ("svm", "nb", "kmeans", "pca", "ae")
+
+
+def peak_int32_ops(dev) -> float:
+    """INT32_LANES_PER_SM x the card's SMs x ``clocks.max.sm`` (Hz)."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=30).stdout
+    mhz = float(out.splitlines()[0].strip())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
 
 
 def fail(msg: str) -> None:
@@ -139,6 +163,8 @@ def rand_rows(rng, N, W, n_keys):
 
 
 def check_kernels(dev) -> int:
+    from test_torch_cuda import _lb_out_of_range_case, _unsorted_bucketize_case
+
     from repro_torch.core.tables import key_layout
     from repro_torch.kernels import ops, ref
 
@@ -164,6 +190,14 @@ def check_kernels(dev) -> int:
             same(f"bucketize {B}x{F}x{T}{name}", ops.bucketize(v, t),
                  chunked(lambda c: ref.bucketize_ref(c, t), v))
             n += 1
+    # bucketize on rows in any order (compare-counted): [5, 3, INT32_MAX],
+    # a reversed row, ties; rows in shared memory and through L1
+    for B, T in ((1000, 3), (300001, 28), (5000, 8000)):
+        vals, thr = _unsorted_bucketize_case(T, B, T)
+        v, t = i32(vals, dev), i32(thr, dev)
+        same(f"bucketize {B}x{thr.shape[0]}x{T}, rows in any order",
+             ops.bucketize(v, t), chunked(lambda c: ref.bucketize_ref(c, t), v))
+        n += 1
     # ternary_match: test sweep, W = 3 and 5 (run-time word count), N
     # beyond one shared-memory tile and not a multiple of any tile, B = 1
     for B, N, W in ((1, 1, 1), (64, 100, 1), (200, 700, 2), (33, 513, 3),
@@ -226,6 +260,13 @@ def check_kernels(dev) -> int:
         luts = i32(rng.integers(-(2**15), 2**15, (F, V, K)), dev)
         same(f"lb_lookup {B}x{F}x{V}x{K}", ops.lb_lookup(codes, luts),
              ref.lb_lookup_ref(codes, luts))
+        n += 1
+    # lb_lookup: codes outside [0, V) add 0, LUT in shared memory and not
+    for B, F, V, K in ((100, 5, 64, 6), (3000, 8, 256, 16), (2049, 5, 256, 3)):
+        codes, luts = (i32(a, dev)
+                       for a in _lb_out_of_range_case(B, B, F, V, K))
+        same(f"lb_lookup {B}x{F}x{V}x{K}, codes outside [0, V)",
+             ops.lb_lookup(codes, luts), ref.lb_lookup_ref(codes, luts))
         n += 1
     # bnn_popcount_matmul: the JAX sweep (n_in bits -> words), words with
     # bit 31 set, and a batch of many tiles
@@ -724,7 +765,9 @@ def pa_err_ulps(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_paged_attention(dev) -> str:
-    """Kernel vs plain over the case grid, then the three invariances."""
+    """Kernel vs plain over the case grid, then the four invariances."""
+    from test_torch_cuda import _overwrite_past as overwrite_past
+
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(7)
@@ -745,6 +788,16 @@ def check_paged_attention(dev) -> str:
                             ref.paged_attention_ref(q, k, v, tbl, pos, window,
                                                     ks, vs)))
                         n += 1
+    # a row at position -1 sees no key: the oracle's full-axis softmax
+    for C in (1, 8):
+        q, k, v, tbl, pos, ks, vs = pa_case(rng, dev, 3, C, 12, 2, 128, 16, 6,
+                                            False)
+        pos[0] = torch.arange(-1, C - 1, dtype=torch.int32, device=dev)
+        worst = max(worst, pa_err_ulps(
+            f"paged_attention C={C} with a row at position -1",
+            ops.paged_attention(q, k, v, tbl, pos, 13),
+            ref.paged_attention_ref(q, k, v, tbl, pos, 13)))
+        n += 1
     # the invariances, bitwise, at the serve decode shape
     B, H, KV, hd, page, n_ps = 16, 12, 2, 128, 16, 64
     q, k, v, tbl, pos, _, _ = pa_case(rng, dev, B, 1, H, KV, hd, page, n_ps,
@@ -770,52 +823,92 @@ def check_paged_attention(dev) -> str:
     tbl2 = perm[tbl.clamp(0, k.shape[0] - 1).long()].to(torch.int32)
     same("paged_attention under permuted physical pages",
          ops.paged_attention(q, k2, v2, tbl2, pos, 0), full)
+    # rows past each slot's position are never read: other values there
+    # change nothing (decode; the chunk with a window; int8 pools)
+    k3, v3 = overwrite_past(1, tbl, pos, k, v)
+    same("paged_attention with the rows past each position overwritten",
+         ops.paged_attention(q, k3, v3, tbl, pos, 0), full)
+    k3, v3 = overwrite_past(2, tbl8, pos8, k8, v8)
+    same("paged_attention chunk with the rows past each position "
+         "overwritten", ops.paged_attention(q8, k3, v3, tbl8, pos8, 13),
+         chunk)
+    qi, ki, vi, tbli, posi, ksi, vsi = pa_case(rng, dev, 4, 8, H, KV, hd,
+                                               page, n_ps, True)
+    want = ops.paged_attention(qi, ki, vi, tbli, posi, 0, ksi, vsi)
+    pools = overwrite_past(3, tbli, posi, ki, vi, ksi, vsi)
+    same("paged_attention int8 with the rows past each position "
+         "overwritten", ops.paged_attention(qi, *pools[:2], tbli, posi, 0,
+                                            *pools[2:]), want)
     torch.cuda.synchronize(dev)
-    return (f"{n} grid cases within one bf16 ulp of the output's largest "
-            f"magnitude (worst {worst:.2f} ulp); rows bitwise invariant to "
-            f"B (3 slots alone vs in a batch of {B}), C (8 rows vs C = 1) "
-            f"and the physical page order")
+    return (f"{n} grid cases (2 with a row at position -1) within one bf16 "
+            f"ulp of the output's largest magnitude (worst {worst:.2f} ulp); "
+            f"rows bitwise invariant to B (3 slots alone vs in a batch of "
+            f"{B}), C (8 rows vs C = 1), the physical page order, and the "
+            f"rows past each position (3 cases)")
+
+
+PA_VISIBLE = 256  # positions each slot sees in the second timing
 
 
 def paged_attention_row(dev):
     """Time the kernel at the serve decode shape (16 slots, 64 pages of
-    16, bf16 pools, every slot at the end of its table, so every K and V
-    row is weighed): the kernel, its plain version, and gather + SDPA."""
+    16, bf16 pools) twice: every slot at the end of its table, so every K
+    and V row is weighed (where skipping cannot help); and every slot at
+    position PA_VISIBLE - 1 (the serve cell's range), where the kernel
+    reads a quarter of the rows.  Each beside its plain version and a
+    gather + ``F.scaled_dot_product_attention`` yardstick (at the second,
+    of the pages up to the position)."""
+    B, C, H, KV, hd, page, n_ps = 16, 1, 12, 2, 128, 16, 64
+    S = n_ps * page
+    rng = np.random.default_rng(SEED)
+    q, k, v, tbl, _, _, _ = pa_case(rng, dev, B, C, H, KV, hd, page, n_ps,
+                                    False, past=False)
+    full = pa_timing(q, k, v, tbl, S, dev)
+    row = {"name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
+           "replaces": REPLACES["paged_attention"], "launches": None,
+           "bitwise": False, **full}
+    row["skip"] = pa_timing(q, k, v, tbl, PA_VISIBLE, dev)
+    return row
+
+
+def pa_timing(q, k, v, tbl, visible: int, dev) -> Dict[str, Any]:
+    """The kernel, its plain version and gather + SDPA with every slot at
+    position ``visible - 1``, timed; the bound from the rows it must read."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import paged_attention_hbm_bytes
     from repro_torch.nn.attn_backend import position_mask, repeat_kv
 
-    B, C, H, KV, hd, page, n_ps = 16, 1, 12, 2, 128, 16, 64
-    S = n_ps * page
-    rng = np.random.default_rng(SEED)
-    q, k, v, tbl, _, _, _ = pa_case(rng, dev, B, C, H, KV, hd, page, n_ps,
-                                    False, past=False)
-    pos = torch.full((B, C), S - 1, dtype=torch.int32, device=dev)
+    B, C, H, hd = q.shape
+    N, page, KV, _ = k.shape
+    n_ps = tbl.shape[1]
+    pos = torch.full((B, C), visible - 1, dtype=torch.int32, device=dev)
     args = (q, k, v, tbl, pos, 0)
     got, want = ops.paged_attention(*args), ref.paged_attention_ref(*args)
-    pa_err_ulps("paged_attention at the serve decode shape", got, want)
+    pa_err_ulps(f"paged_attention at the serve decode shape, {visible} "
+                f"positions visible", got, want)
     err = (got.float() - want.float()).abs().max().item()
-    gtbl = tbl.long()
+    n_pg = -(-visible // page)  # the pages up to the position
+    gtbl = tbl[:, :n_pg].long()
+    S_lib = n_pg * page
 
     def library():
-        kf = repeat_kv(k[gtbl].reshape(B, S, KV, hd), H).transpose(1, 2)
-        vf = repeat_kv(v[gtbl].reshape(B, S, KV, hd), H).transpose(1, 2)
-        mask = position_mask(pos, torch.arange(S, device=dev)[None], 0,
+        kf = repeat_kv(k[gtbl].reshape(B, S_lib, KV, hd), H).transpose(1, 2)
+        vf = repeat_kv(v[gtbl].reshape(B, S_lib, KV, hd), H).transpose(1, 2)
+        mask = position_mask(pos, torch.arange(S_lib, device=dev)[None], 0,
                              True)[:, None].to(q.dtype)
         return F.scaled_dot_product_attention(q.transpose(1, 2), kf, vf,
                                               attn_mask=mask).transpose(1, 2)
 
-    n_bytes = paged_attention_hbm_bytes(B, C, H, KV, hd, n_ps, page,
-                                        pool_bytes=2, quantized=False,
-                                        act_bytes=2)
+    n_bytes = paged_attention_hbm_bytes(
+        B, C, H, KV, hd, n_ps, page, pool_bytes=k.element_size(),
+        quantized=False, act_bytes=q.element_size(),
+        positions=pos.cpu().numpy(), window=0)
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = 4 * B * C * H * hd * S / PEAK_BF16_FLOPS * 1e3  # q.k and P.V
+    t_ops = 4 * B * C * H * hd * visible / PEAK_BF16_FLOPS * 1e3  # qk, PV
     return {
-        "name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
-        "replaces": REPLACES["paged_attention"], "launches": None,
-        "bitwise": False, "max_abs_err": err,
+        "max_abs_err": err,
         "ms": time_ms(lambda: ops.paged_attention(*args)),
         "device_ms": device_ms(lambda: ops.paged_attention(*args)),
         "plain_ms": time_ms(lambda: ref.paged_attention_ref(*args)),
@@ -826,7 +919,7 @@ def paged_attention_row(dev):
         "library_max_abs_err": (library().float() - want.float()).abs().max()
         .item(),
         "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd, "page": page,
-                  "n_ps": n_ps, "bytes": n_bytes},
+                  "n_ps": n_ps, "visible": visible, "bytes": n_bytes},
     }
 
 
@@ -1149,6 +1242,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))  # the card tests' input makers
     try:
         from repro_torch import card_info, resolve_device
         from repro_torch.kernels import _build
@@ -1159,7 +1253,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = ", ".join(card_info())
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    global PEAK_INT32_OPS
+    PEAK_INT32_OPS = peak_int32_ops(dev)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}; "
+          f"int32 peak {PEAK_INT32_OPS:.4e} ops/s ({INT32_LANES_PER_SM} "
+          f"lanes x {torch.cuda.get_device_properties(dev).multi_processor_count}"
+          f" SMs x clocks.max.sm)")
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -1229,10 +1328,12 @@ def main() -> None:
 
     print(f"[8 paged_attention] {check_paged_attention(dev)}")
     pa_row = paged_attention_row(dev)
-    print(f"[8 paged_attention timing] decode shape {pa_row['shape']}: "
-          f"kernel {pa_row['ms']:.4f} ms, plain {pa_row['plain_ms']:.4f} ms, "
-          f"gather + SDPA {pa_row['library_ms']:.4f} ms, bound "
-          f"{pa_row['bound_ms']:.4f} ms ({pa_row['bound_by']}) ({card})")
+    for t in (pa_row, pa_row["skip"]):
+        print(f"[8 paged_attention timing] decode shape {t['shape']}: "
+              f"kernel {t['ms']:.4f} ms (device {t['device_ms']}), plain "
+              f"{t['plain_ms']:.4f} ms, gather + SDPA {t['library_ms']:.4f} "
+              f"ms (device {t['library_device_ms']}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) ({card})")
     serve = drive_serve(dev, args.seed)
     cfg = serve.cfg
     print(f"[9 serve] qwen2-1.5b at full width and depth ({cfg.n_layers} "

@@ -62,8 +62,9 @@ def _unsorted_rows(rows: Sequence[np.ndarray]) -> List[int]:
 
 
 def _thresholds_matrix(ftables: Sequence[FeatureTable]) -> np.ndarray:
-    """[F, T] int32 padded with INT32_MAX for the bucketize kernel, whose
-    binary search needs every row non-decreasing: checked here, once."""
+    """[F, T] int32 padded with INT32_MAX for the bucketize kernel, which
+    binary-searches non-decreasing rows (it compare-counts any other, more
+    slowly): every row is checked sorted here, once."""
     T = max(1, max(len(ft.thresholds) for ft in ftables))
     out = np.full((len(ftables), T), INT32_MAX, np.int32)
     for f, ft in enumerate(ftables):

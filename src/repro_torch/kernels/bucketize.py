@@ -4,20 +4,21 @@ Replaces ``bucketize_pallas`` (``src/repro/kernels/bucketize.py``), which
 held a batch tile and the whole ``[F, T]`` threshold matrix in VMEM and
 compare-counted on the VPU.
 
-Precondition: every threshold row is non-decreasing, as every matrix the
-EB mappers make is (sorted thresholds, INT32_MAX padding at the end;
-``encode_based._thresholds_matrix`` and ``eb_ensemble_from_arrays`` check
-it once on the host).  The count of thresholds ``<= v`` is then the
-``upper_bound`` of v in its row, over all ``T`` columns, the INT32_MAX
-padding included, so ``v == INT32_MAX`` gives the oracle's count.
+Contract, on both devices, for any row: ``codes[b, f] = #{t : thr[f, t]
+<= v[b, f]}`` over all ``T`` columns, the INT32_MAX padding included, so
+``v == INT32_MAX`` gives the oracle's count.  On a non-decreasing row (every
+row the EB mappers make) that count is the ``upper_bound`` of v, which
+the kernel binary-searches; each block marks the rows that decrease
+somewhere while it stages them, and compare-counts those.
 
 On the H100 the work is ``B*F*log2(T)`` compares over ``B*F*4`` bytes in
 and out: bound by device-memory bytes.  Design: a persistent grid whose
 blocks stage the rows once in shared memory (opting in past 48 KB; past
 96 KB read through L1); each thread takes 4 consecutive flat elements with
 one 16-byte load and store (element by element at an unaligned view or
-the last partial quad), runs four interleaved branchless binary searches,
-and advances its feature index by the grid stride instead of a modulo.
+the last partial quad), runs four interleaved branchless binary searches
+(a compare-count on a marked row), and advances its feature index by the
+grid stride instead of a modulo.  No host check and no sync.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ launches = 0  # kernel launches; the main-path check reads and resets it
 
 
 def bucketize(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
-    """values [B, F] int32, thresholds [F, T] int32 with non-decreasing rows
-    -> codes [B, F] int32."""
+    """values [B, F] int32, thresholds [F, T] int32 (any order) -> codes
+    [B, F] int32."""
     global launches
     if values.device.type == "cpu":
         return bucketize_ref(values, thresholds)

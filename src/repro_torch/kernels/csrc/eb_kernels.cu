@@ -8,13 +8,11 @@
 //
 // Integer contract (bitwise with the plain versions in ../ref.py):
 //   codes[b, f] = #{t : thr[f, t] <= v[b, f]} over ALL T columns, the
-//                 INT32_MAX padding included (so v == INT32_MAX counts it).
-//                 Precondition of bucketize: every row thr[f, :] is
-//                 non-decreasing (the EB mappers sort the thresholds and pad
-//                 the rows at the end; encode_based._thresholds_matrix and
-//                 eb_ensemble_from_arrays check it on the host).  Its binary
-//                 search then gives exactly that count; fused_eb counts
-//                 every column and needs no order;
+//                 INT32_MAX padding included (so v == INT32_MAX counts it),
+//                 for any row.  bucketize binary-searches the rows that are
+//                 non-decreasing (every row the EB mappers make) and
+//                 compare-counts the others, which each block finds while
+//                 it stages the rows; fused_eb counts every column;
 //   match: best = max over rows n with (key & m[n]) == v[n] in every word
 //          of pa[n] = prio * 256 + action, starting at -1; the result is
 //          best & 255 when best >= 0, else the default action.
@@ -23,10 +21,14 @@
 // bucketize is bound on this card by device-memory bytes (B*F int32 in and
 // out) once its work is log2(T) compares an element: a persistent grid
 // stages the [F, T] rows once per block in shared memory (opting in past
-// 48 KB, read through L1 past kThrSmemMaxBytes), each thread takes 4
-// consecutive flat elements with one 16-byte load and store, and runs four
-// interleaved branchless upper_bound searches, its feature index advanced
-// by the grid stride rather than taken modulo F.
+// 48 KB, read through L1 past kThrSmemMaxBytes) and, in one pass over the
+// staged F x T, marks each row that decreases somewhere in a bit of shared
+// memory.  Each thread takes 4 consecutive flat elements with one 16-byte
+// load and store, and runs four interleaved branchless upper_bound
+// searches, its feature index advanced by the grid stride rather than
+// taken modulo F; an element of a marked row is compare-counted over all T
+// columns instead, and a block that marked none skips that check.  No host
+// check, no sync.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,14 +83,29 @@ __global__ void __launch_bounds__(kThreads)
     bucketize_kernel(const int32_t* __restrict__ values,
                      const int32_t* __restrict__ thr, int32_t* __restrict__ out,
                      long long total, int F, int T, int thr_in_smem) {
-  extern __shared__ __align__(16) int32_t s_thr[];
-  const int32_t* rows = thr;
-  if (thr_in_smem) {
-    const int n = F * T;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_thr[i] = thr[i];
-    __syncthreads();
-    rows = s_thr;
+  extern __shared__ __align__(16) int32_t bk_smem[];
+  // [ceil(F/32)] bit f: row f decreases somewhere; then the staged rows
+  uint32_t* s_unsorted = reinterpret_cast<uint32_t*>(bk_smem);
+  const int n_flag = (F + 31) / 32;
+  int32_t* s_thr = bk_smem + ((n_flag + 3) & ~3);  // 16-byte aligned
+  __shared__ int s_any;  // some row decreases somewhere
+  const int n_thr = F * T;
+  if (threadIdx.x == 0) s_any = 0;
+  for (int i = threadIdx.x; i < n_flag; i += blockDim.x) s_unsorted[i] = 0u;
+  if (thr_in_smem)
+    for (int i = threadIdx.x; i < n_thr; i += blockDim.x) s_thr[i] = thr[i];
+  __syncthreads();
+  const int32_t* rows = thr_in_smem ? s_thr : thr;
+  // one pass over F x T: a column below its left neighbour marks its row
+  for (int i = threadIdx.x; i < n_thr; i += blockDim.x) {
+    const int t = i % T;
+    if (t > 0 && rows[i] < rows[i - 1]) {
+      atomicOr(&s_unsorted[i / T / 32], 1u << (i / T % 32));
+      s_any = 1;
+    }
   }
+  __syncthreads();
+  const bool any_unsorted = s_any != 0;  // uniform: sorted rows skip marks
   const long long n_quads = (total + 3) / 4;
   const long long q0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -105,9 +122,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < 4; ++k) v[k] = e0 + k < total ? values[e0 + k] : 0;
     }
-    int row[4], base[4];
+    int row[4], base[4], feat[4];
 #pragma unroll
     for (int k = 0, fk = f; k < 4; ++k) {
+      feat[k] = fk;
       row[k] = base[k] = fk * T;
       if (++fk == F) fk = 0;
     }
@@ -121,8 +139,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     int c[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int k = 0; k < 4; ++k) {
       c[k] = base[k] - row[k] + (rows[base[k]] <= v[k] ? 1 : 0);
+      if (any_unsorted && (s_unsorted[feat[k] / 32] >> (feat[k] % 32) & 1u)) {
+        c[k] = 0;
+        for (int t = 0; t < T; ++t) c[k] += rows[row[k] + t] <= v[k] ? 1 : 0;
+      }
+    }
     if (VEC && full) {
       *reinterpret_cast<int4*>(out + e0) = make_int4(c[0], c[1], c[2], c[3]);
     } else {
@@ -285,18 +308,22 @@ __global__ void fused_eb_kernel(const int32_t* __restrict__ values,
 }
 
 // The rows go to shared memory up to kThrSmemMaxBytes (opting in past
-// 48 KB), else the kernel reads them through L1.
+// 48 KB), else the kernel reads them through L1; the row marks (one bit a
+// row, padded to 16 bytes) always sit in shared memory.
 template <bool VEC>
 int launch_bucketize(const int32_t* values, const int32_t* thr, int32_t* out,
                      long long total, int F, int T, cudaStream_t s) {
   constexpr auto kernel = bucketize_kernel<VEC>;
   const long long thr_bytes = (long long)F * T * 4;
+  const long long flag_bytes = 16LL * ((F + 127) / 128);
   int dev = 0, optin = kSmemBytes;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (flag_bytes > optin || thr_bytes > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   const int thr_in_smem =
-      thr_bytes <= kThrSmemMaxBytes && thr_bytes <= optin ? 1 : 0;
-  const size_t smem = thr_in_smem ? (size_t)thr_bytes : 0;
+      thr_bytes <= kThrSmemMaxBytes && flag_bytes + thr_bytes <= optin ? 1 : 0;
+  const size_t smem = (size_t)flag_bytes + (thr_in_smem ? (size_t)thr_bytes : 0);
   if (smem > (size_t)kSmemBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -10,8 +10,10 @@
 // Integer contract (bitwise with the plain versions in ../ref.py):
 //   lb_lookup:  out[b, k] = sum_f luts[f, codes[b, f], k], summed in 32 bits
 //               with two's-complement wrap (the plain version sums in int64
-//               and casts back to int32, which wraps the same way); codes
-//               lie in [0, V) (the LB predictor clips first).
+//               and casts back to int32, which wraps the same way).  A
+//               code outside [0, V) adds 0, as in the Pallas kernel's
+//               one-hot product: a predicate on the load, never a read
+//               outside the LUT (the LB predictor clips its codes first).
 //   bnn:        counts[b, n] = sum_w popcount(~(x[b, w] ^ w[n, w])) over
 //               every word as it is: pad bits (zero in x and in w) count as
 //               matches.  Two modes of the same kernel fuse the layer's
@@ -121,8 +123,11 @@ __global__ void lb_lookup_kernel(const int32_t* __restrict__ codes,
     for (int i = threadIdx.x; i < rows * K; i += blockDim.x) {
       const int r = i / K, k = i - r * K;
       uint32_t acc = 0u;  // unsigned: the wrap is defined
-      for (int f = 0; f < F; ++f)
-        acc += (uint32_t)lut[(f * V + s_codes[r * F + f]) * K + k];
+      for (int f = 0; f < F; ++f) {
+        const int code = s_codes[r * F + f];
+        if ((unsigned)code < (unsigned)V)  // else the code adds 0
+          acc += (uint32_t)lut[(f * V + code) * K + k];
+      }
       out[r0 * K + i] = (int32_t)acc;
     }
   }

@@ -11,8 +11,10 @@ bytes.  Design: an int32 gather-accumulate, exact at every
 ``action_bits``; a block stages the ``[F, V, K]`` LUT in shared memory
 while it fits beside the codes tile (48 KB), else reads it through the
 cache, walks tiles of batch rows, loads each tile's codes coalesced, and
-has consecutive threads store consecutive ``(b, k)`` sums.  Contract:
-codes lie in ``[0, V)`` (the LB predictor clips first).
+has consecutive threads store consecutive ``(b, k)`` sums.  A code
+outside ``[0, V)`` adds 0 on both devices, as in the Pallas kernel's
+one-hot product (a predicate on the load; the LB predictor clips its
+codes first, so its path never meets one).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ launches = 0  # kernel launches; the main-path check reads and resets it
 
 
 def lb_lookup(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
-    """codes [B, F] int32 in [0, V), luts [F, V, K] int32 -> sums [B, K] int32."""
+    """codes [B, F] int32, luts [F, V, K] int32 -> sums [B, K] int32; a
+    code outside [0, V) adds 0."""
     global launches
     if codes.device.type == "cpu":
         return lb_lookup_ref(codes, luts)

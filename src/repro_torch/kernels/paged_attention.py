@@ -4,14 +4,18 @@ Replaces ``paged_attention`` (``src/repro/kernels/paged_attention.py:107``),
 which staged the whole batch's logical K/V view in VMEM and attended once,
 at the last step of a sequential grid, with the jnp oracle's op sequence.
 
-On the H100 the work is bound by device-memory bytes (decode reads each K
-and V row once, for about 4 flops a byte; ``paged_attention_hbm_bytes``).  Design
-(``csrc/paged_attention.cu``): one block per ``(b, c, kv_head)`` walks the
-slot's block table itself, scores its GQA group's query heads against
-every logical position in float32 with the oracle's roundings, keeps the
-row's scores in shared memory, runs a full-axis softmax and takes the
-product with V.  Every sum runs in an order fixed by the logical position,
-so a row's result is bitwise the same whatever B, C or the page order.
+On the H100 the work is bound by device-memory bytes (decode reads each
+visible K and V row once, for about 4 flops a byte;
+``paged_attention_hbm_bytes``).  Design (``csrc/paged_attention.cu``): a
+cluster of 8 blocks per ``(b, kv_head)`` splits the slot's logical
+positions into fixed ranges; each block loads, with coalesced 16-byte
+copies, only the K/V rows of its range that some query row of the slot
+can see, scores all C x G query rows of the slot against them with the
+oracle's roundings, and the ranks take one full-axis softmax and P.V
+together through distributed shared memory, every cross-rank sum in rank
+order.  Every sum's order is fixed by S and hd, so a row's result
+is bitwise the same whatever B, C or the page order, and whatever the
+rows no query can see hold.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from . import _build
 from ._launch import require, stream_ptr
 from .ref import paged_attention_ref
 
-__all__ = ["paged_attention", "paged_attention_hbm_bytes"]
+__all__ = ["paged_attention", "paged_attention_hbm_bytes", "visible_rows"]
 
 launches = 0  # kernel launches; the main-path check reads and resets it
 
@@ -34,21 +38,38 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+def visible_rows(positions, window: int, S: int) -> np.ndarray:
+    """K/V rows each slot's launch reads: the length of ``[min over the
+    slot's rows of max(0, pos - window + 1), max over them of pos]``
+    within ``[0, S)``; a row that sees no position (pos < 0, or past S
+    with a window) makes it the whole axis.  ``positions`` [B, C]."""
+    pos = np.asarray(positions, np.int64)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros_like(pos)
+    hi = np.minimum(pos, S - 1)
+    blind = lo > hi
+    lo, hi = np.where(blind, 0, lo), np.where(blind, S - 1, hi)
+    return hi.max(axis=1) - lo.min(axis=1) + 1
+
+
 def paged_attention_hbm_bytes(B: int, C: int, H: int, KV: int, hd: int,
                               n_ps: int, page: int, *, pool_bytes: int,
-                              quantized: bool, act_bytes: int) -> int:
+                              quantized: bool, act_bytes: int,
+                              positions=None, window: int = 0) -> int:
     """Device-memory bytes one launch of this kernel moves.
 
-    Each block walks every logical page of its slot's table row, so a
-    launch reads every mapped K and V page of every slot once (with their
-    float32 scale planes when quantized), whatever the positions; the C
-    blocks of one slot read the same rows, the later ones from L2.  Plus
-    q read and the output written once, the block table and the
-    positions.  Where every position of every slot is weighed (each slot
-    at the end of its table, no two slots sharing a page) this is also
+    The K and V rows of each slot's visible range (``visible_rows`` of
+    ``positions`` and ``window``; with no positions, every position of
+    every slot, as when each slot is at the end of its table), once each
+    for all its query rows, with their float32 scale planes when
+    quantized; plus q read and the output written once, the block table
+    and the positions.  No two slots share a page here, so this is also
     the least any kernel must move.
     """
-    cells = B * n_ps * page * KV
+    if positions is None:
+        rows = B * n_ps * page
+    else:
+        rows = int(visible_rows(positions, window, n_ps * page).sum())
+    cells = rows * KV
     kv_bytes = 2 * cells * hd * pool_bytes
     scale_bytes = 2 * cells * 4 if quantized else 0
     q_out = 2 * B * C * H * hd * act_bytes
@@ -110,10 +131,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"shapes: q {(B, C, H, hd)}, pools {tuple(k_pages.shape)}, "
             f"block_tbl {tuple(block_tbl.shape)}, positions "
             f"{tuple(positions.shape)}")
-    if H // KV > MAX_GROUP or hd > THREADS:
+    if H // KV > MAX_GROUP or hd > THREADS or hd % 8:
         raise ValueError(f"the kernel takes at most {MAX_GROUP} query heads "
-                         f"per KV head and head_dim <= {THREADS}; got "
-                         f"H/KV = {H // KV}, hd = {hd}")
+                         f"per KV head and a head_dim that is a multiple of "
+                         f"8 up to {THREADS}; got H/KV = {H // KV}, hd = {hd}")
     out = torch.empty_like(q)
     lib = _build.load("paged_attention")
     err = lib.paged_attention(
@@ -124,8 +145,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         B, C, H, KV, hd, N, page, n_ps, int(window),
         float(np.float32(np.sqrt(hd))), _Q_DTYPES[q.dtype],
         _POOL_DTYPES[k_pages.dtype], stream_ptr(dev))
-    # a refused launch: past the card's shared memory for the [G, S] scores
+    # a refused launch: a rank's [C*G, S/8] scores past shared memory
     _build.check(lib, err, f"paged_attention (S = {n_ps * page} positions, "
-                 f"{H // KV} heads a group)")
+                 f"{C} x {H // KV} query rows a slot)")
     launches += 1
     return out

@@ -83,13 +83,18 @@ def fused_eb_ref(values: torch.Tensor, thresholds: torch.Tensor,
 def lb_lookup_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """out[b, k] = sum_f luts[f, codes[b, f], k].  codes [B, F]; luts [F, V, K].
 
-    The sum runs in int64 and is cast back to int32, which wraps as the
-    JAX package's int32 sum does.
+    A code outside ``[0, V)`` adds 0, as in the JAX package's Pallas
+    kernel (a one-hot product); its jnp oracle differs there (it wraps
+    ``[-V, -1]`` and fills INT32_MIN further out).  The sum runs in int64
+    and is cast back to int32, which wraps as the JAX package's int32 sum
+    does.
     """
-    F = luts.shape[0]
+    F, V = luts.shape[0], luts.shape[1]
     f_idx = torch.arange(F, device=codes.device)[None, :]
-    gathered = luts[f_idx, codes.long()]  # [B, F, K]
-    return gathered.sum(dim=1).to(torch.int32)
+    valid = (codes >= 0) & (codes < V)
+    gathered = luts[f_idx, codes.long().clamp(0, V - 1)]  # [B, F, K]
+    gathered = torch.where(valid[..., None], gathered, 0)
+    return gathered.sum(dim=1, dtype=torch.int64).to(torch.int32)
 
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F

@@ -25,11 +25,12 @@ from repro.nn import attention as JA  # noqa: E402
 from repro.nn import attn_backend as JAB  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention_hbm_bytes)
+    paged_attention_hbm_bytes, visible_rows)
 from repro_torch.kernels.ref import paged_attention_ref  # noqa: E402
 from repro_torch.nn import attention as TA  # noqa: E402
 from repro_torch.nn import attn_backend as TAB  # noqa: E402
 from repro_torch.nn.common import rope_cos_sin  # noqa: E402
+from test_torch_cuda import _overwrite_past  # noqa: E402
 
 _JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 _TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -284,3 +285,55 @@ def test_paged_attention_byte_model(quantized, C):
     assert kv == (8_388_608 if quantized else 16_777_216)
     assert got == (kv + (2 * 16 * 64 * 16 * 2 * 4 if quantized else 0)
                    + 2 * 16 * C * 12 * 128 * 2 + (16 * 64 + 16 * C) * 4)
+
+
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("window", [0, 13])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_plain_paged_attention_ignores_rows_past_each_position(C, window,
+                                                               dtype):
+    """What the kernel's page skipping relies on: the plain version (the
+    oracle's op sequence) is bitwise unchanged when every K/V row past each
+    slot's largest position holds other finite values.  Each such row's
+    score is masked to -2^30, so it adds exp(-2^30 + x - max) = +0.0."""
+    quantized = dtype == "int8"
+    q, k, v, ks, vs, tbl, pos = _case(C * 7 + window, 3, C, 4, 2, 16, 8, 6,
+                                      dtype, quantized, past=True)
+    pos = pos - pos[:, :1] + np.array([[0], [9], [30]], np.int32)
+    qdt = torch.bfloat16
+    pool_dt = torch.int8 if quantized else torch.bfloat16
+    args = [torch.as_tensor(k).to(pool_dt), torch.as_tensor(v).to(pool_dt)]
+    if quantized:
+        args += [torch.as_tensor(ks), torch.as_tensor(vs)]
+    qt, tt, pt = (torch.as_tensor(q).to(qdt), torch.as_tensor(tbl),
+                  torch.as_tensor(pos))
+
+    def attend(pools):
+        k_, v_, *sc = pools
+        return paged_attention_ref(qt, k_, v_, tt, pt, window,
+                                   *(sc or [None, None]))
+
+    want = attend(args)
+    changed = _overwrite_past(C, tt, pt, *args)
+    assert not torch.equal(changed[0], args[0])
+    assert torch.equal(attend(changed), want)
+
+
+def test_paged_attention_byte_model_counts_visible_rows():
+    """With positions, the kernel's bytes are each slot's visible range of
+    K/V rows (a slot with a row that sees nothing reads the whole axis)."""
+    S = 4 * 16
+    pos = np.array([[0, 1], [9, 10], [-1, 30], [63, 70]])
+    np.testing.assert_array_equal(visible_rows(pos, 0, S), [2, 11, S, 64])
+    # with a window, position 70 sees nothing in [0, 64): the whole axis
+    np.testing.assert_array_equal(visible_rows(pos, 5, S), [2, 6, S, S])
+    kw = dict(B=4, C=2, H=4, KV=2, hd=8, n_ps=4, page=16, act_bytes=2)
+    full = paged_attention_hbm_bytes(pool_bytes=2, quantized=False, **kw)
+    got = paged_attention_hbm_bytes(pool_bytes=2, quantized=False,
+                                    positions=pos, window=5, **kw)
+    rows = 2 + 6 + S + S
+    assert full - got == 2 * (4 * S - rows) * 2 * 8 * 2
+    i8 = paged_attention_hbm_bytes(pool_bytes=1, quantized=True,
+                                   positions=pos, window=5, **kw)
+    assert i8 == rows * 2 * (2 * 8 + 2 * 4) + 2 * 4 * 2 * 4 * 8 * 2 + (
+        4 * 4 + 4 * 2) * 4

@@ -34,6 +34,38 @@ def _bucketize_case(seed, B, F, T, int32_max=False):
     return vals, thr
 
 
+def _unsorted_bucketize_case(seed, B, T):
+    """Values against threshold rows in any order: ``[5, 3, INT32_MAX]``
+    (T = 3), a reversed sorted row, a sorted row and a row with ties
+    (the rows a binary search alone would get wrong, beside one it gets
+    right); values on and between the thresholds, INT32_MAX and below
+    zero."""
+    rng = np.random.default_rng(seed)
+    sorted_row = np.sort(rng.integers(0, 50, T))
+    rows = [sorted_row[::-1], sorted_row, rng.integers(0, 4, T)]
+    if T == 3:
+        rows.insert(0, np.array([5, 3, INT32_MAX]))
+    thr = np.stack(rows).astype(np.int32)
+    vals = rng.integers(-2, 55, (B, len(rows))).astype(np.int32)
+    vals[::5] = thr[:, rng.integers(0, T)]  # on a threshold
+    vals[1::7] = INT32_MAX
+    return vals, thr
+
+
+def _lb_out_of_range_case(seed, B, F, V, K):
+    """Codes outside ``[0, V)`` (-V-1, -1, V, INT32_MAX, INT32_MIN) mixed
+    with valid ones; LUT values small enough for the Pallas kernel's
+    float32 product to be exact."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, V, (B, F)).astype(np.int64)
+    bad = np.array([-V - 1, -1, V, INT32_MAX, np.iinfo(np.int32).min])
+    hit = rng.random((B, F)) < 0.4
+    codes[hit] = bad[rng.integers(0, len(bad), int(hit.sum()))]
+    codes[0] = bad[np.arange(F) % len(bad)]  # a row of bad codes only
+    luts = rng.integers(-2**15, 2**15, (F, V, K)).astype(np.int32)
+    return codes.astype(np.int32), luts
+
+
 def _match_case(seed, B, N, W):
     rng = np.random.default_rng(seed)
     values = rng.integers(0, 2**32, (N, W), dtype=np.uint32)
@@ -189,6 +221,29 @@ def test_cuda_bucketize_binary_search_equals_plain(cuda_device, B, F, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1000, 3), (300001, 28), (5000, 8000)])
+def test_cuda_bucketize_any_row_order_equals_plain(cuda_device, B, T):
+    """Rows that are not non-decreasing are compare-counted, bitwise with
+    the plain version, with the rows in shared memory and (T = 8000: four
+    rows of 32 KB, past its budget) read through L1."""
+    vals, thr = _unsorted_bucketize_case(T, B, T)
+    v, t = _t(vals).to(cuda_device), _t(thr).to(cuda_device)
+    assert torch.equal(ops.bucketize(v, t), ref.bucketize_ref(v, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,V,K", [(100, 5, 64, 6), (3000, 8, 256, 16),
+                                     (2049, 5, 256, 3)])
+def test_cuda_lb_lookup_out_of_range_codes_equal_plain(cuda_device, B, F, V,
+                                                       K):
+    """A code outside [0, V) adds 0, bitwise with the plain version, with
+    the LUT in shared memory and (the last two) read through the cache."""
+    codes, luts = (_t(a).to(cuda_device)
+                   for a in _lb_out_of_range_case(B, B, F, V, K))
+    assert torch.equal(ops.lb_lookup(codes, luts), ref.lb_lookup_ref(codes, luts))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("model,strategy,kernel,per_predict", [
     ("kmeans", "lb", "lb_lookup", 1), ("svm", "lb", "lb_lookup", 1),
     ("pca", "lb", "lb_lookup", 1), ("bnn", "dm", "bnn_popcount_matmul", 2)])
@@ -239,6 +294,37 @@ def _pa_case(dev, seed, B, C, H, KV, hd, page, n_ps, quantized):
     return q, k, v, t(tbl, torch.int32), t(pos, torch.int32), ks, vs
 
 
+def _overwrite_past(seed, tbl, pos, *pools):
+    """Copies of ``pools`` ([N, page, ...] each; float, int8 or scale
+    planes) whose rows at logical positions past each slot's largest
+    position hold other finite values.  A physical row that some slot
+    reaches at or before its largest position (a table entry clipped onto
+    another slot's page) is kept."""
+    N, page = pools[0].shape[:2]
+    S = tbl.shape[1] * page
+    s = torch.arange(S)
+    rows = tbl.cpu().long().clamp(0, N - 1)[:, s // page] * page + s % page
+    last = pos.cpu().long().amax(dim=1, keepdim=True)
+    keep = set(rows[s[None] <= last].tolist())
+    past = sorted(set(rows[s[None] > last].tolist()) - keep)
+    assert past, "no row lies past every position"
+    idx = torch.as_tensor(past)
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for pool in pools:
+        new = pool.clone().reshape(N * page, *pool.shape[2:])
+        shape = (len(past), *pool.shape[2:])
+        if pool.dtype == torch.int8:
+            fresh = torch.randint(-127, 128, shape, generator=gen)
+        else:  # K/V rows and positive scales: other finite values
+            fresh = torch.rand(shape, generator=gen) * 40 - 20
+            if pool.shape[-1] == 1:
+                fresh = fresh.abs() + 1e-3
+        new[idx.to(pool.device)] = fresh.to(pool.dtype).to(pool.device)
+        out.append(new.reshape(pool.shape))
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [1, 8])
 @pytest.mark.parametrize("H,KV,page", [(12, 2, 16), (4, 4, 8)])
@@ -281,11 +367,40 @@ def test_cuda_paged_attention_rows_are_invariant(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("window", [0, 13])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_paged_attention_ignores_rows_past_each_position(
+        cuda_device, C, window, quantized):
+    """Bitwise: the kernel never reads a row past every position of its
+    slot, so other values there change nothing; a row at position -1 (it
+    sees nothing) takes the full axis, within one bf16 ulp of the plain
+    version."""
+    q, k, v, tbl, pos, ks, vs = _pa_case(cuda_device, C + window, 4, C, 12,
+                                         2, 128, 16, 16, quantized)
+    base = torch.tensor([[0], [3], [40], [200]], dtype=torch.int32,
+                        device=cuda_device)
+    pos = (pos - pos[:, :1] + base).contiguous()
+    got = ops.paged_attention(q, k, v, tbl, pos, window, ks, vs)
+    pools = _overwrite_past(C, tbl, pos, k, v, *([ks, vs] if quantized
+                                                 else []))
+    k2, v2, ks2, vs2 = (pools + [None, None])[:4]
+    assert torch.equal(ops.paged_attention(q, k2, v2, tbl, pos, window, ks2,
+                                           vs2), got)
+    pos[0, 0] = -1
+    got = ops.paged_attention(q, k, v, tbl, pos, window, ks, vs)
+    want = ref.paged_attention_ref(q, k, v, tbl, pos, window, ks, vs)
+    ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.cuda
 def test_cuda_paged_attention_refuses_scores_past_shared_memory(cuda_device):
-    """A group's [G, S] scores past the card's opt-in shared memory (6 heads
-    x 16,384 positions x 4 bytes) raise and count no launch; the refusal
-    leaves no error behind for the next launch."""
-    big = _pa_case(cuda_device, 2, 1, 1, 12, 2, 128, 16, 1024, False)
+    """A rank's [C*G, S/8] scores past the card's opt-in shared memory (a
+    chunk of 16 rows x 6 heads x 2,048 positions x 4 bytes) raise and
+    count no launch; the refusal leaves no error behind for the next
+    launch."""
+    big = _pa_case(cuda_device, 2, 1, 16, 12, 2, 128, 16, 1024, False)
     ops.reset_launch_counts()
     with pytest.raises(RuntimeError, match="S = 16384"):
         ops.paged_attention(*big[:5], 0)

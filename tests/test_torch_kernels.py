@@ -19,8 +19,10 @@ from test_torch_cuda import (  # noqa: E402
     _bucketize_case,
     _fused_case,
     _lb_case,
+    _lb_out_of_range_case,
     _match_case,
     _t,
+    _unsorted_bucketize_case,
 )
 
 JAX_BACKENDS = ("jnp", "pallas")
@@ -44,6 +46,43 @@ def test_bucketize_int32_max_against_padding():
     for backend in JAX_BACKENDS:
         np.testing.assert_array_equal(
             got, np.asarray(jops.bucketize(vals, thr, backend=backend)))
+
+
+@pytest.mark.parametrize("B,T", [(40, 3), (300, 9), (7, 32)])
+def test_bucketize_any_row_order_equals_jax(B, T):
+    """The op's contract is the JAX package's for any row: the count of
+    thresholds <= v, on ``[5, 3, INT32_MAX]``, a reversed row and a row
+    with ties, against its oracle and its Pallas kernel (interpret)."""
+    from repro.kernels.bucketize import bucketize_pallas
+    from repro.kernels.ref import bucketize_ref as jax_bucketize_ref
+
+    vals, thr = _unsorted_bucketize_case(T, B, T)
+    got = ops.bucketize(_t(vals), _t(thr)).numpy()
+    want = (vals[:, :, None] >= thr[None].astype(np.int64)).sum(-1)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(jax_bucketize_ref(vals, thr)))
+    np.testing.assert_array_equal(
+        got, np.asarray(bucketize_pallas(vals, thr, interpret=True)))
+
+
+@pytest.mark.parametrize("B,F,V,K", [(1, 5, 2, 1), (100, 5, 64, 6),
+                                     (257, 3, 256, 16)])
+def test_lb_lookup_out_of_range_codes_equal_pallas(B, F, V, K):
+    """A code outside [0, V) adds 0 to every output, as in the Pallas
+    kernel (a one-hot product); no wrap and no raise."""
+    from repro.kernels.lb_lookup import lb_lookup_pallas
+
+    codes, luts = _lb_out_of_range_case(B + V, B, F, V, K)
+    got = ops.lb_lookup(_t(codes), _t(luts))
+    assert torch.equal(got, ref.lb_lookup_ref(_t(codes), _t(luts)))
+    want = np.asarray(lb_lookup_pallas(codes, luts, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    valid = (codes >= 0) & (codes < V)
+    manual = np.zeros((B, K), np.int64)
+    for f in range(F):
+        manual += np.where(valid[:, f, None],
+                           luts[f][np.clip(codes[:, f], 0, V - 1)], 0)
+    np.testing.assert_array_equal(got.numpy(), manual.astype(np.int32))
 
 
 @pytest.mark.parametrize("B,N,W", [(1, 1, 1), (64, 100, 1), (200, 700, 2),
