@@ -10,8 +10,12 @@ Phases, in order; the first failure exits non-zero:
    at T = 1, T not a power of two, rows past 48 KB and past the shared-
    memory budget, INT32_MAX values, a view at an offset, threshold rows
    in any order (compare-counted); ``lb_lookup`` with codes outside
-   [0, V), which add 0; ``bnn_popcount_matmul``'s modes (packed or feature input x counts, sign
-   words or scores) at W 1-4 and 10, N 48 and 33, 600,001 rows;
+   [0, V), which add 0, and its predict modes (argmax, argmin, ovo_vote,
+   raw) on raw features in and outside [0, V) with a wrapping bias, at K
+   up to 16 (past the register chunk of 8), LUTs in opted-in shared
+   memory and past 227 KB; ``bnn_popcount_matmul``'s modes (packed or
+   feature input x counts, sign words or scores) at W 1-4 and 10, N 48
+   and 33, 600,001 rows;
 3. main path: ``plant`` rf, encode-based, size L on unsw (not gate-sized,
    so ``torch_predict("auto")`` runs ``bucketize`` + ``ternary_match``)
    and predict 2^20 flows; labels equal the plain path on the card, and on
@@ -24,19 +28,23 @@ Phases, in order; the first failure exits non-zero:
    flows/s of both predict paths;
 6. LB path: ``plant`` svm, nb, kmeans, pca and ae, lookup-based, size L
    on unsw and predict 2^20 flows through ``auto``: one ``lb_lookup``
-   launch per predict; labels (pca/ae: int32 sums bitwise, float outputs
-   within 1e-5) equal the plain path on the card, and on the first 65,536
-   flows the numpy reference;
+   launch per predict (clamp, gather, bias and the decision fused), and
+   one device kernel on the profiler; labels (pca/ae: int32 sums bitwise,
+   float outputs within 1e-5) equal the plain path on the card, and on
+   the first 65,536 flows the numpy reference; each predict timed, and
+   the launch plan (grid, blocks an SM, shared memory) printed;
 7. DM path: bnn direct-map size L, trained on the card: two
    ``bnn_popcount_matmul`` launches per predict (layer 1 packs the
    features and its signs, layer 2 writes the scores), labels equal the
    plain path, the numpy reference and the native model; dt and rf
    direct-map size L walk their trees in plain torch on the card, labels
-   equal numpy and native.  Then ``lb_lookup`` (kmeans-LB L) and
-   ``bnn_popcount_matmul`` (BNN-L layer 1, counts mode) are timed like
-   phase 5, with ``F.embedding_bag`` and a bf16 ``torch.matmul`` of the ±1
-   matrices as library yardsticks, and the predict's two fused launches
-   beside their bounds (the ``fused`` list of the kernel's JSON row);
+   equal numpy and native.  Then ``lb_lookup`` (kmeans-LB L: the sums
+   mode on the clamped codes, with ``F.embedding_bag`` as library
+   yardstick, and the predict's own fused argmin launch on the raw
+   features, a row each) and ``bnn_popcount_matmul`` (BNN-L layer 1,
+   counts mode, with a bf16 ``torch.matmul`` of the ±1 matrices) are timed
+   like phase 5, and the BNN predict's two fused launches beside their
+   bounds (the ``fused`` list of the kernel's JSON row);
 8. ``paged_attention``: the kernel against its plain version over a grid
    (C 1 and 8, page 8 and 16, H/KV 12/2 and 4/4, bf16 and int8 pools,
    window 0 and 13, table entries past the pool, and a row at position -1
@@ -261,13 +269,16 @@ def check_kernels(dev) -> int:
         same(f"lb_lookup {B}x{F}x{V}x{K}", ops.lb_lookup(codes, luts),
              ref.lb_lookup_ref(codes, luts))
         n += 1
-    # lb_lookup: codes outside [0, V) add 0, LUT in shared memory and not
-    for B, F, V, K in ((100, 5, 64, 6), (3000, 8, 256, 16), (2049, 5, 256, 3)):
+    # lb_lookup: codes outside [0, V) add 0; LUT in shared memory (past
+    # 48 KB: opted in) and past the card's 227 KB (through the cache)
+    for B, F, V, K in ((100, 5, 64, 6), (3000, 8, 256, 16), (2049, 5, 256, 3),
+                       (5000, 8, 1024, 8)):
         codes, luts = (i32(a, dev)
                        for a in _lb_out_of_range_case(B, B, F, V, K))
         same(f"lb_lookup {B}x{F}x{V}x{K}, codes outside [0, V)",
              ops.lb_lookup(codes, luts), ref.lb_lookup_ref(codes, luts))
         n += 1
+    n += check_lb_modes(rng, dev)
     # bnn_popcount_matmul: the JAX sweep (n_in bits -> words), words with
     # bit 31 set, and a batch of many tiles
     for B, n_in, N in ((1, 1, 1), (64, 40, 16), (100, 100, 3), (17, 64, 33),
@@ -283,6 +294,49 @@ def check_kernels(dev) -> int:
         n += 1
     n += check_bnn_modes(rng, dev)
     torch.cuda.synchronize(dev)
+    return n
+
+
+# (B, F, V, K) of the lb_lookup predict-mode grid: the sums grid above,
+# the main path's shape past many tiles a block, K past the register cap
+# (13, 16), LUTs past 48 KB (128 KB, opted-in shared memory) and past 227 KB
+# (256 KB, through the cache)
+LB_MODE_GRID = ((1, 1, 2, 1), (100, 5, 64, 6), (257, 3, 256, 16),
+                (3000, 8, 256, 16), (70000, 5, 256, 3), (BATCH + 3, 5, 256, 3),
+                (BATCH + 1, 5, 256, 2), (20001, 4, 16, 13), (5000, 8, 1024, 8))
+LB_MODES = ("argmax", "argmin", "ovo_vote", "raw")
+
+
+def check_lb_modes(rng, dev) -> int:
+    """lb_lookup's predict modes against their plain versions: labels
+    bitwise, raw within 1e-5; raw features in and outside [0, V), a bias
+    add that wraps, sums that tie, one-vs-one pairs of the fewest classes
+    that give K of them."""
+    from test_torch_cuda import _lb_predict_case
+
+    from repro_torch.kernels import ops, ref
+
+    n = 0
+    for B, F, V, K in LB_MODE_GRID:
+        n_classes = next(c for c in range(2, 64) if c * (c - 1) // 2 >= K)
+        x, luts, bias, pairs = (i32(a, dev) for a in _lb_predict_case(
+            int(rng.integers(2**31)), B, F, V, K, n_classes))
+        for mode in LB_MODES:
+            kw = dict(bias=bias, scale=0.37)
+            if mode == "ovo_vote":
+                kw.update(pairs=pairs, n_classes=n_classes)
+            got = ops.lb_lookup(x, luts, mode, **kw)
+            want = chunked(lambda c: ref.lb_lookup_ref(c, luts, mode, **kw),
+                           x)
+            name = f"lb_lookup {B}x{F}x{V}x{K} {mode}"
+            if mode == "raw":
+                if (got.dtype != torch.float32 or got.shape != want.shape
+                        or not torch.allclose(got, want, rtol=1e-5,
+                                              atol=1e-5)):
+                    fail(f"{name}: kernel differs from its plain version")
+            else:
+                same(name, got, want)
+            n += 1
     return n
 
 
@@ -577,7 +631,15 @@ def lb_dm_kernel_rows(lb_runs, dm_runs, dev):
         n_bytes=B * F * 4 + F * V * K * 4 + B * K * 4, n_ops=B * F * K,
         library=lambda: torch.nn.functional.embedding_bag(bag, weight,
                                                           mode="sum"),
-        shape={"B": B, "F": F, "V": V, "K": K}))
+        shape={"B": B, "F": F, "V": V, "K": K, "mode": "sums"}))
+    # the predict's own launch: raw features in, the argmin label out
+    fused_args = lb_fused_args(lb, run.x, dev)
+    rows.append(dict(
+        name="lb_lookup", args=fused_args, kern=ops.lb_lookup,
+        plain=ref.lb_lookup_ref, run=run, source=LB_DM_SOURCE,
+        n_bytes=B * F * 4 + F * V * K * 4 + K * 4 + B * 4,
+        n_ops=B * K * (F + 2) + 2 * B * F, library=None,
+        shape={"B": B, "F": F, "V": V, "K": K, "mode": f"{lb.mode} (fused)"}))
 
     run = dm_runs["bnn"]
     bnn = run.res.mapped.predict_np.__self__
@@ -628,8 +690,10 @@ def lb_dm_kernel_rows(lb_runs, dm_runs, dev):
             "device_ms": device_ms(lambda: kern(*args)),
             "plain_ms": time_ms(lambda: plain(*args), reps=5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(r["library"]),
-            "library_device_ms": device_ms(r["library"]), "shape": r["shape"],
+            "library_ms": time_ms(r["library"]) if r["library"] else None,
+            "library_device_ms": device_ms(r["library"]) if r["library"]
+            else None, "shape": r["shape"], "n_bytes": r["n_bytes"],
+            "n_ops": r["n_ops"],
         })
     out[-1]["fused"] = [fused_layer_row(f) for f in fused]
     return out
@@ -663,17 +727,61 @@ def fused_layer_row(f) -> Dict[str, Any]:
             "bound_ms": b_ms, "bound_by": b_by, "shape": f["shape"]}
 
 
+def lb_fused_args(lb, x, dev):
+    """The arguments of the LB predict's one ``lb_lookup`` launch: the raw
+    features, then the model's luts, mode, bias, pairs, classes and scale
+    on ``dev``."""
+    return (x, *lb.kernel_args(dev))
+
+
+def device_kernels(fn, calls: int = 5, tries: int = 3):
+    """{kernel name: launches} on the card over ``calls`` calls of ``fn``
+    (torch.profiler), asked up to ``tries`` times while the profiler sees
+    no kernel; empty when it never does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation}
+        if seen:
+            return seen
+    return {}
+
+
+def check_lb_one_kernel(model: str, run: PathRun, calls: int = 5) -> str:
+    """An LB predict on an int32 input on the card runs exactly one device
+    kernel, the lb_lookup kernel (profiler; ``calls`` predicts)."""
+    seen = device_kernels(lambda: run.fn(run.x), calls)
+    if not seen:
+        return "device kernels not measured (the profiler saw none)"
+    if (len(seen) != 1 or "lb_lookup_kernel" not in next(iter(seen))
+            or next(iter(seen.values())) != calls):
+        fail(f"{model}-LB predict ran {seen} on the card over {calls} calls, "
+             "want one lb_lookup kernel a call")
+    name, count = next(iter(seen.items()))
+    return f"one device kernel a predict ({count} in {calls}: {name[:60]})"
+
+
 def lb_dm_kernels_only(run: PathRun, dev) -> Callable:
     """The LB / DM-BNN predict's kernel launches alone, on the inputs that
-    predict gives them (clipped codes; the features into layer 1, which
-    packs its signs, and those words into the last layer's scores)."""
+    predict gives them (the LB predict's one fused launch on the raw
+    features; the features into layer 1, which packs its signs, and those
+    words into the last layer's scores)."""
     from repro_torch.kernels import ops
 
     model = run.res.mapped.predict_np.__self__
     if run.res.mapped.strategy == "lb":
-        luts = torch.as_tensor(np.ascontiguousarray(model.luts), device=dev)
-        codes = run.x.clamp(0, luts.shape[1] - 1)
-        return lambda: ops.lb_lookup(codes, luts)
+        args = lb_fused_args(model, run.x, dev)
+        return lambda: ops.lb_lookup(*args)
     args, h = [], run.x
     layers = bnn_layers(model, dev)
     for i, (w, n_in) in enumerate(layers):
@@ -1295,15 +1403,19 @@ def main() -> None:
               f"{flows_per_s(run.plain, run.x[:CHUNK]):.0f} flows/s ({card})")
 
     lb_runs = drive_lb(dev, BATCH)
+    from repro_torch.kernels.lb_lookup import plan as lb_plan
     for model, run in lb_runs.items():
         lb = run.res.mapped.predict_np.__self__
+        F, V, K = lb.luts.shape
         print(f"[6 LB path] {model}-LB L: LUT {list(lb.luts.shape)} mode "
               f"{lb.mode}, backend={run.backend}, {BATCH} flows, launches "
               f"{run.launches}, == plain == numpy; "
               f"{flows_per_s(run.fn, run.x):.0f} flows/s, one predict "
-              f"{time_ms(lambda: run.fn(run.x), reps=10):.4f} ms, of which "
-              f"its kernel launch {time_ms(lb_dm_kernels_only(run, dev)):.4f}"
-              f" ms ({card})")
+              f"{time_ms(lambda: run.fn(run.x), reps=10):.4f} ms (device "
+              f"{device_ms(lambda: run.fn(run.x))}), of which its kernel "
+              f"launch {time_ms(lb_dm_kernels_only(run, dev)):.4f} ms; "
+              f"{check_lb_one_kernel(model, run)}; launch plan "
+              f"{lb_plan(BATCH, F, V, K, lb.mode)} ({card})")
     dm_runs = drive_dm(dev, BATCH)
     for model, run in dm_runs.items():
         print(f"[7 DM path] {model}-DM L: {run.res.mapped.resources().entries} "
@@ -1317,6 +1429,14 @@ def main() -> None:
                  f"{time_ms(lb_dm_kernels_only(run, dev)):.4f} ms"
                  if model == "bnn" else " (no kernel)") + f" ({card})")
     rows += lb_dm_kernel_rows(lb_runs, dm_runs, dev)
+    for r in rows[-3:-1]:
+        print(f"[6 lb_lookup {r['shape']['mode']}] kmeans-LB L shape "
+              f"{r['shape']}: {r['ms']:.4f} ms (device {r['device_ms']}), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['n_bytes']} bytes, {r['n_ops']} ops), plain "
+              f"{r['plain_ms']:.4f} ms, library (embedding_bag) "
+              f"{r['library_ms']} ms (device {r['library_device_ms']}) "
+              f"({card})")
     for f in rows[-1]["fused"]:
         print(f"[7 bnn fused layer {f['layer']}] {f['shape']['mode']}: "
               f"{f['ms']:.4f} ms (device {f['device_ms']}), bound "

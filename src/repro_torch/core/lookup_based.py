@@ -6,9 +6,10 @@ precomputation (SVM/PCA/AE: ``w·x`` per feature value) or by log transform
 (NB, Eq. 4).  ``map()`` is the paper's quantizer: a global scale chosen so
 that the worst-case |sum over features| fits ``action_bits`` signed.
 
-The predictor clips the flows to the table domain, runs the ``lb_lookup``
-kernel (gather + accumulate over features, exact in int32 at every
-``action_bits``), adds the bias and combines in plain torch.
+The predictor is one ``lb_lookup`` launch: it clamps the flows to the
+table domain, gathers and accumulates over features (exact in int32 at
+every ``action_bits``), adds the bias and makes the decision (argmax,
+argmin, one-vs-one vote or dequantization) in the kernel's epilogue.
 """
 from __future__ import annotations
 
@@ -87,8 +88,9 @@ class LBModel:
         """Predictor ``x [B, F]`` on ``device``: labels [B] int32, or float32
         outputs [B, K] in ``raw`` mode.
 
-        ``"cuda"`` runs the ``lb_lookup`` kernel (its plain version on a CPU
-        device) and ``"ref"`` the plain version on any device.
+        ``"cuda"`` runs the whole predict (clamp, gather, bias, decision) as
+        one ``lb_lookup`` launch (its plain version on a CPU device) and
+        ``"ref"`` the plain version on any device.
         """
         if backend == "cuda":
             lookup = ops.lb_lookup
@@ -97,31 +99,26 @@ class LBModel:
         else:
             raise ValueError(f"backend {backend!r} is not an LB backend "
                              "('cuda' or 'ref')")
-        luts = torch.as_tensor(np.ascontiguousarray(self.luts, np.int32),
-                               device=device)
-        bias = torch.as_tensor(np.asarray(self.bias_q, np.int32), device=device)
-        mode, scale, n_classes = self.mode, self.scale, self.n_classes
-        V = self.luts.shape[1]
-        if mode == "ovo_vote":
-            a_idx = torch.as_tensor([a for a, _ in self.pairs], device=device)
-            c_idx = torch.as_tensor([c for _, c in self.pairs], device=device)
-            classes = torch.arange(n_classes, device=device)
+        args = self.kernel_args(device)
 
         def fn(x) -> torch.Tensor:
             x = torch.as_tensor(x).to(device=device, dtype=torch.int32)
-            codes = x.clamp(0, V - 1).contiguous()
-            s = lookup(codes, luts) + bias[None, :]
-            if mode == "argmax":
-                return s.argmax(dim=1).to(torch.int32)
-            if mode == "argmin":
-                return s.argmin(dim=1).to(torch.int32)
-            if mode == "ovo_vote":
-                winner = torch.where(s > 0, a_idx[None, :], c_idx[None, :])
-                votes = (winner[:, :, None] == classes).sum(dim=1)
-                return votes.argmax(dim=1).to(torch.int32)
-            return s.to(torch.float32) / scale
+            return lookup(x.contiguous(), *args)
 
         return fn
+
+    def kernel_args(self, device: torch.device) -> tuple:
+        """The arguments after ``x`` of the predict's ``lb_lookup`` call on
+        ``device``: luts, epilogue (the mode), bias, pairs (ovo_vote, else
+        None), n_classes and scale."""
+        luts = torch.as_tensor(np.ascontiguousarray(self.luts, np.int32),
+                               device=device)
+        bias = torch.as_tensor(np.asarray(self.bias_q, np.int32), device=device)
+        pairs = None
+        if self.mode == "ovo_vote":
+            pairs = torch.as_tensor(np.asarray(self.pairs, np.int32)
+                                    .reshape(-1, 2), device=device)
+        return luts, self.mode, bias, pairs, self.n_classes, self.scale
 
     def pipeline(self) -> Pipeline:
         F, V, K = self.luts.shape

@@ -11,7 +11,8 @@ logical stages").
 predictor + a PyTorch predictor factory.  Backends: ``"ref"`` runs the
 plain PyTorch versions of the kernels on the given device, ``"cuda"`` the
 model's CUDA kernels (EB: staged ``bucketize`` + ``ternary_match``; LB:
-``lb_lookup``; DM-BNN: ``bnn_popcount_matmul``; the DM tree walk has no
+one ``lb_lookup`` launch with the decision fused in; DM-BNN:
+``bnn_popcount_matmul``; the DM tree walk has no
 kernel), ``"cuda_fused"`` one ``fused_eb`` launch per table (EB only), and
 ``"auto"`` picks with ``select_backend``.
 """

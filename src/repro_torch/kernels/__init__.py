@@ -10,7 +10,7 @@ import.
 * ``fused_eb.py``      — encode + pack + match in one launch
   (``fused_eb_pallas``); the gate kernel of gate-sized tables.
 * ``lb_lookup.py``     — LB feature tables + accumulate
-  (``lb_lookup_pallas``).
+  (``lb_lookup_pallas``), and the whole LB predict in the same launch.
 * ``bnn_mlp.py``       — DM-BNN XNOR-popcount layer
   (``bnn_popcount_matmul_pallas``).
 * ``paged_attention.py`` — paged attention over the block-table KV cache

@@ -39,7 +39,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                      _P],
     },
     "lb_dm_kernels": {
-        "lb_lookup": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "lb_lookup": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        "lb_lookup_plan": [_I, _I, _I, _I, _I, _P],
         "bnn_popcount_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "paged_attention": {

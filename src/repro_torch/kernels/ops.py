@@ -6,7 +6,7 @@ fallback from a kernel that fails to build or launch.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,9 +50,15 @@ def fused_eb_match(values, thresholds, rows_v, rows_m, prio_action, layout,
                               layout, default_action, identity)
 
 
-def lb_lookup(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
-    """LB accumulate: out[b, k] = sum_f luts[f, codes[b, f], k]."""
-    return _lb_lookup.lb_lookup(codes, luts)
+def lb_lookup(x: torch.Tensor, luts: torch.Tensor, epilogue: str = "sums",
+              bias: Optional[torch.Tensor] = None,
+              pairs: Optional[torch.Tensor] = None, n_classes: int = 0,
+              scale: float = 1.0) -> torch.Tensor:
+    """LB accumulate: out[b, k] = sum_f luts[f, x[b, f], k]; with
+    ``epilogue`` the whole LB predict in the same launch
+    (``lb_lookup.lb_lookup``)."""
+    return _lb_lookup.lb_lookup(x, luts, epilogue, bias, pairs, n_classes,
+                                scale)
 
 
 def bnn_popcount_matmul(x: torch.Tensor, w_packed: torch.Tensor,

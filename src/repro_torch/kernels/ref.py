@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
-           "fused_eb_ref", "lb_lookup_ref", "popcount32",
+           "fused_eb_ref", "lb_lookup_ref", "LB_EPILOGUES", "popcount32",
            "bnn_popcount_matmul_ref", "bnn_pack_input_ref", "BNN_EPILOGUES",
            "pack_bits_ref", "paged_attention_ref",
            "as_i32"]
@@ -80,21 +80,54 @@ def fused_eb_ref(values: torch.Tensor, thresholds: torch.Tensor,
     return ternary_match_ref(keys, rows_v, rows_m, prio_action, default_action)
 
 
-def lb_lookup_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
-    """out[b, k] = sum_f luts[f, codes[b, f], k].  codes [B, F]; luts [F, V, K].
+LB_EPILOGUES = ("sums", "argmax", "argmin", "ovo_vote", "raw")
 
-    A code outside ``[0, V)`` adds 0, as in the JAX package's Pallas
-    kernel (a one-hot product); its jnp oracle differs there (it wraps
-    ``[-V, -1]`` and fills INT32_MIN further out).  The sum runs in int64
-    and is cast back to int32, which wraps as the JAX package's int32 sum
-    does.
+
+def lb_lookup_ref(x: torch.Tensor, luts: torch.Tensor, epilogue: str = "sums",
+                  bias: Optional[torch.Tensor] = None,
+                  pairs: Optional[torch.Tensor] = None, n_classes: int = 0,
+                  scale: float = 1.0) -> torch.Tensor:
+    """out[b, k] = sum_f luts[f, x[b, f], k].  x [B, F]; luts [F, V, K].
+
+    ``"sums"``: a code outside ``[0, V)`` adds 0, as in the JAX package's
+    Pallas kernel (a one-hot product); its jnp oracle differs there (it
+    wraps ``[-V, -1]`` and fills INT32_MIN further out).  The sum runs in
+    int64 and is cast back to int32, which wraps as the JAX package's int32
+    sum does.
+
+    The predict modes are ``LBModel.make_jax_fn``'s chain, step for step:
+    x clamped to ``[0, V-1]``, ``s = sums + bias`` wrapped to int32, then
+    ``"argmax"`` / ``"argmin"`` (first index on ties), ``"ovo_vote"``
+    (pair m votes ``pairs[m, 0]`` when ``s[m] > 0``, else ``pairs[m, 1]``;
+    the first of ``n_classes`` with the most votes), each as int32 [B], or
+    ``"raw"``: ``float32(s) / float32(scale)`` [B, K] (a tensor divisor,
+    so that CUDA divides too and does not multiply by a reciprocal).
     """
     F, V = luts.shape[0], luts.shape[1]
-    f_idx = torch.arange(F, device=codes.device)[None, :]
-    valid = (codes >= 0) & (codes < V)
-    gathered = luts[f_idx, codes.long().clamp(0, V - 1)]  # [B, F, K]
-    gathered = torch.where(valid[..., None], gathered, 0)
-    return gathered.sum(dim=1, dtype=torch.int64).to(torch.int32)
+    f_idx = torch.arange(F, device=x.device)[None, :]
+    gathered = luts[f_idx, x.long().clamp(0, V - 1)]  # [B, F, K]
+    if epilogue == "sums":
+        valid = (x >= 0) & (x < V)
+        gathered = torch.where(valid[..., None], gathered, 0)
+    s = gathered.sum(dim=1, dtype=torch.int64)
+    if bias is not None:
+        s = s + bias.to(torch.int64)
+    s = s.to(torch.int32)
+    if epilogue == "sums":
+        return s
+    if epilogue == "argmax":
+        return s.argmax(dim=1).to(torch.int32)
+    if epilogue == "argmin":
+        return s.argmin(dim=1).to(torch.int32)
+    if epilogue == "ovo_vote":
+        winner = torch.where(s > 0, pairs[None, :, 0], pairs[None, :, 1])
+        classes = torch.arange(n_classes, device=x.device)
+        votes = (winner[:, :, None] == classes).sum(dim=1)
+        return votes.argmax(dim=1).to(torch.int32)
+    if epilogue == "raw":
+        div = torch.full((), scale, dtype=torch.float32, device=x.device)
+        return s.to(torch.float32) / div
+    raise ValueError(f"epilogue {epilogue!r} not in {LB_EPILOGUES}")
 
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F

@@ -278,6 +278,43 @@ def test_lb_combine_ties_take_the_first_index(mode):
     assert want.tolist() == first
 
 
+def _with_out_of_range(X, V):
+    """``X`` and a copy of it with features past both ends of [0, V)."""
+    bad = np.array(X, np.int64)
+    bad[::3, 0] = -5
+    bad[1::4, -1] = V + 40
+    bad[2::5, 1] = np.iinfo(np.int32).min
+    return np.concatenate([X, bad])
+
+
+@pytest.mark.parametrize("case", ["svm-iris", "nb-unsw", "kmeans-unsw",
+                                  "pca-unsw", "ae-unsw"])
+def test_lb_predict_equals_jax_with_features_out_of_range(case):
+    """The LB predict as one call (the kernel's plain version on the CPU)
+    against ``make_jax_fn`` through the jnp oracle and the Pallas kernel
+    (interpret mode): svm on iris (3 classes, 3 pairs, real votes) and nb,
+    kmeans, pca, ae on unsw at size L (action_bits 16), with features
+    below 0 and past V - 1, which clamp."""
+    model, dataset = case.split("-")
+    ds = load_dataset(dataset, n=600 if dataset == "iris" else 1500)
+    y = None if model in UNSUPERVISED else ds.y_train
+    ref = jax_plant(JaxConfig(model=model, strategy="lb", size="L"),
+                    ds.X_train, y, ds.X_test)
+    port = plant(PlanterConfig(model=model, strategy="lb", size="L",
+                               device="cpu"), ds.X_train, y, ds.X_test)
+    lb = port.mapped.predict_np.__self__
+    if model == "svm":
+        assert (lb.n_classes, len(lb.pairs)) == (3, 3)
+    X = _with_out_of_range(ds.X_test[:200], lb.luts.shape[1])
+    for backend in ("jnp", "pallas"):
+        want = np.asarray(ref.mapped.jax_predict(backend)(X))
+        for port_backend in ("ref", "cuda", "auto"):
+            got = port.mapped.torch_predict(port_backend, device="cpu")(X)
+            _assert_outputs(got.numpy(), want,
+                            err_msg=f"{backend} vs {port_backend}")
+    _assert_outputs(port.mapped.predict(X), ref.mapped.predict(X))
+
+
 @pytest.mark.parametrize("size", ["S", "M", "L"])
 def test_thresholds_matrix_equals_jax_and_is_sorted(size):
     """The bucketize kernel's binary search needs non-decreasing rows: the

@@ -66,6 +66,41 @@ def _lb_out_of_range_case(seed, B, F, V, K):
     return codes.astype(np.int32), luts
 
 
+def _lb_predict_case(seed, B, F, V, K, n_classes, lim=2**12):
+    """Raw features for the LB predict modes, in ``[0, V)`` and outside it
+    (-1, -V-1, V, V+7, INT32_MIN, INT32_MAX); coarse LUT entries, with one
+    column equal to another on every other code, so that sums tie; a bias
+    whose add wraps int32 for some rows (``s[0]`` past INT32_MAX, ``s[-1]``
+    below INT32_MIN); the one-vs-one pairs of ``n_classes`` classes in the
+    SVM's order.  LUT sums stay under 2^24, where the Pallas kernel's
+    float32 product is exact."""
+    from itertools import combinations
+
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, V, (B, F)).astype(np.int64)
+    bad = np.array([-1, -V - 1, V, V + 7, np.iinfo(np.int32).min, INT32_MAX])
+    hit = rng.random((B, F)) < 0.25
+    x[hit] = bad[rng.integers(0, len(bad), int(hit.sum()))]
+    luts = rng.integers(-lim, lim, (F, V, K)) // 8 * 8
+    if K > 1:
+        luts[:, ::2, 1] = luts[:, ::2, 0]
+    bias = rng.integers(-2**8, 2**8, K)
+    bias[0] = INT32_MAX - lim
+    if K > 1:
+        bias[-1] = np.iinfo(np.int32).min + lim
+    pairs = np.array(list(combinations(range(n_classes), 2))[:K],
+                     np.int32).reshape(-1, 2)
+    return (x.astype(np.int32), luts.astype(np.int32), bias.astype(np.int32),
+            pairs)
+
+
+# (F, V, K, n_classes) of the predict-mode grids: K = 1, 3 (register
+# chunk of 4), 6 (of 8) and 15 (past the register cap: chunks of 8, and
+# ovo_vote counting class by class)
+LB_PREDICT_SHAPES = [(5, 256, 1, 2), (5, 256, 3, 3), (4, 16, 6, 4),
+                     (3, 64, 15, 6)]
+
+
 def _match_case(seed, B, N, W):
     rng = np.random.default_rng(seed)
     values = rng.integers(0, 2**32, (N, W), dtype=np.uint32)
@@ -241,6 +276,33 @@ def test_cuda_lb_lookup_out_of_range_codes_equal_plain(cuda_device, B, F, V,
     codes, luts = (_t(a).to(cuda_device)
                    for a in _lb_out_of_range_case(B, B, F, V, K))
     assert torch.equal(ops.lb_lookup(codes, luts), ref.lb_lookup_ref(codes, luts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,V,K,n_classes", [
+    (300001, *shape) for shape in LB_PREDICT_SHAPES] + [
+    (3000, 8, 256, 16, 7),   # LUT of 128 KB: opted-in shared memory
+    (2049, 8, 1024, 8, 5),   # LUT of 256 KB: read through the cache
+    (1, 1, 2, 1, 2)])
+@pytest.mark.parametrize("mode", ["argmax", "argmin", "ovo_vote", "raw"])
+def test_cuda_lb_predict_modes_equal_plain(cuda_device, mode, B, F, V, K,
+                                           n_classes):
+    """Every predict mode of the one launch against its plain version on
+    the same inputs: labels bitwise, raw within 1e-5; features outside
+    [0, V) clamp, the bias wraps, sums tie."""
+    x, luts, bias, pairs = (_t(a).to(cuda_device) for a in _lb_predict_case(
+        B + K, B, F, V, K, n_classes))
+    kw = dict(bias=bias, scale=0.37)
+    if mode == "ovo_vote":
+        kw.update(pairs=pairs, n_classes=n_classes)
+    got = ops.lb_lookup(x, luts, mode, **kw)
+    want = torch.cat([ref.lb_lookup_ref(x[i:i + 65536], luts, mode, **kw)
+                      for i in range(0, B, 65536)])
+    if mode == "raw":
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -14,12 +14,15 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core.tables import key_layout, pack_codes  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro.core.lookup_based import LBModel as JaxLBModel  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
+    LB_PREDICT_SHAPES,
     _bnn_case,
     _bucketize_case,
     _fused_case,
     _lb_case,
     _lb_out_of_range_case,
+    _lb_predict_case,
     _match_case,
     _t,
     _unsorted_bucketize_case,
@@ -166,6 +169,85 @@ def test_lb_lookup_wraps_as_int32():
     want = np.asarray(jops.lb_lookup(codes, luts, backend="jnp"))
     np.testing.assert_array_equal(got, want)
     assert got[0, 0] == np.int64(3 * (2**30 + 7)).astype(np.int32)
+
+
+def _jax_lb_predict(x, luts, bias, pairs, n_classes, mode, scale, backend):
+    """``LBModel.make_jax_fn`` of the JAX package on these tables."""
+    model = JaxLBModel(luts=luts, bias_q=bias, mode=mode, action_bits=16,
+                       in_bits=8, scale=scale,
+                       pairs=[tuple(p) for p in pairs.tolist()],
+                       n_classes=n_classes)
+    return np.asarray(model.make_jax_fn(backend)(x))
+
+
+def _lb_predict_kw(mode, bias, pairs, n_classes, scale):
+    kw = dict(bias=_t(bias), scale=scale)
+    if mode == "ovo_vote":
+        kw.update(pairs=_t(pairs), n_classes=n_classes)
+    return kw
+
+
+@pytest.mark.parametrize("F,V,K,n_classes", LB_PREDICT_SHAPES)
+@pytest.mark.parametrize("mode", ["argmax", "argmin", "ovo_vote", "raw"])
+def test_lb_predict_modes_equal_jax(mode, F, V, K, n_classes):
+    """Each predict mode's plain version (and ``ops.lb_lookup`` on CPU
+    tensors) against ``LBModel.make_jax_fn`` through the jnp oracle and
+    the Pallas kernel (interpret mode): features outside [0, V) clamp,
+    the bias add wraps int32, sums tie; labels bitwise, raw within 1e-5."""
+    x, luts, bias, pairs = _lb_predict_case(F * 100 + K, 300, F, V, K,
+                                            n_classes)
+    scale = 0.37
+    kw = _lb_predict_kw(mode, bias, pairs, n_classes, scale)
+    got = ref.lb_lookup_ref(_t(x), _t(luts), mode, **kw)
+    assert torch.equal(got, ops.lb_lookup(_t(x), _t(luts), mode, **kw))
+    for backend in JAX_BACKENDS:
+        want = _jax_lb_predict(x, luts, bias, pairs, n_classes, mode, scale,
+                               backend)
+        if mode == "raw":
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-5, err_msg=backend)
+        else:
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=backend)
+
+
+def test_lb_predict_ties_zero_votes_and_wrap_equal_jax():
+    """Hand-built sums (feature value v selects LUT row v): ties take the
+    first index in argmax and argmin; a pair whose sum is 0 votes its
+    second class (``s[m] > 0`` is strict), tied votes take the first
+    class; a bias add past INT32_MAX wraps negative and loses the argmax."""
+    rows = [[5, 5, 1], [2, 7, 7], [0, 0, 0], [0, 3, 0], [1, -1, 1],
+            [-4, 9, 9]]
+    luts = np.asarray(rows, np.int32)[None]  # [F=1, V=6, K=3]
+    pairs = np.array([(0, 1), (0, 2), (1, 2)], np.int32)
+    x = np.arange(len(rows), dtype=np.int32)[:, None]
+    want = {
+        "argmax": [0, 1, 0, 1, 0, 1],
+        "argmin": [2, 0, 0, 0, 1, 0],
+        # [0,0,0]: votes c = 1, 2, 2 -> class 2; [0,3,0]: 1, 0, 2 -> votes
+        # (1, 1, 1) -> class 0; [1,-1,1]: 0, 2, 1 -> (1, 1, 1) -> 0
+        "ovo_vote": [0, 0, 2, 0, 0, 1],
+    }
+    zero = np.zeros(3, np.int32)
+    for mode, labels in want.items():
+        kw = _lb_predict_kw(mode, zero, pairs, 3, 1.0)
+        got = ops.lb_lookup(_t(x), _t(luts), mode, **kw).numpy()
+        assert got.tolist() == labels, mode
+        for backend in JAX_BACKENDS:
+            np.testing.assert_array_equal(
+                got, _jax_lb_predict(x, luts, zero, pairs, 3, mode, 1.0,
+                                     backend), err_msg=f"{mode} {backend}")
+    bias = np.array([2**31 - 3, 0, 0], np.int32)  # s[0] = 2^31 + 2: wraps
+    x0 = np.zeros((1, 1), np.int32)  # row [5, 5, 1]
+    kw = _lb_predict_kw("argmax", bias, pairs, 3, 1.0)
+    got = ops.lb_lookup(_t(x0), _t(luts), "argmax", **kw).numpy()
+    assert got.tolist() == [1]
+    raw = ops.lb_lookup(_t(x0), _t(luts), "raw", bias=_t(bias)).numpy()
+    assert raw[0, 0] == np.float32(np.int32(-2**31 + 2))
+    for backend in JAX_BACKENDS:
+        np.testing.assert_array_equal(got, _jax_lb_predict(
+            x0, luts, bias, pairs, 3, "argmax", 1.0, backend))
 
 
 @pytest.mark.parametrize("B,n_in,n_out", [(1, 1, 1), (64, 40, 16),

@@ -221,17 +221,40 @@ def test_quickstart_torch_on_cpu_is_bit_exact():
     assert "bit-exact" in r.stdout
 
 
-def test_quickstart_torch_defaults_to_cuda():
-    r = _run("-c", textwrap.dedent("""
+def _defaults_to_cuda(example: str) -> None:
+    """``examples/<example>.py`` with no arguments raises without CUDA."""
+    r = _run("-c", textwrap.dedent(f"""
         import runpy, sys, torch
         torch.cuda.is_available = lambda: False
-        sys.argv = ["quickstart_torch.py"]
+        sys.argv = ["{example}.py"]
         try:
-            runpy.run_path("examples/quickstart_torch.py", run_name="__main__")
+            runpy.run_path("examples/{example}.py", run_name="__main__")
         except RuntimeError as exc:
             print("RAISED", exc)
     """))
     assert "RAISED CUDA is not available" in r.stdout, r.stderr
+
+
+def test_quickstart_torch_defaults_to_cuda():
+    _defaults_to_cuda("quickstart_torch")
+
+
+def test_finance_lowlatency_torch_defaults_to_cuda():
+    _defaults_to_cuda("finance_lowlatency_torch")
+
+
+def test_finance_lowlatency_torch_on_cpu_runs():
+    """The port of ``examples/finance_lowlatency.py`` (its
+    ``tests/test_examples.py`` line): xgb-EB, dt-DM, nb-LB and svm-LB on
+    nasdaq, the same table and the mid-price line."""
+    r = _run(str(ROOT / "examples" / "finance_lowlatency_torch.py"),
+             "--device", "cpu", timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "mid-price" in r.stdout
+    rows = [ln.split() for ln in r.stdout.splitlines()
+            if ln.split()[:1] in (["xgb"], ["dt"], ["nb"], ["svm"])]
+    assert [row[:2] for row in rows] == [["xgb", "eb"], ["dt", "dm"],
+                                         ["nb", "lb"], ["svm", "lb"]]
 
 
 def test_plant_leaves_the_callers_config_unchanged():
