@@ -72,7 +72,24 @@ Phases, in order; the first failure exits non-zero:
    logits_plain| <= 0.03 * max|logits_plain|`` (delta), and a greedy flip
    only where the plain top-2 margin is within 2 delta (the flips and the
    greedy agreement rate are printed, not gated); (c) ``share_prefix``
-   streams bitwise equal to unshared ones; (d) one ``kv_int8`` run.
+   streams bitwise equal to unshared ones; (d) one ``kv_int8`` run;
+11. the device batcher: phase 9's workload through
+   ``DeviceContinuousBatcher`` (the fused step, one CUDA graph per shape
+   key, replayed ``sync_every`` times a host round trip): (a) sync_every
+   16, prefill_chunk 8, graph on: served + dropped = submitted, the
+   gate-reject set = the gate's numpy verdicts, drops only gate-reject or
+   quarantined, ``pool.ref`` back to the prefix holds; (b) prefill_chunk
+   1: done, dropped, drop reasons and every stream bitwise equal to phase
+   9's host batcher; (c) graph vs eager and sync_every 1 vs 16, bitwise;
+   (d) chunk 8 vs 1: each stream equal to the token-by-token one up to its
+   first position whose teacher-forced top-2 margin (token-by-token
+   stream, kernel path) is within 2 delta; (e) rounds of the eager and
+   the replayed step under ``torch.cuda.set_sync_debug_mode("error")``;
+   (f) the profiler's kernels over one round and its gate call:
+   ``paged_attention`` = steps run x 28, ``fused_eb`` = (steps run + 1) x
+   the gate's tables, no other kernel of the repo.  Tokens/s and ms a step, graph
+   and eager, beside phase 9's, the steps with work, run and wasted, and
+   the device's idle share of a replayed step.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
@@ -1141,6 +1158,18 @@ def check_serve(run: ServeRun) -> str:
             f"{ {k: n for k, n in run.launches.items() if n} }")
 
 
+def kernel_class(name: str) -> str:
+    """A device kernel's class in a serve step's time."""
+    name = name.lower()
+    for cls in ("paged_attention", "fused_eb"):
+        if cls in name:
+            return cls
+    if any(w in name for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
+                               "matmul")):
+        return "matmul"
+    return "other"
+
+
 def profile_serve(run: ServeRun, dev, steps: int = 24) -> str:
     """Where a serve step's time goes, at 16 live slots: ``steps`` host-
     batcher steps timed with the host clock, then ``steps`` more under
@@ -1172,12 +1201,7 @@ def profile_serve(run: ServeRun, dev, steps: int = 24) -> str:
         # kernels only: a CPU op (aten::mm) carries its kernels' time too
         if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
             continue
-        ms = evt.self_device_time_total / 1e3 / steps
-        name = evt.key.lower()
-        by["paged_attention" if "paged_attention" in name else
-           "matmul" if any(w in name for w in (
-               "gemm", "gemv", "cutlass", "xmma", "nvjet", "matmul"))
-           else "other"] += ms
+        by[kernel_class(evt.key)] += evt.self_device_time_total / 1e3 / steps
     busy = sum(by.values())
     if busy <= 0:
         return "device time not measured (the profiler saw no kernels)"
@@ -1225,14 +1249,14 @@ def check_captured_attention(run: ServeRun, dev) -> str:
             f"agree with the kernel run's on {np.mean(agree):.4f} of tokens")
 
 
-def check_teacher_forced(run: ServeRun, dev, chunk: int = 32) -> str:
-    """(b) The kernel run's served streams (prompt + generated) through the
-    kernel path and the plain path on fresh pools, ``chunk`` tokens a
-    step: float32 logits at every position that predicts a generated
-    token, held to delta = LOGIT_TOL * max |plain logits| there."""
+def teacher_rows(run: ServeRun, done: Dict[Any, list], dev, impl: str,
+                 chunk: int = 32) -> Dict[tuple, torch.Tensor]:
+    """The served streams (prompt + generated) of ``sorted(done)`` through
+    the ``impl`` attention on a fresh pool, ``chunk`` tokens a step:
+    {(index in sorted(done), position): float32 logits} at every position
+    that predicts a generated token."""
     from repro_torch.arch import model as M
 
-    cfg, done = run.cfg, run.cb.done
     rids = sorted(done)
     seqs = [run.prompts[r] + done[r] for r in rids]
     B, n_ps = len(seqs), SERVE["cache_len"] // SERVE["page_size"]
@@ -1242,27 +1266,35 @@ def check_teacher_forced(run: ServeRun, dev, chunk: int = 32) -> str:
     toks = np.zeros((B, L), np.int32)
     for b, s in enumerate(seqs):
         toks[b, : len(s)] = s
-    out = {}
-    for impl in ("cuda", "torch"):
-        kv = M.init_paged_kv(cfg, B * n_ps, SERVE["page_size"], device=dev)
-        rows = {}  # (slot, position) -> logits predicting the next token
-        for t0 in range(0, L, chunk):
-            n_new = np.array([min(chunk, max(0, len(s) - t0)) for s in seqs],
-                             np.int32)
-            lg, kv = M.paged_decode_step(
-                run.params, kv, tbl,
-                torch.full((B,), t0, dtype=torch.int32, device=dev),
-                torch.as_tensor(toks[:, t0:t0 + chunk], device=dev),
-                torch.as_tensor(n_new, device=dev), cfg, attn_impl=impl,
-                all_positions=True)
-            for b, r in enumerate(rids):  # positions predicting generated
-                P = len(run.prompts[r])
-                for j in range(int(n_new[b])):
-                    if P - 1 <= t0 + j < len(seqs[b]) - 1:
-                        rows[(b, t0 + j)] = lg[b, j].clone()
-            del lg
-        out[impl] = rows
-        del kv
+    kv = M.init_paged_kv(run.cfg, B * n_ps, SERVE["page_size"], device=dev)
+    rows = {}
+    for t0 in range(0, L, chunk):
+        n_new = np.array([min(chunk, max(0, len(s) - t0)) for s in seqs],
+                         np.int32)
+        lg, kv = M.paged_decode_step(
+            run.params, kv, tbl,
+            torch.full((B,), t0, dtype=torch.int32, device=dev),
+            torch.as_tensor(toks[:, t0:t0 + chunk], device=dev),
+            torch.as_tensor(n_new, device=dev), run.cfg, attn_impl=impl,
+            all_positions=True)
+        for b, r in enumerate(rids):  # positions predicting generated
+            P = len(run.prompts[r])
+            for j in range(int(n_new[b])):
+                if P - 1 <= t0 + j < len(seqs[b]) - 1:
+                    rows[(b, t0 + j)] = lg[b, j].clone()
+        del lg
+    return rows
+
+
+def check_teacher_forced(run: ServeRun, dev) -> str:
+    """(b) The kernel run's served streams through the kernel path and the
+    plain path (``teacher_rows``): float32 logits at every position that
+    predicts a generated token, held to delta = LOGIT_TOL * max |plain
+    logits| there."""
+    done = run.cb.done
+    seqs = [run.prompts[r] + done[r] for r in sorted(done)]
+    out = {impl: teacher_rows(run, done, dev, impl)
+           for impl in ("cuda", "torch")}
     keys = sorted(out["cuda"])
     a = torch.stack([out["cuda"][k] for k in keys])
     c = torch.stack([out["torch"][k] for k in keys])
@@ -1340,6 +1372,305 @@ def check_shared_and_int8(run: ServeRun, dev) -> str:
             f"requests ({shared.pool.stats['shared_tokens']} prompt tokens "
             f"shared); (d) kv_int8 served {len(i8.done)} of 8 "
             f"({len(i8.dropped)} quarantined)")
+
+
+# ------------------------------------------------------------ phase 11
+DEVICE_ROUND, DEVICE_CHUNK = 16, 8  # sync_every, prefill_chunk of (a)
+# the profiler drops the first device records of a session, more the more
+# sessions the process has run before (phase 11's window once lost all 6
+# launches of the gate call that opens it); a window opens with this many
+# spin kernels, which absorb the loss and are not counted
+PROFILER_SPINS = 256
+OUR_KERNELS = ("bucketize_kernel", "ternary_match_kernel", "fused_eb_kernel",
+               "lb_lookup_kernel", "bnn_counts_kernel", "bnn_rows_kernel",
+               "paged_attention_kernel")
+
+
+@dataclasses.dataclass
+class DeviceRun:
+    cb: Any  # the DeviceContinuousBatcher after its first wave
+    seconds: float  # the first wave, graph capture included
+    launches: Dict[str, int]  # wrapper counts over the first wave
+
+
+def device_batcher(run: ServeRun, dev, chunk=DEVICE_CHUNK,
+                   sync_every=DEVICE_ROUND, graph=True):
+    from repro_torch.serve.engine import (DeviceContinuousBatcher,
+                                          ServeConfig, ServeEngine)
+
+    engine = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE),
+                         gate=run.gate, device=dev)
+    return DeviceContinuousBatcher(engine, eos_token=-1,
+                                   max_tokens=SERVE_TOKENS,
+                                   sync_every=sync_every,
+                                   prefill_chunk=chunk, graph=graph)
+
+
+def device_wave(cb, run: ServeRun, dev, tag=None, n=SERVE_REQUESTS) -> float:
+    """Submit phase 9's requests (ids ``(tag, i)`` past the first wave),
+    run them to the end; seconds on the host clock, synchronised."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i, (p, f) in enumerate(zip(run.prompts[:n], run.feats[:n])):
+        cb.submit(i if tag is None else (tag, i), p, features=f)
+    cb.run(max_steps=20000)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def drive_device(run: ServeRun, dev, **kw) -> DeviceRun:
+    """One batcher, phase 9's workload; the wrapper counts are reset just
+    before and read just after."""
+    from repro_torch.kernels import ops
+
+    cb = device_batcher(run, dev, **kw)
+    ops.reset_launch_counts()
+    seconds = device_wave(cb, run, dev)
+    return DeviceRun(cb, seconds, ops.launch_counts())
+
+
+def wave_streams(cb) -> Dict[Any, list]:
+    """The first wave's streams (plain request ids)."""
+    return {r: t for r, t in cb.done.items() if not isinstance(r, tuple)}
+
+
+def check_device_main(d: DeviceRun, run: ServeRun) -> str:
+    """(a) the terminal states, the gate's verdicts, the pool, the path's
+    kernels."""
+    cb, cfg = d.cb, run.cfg
+    for k in ("paged_attention", "fused_eb"):
+        if d.launches[k] <= 0:
+            fail(f"the device batcher did not launch {k}: {d.launches}")
+    others = {k: n for k, n in d.launches.items()
+              if n and k not in ("paged_attention", "fused_eb")}
+    if others:
+        fail(f"the device batcher launched other kernels: {others}")
+    served, dropped = set(cb.done), set(cb.dropped)
+    if served & dropped or len(served) + len(dropped) != SERVE_REQUESTS:
+        fail(f"device batcher: served {len(served)} + dropped "
+             f"{len(dropped)} != {SERVE_REQUESTS}")
+    keep = run.gate.predict(run.feats) != 1
+    rejected = {r for r, why in cb.drop_reasons.items() if why == "gate-reject"}
+    if rejected != set(np.where(~keep)[0].tolist()):
+        fail("device batcher: gate-reject drops differ from the gate's "
+             "numpy verdicts")
+    if set(cb.drop_reasons.values()) - {"gate-reject", "quarantined"}:
+        fail(f"device batcher: unexpected drops {cb.drop_reasons}")
+    for rid, toks in cb.done.items():
+        if len(toks) != SERVE_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"device batcher request {rid}: {len(toks)} tokens, or "
+                 "out of vocab")
+    held = np.where(cb.pool.ref > 0)[0]
+    if (set(held.tolist()) != cb.pool.cached_pages()
+            or (cb.pool.ref[held] != 1).any() or (cb.pool.ref < 0).any()):
+        fail(f"device batcher: the pool holds {int(cb.pool.ref.sum())} "
+             f"references past the {cb.pool.n_cached} prefix holds")
+    n_tok = sum(len(t) for t in cb.done.values())
+    return (f"(a) sync_every {DEVICE_ROUND}, prefill_chunk {DEVICE_CHUNK}, "
+            f"graph: {len(served)} served, {len(dropped)} dropped "
+            f"({dict(collections.Counter(cb.drop_reasons.values()))}), "
+            f"{n_tok} tokens; {cb.steps} steps with work, "
+            f"{cb.steps_executed} run, {cb.steps_wasted} wasted; first "
+            f"wave {d.seconds:.3f} s with the graph capture; pool back to "
+            f"{cb.pool.n_cached} prefix holds; wrapper launches "
+            f"{ {k: n for k, n in d.launches.items() if n} } (the eager "
+            f"warm-up, the capture and the gate calls)")
+
+
+def same_run(name: str, a, b) -> None:
+    if (wave_streams(a) != wave_streams(b) or a.dropped != b.dropped
+            or a.drop_reasons != b.drop_reasons):
+        fail(f"{name}: streams or drops differ")
+
+
+def teacher_margins(run: ServeRun, done: Dict[Any, list],
+                    dev) -> Dict[Any, tuple]:
+    """Per request of ``done``, the kernel path's teacher-forced top-2
+    margin and delta = LOGIT_TOL * max|logits| at each position that
+    predicts a generated token (``teacher_rows``)."""
+    rows = teacher_rows(run, done, dev, "cuda")
+    rids = sorted(done)
+    out: Dict[Any, tuple] = {r: ([], []) for r in rids}
+    for (b, _), lg in sorted(rows.items()):
+        top2 = lg.topk(2).values
+        out[rids[b]][0].append((top2[0] - top2[1]).item())
+        out[rids[b]][1].append((LOGIT_TOL * lg.abs().max()).item())
+    return {r: (np.array(m), np.array(d)) for r, (m, d) in out.items()}
+
+
+def gemm_rows_invariant(run: ServeRun, dev) -> Dict[str, bool]:
+    """Whether each of layer 0's products gives a row the same bits in a
+    chunked step's [16 x DEVICE_CHUNK, K] operand as in a token-by-token
+    step's [16, K] (random bf16 activations)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    layer = run.params["layers"][0]
+    out = {}
+    for name, w in (("wq", layer["mixer"]["wq"]), ("wk", layer["mixer"]["wk"]),
+                    ("w_up", layer["mlp"]["w_up"]),
+                    ("w_down", layer["mlp"]["w_down"])):
+        B = SERVE["max_batch"]
+        x = torch.randn((B * DEVICE_CHUNK, w.shape[0]), generator=gen,
+                        device=dev).to(w.dtype)
+        rows = x.reshape(B, DEVICE_CHUNK, -1)[:, 0].contiguous()
+        out[f"{name} {tuple(w.shape)}"] = torch.equal(
+            (x @ w).reshape(B, DEVICE_CHUNK, -1)[:, 0], rows @ w)
+    return out
+
+
+def check_chunked(chunked, tbt, run: ServeRun, dev) -> str:
+    """(d) chunk 8 against token-by-token, up to each stream's first
+    near tie of the token-by-token stream."""
+    a, b = wave_streams(chunked), wave_streams(tbt)
+    def rejected(cb):
+        return {r for r, w in cb.drop_reasons.items()
+                if w == "gate-reject" and not isinstance(r, tuple)}
+
+    if rejected(chunked) != rejected(tbt):
+        fail("(d) the chunked and token-by-token runs rejected other requests")
+    for r in set(a) ^ set(b):  # served in one run only: quarantined in the
+        other = tbt if r in a else chunked  # other, past a divergence
+        if other.drop_reasons.get(r) != "quarantined":
+            fail(f"(d) request {r} served in one run only")
+    compared, total, equal, split = 0, 0, 0, []
+    margins = teacher_margins(run, b, dev)
+    for r in sorted(set(a) & set(b)):
+        margin, delta = margins[r]
+        near = np.nonzero(margin <= 2 * delta)[0]
+        upto = int(near[0]) if len(near) else len(b[r])
+        if a[r][:upto] != b[r][:upto]:
+            fail(f"(d) request {r}: chunked stream differs before its first "
+                 f"near tie ({upto})")
+        compared += upto
+        total += len(b[r])
+        equal += a[r] == b[r]
+        diff = [j for j, (x, y) in enumerate(zip(a[r], b[r])) if x != y]
+        if diff:  # (first differing token, first near tie)
+            split.append((diff[0], upto))
+    return (f"(d) chunk {DEVICE_CHUNK} vs 1: {compared} of {total} tokens "
+            f"compared (before each stream's first near tie), all equal; "
+            f"{equal} of {len(set(a) & set(b))} streams bitwise equal; the "
+            f"others' (first differing token, first near tie): {split}; "
+            f"{len(set(a) ^ set(b))} requests served in one run only; a row "
+            f"of a [{SERVE['max_batch']} x {DEVICE_CHUNK}, K] product equals "
+            f"its [{SERVE['max_batch']}, K] product's: "
+            f"{gemm_rows_invariant(run, dev)}")
+
+
+def check_no_sync(run: ServeRun, dev) -> str:
+    """(e) one round of the eager step and one of the replayed graph, from
+    a mid-flight state, under ``set_sync_debug_mode("error")``."""
+    out = []
+    for graph in (False, True):
+        cb = device_batcher(run, dev, graph=graph)
+        for i in range(SERVE["max_batch"]):
+            cb.submit(i, run.prompts[i], features=run.feats[i])
+        cb.run(max_steps=4)
+        (fs,) = cb._steps.values()
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fs.run(DEVICE_ROUND)
+        except RuntimeError as exc:
+            fail(f"(e) a {'replayed' if graph else 'eager'} round made the "
+                 f"host wait: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize(dev)
+        out.append("replayed" if graph else "eager")
+    return (f"(e) {DEVICE_ROUND}-step rounds, "
+            f"{' and '.join(out)}, under set_sync_debug_mode(\"error\"): "
+            f"no synchronising call")
+
+
+def gate_tables(gate) -> int:
+    return sum(len(st.tables) for st in gate.pipeline.stages
+               if st.kind == "ternary")
+
+
+def open_window(dev) -> None:
+    """The first work of a profiler window: ``PROFILER_SPINS`` spin
+    kernels (``torch.cuda._sleep``), which ``kernel_counts`` skips."""
+    for _ in range(PROFILER_SPINS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize(dev)
+
+
+def kernel_counts(prof) -> tuple:
+    """(launches of the repo's kernels by name, device ms by kernel class,
+    device events) in a profile."""
+    from torch.autograd import DeviceType
+
+    counts: Dict[str, int] = collections.Counter()
+    by: Dict[str, float] = collections.Counter()
+    events = 0
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA or evt.is_user_annotation
+                or "spin_kernel" in evt.key):
+            continue
+        by[kernel_class(evt.key)] += evt.self_device_time_total / 1e3
+        events += evt.count
+        for k in OUR_KERNELS:
+            if k in evt.key:
+                counts[k] += evt.count
+    return dict(counts), dict(by), events
+
+
+def profile_round(cb, run: ServeRun, dev, tag: str) -> tuple:
+    """A fresh wave's first round (its gate call and ``DEVICE_ROUND``
+    replays) under torch.profiler, then the rest of the wave unprofiled:
+    (the repo's kernels by name, steps run in the round)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i, (p, f) in enumerate(zip(run.prompts, run.feats)):
+        cb.submit((tag, i), p, features=f)
+    s0, keys = cb.steps_executed, len(cb._steps)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        open_window(dev)
+        cb.run(max_steps=DEVICE_ROUND)
+        torch.cuda.synchronize(dev)
+    steps = cb.steps_executed - s0
+    if steps != DEVICE_ROUND or len(cb._steps) != keys:
+        fail(f"(f) the profiled round ran {steps} steps, or captured")
+    cb.run(max_steps=20000)
+    return kernel_counts(prof)[0], steps
+
+
+def profile_device(cb, run: ServeRun, dev) -> Dict[str, Any]:
+    """(f) the kernels of one round: its gate call and ``DEVICE_ROUND``
+    replays (about 37,000 device events; a window of a whole run, about
+    220,000).  Then one warm wave timed on the host clock and one under
+    the profiler give the device time a step and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    L, T = run.cfg.n_layers, gate_tables(run.gate)
+    want = {"paged_attention_kernel": DEVICE_ROUND * L,
+            "fused_eb_kernel": (DEVICE_ROUND + 1) * T}
+    counts, rsteps = profile_round(cb, run, dev, "round")
+    if counts != want:
+        fail(f"(f) the profiler saw {counts} in a round of {rsteps} steps, "
+             f"expected {want} (one gate call of {T} tables)")
+    s0 = cb.steps_executed
+    wall = device_wave(cb, run, dev, tag="timed")
+    steps = cb.steps_executed - s0
+    n_tok = sum(len(t) for r, t in cb.done.items()
+                if isinstance(r, tuple) and r[0] == "timed")
+    s0 = cb.steps_executed
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        open_window(dev)
+        device_wave(cb, run, dev, tag="profiled")
+    psteps = cb.steps_executed - s0
+    wcounts, by, events = kernel_counts(prof)
+    busy = sum(by.values())
+    return dict(seconds=wall, steps=steps, tokens=n_tok,
+                ms_step=wall / steps * 1e3, busy_ms_step=busy / psteps,
+                by={k: round(v / psteps, 4) for k, v in by.items()},
+                idle=1 - (busy / psteps) / (wall / steps * 1e3),
+                counts=counts, rsteps=rsteps, wcounts=wcounts, psteps=psteps, events=events)
 
 
 def main() -> None:
@@ -1468,6 +1799,46 @@ def main() -> None:
     print(f"[10 serve parity] {check_captured_attention(serve, dev)}")
     print(f"[10 serve parity] {check_teacher_forced(serve, dev)}")
     print(f"[10 serve parity] {check_shared_and_int8(serve, dev)}")
+    d = drive_device(serve, dev)
+    print(f"[11 device batcher] {check_device_main(d, serve)} ({card})")
+    tbt = device_batcher(serve, dev, chunk=1)
+    device_wave(tbt, serve, dev)
+    same_run("(b) prefill_chunk 1 vs the host batcher", tbt, serve.cb)
+    print(f"[11 device batcher] (b) prefill_chunk 1 == phase 9's host "
+          f"batcher bitwise: {len(serve.cb.done)} streams, drops "
+          f"{serve.cb.drop_reasons}; {tbt.steps} steps with work (host: "
+          f"{serve.cb.steps}), {tbt.steps_executed} run")
+    eager = device_batcher(serve, dev, graph=False)
+    eager_s = device_wave(eager, serve, dev)
+    one = device_batcher(serve, dev, sync_every=1)
+    device_wave(one, serve, dev)
+    same_run("(c) graph vs eager", d.cb, eager)
+    same_run("(c) sync_every 1 vs 16", d.cb, one)
+    print(f"[11 device batcher] (c) graph == eager == sync_every 1, "
+          f"bitwise ({len(d.cb.done)} streams; sync_every 1: "
+          f"{one.steps_executed} steps run, {one.steps_wasted} wasted)")
+    print(f"[11 device batcher] {check_chunked(d.cb, tbt, serve, dev)}")
+    print(f"[11 device batcher] {check_no_sync(serve, dev)}")
+    prof = profile_device(d.cb, serve, dev)
+    n_tok = sum(len(t) for t in serve.cb.done.values())
+    print(f"[11 device batcher] (f) profiler over a round of "
+          f"{prof['rsteps']} steps and its gate call: {prof['counts']}, "
+          f"no other kernel of the repo (over a whole run of "
+          f"{prof['psteps']} "
+          f"steps, {prof['events']} device events: {prof['wcounts']}, not "
+          f"gated) ({card})")
+    print(f"[11 device batcher timing] warm wave, graph: {prof['tokens']} "
+          f"tokens in {prof['seconds']:.4f} s, "
+          f"{prof['tokens'] / prof['seconds']:.1f} tokens/s, "
+          f"{prof['ms_step']:.4f} ms per step run ({prof['steps']} steps); "
+          f"device {prof['busy_ms_step']:.4f} ms a step (profiler: "
+          f"{prof['by']}), idle "
+          f"{prof['idle']:.3f} of the step; eager (first wave, no graph): "
+          f"{sum(len(t) for t in eager.done.values()) / eager_s:.1f} "
+          f"tokens/s, "
+          f"{eager_s / eager.steps_executed * 1e3:.4f} ms per step run; "
+          f"phase 9's host batcher: {n_tok / serve.seconds:.1f} tokens/s, "
+          f"{serve.seconds / serve.cb.steps * 1e3:.4f} ms per step ({card})")
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
     print(json.dumps({"kernels": rows}))

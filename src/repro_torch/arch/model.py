@@ -180,7 +180,7 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     page_ids = torch.gather(block_tbl, 1, lp.long())
     page_ids = torch.where(valid, page_ids, torch.full_like(page_ids, N_pages))
     page_off = positions % page
-    rows = A.write_rows(page_ids, N_pages)  # once for every layer
+    rows = A.write_rows(page_ids, page_off, N_pages, page)  # every layer
     rope = (rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
             if cfg.rope_theta > 0 else None)
     x = params["embed"][tokens.long()]

@@ -14,6 +14,7 @@ product overflows): its bits equal the JAX package's uint32 hash.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["hash_u32", "uniform", "gumbel", "filter_logits", "token_probs",
@@ -23,8 +24,12 @@ _MASK = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
 
-def _u32(x, device=None) -> torch.Tensor:
-    """Any int (tensor or python, any sign) -> its uint32 bits in int64."""
+def _u32(x, device=None):
+    """Any int (tensor or python, any sign) -> its uint32 bits, in int64
+    for a tensor and as a python int for a python int (no host-to-device
+    copy, which would make the host wait inside a serve step)."""
+    if isinstance(x, (int, np.integer)):
+        return int(x) & _MASK
     t = torch.as_tensor(x, device=device)
     if t.dtype.is_floating_point:
         raise TypeError(f"hash inputs are integers, got {t.dtype}")
@@ -55,7 +60,7 @@ def hash_u32(seed, pos, salt=0, lane=0) -> torch.Tensor:
     h = _mix(_u32(seed, dev) ^ _GOLDEN)
     h = _mix(h ^ _u32(pos, dev) ^ _GOLDEN)
     h = _mix(h ^ _u32(salt, dev) ^ _GOLDEN)
-    return _mix(h ^ _u32(lane, dev))
+    return torch.as_tensor(_mix(h ^ _u32(lane, dev)), device=dev)
 
 
 def uniform(seed, pos, salt=0, lane=0) -> torch.Tensor:
@@ -75,7 +80,7 @@ def filter_logits(logits: torch.Tensor, top_k: int,
     """Mask logits outside the top-k / nucleus (top-p) set to -inf
     (top-k first, then top-p over what survives)."""
     x = logits.float()
-    neg = torch.tensor(float("-inf"), dtype=torch.float32, device=x.device)
+    neg = torch.full((), float("-inf"), dtype=torch.float32, device=x.device)
     V = x.shape[-1]
     if top_k and top_k < V:
         kth = torch.sort(x, dim=-1).values[..., V - top_k, None]

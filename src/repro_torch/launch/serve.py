@@ -1,23 +1,27 @@
 """Serving entry point of the port: requests through the Planter gate + LM
 decode.
 
-    # host-driven continuous batching over the paged KV cache, on the card
+    # the device batcher (fused step, CUDA graph) over the paged KV cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
-        --smoke --continuous --batcher host --page-size 16 --requests 16 \
-        --tokens 8 --prompt-len 12 --gate rf
+        --smoke --continuous --page-size 16 --requests 16 --tokens 8 \
+        --prompt-len 12 --gate rf --sync-every 16 --prefill-chunk 8
+
+    # the host-driven batcher: one step and one sync per token
+    ... --batcher host
 
     # the same with the plain versions on the CPU
     ... --device cpu
 
-The flags are the JAX package's (``repro.launch.serve``).  Ported: the
-host batcher over the paged cache (``--continuous --batcher host
---page-size N``) with ``--pages``, ``--kv-int8``, ``--share-prefix``
-(``--shared-prefix-len``), ``--prompt-len``, ``--temperature`` /
-``--top-k`` / ``--top-p``, ``--gate`` / ``--gate-backend``,
-``--attn-impl``, ``--deadline-s`` and ``--max-retries``.  Every other mode
-(the dense cache, the device batcher, ``--trace`` / ``--metrics-out`` /
-``--fault-plan``, ``--spec-k``, the router and mesh, ``--snapshot-dir``)
-raises ``NotImplementedError`` naming its ROADMAP item.  Weights are
+The flags are the JAX package's (``repro.launch.serve``).  Ported: both
+batchers over the paged cache (``--continuous --page-size N``, with
+``--batcher device``, the default, taking ``--sync-every`` and
+``--prefill-chunk``, or ``--batcher host``) with ``--pages``,
+``--kv-int8``, ``--share-prefix`` (``--shared-prefix-len``),
+``--prompt-len``, ``--temperature`` / ``--top-k`` / ``--top-p``,
+``--gate`` / ``--gate-backend``, ``--attn-impl``, ``--deadline-s`` and
+``--max-retries``.  Every other mode (the dense cache, ``--trace`` /
+``--metrics-out`` / ``--fault-plan``, ``--spec-k``, the router and mesh,
+``--snapshot-dir``) raises ``NotImplementedError`` naming its ROADMAP item.  Weights are
 random-init from ``--seed`` with a ``torch.Generator`` (other numbers
 than the JAX package's for the same seed).
 """
@@ -35,8 +39,8 @@ from ..core import PlanterConfig, plant
 from ..data import load_dataset
 from ..device import resolve_device
 from ..nn import attn_backend as AB
-from ..serve.engine import (NOT_PORTED, ContinuousBatcher, ServeConfig,
-                            ServeEngine)
+from ..serve.engine import (NOT_PORTED, ContinuousBatcher,
+                            DeviceContinuousBatcher, ServeConfig, ServeEngine)
 
 
 def _not_ported(args) -> str:
@@ -47,8 +51,6 @@ def _not_ported(args) -> str:
         return NOT_PORTED["spec"]
     if not args.continuous or not args.page_size:
         return NOT_PORTED["dense"]
-    if args.batcher == "device":
-        return NOT_PORTED["device"]
     if args.trace or args.metrics_out or args.fault_plan:
         return NOT_PORTED["obs"]
     if args.snapshot_dir:
@@ -75,11 +77,11 @@ def main(argv=None):
                          "card, the plain version on the CPU)")
     ap.add_argument("--continuous", action="store_true",
                     help="slot-based continuous batching over the request "
-                         "stream (the only mode ported)")
+                         "stream (the only serve mode ported)")
     ap.add_argument("--batcher", default="device",
                     choices=["device", "host"],
-                    help="continuous-batching engine (only 'host' is "
-                         "ported)")
+                    help="continuous-batching engine: the fused device "
+                         "step or the host-driven loop")
     ap.add_argument("--sync-every", type=int, default=16,
                     help="device batcher: steps per host round trip")
     ap.add_argument("--page-size", type=int, default=0,
@@ -188,9 +190,15 @@ def main(argv=None):
         for _ in range(args.requests)]
     engine = ServeEngine(cfg, params, scfg, gate=gate,
                          gate_backend=args.gate_backend, device=dev)
-    cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=args.tokens,
-                           max_retries=args.max_retries,
-                           deadline_s=args.deadline_s)
+    ft = dict(max_retries=args.max_retries, deadline_s=args.deadline_s)
+    if args.batcher == "device":
+        cb = DeviceContinuousBatcher(
+            engine, eos_token=-1, max_tokens=args.tokens,
+            sync_every=args.sync_every, prefill_chunk=args.prefill_chunk,
+            **ft)
+    else:
+        cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=args.tokens,
+                               **ft)
     # the host loop costs one step per prompt token
     budget = 100 * (args.tokens + args.prompt_len + args.shared_prefix_len)
     # with sharing, a first wave populates the prefix cache
@@ -206,10 +214,13 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n_tok = sum(len(v) for v in done.values())
     reasons = collections.Counter(cb.drop_reasons.values())
-    print(f"[host] served {len(done)} requests "
+    steps = (f"{cb.steps} steps" if args.batcher == "host" else
+             f"{cb.steps} steps with work of {cb.steps_executed} run, "
+             f"{cb.steps_wasted} wasted")
+    print(f"[{args.batcher}] served {len(done)} requests "
           f"(dropped {len(cb.dropped)}: {dict(reasons) or 'none'}) — "
           f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
-          f"{cb.steps} steps, on {dev})")
+          f"{steps}, on {dev})")
     if args.share_prefix:
         print(f"  prefix sharing: {cb.pool.prefix_tokens_per_page():.2f} "
               f"live prefix tokens per pool page (1.0 = unshared)")

@@ -75,11 +75,44 @@ def quantize_kv_int8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def write_rows(page_ids: torch.Tensor, n_pages: int) -> torch.Tensor:
-    """Flat indices of the ``[B, C]`` chunk rows whose page id lies in the
-    pool (the rows a write keeps; the host waits for the device here)."""
-    ids = page_ids.reshape(-1)
-    return torch.nonzero((ids >= 0) & (ids < n_pages)).squeeze(1)
+def drop_plan(idx: torch.Tensor, n: int, at: Optional[torch.Tensor] = None):
+    """The plan of a scatter of rows to ``idx [R]`` that drops every index
+    outside ``[0, n)`` (the JAX package's ``mode="drop"``), for
+    ``put_rows``: ``(at, src, none)``.  Row ``r`` writes row ``src[r]`` to
+    ``at[r]``: itself to its own index when that is in range, else the
+    first row whose index is, repeating its write (the same target, the
+    same value); when no row's index is in range, ``none`` is set and
+    every row puts the first entry back as it was.  ``at`` defaults to
+    ``idx``; another target (a flat cell) may be given for the same rows.
+    Only device ops: no ``nonzero``, so the host never waits and a CUDA
+    graph can hold it."""
+    keep = (idx >= 0) & (idx < n)
+    first = torch.argmax(keep.to(torch.int32))
+    src = torch.where(keep, torch.arange(idx.numel(), device=idx.device),
+                      first)
+    none = ~keep.any()
+    at = idx if at is None else at
+    return torch.where(none, 0, at[src]).long(), src, none
+
+
+def put_rows(dst: torch.Tensor, dim: int, plan, val: torch.Tensor) -> None:
+    """``dst[..., at[r], ...] = val[..., src[r], ...]`` along ``dim``, in
+    place, after ``drop_plan``.  Duplicate targets carry equal values, so
+    the result does not depend on the order the writes land in."""
+    at, src, none = plan
+    v = torch.where(none, dst.narrow(dim, 0, 1), val.index_select(dim, src))
+    dst.index_copy_(dim, at, v.to(dst.dtype))
+
+
+def write_rows(page_ids: torch.Tensor, page_off: torch.Tensor,
+               n_pages: int, page: int):
+    """The ``drop_plan`` of a chunk's ``[B, C]`` rows into the flat cells
+    (``page_id * page + page_off``) of a pool of ``n_pages`` pages: a row
+    whose page id lies outside the pool drops (a padded chunk slot).
+    Found once per step for every layer's write."""
+    cell = (page_ids.reshape(-1).long() * page
+            + page_off.reshape(-1).long())
+    return drop_plan(page_ids.reshape(-1), n_pages, at=cell)
 
 
 def _paged_write(kv: PagedKV, k: torch.Tensor, v: torch.Tensor) -> PagedKV:
@@ -87,29 +120,24 @@ def _paged_write(kv: PagedKV, k: torch.Tensor, v: torch.Tensor) -> PagedKV:
 
     The JAX write is ``pool.at[page_ids, page_off].set(..., mode="drop")``:
     an id past the pool (``N_pages``, a padded chunk slot) drops its row.
-    ``index_put_`` would raise on such an id, so the rows are filtered
-    explicitly first (``kv.rows`` from ``write_rows``, found once per step
-    for all layers, since finding them waits for the device).  The pools
-    are written in place: ``kv``'s tensors are views into the stacked
-    ``[n_layers, ...]`` pool, which the serve step owns (the JAX package
-    returns a new pool instead).  The int8 pool quantizes per token vector
-    and writes the scale planes beside it.
+    ``index_put_`` would raise on such an id, and filtering the rows would
+    make the host wait for the device, so the write follows ``kv.rows``
+    (``write_rows``, found once per step for all layers): a dropped row
+    repeats a kept row's write.  The pools are written in place: ``kv``'s
+    tensors are views into the stacked ``[n_layers, ...]`` pool, which the
+    serve step owns (the JAX package returns a new pool instead).  The
+    int8 pool quantizes per token vector and writes the scale planes
+    beside it.
     """
-    rows = kv.rows
-    ids = kv.page_ids.reshape(-1)[rows].long()
-    off = kv.page_off.reshape(-1)[rows].long()
-    k = k.reshape(-1, *k.shape[2:])[rows]  # [n_kept, KV, hd]
-    v = v.reshape(-1, *v.shape[2:])[rows]
+    k = k.reshape(-1, *k.shape[2:])  # [B*C, KV, hd]
+    v = v.reshape(-1, *v.shape[2:])
+    planes = [(kv.k, k), (kv.v, v)]
     if kv.quantized:
         kq, ks = quantize_kv_int8(k)
         vq, vs = quantize_kv_int8(v)
-        kv.k.index_put_((ids, off), kq)
-        kv.v.index_put_((ids, off), vq)
-        kv.k_scale.index_put_((ids, off), ks.to(kv.k_scale.dtype))
-        kv.v_scale.index_put_((ids, off), vs.to(kv.v_scale.dtype))
-    else:
-        kv.k.index_put_((ids, off), k.to(kv.k.dtype))
-        kv.v.index_put_((ids, off), v.to(kv.v.dtype))
+        planes = [(kv.k, kq), (kv.v, vq), (kv.k_scale, ks), (kv.v_scale, vs)]
+    for pool, rows in planes:
+        put_rows(pool.view(-1, *pool.shape[2:]), 0, kv.rows, rows)
     return kv
 
 

@@ -67,8 +67,9 @@ class PagedKV:
       them), plus ``block_tbl [B, n_ps]``, ``pos [B, C]`` and the scatter
       coordinates ``page_ids``/``page_off [B, C]`` (an id of ``N_pages``
       or more drops the write: padded chunk slots) and ``rows``, the
-      flat indices of the rows that write (``nn.attention.write_rows``),
-      found once per step rather than once per layer.
+      write's plan (``nn.attention.write_rows``: a dropped row repeats a
+      kept row's write, so the host never waits), found once per step
+      rather than once per layer.
     """
 
     k: torch.Tensor

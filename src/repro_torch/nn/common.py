@@ -29,8 +29,9 @@ def rope_freqs(head_dim: int, theta: float,
                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # ``full``, not ``tensor``: no host-to-device copy inside a serve step
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):

@@ -1,7 +1,9 @@
-"""The host-driven paged serve path: ``ServeEngine`` and
-``ContinuousBatcher`` over the refcounted ``PagePool``."""
-from .engine import ContinuousBatcher, ServeConfig, ServeEngine
+"""The paged serve path: ``ServeEngine`` with the host-driven
+``ContinuousBatcher`` and the fused ``DeviceContinuousBatcher`` over the
+refcounted ``PagePool``."""
+from .engine import (ContinuousBatcher, DeviceContinuousBatcher, ServeConfig,
+                     ServeEngine)
 from .pages import PagePlan, PagePool, Reservation
 
-__all__ = ["ContinuousBatcher", "PagePlan", "PagePool", "Reservation",
-           "ServeConfig", "ServeEngine"]
+__all__ = ["ContinuousBatcher", "DeviceContinuousBatcher", "PagePlan",
+           "PagePool", "Reservation", "ServeConfig", "ServeEngine"]

@@ -192,9 +192,9 @@ def test_paged_write_drops_past_the_pool_bitwise(quantized):
                           jnp.asarray(k, jnp.bfloat16),
                           jnp.asarray(v, jnp.bfloat16))
     tids = torch.as_tensor(ids)
-    tkv = TA._paged_write(tkv.with_view(None, None, tids,
-                                        torch.as_tensor(off),
-                                        TA.write_rows(tids, N)),
+    toff = torch.as_tensor(off)
+    tkv = TA._paged_write(tkv.with_view(None, None, tids, toff,
+                                        TA.write_rows(tids, toff, N, page)),
                           torch.as_tensor(k).to(torch.bfloat16),
                           torch.as_tensor(v).to(torch.bfloat16))
     for a, b in zip(tkv.pools(), (jkv.k, jkv.v) + (
@@ -229,7 +229,7 @@ def test_paged_block_matches_jax_end_to_end():
     tview = tuple(map(torch.as_tensor, view))
     ot, tkv = TA.paged_decode_attention_block(
         pt, torch.as_tensor(x),
-        tkv.with_view(*tview, TA.write_rows(tview[2], N)),
+        tkv.with_view(*tview, TA.write_rows(tview[2], tview[3], N, page)),
         rope=rope_cos_sin(tview[1], hd, 1e4), impl="auto", **kw)
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=1e-4,
                                atol=1e-4)

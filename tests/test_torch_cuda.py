@@ -502,3 +502,98 @@ def test_cuda_serve_launches_paged_attention_per_layer(cuda_device):
     assert counts["paged_attention"] == cb.steps * cfg.n_layers > 0
     assert counts["fused_eb"] > 0
     assert len(done) + len(cb.dropped) == 6
+
+
+def _device_serve(cuda_device, graph, n=6, max_steps=200, **scfg):
+    """The device batcher on the smoke config (rf-S gate), ``n`` requests
+    of 2-7 tokens, chunk 4, three steps a round."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+    from repro_torch.serve.engine import (DeviceContinuousBatcher,
+                                          ServeConfig, ServeEngine)
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    ds = load_dataset("unsw", n=1500)
+    gate = plant(PlanterConfig(model="rf", size="S"), ds.X_train,
+                 ds.y_train).mapped
+    engine = ServeEngine(cfg, M.init_params(cfg, 0, cuda_device),
+                         ServeConfig(max_batch=4, cache_len=32, page_size=8,
+                                     **scfg),
+                         gate=gate, device=cuda_device)
+    cb = DeviceContinuousBatcher(engine, eos_token=-1, max_tokens=4,
+                                 sync_every=3, prefill_chunk=4, graph=graph)
+    for rid in range(n):
+        cb.submit(rid, [rid + 1] * (rid + 2), features=ds.X_test[rid])
+    cb.run(max_steps=max_steps)
+    return cb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [False, True])
+def test_cuda_device_batcher_graph_equals_eager(cuda_device, share):
+    """The replayed CUDA graph gives the eager step's streams, drops and
+    refcounts bitwise, and steps with work as many."""
+    graph = _device_serve(cuda_device, True, share_prefix=share)
+    eager = _device_serve(cuda_device, False, share_prefix=share)
+    assert graph.graph and not eager.graph
+    assert graph.done == eager.done and len(graph.done) > 0
+    assert graph.dropped == eager.dropped and graph.steps == eager.steps
+    np.testing.assert_array_equal(graph.pool.ref, eager.pool.ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+def test_cuda_device_batcher_round_never_syncs(cuda_device, graph):
+    """A round of the fused step, from a mid-flight state, makes no
+    synchronising call (``set_sync_debug_mode("error")`` would raise)."""
+    cb = _device_serve(cuda_device, graph, max_steps=2)
+    (fs,) = cb._steps.values()
+    assert not fs.st["free"].all()
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fs.run(3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("none_kept", [False, True])
+def test_cuda_sync_free_pool_write_equals_the_filtered_write(cuda_device,
+                                                            none_kept):
+    """On the card the pool write without ``nonzero`` leaves the pool as
+    the filtered write does, and makes no synchronising call."""
+    from repro_torch.nn import attention as A
+    from repro_torch.nn.attn_backend import PagedKV
+
+    rng = np.random.default_rng(3)
+    N, page, KV, hd, B, C = 6, 4, 2, 16, 4, 3
+    cells = rng.permutation(N * page)[: B * C]
+    ids, off = cells // page, cells % page
+    ids[[0, 4, 7]] = [N, N + 2, -1]
+    if none_kept:
+        ids[:] = N
+    dev = cuda_device
+    ids = torch.as_tensor(ids.reshape(B, C), dtype=torch.int32, device=dev)
+    off = torch.as_tensor(off.reshape(B, C), dtype=torch.int32, device=dev)
+    k = torch.randn((B, C, KV, hd), device=dev).to(torch.bfloat16)
+    v = torch.randn((B, C, KV, hd), device=dev).to(torch.bfloat16)
+    pool = [torch.randn((N, page, KV, hd), device=dev).to(torch.bfloat16)
+            for _ in range(2)]
+    kv = PagedKV(*[p.clone() for p in pool])
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        A._paged_write(kv.with_view(None, None, ids, off,
+                                    A.write_rows(ids, off, N, page)), k, v)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    keep = torch.nonzero(((ids >= 0) & (ids < N)).reshape(-1)).squeeze(1)
+    for p, rows in zip(pool, (k, v)):
+        p.index_put_((ids.reshape(-1)[keep].long(),
+                      off.reshape(-1)[keep].long()),
+                     rows.reshape(-1, KV, hd)[keep])
+    assert torch.equal(kv.k, pool[0]) and torch.equal(kv.v, pool[1])

@@ -424,6 +424,21 @@ def test_launcher_serves_on_cpu(capsys):
     assert len(done) > 0 and all(len(t) == 3 for t in done.values())
 
 
+def test_launcher_serves_the_device_batcher_on_cpu(capsys):
+    """``--continuous --page-size 16`` (``--batcher device``, the default)
+    serves through the fused step, with prefix sharing."""
+    from repro_torch.launch import serve
+
+    done = serve.main(["--smoke", "--device", "cpu", "--continuous",
+                       "--page-size", "16", "--requests", "6", "--tokens",
+                       "3", "--prompt-len", "12", "--share-prefix",
+                       "--shared-prefix-len", "16", "--sync-every", "4",
+                       "--prefill-chunk", "4"])
+    out = capsys.readouterr().out
+    assert "[device] served" in out and "wasted" in out
+    assert len(done) > 0 and all(len(t) == 3 for t in done.values())
+
+
 def test_launcher_defaults_to_cuda(monkeypatch):
     from repro_torch.launch import serve
 
@@ -438,7 +453,6 @@ _HOST = ["--continuous", "--batcher", "host", "--page-size", "16"]
 
 @pytest.mark.parametrize("argv,item", [
     ([], "item 2"), (["--continuous", "--batcher", "host"], "item 2"),
-    (["--continuous", "--page-size", "16"], "item 3"),
     (_HOST + ["--trace", "t.json"], "item 4"),
     (_HOST + ["--metrics-out", "m.jsonl"], "item 4"),
     (_HOST + ["--fault-plan", "nan:1@2"], "item 4"),
@@ -459,7 +473,7 @@ def test_not_ported_paths_raise(both):
                  lambda: dense.state,
                  lambda: TE.ContinuousBatcher(dense),
                  lambda: TE.DeviceContinuousBatcher(dense)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        with pytest.raises(NotImplementedError, match="queue A item 2"):
             call()
     with pytest.raises(NotImplementedError, match="item 6"):
         TE.ServeEngine(CFG, tp, TE.ServeConfig(page_size=8), mesh=object(),
