@@ -54,13 +54,21 @@ Phases, in order; the first failure exits non-zero:
    order and other values in the rows past each slot's position; timed at
    the serve decode shape (16 slots, 64 pages of 16, bf16) with every
    position weighed and with 256 of 1,024 visible, each beside its plain
-   version and a gather + ``F.scaled_dot_product_attention`` yardstick;
+   version and a gather + ``F.scaled_dot_product_attention`` yardstick.
+   ``linear``: for each of a qwen2-1.5b step's eight products (wq, wk, wv,
+   wo, w_gate, w_up, w_down, the float32 head) and M in {1, 16, 48, 64,
+   128, 256}, every row bitwise equal at offsets 0 and 7 and computed
+   alone; within ``linear_limit`` of its plain version (2 K 2^-24
+   sum|x||w| plus one bf16 ulp of a bf16 output, fixed before any run);
+   each product timed at M = 16 and 128 beside cuBLAS (``x @ w``) and its
+   byte bound;
 9. serve: qwen2-1.5b at full width and depth, weights random-init from
    ``--seed`` (default 0), through ``ServeEngine`` + ``ContinuousBatcher``
    over the paged cache (16 slots, cache 1024, page 16) with an rf-S
    admission gate on unsw features: 32 requests, prompt lengths drawn in
    [16, 256] from the seed, 32 tokens each.  ``paged_attention`` launches
-   equal steps x 28, ``fused_eb`` launched at admission, served + dropped
+   equal steps x 28, ``linear`` steps x (7 x 28 + 1), ``fused_eb``
+   launched at admission, served + dropped
    = submitted; tokens/s and ms per step; a torch.profiler window for the
    device's busy and idle share;
 10. serve parity, on limits fixed before any run: (a) the same workload
@@ -81,15 +89,28 @@ Phases, in order; the first failure exits non-zero:
    quarantined, ``pool.ref`` back to the prefix holds; (b) prefill_chunk
    1: done, dropped, drop reasons and every stream bitwise equal to phase
    9's host batcher; (c) graph vs eager and sync_every 1 vs 16, bitwise;
-   (d) chunk 8 vs 1: each stream equal to the token-by-token one up to its
-   first position whose teacher-forced top-2 margin (token-by-token
-   stream, kernel path) is within 2 delta; (e) rounds of the eager and
-   the replayed step under ``torch.cuda.set_sync_debug_mode("error")``;
-   (f) the profiler's kernels over one round and its gate call:
-   ``paged_attention`` = steps run x 28, ``fused_eb`` = (steps run + 1) x
-   the gate's tables, no other kernel of the repo.  Tokens/s and ms a step, graph
-   and eager, beside phase 9's, the steps with work, run and wasted, and
-   the device's idle share of a replayed step.
+   (d) chunk 8 vs 1: every stream and drop bitwise, and each of layer 0's
+   products gives a row the same bits in a [128, K] as in a [16, K]
+   operand; (e) rounds of the eager and the replayed step under
+   ``torch.cuda.set_sync_debug_mode("error")``; (f) the profiler's
+   kernels over one round and its gate call: ``paged_attention`` = steps
+   run x 28, ``linear`` = steps run x (7 x 28 + 1) (and its split-K sum
+   pass once a split product), ``fused_eb`` = (steps run + 1) x the
+   gate's tables, no other kernel of the repo.  Tokens/s and ms a step,
+   graph and eager, beside phase 9's, the steps with work, run and wasted,
+   and the device's idle share of a replayed step;
+12. speculative decoding: phase 9's workload through the device batcher
+   with ``spec_k`` 3 and a bigram draft trained on a pilot wave (phase
+   11's streams of the first 16 requests): every greedy stream and drop
+   bitwise phase 11's, at least one draft accepted, a round without a
+   synchronising call; drafted, accepted, acceptance rate and tokens/s of
+   a warm wave beside phase 11's;
+13. ``obs`` and faults: a traced run (Tracer + Metrics) whose streams and
+   drops are bitwise the untraced run's, every lifecycle valid, TTFT and
+   decode ms a token (p50, p99) printed; a fault-plan run (a corrupted
+   token in slot 3 at drain 1, every free page held at drain 2 for two
+   drains): exactly that request quarantined, every other stream phase
+   11's, ``pool.ref`` back to its prefix holds.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
@@ -130,6 +151,7 @@ PEAK_INT32_OPS = 0.0
 SOURCE = "src/repro_torch/kernels/csrc/eb_kernels.cu"
 LB_DM_SOURCE = "src/repro_torch/kernels/csrc/lb_dm_kernels.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+LINEAR_SOURCE = "src/repro_torch/kernels/csrc/linear.cu"
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), FLOP/s
 PEAK_BF16_FLOPS = 989e12
 REPLACES = {
@@ -139,6 +161,9 @@ REPLACES = {
     "lb_lookup": "src/repro/kernels/lb_lookup.py:39",
     "bnn_popcount_matmul": "src/repro/kernels/bnn_mlp.py:33",
     "paged_attention": "src/repro/kernels/paged_attention.py:107",
+    # no Pallas kernel: the step's products are XLA dots in the JAX package
+    # (attention.py:57-59 and :289, mlp.py:24-25, arch/model.py:330)
+    "linear": "src/repro/nn/attention.py:57",
 }
 LB_MODELS = ("svm", "nb", "kmeans", "pca", "ae")
 
@@ -1048,6 +1073,152 @@ def pa_timing(q, k, v, tbl, visible: int, dev) -> Dict[str, Any]:
     }
 
 
+# --------------------------------------------------- phase 8: linear
+LINEAR_ROWS = (1, 16, 48, 64, 128, 256)  # M of the row-invariance grid
+LINEAR_TIMED = (16, 128)  # M of the timings: C = 1 and C = 8 at 16 slots
+
+
+def linear_weights(cfg):
+    """The eight weight shapes of a qwen2-1.5b step, (name, K, N, float32
+    out): seven products a layer and the head."""
+    D, hd = cfg.d_model, cfg.head_dim_
+    return [("wq", D, cfg.q_heads * hd, False),
+            ("wk", D, cfg.n_kv_heads * hd, False),
+            ("wv", D, cfg.n_kv_heads * hd, False),
+            ("wo", cfg.q_heads * hd, D, False),
+            ("w_gate", D, cfg.d_ff, False), ("w_up", D, cfg.d_ff, False),
+            ("w_down", cfg.d_ff, D, False),
+            ("head", D, cfg.vocab_padded, True)]
+
+
+def linear_case(dev, M, K, N, seed):
+    """bf16 x [M, K] ~ N(0, 1), w [K, N] ~ N(0, 1/K) on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=dev) / np.sqrt(K)).to(
+        torch.bfloat16)
+    return x, w
+
+
+def check_linear(cfg, dev) -> str:
+    """(a) every row of each of the step's eight products bitwise equal to
+    the same row in another row count, at another position and alone, for
+    M in LINEAR_ROWS; (b) within ``linear_limit`` (fixed before any run:
+    2 K 2^-24 sum|x||w| for two float32 summation orders, plus one bf16 ulp
+    of the output) of the plain version at the timed M."""
+    from test_torch_cuda import linear_limit
+
+    from repro_torch.kernels import ops, ref
+
+    n_rows = n_cmp = 0
+    for i, (name, K, N, f32) in enumerate(linear_weights(cfg)):
+        out = torch.float32 if f32 else None
+        X, w = linear_case(dev, max(LINEAR_ROWS) + 7, K, N, SEED + i)
+        for M in LINEAR_ROWS:
+            a = ops.linear(X[:M], w, out)
+            b = ops.linear(X[7:7 + M].contiguous(), w, out)
+            if not torch.equal(a[7:], b[: M - 7]):
+                fail(f"(8 linear) {name}: rows differ between [{M}, {K}] "
+                     f"operands at offsets 0 and 7")
+            for r in sorted({0, M // 2, M - 1}):
+                alone = ops.linear(X[r:r + 1].contiguous(), w, out)
+                if not torch.equal(alone[0], a[r]):
+                    fail(f"(8 linear) {name}: row {r} alone differs from "
+                         f"row {r} of a [{M}, {K}] operand")
+                n_cmp += 1
+            n_rows += M
+        for M in LINEAR_TIMED:
+            x = X[:M].contiguous()
+            got, want = ops.linear(x, w, out), ref.linear_ref(x, w, out)
+            bad = (got.float() - want.float()).abs() > linear_limit(
+                x, w, want, f32)
+            if bad.any():
+                fail(f"(8 linear) {name} at M = {M}: {int(bad.sum())} "
+                     f"elements past the limit of the plain version")
+    return (f"(a) the 8 weight shapes x M in {LINEAR_ROWS}: {n_rows} rows "
+            f"bitwise equal at offsets 0 and 7, {n_cmp} rows bitwise equal "
+            f"computed alone; (b) within the limit of the plain version at "
+            f"M in {LINEAR_TIMED}")
+
+
+def linear_library(x, w, f32):
+    """One PyTorch call computing the same function (cuBLAS): ``x @ w``,
+    or for the float32 head ``torch.mm`` with ``out_dtype`` where this
+    PyTorch has it (else None)."""
+    if not f32:
+        return lambda: x @ w
+    try:
+        torch.mm(x[:1], w, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return None
+    return lambda: torch.mm(x, w, out_dtype=torch.float32)
+
+
+def linear_timings(cfg, dev):
+    """Each of the eight products at M in LINEAR_TIMED: the kernel's events
+    and device time, the plain version's, cuBLAS's, and the byte bound;
+    then the sums over one device-batcher step (7 x layers products at
+    M = 16 x DEVICE_CHUNK and the head at M = 16) for the JSON row."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.linear import linear_hbm_bytes
+
+    per = []
+    for i, (name, K, N, f32) in enumerate(linear_weights(cfg)):
+        out = torch.float32 if f32 else None
+        X, w = linear_case(dev, max(LINEAR_TIMED), K, N, SEED + i)
+        for M in LINEAR_TIMED:
+            x = X[:M].contiguous()
+            lib = linear_library(x, w, f32)
+            n_bytes = linear_hbm_bytes(M, K, N, 4 if f32 else 2)
+            t_bytes = n_bytes / PEAK_BYTES * 1e3
+            t_ops = 2 * M * K * N / PEAK_BF16_FLOPS * 1e3
+            err = (ops.linear(x, w, out).float()
+                   - ref.linear_ref(x, w, out).float()).abs().max().item()
+            per.append({
+                "weight": name, "M": M, "K": K, "N": N, "max_abs_err": err,
+                "ms": time_ms(lambda: ops.linear(x, w, out)),
+                "device_ms": device_ms(lambda: ops.linear(x, w, out)),
+                "plain_ms": time_ms(lambda: ref.linear_ref(x, w, out),
+                                    reps=5, warmup=1),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": time_ms(lib) if lib else None,
+                "library_device_ms": device_ms(lib) if lib else None})
+    return per
+
+
+def linear_step_row(cfg, per, launches: int) -> Dict[str, Any]:
+    """The JSON row: one device-batcher step's products at C = DEVICE_CHUNK
+    (each layer's seven at M = 16 x DEVICE_CHUNK, the head at M = 16),
+    summed from ``per``."""
+    M_layer = SERVE["max_batch"] * DEVICE_CHUNK
+    count = {name: (1 if name == "head" else cfg.n_layers)
+             for name, _, _, _ in linear_weights(cfg)}
+    pick = [(r, count[r["weight"]]) for r in per
+            if r["M"] == (SERVE["max_batch"] if r["weight"] == "head"
+                          else M_layer)]
+
+    def total(key):
+        vals = [(r[key], n) for r, n in pick]
+        if any(v is None for v, _ in vals):
+            return None
+        return sum(v * n for v, n in vals)
+
+    return {"name": "linear", "route": "cuda", "source": LINEAR_SOURCE,
+            "replaces": REPLACES["linear"], "launches": launches,
+            "bitwise": False,
+            "max_abs_err": max(r["max_abs_err"] for r, _ in pick),
+            "ms": total("ms"), "device_ms": total("device_ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "bytes", "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms"),
+            "shape": {"step": f"{cfg.n_layers} x 7 products at M = "
+                              f"{M_layer}, the head at M = "
+                              f"{SERVE['max_batch']}"},
+            "per_product": per}
+
+
 # ------------------------------------------------------ phases 9 and 10
 SERVE = dict(max_batch=16, cache_len=1024, page_size=16)
 SERVE_REQUESTS, SERVE_TOKENS = 32, 32
@@ -1131,8 +1302,11 @@ def check_serve(run: ServeRun) -> str:
     if run.launches["fused_eb"] < SERVE_REQUESTS:
         fail(f"fused_eb launched {run.launches['fused_eb']} times for "
              f"{SERVE_REQUESTS} admissions")
+    if run.launches["linear"] != cb.steps * step_products(cfg):
+        fail(f"linear launched {run.launches['linear']} times in {cb.steps} "
+             f"steps of {step_products(cfg)} products")
     others = {k: n for k, n in run.launches.items()
-              if n and k not in ("paged_attention", "fused_eb")}
+              if n and k not in ("paged_attention", "fused_eb", "linear")}
     if others:
         fail(f"the serve path launched other kernels: {others}")
     served, dropped = set(cb.done), set(cb.dropped)
@@ -1158,10 +1332,15 @@ def check_serve(run: ServeRun) -> str:
             f"{ {k: n for k, n in run.launches.items() if n} }")
 
 
+def step_products(cfg) -> int:
+    """``ops.linear`` launches a serve step: 7 a layer and the head."""
+    return 7 * cfg.n_layers + 1
+
+
 def kernel_class(name: str) -> str:
     """A device kernel's class in a serve step's time."""
     name = name.lower()
-    for cls in ("paged_attention", "fused_eb"):
+    for cls in ("paged_attention", "fused_eb", "linear"):
         if cls in name:
             return cls
     if any(w in name for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
@@ -1383,7 +1562,8 @@ DEVICE_ROUND, DEVICE_CHUNK = 16, 8  # sync_every, prefill_chunk of (a)
 PROFILER_SPINS = 256
 OUR_KERNELS = ("bucketize_kernel", "ternary_match_kernel", "fused_eb_kernel",
                "lb_lookup_kernel", "bnn_counts_kernel", "bnn_rows_kernel",
-               "paged_attention_kernel")
+               "paged_attention_kernel", "linear_mma_kernel",
+               "linear_splitk_sum_kernel")
 
 
 @dataclasses.dataclass
@@ -1394,7 +1574,9 @@ class DeviceRun:
 
 
 def device_batcher(run: ServeRun, dev, chunk=DEVICE_CHUNK,
-                   sync_every=DEVICE_ROUND, graph=True):
+                   sync_every=DEVICE_ROUND, graph=True, **kw):
+    """Phase 9's engine through a fresh ``DeviceContinuousBatcher``; ``kw``
+    (spec_k and draft, tracer and metrics, fault_injector) go to it."""
     from repro_torch.serve.engine import (DeviceContinuousBatcher,
                                           ServeConfig, ServeEngine)
 
@@ -1403,7 +1585,7 @@ def device_batcher(run: ServeRun, dev, chunk=DEVICE_CHUNK,
     return DeviceContinuousBatcher(engine, eos_token=-1,
                                    max_tokens=SERVE_TOKENS,
                                    sync_every=sync_every,
-                                   prefill_chunk=chunk, graph=graph)
+                                   prefill_chunk=chunk, graph=graph, **kw)
 
 
 def device_wave(cb, run: ServeRun, dev, tag=None, n=SERVE_REQUESTS) -> float:
@@ -1438,11 +1620,11 @@ def check_device_main(d: DeviceRun, run: ServeRun) -> str:
     """(a) the terminal states, the gate's verdicts, the pool, the path's
     kernels."""
     cb, cfg = d.cb, run.cfg
-    for k in ("paged_attention", "fused_eb"):
+    for k in ("paged_attention", "fused_eb", "linear"):
         if d.launches[k] <= 0:
             fail(f"the device batcher did not launch {k}: {d.launches}")
     others = {k: n for k, n in d.launches.items()
-              if n and k not in ("paged_attention", "fused_eb")}
+              if n and k not in ("paged_attention", "fused_eb", "linear")}
     if others:
         fail(f"the device batcher launched other kernels: {others}")
     served, dropped = set(cb.done), set(cb.dropped)
@@ -1478,92 +1660,68 @@ def check_device_main(d: DeviceRun, run: ServeRun) -> str:
             f"warm-up, the capture and the gate calls)")
 
 
+def first_wave_drops(cb) -> tuple:
+    """The first wave's dropped list and reasons (plain request ids)."""
+    return ([r for r in cb.dropped if not isinstance(r, tuple)],
+            {r: w for r, w in cb.drop_reasons.items()
+             if not isinstance(r, tuple)})
+
+
 def same_run(name: str, a, b) -> None:
-    if (wave_streams(a) != wave_streams(b) or a.dropped != b.dropped
-            or a.drop_reasons != b.drop_reasons):
+    if (wave_streams(a) != wave_streams(b)
+            or first_wave_drops(a) != first_wave_drops(b)):
         fail(f"{name}: streams or drops differ")
 
 
-def teacher_margins(run: ServeRun, done: Dict[Any, list],
-                    dev) -> Dict[Any, tuple]:
-    """Per request of ``done``, the kernel path's teacher-forced top-2
-    margin and delta = LOGIT_TOL * max|logits| at each position that
-    predicts a generated token (``teacher_rows``)."""
-    rows = teacher_rows(run, done, dev, "cuda")
-    rids = sorted(done)
-    out: Dict[Any, tuple] = {r: ([], []) for r in rids}
-    for (b, _), lg in sorted(rows.items()):
-        top2 = lg.topk(2).values
-        out[rids[b]][0].append((top2[0] - top2[1]).item())
-        out[rids[b]][1].append((LOGIT_TOL * lg.abs().max()).item())
-    return {r: (np.array(m), np.array(d)) for r, (m, d) in out.items()}
+def gemm_rows_invariant(run: ServeRun, dev) -> str:
+    """Each of layer 0's products through ``ops.linear``, the step's
+    product: a row of a chunked step's [16 x DEVICE_CHUNK, K] operand has
+    the bits of the same row in a token-by-token step's [16, K] (random
+    bf16 activations); fails otherwise."""
+    from repro_torch.kernels import ops
 
-
-def gemm_rows_invariant(run: ServeRun, dev) -> Dict[str, bool]:
-    """Whether each of layer 0's products gives a row the same bits in a
-    chunked step's [16 x DEVICE_CHUNK, K] operand as in a token-by-token
-    step's [16, K] (random bf16 activations)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     layer = run.params["layers"][0]
-    out = {}
+    B = SERVE["max_batch"]
+    names = []
     for name, w in (("wq", layer["mixer"]["wq"]), ("wk", layer["mixer"]["wk"]),
+                    ("wv", layer["mixer"]["wv"]), ("wo", layer["mixer"]["wo"]),
+                    ("w_gate", layer["mlp"]["w_gate"]),
                     ("w_up", layer["mlp"]["w_up"]),
                     ("w_down", layer["mlp"]["w_down"])):
-        B = SERVE["max_batch"]
         x = torch.randn((B * DEVICE_CHUNK, w.shape[0]), generator=gen,
                         device=dev).to(w.dtype)
         rows = x.reshape(B, DEVICE_CHUNK, -1)[:, 0].contiguous()
-        out[f"{name} {tuple(w.shape)}"] = torch.equal(
-            (x @ w).reshape(B, DEVICE_CHUNK, -1)[:, 0], rows @ w)
-    return out
+        if not torch.equal(ops.linear(x, w).reshape(B, DEVICE_CHUNK, -1)[:, 0],
+                           ops.linear(rows, w)):
+            fail(f"(d) {name} {tuple(w.shape)}: a row of the "
+                 f"[{B * DEVICE_CHUNK}, K] product differs from its "
+                 f"[{B}, K] product's")
+        names.append(f"{name} {tuple(w.shape)}")
+    return ", ".join(names)
 
 
 def check_chunked(chunked, tbt, run: ServeRun, dev) -> str:
-    """(d) chunk 8 against token-by-token, up to each stream's first
-    near tie of the token-by-token stream."""
-    a, b = wave_streams(chunked), wave_streams(tbt)
-    def rejected(cb):
-        return {r for r, w in cb.drop_reasons.items()
-                if w == "gate-reject" and not isinstance(r, tuple)}
-
-    if rejected(chunked) != rejected(tbt):
-        fail("(d) the chunked and token-by-token runs rejected other requests")
-    for r in set(a) ^ set(b):  # served in one run only: quarantined in the
-        other = tbt if r in a else chunked  # other, past a divergence
-        if other.drop_reasons.get(r) != "quarantined":
-            fail(f"(d) request {r} served in one run only")
-    compared, total, equal, split = 0, 0, 0, []
-    margins = teacher_margins(run, b, dev)
-    for r in sorted(set(a) & set(b)):
-        margin, delta = margins[r]
-        near = np.nonzero(margin <= 2 * delta)[0]
-        upto = int(near[0]) if len(near) else len(b[r])
-        if a[r][:upto] != b[r][:upto]:
-            fail(f"(d) request {r}: chunked stream differs before its first "
-                 f"near tie ({upto})")
-        compared += upto
-        total += len(b[r])
-        equal += a[r] == b[r]
-        diff = [j for j, (x, y) in enumerate(zip(a[r], b[r])) if x != y]
-        if diff:  # (first differing token, first near tie)
-            split.append((diff[0], upto))
-    return (f"(d) chunk {DEVICE_CHUNK} vs 1: {compared} of {total} tokens "
-            f"compared (before each stream's first near tie), all equal; "
-            f"{equal} of {len(set(a) & set(b))} streams bitwise equal; the "
-            f"others' (first differing token, first near tie): {split}; "
-            f"{len(set(a) ^ set(b))} requests served in one run only; a row "
-            f"of a [{SERVE['max_batch']} x {DEVICE_CHUNK}, K] product equals "
-            f"its [{SERVE['max_batch']}, K] product's: "
+    """(d) chunk 8 against token-by-token: the same drops and every stream
+    bitwise equal (ROADMAP §C.5)."""
+    a = wave_streams(chunked)
+    same_run("(d) chunk 8 vs 1", chunked, tbt)
+    return (f"(d) chunk {DEVICE_CHUNK} vs 1: all {len(a)} streams bitwise "
+            f"equal ({sum(len(t) for t in a.values())} tokens), drops "
+            f"equal; a row of each product of layer 0 has the same bits in "
+            f"[{SERVE['max_batch']} x {DEVICE_CHUNK}, K] and "
+            f"[{SERVE['max_batch']}, K] operands: "
             f"{gemm_rows_invariant(run, dev)}")
 
 
-def check_no_sync(run: ServeRun, dev) -> str:
+def check_no_sync(run: ServeRun, dev, tag: str = "(e)", **kw) -> str:
     """(e) one round of the eager step and one of the replayed graph, from
-    a mid-flight state, under ``set_sync_debug_mode("error")``."""
+    a mid-flight state, under ``set_sync_debug_mode("error")``; ``kw`` go
+    to the batcher."""
     out = []
     for graph in (False, True):
-        cb = device_batcher(run, dev, graph=graph)
+        cb = device_batcher(run, dev, graph=graph, **kw)
         for i in range(SERVE["max_batch"]):
             cb.submit(i, run.prompts[i], features=run.feats[i])
         cb.run(max_steps=4)
@@ -1573,13 +1731,13 @@ def check_no_sync(run: ServeRun, dev) -> str:
         try:
             fs.run(DEVICE_ROUND)
         except RuntimeError as exc:
-            fail(f"(e) a {'replayed' if graph else 'eager'} round made the "
-                 f"host wait: {exc}")
+            fail(f"{tag} a {'replayed' if graph else 'eager'} round made "
+                 f"the host wait: {exc}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize(dev)
         out.append("replayed" if graph else "eager")
-    return (f"(e) {DEVICE_ROUND}-step rounds, "
+    return (f"{tag} {DEVICE_ROUND}-step rounds, "
             f"{' and '.join(out)}, under set_sync_debug_mode(\"error\"): "
             f"no synchronising call")
 
@@ -1646,9 +1804,18 @@ def profile_device(cb, run: ServeRun, dev) -> Dict[str, Any]:
     the profiler give the device time a step and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.linear import plan
+
     L, T = run.cfg.n_layers, gate_tables(run.gate)
+    # a split-K product adds its in-order sum pass
+    *layer, head = linear_weights(run.cfg)
+    split = (sum(plan(K, N)[1] > 1 for _, K, N, _ in layer) * L
+             + (plan(head[1], head[2])[1] > 1))
     want = {"paged_attention_kernel": DEVICE_ROUND * L,
-            "fused_eb_kernel": (DEVICE_ROUND + 1) * T}
+            "fused_eb_kernel": (DEVICE_ROUND + 1) * T,
+            "linear_mma_kernel": DEVICE_ROUND * step_products(run.cfg),
+            "linear_splitk_sum_kernel": DEVICE_ROUND * split}
+    want = {k: n for k, n in want.items() if n}
     counts, rsteps = profile_round(cb, run, dev, "round")
     if counts != want:
         fail(f"(f) the profiler saw {counts} in a round of {rsteps} steps, "
@@ -1671,6 +1838,102 @@ def profile_device(cb, run: ServeRun, dev) -> Dict[str, Any]:
                 by={k: round(v / psteps, 4) for k, v in by.items()},
                 idle=1 - (busy / psteps) / (wall / steps * 1e3),
                 counts=counts, rsteps=rsteps, wcounts=wcounts, psteps=psteps, events=events)
+
+
+# ------------------------------------------------------------ phase 12
+SPEC_K = 3
+
+
+def drive_spec(run: ServeRun, d: DeviceRun, dev) -> Dict[str, Any]:
+    """Phase 9's workload with ``spec_k`` SPEC_K and a bigram draft trained
+    on a pilot wave (phase 11's first ``max_batch`` streams, as the
+    launcher's ``--draft pilot``): every greedy stream and drop bitwise
+    phase 11's; then a warm wave timed on the host clock."""
+    from repro_torch.serve.spec import train_draft
+
+    pilot = wave_streams(d.cb)
+    chains = [list(p) for p in run.prompts] + [
+        list(run.prompts[r]) + list(t) for r, t in sorted(pilot.items())
+        if r < SERVE["max_batch"]]
+    draft = train_draft(chains, vocab_size=run.cfg.vocab_size)
+    cb = device_batcher(run, dev, spec_k=SPEC_K, draft=draft)
+    device_wave(cb, run, dev)
+    same_run("(12) spec greedy vs plain greedy", cb, d.cb)
+    first, first_steps = cb.spec_stats(), cb.steps
+    s0 = cb.steps_executed
+    wall = device_wave(cb, run, dev, tag="timed")
+    tokens = sum(len(t) for r, t in cb.done.items()
+                 if isinstance(r, tuple) and r[0] == "timed")
+    return dict(cb=cb, draft=draft, stats=first, first_steps=first_steps,
+                seconds=wall, steps=cb.steps_executed - s0, tokens=tokens)
+
+
+# ------------------------------------------------------------ phase 13
+FAULT_SLOT, FAULT_DRAIN = 3, 1  # CorruptTokens: a slot live at drain 1
+
+
+def check_traced(run: ServeRun, d: DeviceRun, dev) -> str:
+    """A traced run of the device batcher (``obs`` Tracer and Metrics):
+    streams and drops bitwise the untraced phase 11 run's, every request
+    one terminal event; TTFT and decode ms a token from the tracer."""
+    from repro_torch.obs import Metrics, Tracer
+
+    mx = Metrics()
+    tr = Tracer(metrics=mx)
+    cb = device_batcher(run, dev, tracer=tr, metrics=mx)
+    wall = device_wave(cb, run, dev)
+    same_run("(13) traced vs untraced", cb, d.cb)
+    problems = tr.validate()
+    if problems:
+        fail(f"(13) tracer lifecycle violations: {problems[:5]}")
+    if sum(r.terminal is not None for r in tr.requests.values()) != (
+            SERVE_REQUESTS):
+        fail("(13) not every request reached a terminal event")
+    pct = tr.phase_percentiles()
+    show = {k: {q: round(v[q], 3) for q in ("p50", "p99")} | {"n": v["n"]}
+            for k, v in pct.items() if v["n"]}
+    n_tok = sum(len(t) for t in cb.done.values())
+    return (f"traced run (first wave, graph capture included): streams and "
+            f"drops bitwise the untraced run's, {n_tok} tokens in "
+            f"{wall:.4f} s; lifecycles valid; percentiles (ms) {show}; "
+            f"counters {mx.snapshot()['counters']}")
+
+
+def check_faults(run: ServeRun, d: DeviceRun, dev) -> str:
+    """A fault-plan run: ``CorruptTokens`` on slot FAULT_SLOT at drain
+    FAULT_DRAIN (the request the fill put there, prefilled by then and not
+    yet done, is quarantined) and ``PoolExhaust`` at drain 2 held for 2
+    drains; every other request is served with phase 11's stream, and
+    ``pool.ref`` is back to its prefix holds."""
+    from repro_torch.serve.faults import CorruptTokens, FaultPlan, PoolExhaust
+
+    plan = FaultPlan([CorruptTokens(slot=FAULT_SLOT, at_drain=FAULT_DRAIN),
+                      PoolExhaust(at_drain=2, hold_drains=2)])
+    inj = plan.injector()
+    cb = device_batcher(run, dev, fault_injector=inj)
+    device_wave(cb, run, dev)
+    reasons = first_wave_drops(d.cb)[1]
+    kept = [r for r in range(SERVE_REQUESTS)
+            if reasons.get(r) != "gate-reject"]
+    victim = kept[FAULT_SLOT]  # the step fills slots in FIFO order
+    want = {**reasons, victim: "quarantined"}
+    if cb.drop_reasons != want or len(inj.fired) != 2:
+        fail(f"(13) fault run: drops {cb.drop_reasons}, expected {want}; "
+             f"fired {inj.fired}")
+    ref = wave_streams(d.cb)
+    if {r: t for r, t in ref.items() if r != victim} != wave_streams(cb):
+        fail("(13) fault run: a stream no fault touched differs")
+    held = np.where(cb.pool.ref > 0)[0]
+    if (set(held.tolist()) != cb.pool.cached_pages()
+            or (cb.pool.ref[held] != 1).any() or (cb.pool.ref < 0).any()
+            or cb._exh_holds):
+        fail(f"(13) fault run: the pool holds {int(cb.pool.ref.sum())} "
+             f"references past its {cb.pool.n_cached} prefix holds")
+    return (f"fault plan {[type(f).__name__ for f in inj.fired]}: request "
+            f"{victim} (slot {FAULT_SLOT}) quarantined at drain "
+            f"{FAULT_DRAIN}, the other {len(wave_streams(cb))} streams "
+            f"bitwise phase 11's, pool back to {cb.pool.n_cached} prefix "
+            f"holds")
 
 
 def main() -> None:
@@ -1785,6 +2048,17 @@ def main() -> None:
               f"{t['plain_ms']:.4f} ms, gather + SDPA {t['library_ms']:.4f} "
               f"ms (device {t['library_device_ms']}), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}) ({card})")
+    from repro_torch.configs import get_config
+
+    qwen = get_config("qwen2-1.5b")
+    print(f"[8 linear] {check_linear(qwen, dev)}")
+    linear_per = linear_timings(qwen, dev)
+    for t in linear_per:
+        print(f"[8 linear timing] {t['weight']} [{t['M']}, {t['K']}] x "
+              f"[{t['K']}, {t['N']}]: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']}), cuBLAS {t['library_ms']} ms (device "
+              f"{t['library_device_ms']}), plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({card})")
     serve = drive_serve(dev, args.seed)
     cfg = serve.cfg
     print(f"[9 serve] qwen2-1.5b at full width and depth ({cfg.n_layers} "
@@ -1800,6 +2074,7 @@ def main() -> None:
     print(f"[10 serve parity] {check_teacher_forced(serve, dev)}")
     print(f"[10 serve parity] {check_shared_and_int8(serve, dev)}")
     d = drive_device(serve, dev)
+    d_steps = d.cb.steps  # the first wave's
     print(f"[11 device batcher] {check_device_main(d, serve)} ({card})")
     tbt = device_batcher(serve, dev, chunk=1)
     device_wave(tbt, serve, dev)
@@ -1839,8 +2114,29 @@ def main() -> None:
           f"{eager_s / eager.steps_executed * 1e3:.4f} ms per step run; "
           f"phase 9's host batcher: {n_tok / serve.seconds:.1f} tokens/s, "
           f"{serve.seconds / serve.cb.steps * 1e3:.4f} ms per step ({card})")
+    spec = drive_spec(serve, d, dev)
+    st = spec["stats"]
+    print(f"[12 spec] spec_k {SPEC_K}, bigram draft from a pilot wave "
+          f"({spec['draft'].meta['coverage']:.3f} of the vocabulary seen): "
+          f"every greedy stream and drop bitwise phase 11's; drafted "
+          f"{st['drafted']}, accepted {st['accepted']}, acceptance "
+          f"{st['acceptance_rate']:.4f}; {spec['first_steps']} steps with "
+          f"work (phase 11's first wave: {d_steps})")
+    if st["accepted"] <= 0:
+        fail("(12) no draft was accepted")
+    no_sync = check_no_sync(serve, dev, "(12)", spec_k=SPEC_K,
+                            draft=spec["draft"])
+    print(f"[12 spec] {no_sync}")
+    print(f"[12 spec timing] warm wave, graph: {spec['tokens']} tokens in "
+          f"{spec['seconds']:.4f} s, {spec['tokens'] / spec['seconds']:.1f} "
+          f"tokens/s, {spec['seconds'] / spec['steps'] * 1e3:.4f} ms per "
+          f"step run ({spec['steps']} steps); phase 11's warm wave "
+          f"{prof['tokens'] / prof['seconds']:.1f} tokens/s ({card})")
+    print(f"[13 obs] {check_traced(serve, d, dev)} ({card})")
+    print(f"[13 faults] {check_faults(serve, d, dev)}")
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
+    rows.append(linear_step_row(qwen, linear_per, serve.launches["linear"]))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

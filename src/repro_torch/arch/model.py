@@ -7,11 +7,12 @@ here the layers are a list walked by a Python loop, and each layer writes
 its slice of the ``[n_layers, N, page, KV, hd]`` pools in place.
 
 Parameters are kept as the compute copies the JAX forward makes at each
-use: matrices, biases and the embedding in bf16 (the JAX forward's
-``astype(bfloat16)`` of its float32 masters, done once at load), norm
-scales in float32, and the LM head as float32 holding bf16 values, so its
-product is the JAX head's bf16 x bf16 einsum with float32 accumulation
-(``preferred_element_type=float32``): the logits are never rounded to bf16.
+use: matrices, biases, the embedding and the LM head in bf16 (the JAX
+forward's ``astype(bfloat16)`` of its float32 masters, done once at load)
+and norm scales in float32.  Every product of a step is ``ops.linear``
+(the row-invariant kernel on the card); the head's is the JAX head's bf16
+x bf16 einsum with float32 accumulation (``preferred_element_type=
+float32``): the logits are never rounded to bf16.
 
 Not ported yet (ROADMAP queue A items 2, 8 and 9): the dense ring cache
 (``init_decode_state``, ``decode_step``), the training forward, and the
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import ops
 from ..nn import attention as A
 from ..nn.attn_backend import PagedKV
 from ..nn.common import dense_init, embed_init, rms_norm, rope_cos_sin
@@ -99,8 +101,6 @@ def _compute(name: str, t: torch.Tensor) -> torch.Tensor:
     """One float32 master -> its compute copy (see the module docstring)."""
     if name.startswith("ln") or name.endswith("_norm"):
         return t.float()
-    if name == "head":
-        return t.to(COMPUTE_DTYPE).float()
     return t.to(COMPUTE_DTYPE)
 
 
@@ -143,7 +143,7 @@ def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def lm_head(params: Params, x: torch.Tensor, norm_eps: float) -> torch.Tensor:
     """Final norm + vocab projection, float32 logits."""
     x = rms_norm(x, params["ln_f"], norm_eps)
-    return x.float() @ params["head"]
+    return ops.linear(x, params["head"], out_dtype=torch.float32)
 
 
 def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,

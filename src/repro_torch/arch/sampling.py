@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["hash_u32", "uniform", "gumbel", "filter_logits", "token_probs",
-           "sample_tokens"]
+           "sample_tokens", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -111,6 +111,20 @@ def sample_tokens(logits: torch.Tensor, seed, pos, temperature: float,
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     x = filter_logits(logits, top_k, top_p) / float(temperature)
+    dev = x.device
+    lanes = torch.arange(x.shape[-1], dtype=torch.int64, device=dev)
+    seed = torch.as_tensor(seed, device=dev)[..., None]
+    pos = torch.as_tensor(pos, device=dev)[..., None]
+    g = gumbel(seed, pos, salt, lanes)
+    return torch.argmax(x + g, dim=-1).to(torch.int32)
+
+
+def categorical(probs: torch.Tensor, seed, pos, salt: int = 0) -> torch.Tensor:
+    """Gumbel-max draw from explicit probabilities ``[..., V]`` (a zero is
+    never drawn: log 0 = -inf).  The speculative resample draws from a
+    masked p without renormalizing: Gumbel-max does not depend on the
+    scale."""
+    x = torch.log(probs.float())
     dev = x.device
     lanes = torch.arange(x.shape[-1], dtype=torch.int64, device=dev)
     seed = torch.as_tensor(seed, device=dev)[..., None]

@@ -15,9 +15,12 @@ import.
   (``bnn_popcount_matmul_pallas``).
 * ``paged_attention.py`` — paged attention over the block-table KV cache
   of the serve path (``paged_attention``).
+* ``linear.py``        — the serve step's products, each row's bits
+  independent of the other rows (no Pallas kernel: XLA's dots).
 
 The first three live in ``csrc/eb_kernels.cu``, the next two in
-``csrc/lb_dm_kernels.cu``, the last in ``csrc/paged_attention.cu``.
+``csrc/lb_dm_kernels.cu``, then ``csrc/paged_attention.cu`` and
+``csrc/linear.cu``.
 """
 from .ops import (
     bnn_forward,
@@ -26,6 +29,7 @@ from .ops import (
     fused_eb_match,
     launch_counts,
     lb_lookup,
+    linear,
     pack_bits,
     paged_attention,
     reset_launch_counts,
@@ -34,4 +38,5 @@ from .ops import (
 
 __all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
            "bnn_popcount_matmul", "pack_bits", "bnn_forward",
-           "paged_attention", "launch_counts", "reset_launch_counts"]
+           "paged_attention", "linear", "launch_counts",
+           "reset_launch_counts"]

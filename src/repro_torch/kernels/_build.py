@@ -47,6 +47,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
+    "linear": {
+        "linear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

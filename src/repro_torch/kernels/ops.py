@@ -14,18 +14,20 @@ from . import bnn_mlp as _bnn_mlp
 from . import bucketize as _bucketize
 from . import fused_eb as _fused_eb
 from . import lb_lookup as _lb_lookup
+from . import linear as _linear
 from . import paged_attention as _paged_attention
 from . import ref
 from . import ternary_match as _ternary_match
 
 __all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
            "bnn_popcount_matmul", "pack_bits", "bnn_forward",
-           "paged_attention", "launch_counts", "reset_launch_counts"]
+           "paged_attention", "linear", "launch_counts",
+           "reset_launch_counts"]
 
 _KERNELS = {"bucketize": _bucketize, "ternary_match": _ternary_match,
             "fused_eb": _fused_eb, "lb_lookup": _lb_lookup,
             "bnn_popcount_matmul": _bnn_mlp,
-            "paged_attention": _paged_attention}
+            "paged_attention": _paged_attention, "linear": _linear}
 
 
 def bucketize(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
@@ -101,6 +103,14 @@ def bnn_forward(x: torch.Tensor,
 
 # attend q [B, C, H, hd] over a paged pool through its block table
 paged_attention = _paged_attention.paged_attention
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` with each row's bits independent of the
+    other rows (``linear.linear``); ``out_dtype=torch.float32`` for the
+    LM head."""
+    return _linear.linear(x, w, out_dtype)
 
 
 def launch_counts() -> Dict[str, int]:

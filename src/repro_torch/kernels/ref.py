@@ -5,7 +5,8 @@ Same semantics as the JAX package's oracles: ``bucketize_ref``,
 mirror its ``kernels/ref.py``, ``fused_eb_ref`` its jnp composition of
 encode, pack and match, ``pack_bits_ref`` its ``ops.pack_bits_jnp``, and
 ``paged_attention_ref`` its jnp paged-attention oracle
-(``nn.attn_backend._attend_jnp``).  The CPU tests compare the integer ones
+(``nn.attn_backend._attend_jnp``), ``linear_ref`` the serve step's
+products (``x @ w``; the head's float32 einsum).  The CPU tests compare the integer ones
 with the JAX package bit for bit and the float one within a stated
 tolerance; on the card the CUDA kernels are compared with these.
 
@@ -23,7 +24,7 @@ import torch
 __all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
            "fused_eb_ref", "lb_lookup_ref", "LB_EPILOGUES", "popcount32",
            "bnn_popcount_matmul_ref", "bnn_pack_input_ref", "BNN_EPILOGUES",
-           "pack_bits_ref", "paged_attention_ref",
+           "pack_bits_ref", "paged_attention_ref", "linear_ref",
            "as_i32"]
 
 
@@ -249,3 +250,13 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
     probs = (e / torch.sum(e, dim=-1, keepdim=True)).to(dt)
     return torch.einsum("bhqs,bshd->bqhd", probs.float(), vf).to(dt)
+
+
+def linear_ref(x: torch.Tensor, w: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` in x's type; with ``out_dtype =
+    torch.float32`` the float32 product of the float32 copies (the JAX
+    head's bf16 x bf16 einsum with ``preferred_element_type=float32``)."""
+    if out_dtype == torch.float32:
+        return x.float() @ w.float()
+    return x @ w.to(x.dtype)

@@ -12,18 +12,25 @@ decode.
     # the same with the plain versions on the CPU
     ... --device cpu
 
+    # speculative decoding (a bigram draft trained on a pilot wave),
+    # a traced run with its metrics, a fault plan
+    ... --spec-k 3 --draft pilot
+    ... --trace t.json --metrics-out m.jsonl
+    ... --fault-plan "nan:1@2,exhaust:0:2@3"
+
 The flags are the JAX package's (``repro.launch.serve``).  Ported: both
 batchers over the paged cache (``--continuous --page-size N``, with
-``--batcher device``, the default, taking ``--sync-every`` and
-``--prefill-chunk``, or ``--batcher host``) with ``--pages``,
-``--kv-int8``, ``--share-prefix`` (``--shared-prefix-len``),
-``--prompt-len``, ``--temperature`` / ``--top-k`` / ``--top-p``,
-``--gate`` / ``--gate-backend``, ``--attn-impl``, ``--deadline-s`` and
-``--max-retries``.  Every other mode (the dense cache, ``--trace`` /
-``--metrics-out`` / ``--fault-plan``, ``--spec-k``, the router and mesh,
-``--snapshot-dir``) raises ``NotImplementedError`` naming its ROADMAP item.  Weights are
-random-init from ``--seed`` with a ``torch.Generator`` (other numbers
-than the JAX package's for the same seed).
+``--batcher device``, the default, taking ``--sync-every``,
+``--prefill-chunk`` and ``--spec-k`` / ``--draft``, or ``--batcher
+host``) with ``--pages``, ``--kv-int8``, ``--share-prefix``
+(``--shared-prefix-len``), ``--prompt-len``, ``--temperature`` /
+``--top-k`` / ``--top-p``, ``--gate`` / ``--gate-backend``,
+``--attn-impl``, ``--deadline-s``, ``--max-retries``, ``--trace``,
+``--metrics-out`` and ``--fault-plan``.  Every other mode (the dense
+cache, the router and mesh, ``--snapshot-dir``) raises
+``NotImplementedError`` naming its ROADMAP item.  Weights are random-init
+from ``--seed`` with a ``torch.Generator`` (other numbers than the JAX
+package's for the same seed).
 """
 from __future__ import annotations
 
@@ -39,20 +46,19 @@ from ..core import PlanterConfig, plant
 from ..data import load_dataset
 from ..device import resolve_device
 from ..nn import attn_backend as AB
+from ..obs import Metrics, Tracer
 from ..serve.engine import (NOT_PORTED, ContinuousBatcher,
                             DeviceContinuousBatcher, ServeConfig, ServeEngine)
+from ..serve.faults import FaultPlan
+from ..serve.spec import train_draft
 
 
 def _not_ported(args) -> str:
     """The ROADMAP item of the first mode asked for that is not ported."""
     if args.router or args.mesh or args.rebalance_margin is not None:
         return NOT_PORTED["mesh"]
-    if args.spec_k:
-        return NOT_PORTED["spec"]
     if not args.continuous or not args.page_size:
         return NOT_PORTED["dense"]
-    if args.trace or args.metrics_out or args.fault_plan:
-        return NOT_PORTED["obs"]
     if args.snapshot_dir:
         return ("--snapshot-dir needs the checkpoint manager, not ported "
                 "yet: ROADMAP queue A item 8")
@@ -109,9 +115,13 @@ def main(argv=None):
                     help="max prompt length; prompts are drawn with "
                          "variable length in [1, prompt-len]")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative decoding (not ported)")
+                    help="speculative decoding: draft tokens a decoding "
+                         "slot a step, from a table-mapped bigram draft, "
+                         "verified in the same launch (device batcher)")
     ap.add_argument("--draft", default="pilot", choices=["pilot", "prompts"],
-                    help="draft corpus for --spec-k (not ported)")
+                    help="draft corpus for --spec-k: 'pilot' serves a "
+                         "first greedy wave and trains on its streams, "
+                         "'prompts' on the prompts alone")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -125,15 +135,18 @@ def main(argv=None):
     ap.add_argument("--rebalance-margin", type=int, default=None,
                     help="router queue-depth slack (not ported)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="request-lifecycle trace (not ported)")
+                    help="write the request-lifecycle Chrome trace-event "
+                         "JSON here (chrome://tracing, Perfetto)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
-                    help="obs metrics snapshot (not ported)")
+                    help="write the obs metrics snapshot (JSONL) here")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="per-request deadline budget in seconds")
     ap.add_argument("--max-retries", type=int, default=1,
                     help="queue-full retry budget")
     ap.add_argument("--fault-plan", default=None, metavar="SPEC",
-                    help="deterministic fault injection (not ported)")
+                    help="deterministic fault injection at drain "
+                         "boundaries, e.g. 'nan:1@2,exhaust:0:2@3' "
+                         "(serve.faults.FaultPlan.parse)")
     ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
                     help="SIGTERM snapshot / warm restart (not ported)")
     ap.add_argument("--jax-profile", default=None, metavar="DIR",
@@ -156,6 +169,12 @@ def main(argv=None):
         ap.error("--shared-prefix-len needs --share-prefix")
     if (args.top_k or args.top_p < 1.0) and args.temperature == 0.0:
         ap.error("--top-k/--top-p need --temperature > 0")
+    if args.spec_k:
+        if args.batcher == "host":
+            ap.error("--spec-k needs the device batcher")
+        if args.trace:
+            ap.error("--spec-k is incompatible with --trace (the schedule "
+                     "replay assumes one token per step)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rng = np.random.default_rng(args.seed)
@@ -190,17 +209,44 @@ def main(argv=None):
         for _ in range(args.requests)]
     engine = ServeEngine(cfg, params, scfg, gate=gate,
                          gate_backend=args.gate_backend, device=dev)
-    ft = dict(max_retries=args.max_retries, deadline_s=args.deadline_s)
+    tracer = metrics = None
+    if args.trace or args.metrics_out:
+        metrics = Metrics()
+        tracer = Tracer(metrics=metrics)
+    injector = None
+    if args.fault_plan:
+        plan = FaultPlan.parse(args.fault_plan)
+        injector = plan.injector()
+        print(f"fault plan: {len(plan)} fault(s) armed ({args.fault_plan})")
+    ft = dict(max_retries=args.max_retries, deadline_s=args.deadline_s,
+              fault_injector=injector, tracer=tracer, metrics=metrics)
+    # the host loop costs one step per prompt token
+    budget = 100 * (args.tokens + args.prompt_len + args.shared_prefix_len)
+    draft = None
+    if args.spec_k:
+        chains = [list(p) for p in prompts]
+        if args.draft == "pilot":
+            # a first greedy wave, served without speculation: the draft
+            # imitates the streams the LM emits
+            pilot = DeviceContinuousBatcher(
+                engine, eos_token=-1, max_tokens=args.tokens,
+                sync_every=args.sync_every, prefill_chunk=args.prefill_chunk)
+            for rid in range(min(args.batch, args.requests)):
+                pilot.submit(rid, prompts[rid], features=feats[rid])
+            chains += [list(prompts[rid]) + list(toks)
+                       for rid, toks in pilot.run(max_steps=budget).items()]
+        draft = train_draft(chains, vocab_size=cfg.vocab_size)
+        print(f"spec draft: bigram table over {cfg.vocab_size} tokens, "
+              f"coverage {draft.meta.get('coverage', 0.0):.2f}, "
+              f"{draft.accounting()}")
     if args.batcher == "device":
         cb = DeviceContinuousBatcher(
             engine, eos_token=-1, max_tokens=args.tokens,
             sync_every=args.sync_every, prefill_chunk=args.prefill_chunk,
-            **ft)
+            spec_k=args.spec_k, draft=draft, **ft)
     else:
         cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=args.tokens,
                                **ft)
-    # the host loop costs one step per prompt token
-    budget = 100 * (args.tokens + args.prompt_len + args.shared_prefix_len)
     # with sharing, a first wave populates the prefix cache
     split = (min(args.batch, args.requests) if args.share_prefix
              else args.requests)
@@ -221,9 +267,30 @@ def main(argv=None):
           f"(dropped {len(cb.dropped)}: {dict(reasons) or 'none'}) — "
           f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
           f"{steps}, on {dev})")
+    if args.spec_k:
+        st = cb.spec_stats()
+        print(f"  speculative: k={args.spec_k}, drafted {st['drafted']}, "
+              f"accepted {st['accepted']} (acceptance "
+              f"{st['acceptance_rate']:.2f})")
     if args.share_prefix:
         print(f"  prefix sharing: {cb.pool.prefix_tokens_per_page():.2f} "
               f"live prefix tokens per pool page (1.0 = unshared)")
+    if tracer is not None:
+        probs = tracer.validate()
+        if probs:
+            print(f"  TRACE LIFECYCLE VIOLATIONS: {probs}")
+        for phase, pst in tracer.phase_percentiles().items():
+            if pst["n"]:
+                print(f"  {phase}: p50={pst['p50']:.2f} "
+                      f"p99={pst['p99']:.2f} (n={pst['n']})")
+        if args.trace:
+            tracer.write_chrome_trace(args.trace)
+            print(f"  chrome trace -> {args.trace}")
+        if args.metrics_out:
+            metrics.write_jsonl(args.metrics_out, kind="serve",
+                                requests=args.requests,
+                                tokens_per_s=n_tok / dt)
+            print(f"  metrics -> {args.metrics_out}")
     return done
 
 

@@ -69,26 +69,33 @@ class NGramModel:
             raise ValueError("no non-empty sequences to fit on")
         self.vocab_size_ = int(vocab_size or
                                max(int(s.max()) for s in seqs) + 1)
-        n_entries = (self.vocab_size_
-                     if self.order == 1 and not self.n_buckets
+        V = self.vocab_size_
+        n_entries = (V if self.order == 1 and not self.n_buckets
                      else (self.n_buckets or 4096))
-        # counts[bucket, tok]: sparse dict-of-rows would be fine, but the
-        # serve-scale vocabularies here are small enough for the dense
-        # [entries, V] count matrix, matching the other ml/ trainers.
-        counts = np.zeros((n_entries, self.vocab_size_), np.int64)
-        total = np.zeros(self.vocab_size_, np.int64)
+        # the observed (bucket, next token) pairs and their counts, not a
+        # dense [entries, V] count matrix: at an LM vocabulary (151,936
+        # tokens) that matrix would take 184 GB
+        total = np.zeros(V, np.int64)
+        keys = []
         for s in seqs:
-            total += np.bincount(s, minlength=self.vocab_size_)
+            total += np.bincount(s, minlength=V)
             if len(s) <= self.order:
                 continue
             ctx = np.lib.stride_tricks.sliding_window_view(
                 s[:-1], self.order)
-            nxt = s[self.order:]
-            np.add.at(counts, (self._bucket(ctx), nxt), 1)
+            keys.append(self._bucket(ctx) * V + s[self.order:])
         self.fallback_ = int(total.argmax())
-        best = counts.argmax(axis=1).astype(np.int32)
-        seen = counts.max(axis=1) > 0
-        self.table_ = np.where(seen, best, np.int32(-1))
+        self.table_ = np.full(n_entries, -1, np.int32)
+        if keys:
+            pair, cnt = np.unique(np.concatenate(keys), return_counts=True)
+            bucket, tok = pair // V, pair % V
+            # per bucket the most frequent next token, the lowest id on a
+            # tie (the dense matrix's argmax)
+            order = np.lexsort((tok, -cnt, bucket))
+            first = np.ones(len(order), bool)
+            first[1:] = bucket[order][1:] != bucket[order][:-1]
+            pick = order[first]
+            self.table_[bucket[pick]] = tok[pick].astype(np.int32)
         return self
 
     # ---------------------------------------------------------- predict

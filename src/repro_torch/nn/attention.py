@@ -11,6 +11,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from ..kernels import ops
 from . import attn_backend as AB
 from .attn_backend import PagedKV
 from .common import apply_rope, dense_init, rms_norm
@@ -43,9 +44,9 @@ def _project_qkv(p: Dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope, qk_norm: bool, norm_eps: float):
     dt = x.dtype
     B, S, _ = x.shape
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = ops.linear(x, p["wq"])
+    k = ops.linear(x, p["wk"])
+    v = ops.linear(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -175,5 +176,5 @@ def paged_decode_attention_block(
     kv = _paged_write(kv, k, v)
     attend = AB.get(AB.resolve(impl, x.device))
     out = attend(q, kv, n_heads=n_heads, head_dim=head_dim, window=window)
-    out = out.reshape(B, C, n_heads * head_dim) @ p["wo"].to(x.dtype)
+    out = ops.linear(out.reshape(B, C, n_heads * head_dim), p["wo"])
     return out, kv

@@ -5,6 +5,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from ..kernels import ops
 from .common import ACTIVATIONS, dense_init
 
 
@@ -18,9 +19,8 @@ def init_mlp(gen: Optional[torch.Generator], d_model: int, d_ff: int,
 
 
 def mlp_block(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """``act(x W_gate) * (x W_up) W_down`` in ``x.dtype`` (a no-op cast for
-    the bf16 compute copies the serve path keeps)."""
-    dt = x.dtype
+    """``act(x W_gate) * (x W_up) W_down`` in ``x.dtype``; each product is
+    ``ops.linear`` (the row-invariant kernel on the card)."""
     fn = ACTIVATIONS[act]
-    h = fn(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    h = fn(ops.linear(x, p["w_gate"])) * ops.linear(x, p["w_up"])
+    return ops.linear(h, p["w_down"])

@@ -21,19 +21,27 @@ Mirrors the host-driven paged path of ``repro.serve.engine``:
   with the slot state on the device and fill -> gate -> decode -> sample
   -> evict as one fused step (``_FusedStep``), ``prefill_chunk`` prompt
   tokens a slot a step, ``sync_every`` steps a host round trip; on the
-  card each step shape is a CUDA graph.
+  card each step shape is a CUDA graph.  With ``spec_k`` and a table-
+  mapped ``draft`` (``serve.spec``) a decoding slot drafts ``spec_k``
+  tokens in the step and the LM verifies the chain in the same launch.
+
+Both batchers take an ``obs`` ``Tracer`` / ``Metrics`` pair
+(``attach_obs``) and a ``serve.faults`` injector, applied at host drain
+boundaries only: the device batcher's traced run replays the fill
+schedule on the host from the drained state, so its captured step is the
+untraced one.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
 ROADMAP item rather than taking another path: the dense ring cache
 (``step``, ``generate``, either batcher over an engine without
-``page_size``; queue A item 2), the ``obs`` tracer and metrics and the
-fault injector (item 4), speculative decoding (item 5), ``mesh`` /
-``tp_params`` sharded serving (item 6).
+``page_size``; queue A item 2) and ``mesh`` / ``tp_params`` sharded
+serving (item 6).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import heapq
 import time
 import zlib
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -48,6 +56,7 @@ from ..core.pipeline import MappedModel
 from ..device import resolve_device
 from ..nn import attention as A
 from ..nn import attn_backend as AB
+from .faults import PoolExhaust
 from .pages import PagePool
 from .pages import page_demand as _page_demand
 
@@ -55,9 +64,6 @@ NOT_PORTED = {
     "dense": "the dense ring cache (decode_step / generate / step) is not "
              "ported yet: ROADMAP queue A item 2; serve through the paged "
              "cache, ServeConfig(page_size=...)",
-    "obs": "the obs tracer and metrics and the fault injector are not "
-           "ported yet: ROADMAP queue A item 4",
-    "spec": "speculative decoding is not ported yet: ROADMAP queue A item 5",
     "mesh": "sharded serving (mesh / tp_params / the router) is not ported "
             "yet: ROADMAP queue A item 6",
 }
@@ -204,14 +210,23 @@ def _default_seed(request_id) -> int:
     return zlib.crc32(repr(request_id).encode()) & 0x7FFFFFFF
 
 
-def _drop_request(b, rid, reason: str, now: Optional[float] = None) -> None:
+def _drop_request(b, rid, reason: str, now: Optional[float] = None,
+                  trace: bool = True) -> None:
     """Terminal-drop bookkeeping: reason, wall-clock stamp, deadline
-    cleanup."""
+    cleanup, tracer emission (``trace=False``: the traced device run emits
+    from its schedule replay instead)."""
     now = b._clock() if now is None else now
     b.dropped.append(rid)
     b.drop_reasons[rid] = reason
     b.dropped_at[rid] = now
     b.deadline.pop(rid, None)
+    if trace and b.tracer is not None:
+        if reason == "deadline":
+            b.tracer.deadline_dropped(rid, t=now, shard=b.trace_shard)
+        elif reason == "quarantined":
+            b.tracer.quarantined(rid, t=now, shard=b.trace_shard)
+        else:
+            b.tracer.dropped(rid, reason, t=now)
 
 
 def _defer_full(b, rid, prompt, feat, dabs) -> None:
@@ -219,6 +234,8 @@ def _defer_full(b, rid, prompt, feat, dabs) -> None:
     queue, due ``retry_backoff`` drain boundaries from now."""
     b._retry_q.append([b._drains + b.retry_backoff, 1, rid, prompt,
                        feat, dabs])
+    if b.metrics is not None:
+        b.metrics.counter("serve.queue_full_deferred").inc()
 
 
 def _service_retries(b) -> None:
@@ -243,6 +260,11 @@ def _service_retries(b) -> None:
             if dabs is not None:
                 b.deadline[rid] = dabs
             b.queue.append((rid, prompt, feat))
+            if b.tracer is not None:
+                b.tracer.retried(rid, attempt=attempt, t=now,
+                                 shard=b.trace_shard)
+            elif b.metrics is not None:
+                b.metrics.counter("serve.requests_retried").inc()
             continue
         if attempt >= b.max_retries:
             _drop_request(b, rid, "queue-full", now)
@@ -251,6 +273,35 @@ def _service_retries(b) -> None:
         ent[1] = attempt + 1
         rest.append(ent)
     b._retry_q = rest
+
+
+def _attach_obs(b, tracer, metrics) -> None:
+    """Attach an ``obs`` Tracer/Metrics pair to a batcher (None detaches);
+    the metrics also mirror the page pool's allocator activity."""
+    b.tracer = tracer
+    b.metrics = metrics
+    if tracer is not None and metrics is not None and tracer.metrics is None:
+        tracer.metrics = metrics
+    if metrics is not None:
+        b.pool.bind_metrics(metrics)
+
+
+def _submit_traced(b, request_id, prompt_tokens, dense_ok: bool) -> list:
+    """``validate_prompt_or_drop`` plus the tracer's submit (or empty-prompt
+    drop) event."""
+    try:
+        prompt = validate_prompt_or_drop(
+            b.engine.scfg, request_id, prompt_tokens, b.max_tokens,
+            b.dropped, b.drop_reasons, dense_ok=dense_ok,
+            dropped_at=b.dropped_at)
+    except ValueError:
+        if (b.tracer is not None
+                and b.drop_reasons.get(request_id) == "empty-prompt"):
+            b.tracer.dropped(request_id, "empty-prompt")
+        raise
+    if b.tracer is not None:
+        b.tracer.submitted(request_id)
+    return prompt
 
 
 class ServeEngine:
@@ -345,11 +396,13 @@ class ServeEngine:
 class _FusedStep:
     """One shape key's fused paged serve step over static device buffers.
 
-    The JAX package's ``_make_run_k_paged`` one_step (without the
-    speculative branch) on torch tensors: fill with page reservation and
-    FIFO blocking, in-wave sharing waits, copy-on-write, the chunk build,
-    the in-step gate, the greedy or sampled decode, and eviction with
-    refcount release and prefix holds.  Every tensor it reads or writes
+    The JAX package's ``_make_run_k_paged`` one_step on torch tensors:
+    fill with page reservation and FIFO blocking, in-wave sharing waits,
+    copy-on-write, the chunk build, the in-step gate, the greedy or
+    sampled decode (with ``spec_k``: the draft chain ``d_1 = T[last]``,
+    ``d_{j+1} = T[d_j]`` and its verify in the same launch, greedy by the
+    longest matching prefix, sampled by rejection sampling), and eviction
+    with refcount release and prefix holds.  Every tensor it reads or writes
     lives at a fixed address (the queue ``q``, the slot state ``st``, the
     batcher's page pool and the parameters), and it never makes the host
     wait, so on the card one step is captured once as a CUDA graph and
@@ -372,11 +425,12 @@ class _FusedStep:
     """
 
     def __init__(self, b: "DeviceContinuousBatcher", Nq: int, R: int,
-                 n_feat: int, p_max: int, gated: bool):
+                 n_feat: int, p_max: int, gated: bool, spec_k: int):
         scfg = b.engine.scfg
         dev = b.engine.device
         B, N, n_ps = scfg.max_batch, scfg.n_pages, scfg.pages_per_slot
         self.b, self.Nq, self.R, self.p_max = b, Nq, R, p_max
+        self.spec_k = spec_k
         self.gate_fn = b.engine.gate_fn if gated else None
 
         def i32(*shape):
@@ -398,7 +452,7 @@ class _FusedStep:
             out_done=flag(R + 1), out_drop=flag(R + 1),
             out_quar=flag(R + 1), out_at=i32(R + 1),
             out_tbl=i32(R + 1, n_ps), alive=flag(), more=flag(),
-            n_work=i32())
+            n_work=i32(), spec_prop=i32(), spec_acc=i32())
         self.graph = None
 
     # ------------------------------------------------------------ host
@@ -417,7 +471,7 @@ class _FusedStep:
         """Empty the output rings and counters for a new wave."""
         st = self.st
         for name in ("head", "out_len", "out_done", "out_drop", "out_quar",
-                     "out_at", "n_work", "wdone"):
+                     "out_at", "n_work", "wdone", "spec_prop", "spec_acc"):
             st[name].zero_()
         st["out_tbl"].fill_(self.b.engine.scfg.n_pages)
 
@@ -437,7 +491,7 @@ class _FusedStep:
         """Capture one step as a CUDA graph.  A warm-up step runs eagerly
         first, on a side stream, from the idle state (every slot free, an
         empty queue), where it is the identity: it loads the kernels and
-        cuBLAS and settles the allocator before capture."""
+        settles the allocator before capture."""
         st = self.st
         st["free"].fill_(True)
         self.q["n"].zero_()
@@ -532,15 +586,30 @@ class _FusedStep:
         active = ~free
         work = active.any()
 
-        # --- chunk build: up to C prompt tokens, else the last token
+        # --- chunk build: up to C prompt tokens, else the last token (with
+        # spec_k, a decoding slot's draft chain of up to spec_k + 1 tokens,
+        # capped so that an all-accept step never passes max_tokens)
+        SK = self.spec_k
+        Call = max(C, SK + 1) if SK else C  # the launch's chunk width
         rem = plen - pos
         prefilling = active & (rem > 0)
-        c = torch.where(active, torch.where(prefilling, rem.clamp(max=C), 1),
-                        0)
-        jc = torch.arange(C, device=dev)[None]
+        decoding = active & ~prefilling
+        c_dec = ((b.max_tokens - gen).clamp(1, SK + 1) if SK
+                 else torch.ones_like(gen))
+        c = torch.where(active, torch.where(prefilling, rem.clamp(max=C),
+                                            c_dec), 0)
+        jc = torch.arange(Call, device=dev)[None]
         ptoks = torch.gather(pbuf, 1, (pos[:, None] + jc).clamp(0, p_max - 1))
-        chunk = torch.where(prefilling[:, None], ptoks,
-                            torch.where(jc == 0, last[:, None], 0))
+        if SK:
+            drafts = [last]
+            for _ in range(Call - 1):
+                drafts.append(b._draft_tbl[drafts[-1].clamp(
+                    0, b._vocab - 1).long()])
+            chunk = torch.where(prefilling[:, None], ptoks,
+                                torch.stack(drafts, 1))
+        else:
+            chunk = torch.where(prefilling[:, None], ptoks,
+                                torch.where(jc == 0, last[:, None], 0))
         chunk = torch.where(jc < c[:, None], chunk, 0)
         # --- the in-step gate: its verdict evicts a slot before its
         # first token is recorded
@@ -549,24 +618,46 @@ class _FusedStep:
             gdrop = active & hasf & (labels == scfg.gate_action_drop)
         else:
             gdrop = torch.zeros_like(free)
-        # --- decode
-        if scfg.temperature == 0.0:
-            nxt, _ = M.paged_decode_step(
-                eng.params, b._pages, tbl, pos, chunk, c, eng.cfg,
-                sample_greedy=True, attn_impl=scfg.attn_impl)
+        # --- decode: E [B, Call] are the tokens a slot emits this step,
+        # ``me`` of them (a prefilling slot's last prompt position
+        # predicts one)
+        greedy = scfg.temperature == 0.0
+        out, _ = M.paged_decode_step(
+            eng.params, b._pages, tbl, pos, chunk, c, eng.cfg,
+            sample_greedy=greedy, attn_impl=scfg.attn_impl,
+            all_positions=bool(SK))
+        if not SK:
+            nxt = out if greedy else S.sample_tokens(
+                out, seed, gen, scfg.temperature, scfg.top_k, scfg.top_p)
+            pos = pos + c
+            live = active & (pos >= plen) & ~gdrop  # prompt consumed
+            E, me = nxt[:, None], live.to(torch.int32)
         else:
-            logits, _ = M.paged_decode_step(
-                eng.params, b._pages, tbl, pos, chunk, c, eng.cfg,
-                attn_impl=scfg.attn_impl)
-            nxt = S.sample_tokens(logits, seed, gen, scfg.temperature,
-                                  scfg.top_k, scfg.top_p)
-        pos = pos + c
-        live = active & (pos >= plen) & ~gdrop  # prompt consumed
+            E, tok_first, acc = self._verify(out, chunk, c, decoding, seed,
+                                             gen, jc)
+            # emit the accepted drafts and one LM token, up to an EOS
+            m0 = acc + 1
+            eosj = torch.where((E == b.eos) & (jc < m0[:, None]), jc, Call)
+            e1 = eosj.amin(1)
+            m = torch.where(e1 < Call, torch.minimum(m0, e1 + 1),
+                            m0).to(torch.int32)
+            pos = torch.where(decoding, pos + m, pos + c)
+            live = active & (pos >= plen) & ~gdrop
+            me = torch.where(live, torch.where(decoding, m, 1), 0)
+            E = torch.where(decoding[:, None], E, tok_first[:, None])
+            spec = decoding & live
+            st["spec_prop"].add_(torch.where(spec, c - 1, 0).sum()
+                                 .to(torch.int32))
+            st["spec_acc"].add_(torch.where(spec, acc, 0).sum()
+                                .to(torch.int32))
+        wide = jc[:, : E.shape[1]] < me[:, None]
         st["out_tok"].index_put_(
-            (torch.where(live, req, R).long(),
-             gen.clamp(max=b.max_tokens - 1).long()), nxt)
-        gen = gen + live.to(torch.int32)
-        bad = live & ((nxt < 0) | (nxt >= b._vocab))
+            (torch.where(wide, req[:, None], R).long(),
+             (gen[:, None] + jc[:, : E.shape[1]]).clamp(
+                 max=b.max_tokens - 1).long()), E)
+        nxt = torch.gather(E, 1, (me - 1).clamp(min=0)[:, None].long())[:, 0]
+        gen = gen + me
+        bad = live & (wide & ((E < 0) | (E >= b._vocab))).any(1)
         fin = live & ~bad & ((gen >= b.max_tokens) | (nxt == b.eos))
         evict = gdrop | fin | bad
         # --- eviction: one reference off every table page, except a
@@ -602,6 +693,53 @@ class _FusedStep:
         # left in the queue
         st["more"].copy_((~new["free"]).any() | (head < q["n"]))
 
+    def _verify(self, out, chunk, c, decoding, seed, gen, jc):
+        """Speculative verify of every slot's chunk: (E [B, Call] the
+        tokens to emit, the first token of a prefilling slot, the accepted
+        draft count).  Greedy (``out`` the LM argmax at every position):
+        the longest draft prefix that matches the argmax at the position
+        before it, then the argmax after it, so the stream is plain greedy
+        decode's.  Sampled (``out`` the logits): draft j is accepted with
+        probability p(d_j) (``uniform(seed, gen + j, salt=1)``); at the
+        first rejection the next token is drawn from p with the rejected
+        draft masked out (salt 2), after a full accept the bonus token from
+        p (salt 0), so each token's marginal is the LM's."""
+        scfg = self.b.engine.scfg
+        Call = chunk.shape[1]
+        jm = jc[:, : Call - 1]
+        if scfg.temperature == 0.0:
+            match = (chunk[:, 1:] == out[:, :-1]) & (jm < (c - 1)[:, None])
+            acc = torch.cumprod(match.to(torch.int32), 1).sum(1)
+            first = torch.gather(out, 1, (c - 1).clamp(0, Call - 1)
+                                 [:, None].long())[:, 0]
+            return out, first, acc.to(torch.int32)
+        t, k, p = scfg.temperature, scfg.top_k, scfg.top_p
+        probs = S.token_probs(out, t, k, p)
+        Vp = probs.shape[-1]
+        u = S.uniform(seed[:, None], gen[:, None] + jm, salt=1)
+        p_acc = torch.gather(probs[:, :-1], 2, chunk[:, 1:, None].clamp(
+            0, Vp - 1).long())[..., 0]
+        amask = (u < p_acc) & (jm < (c - 1)[:, None])
+        acc = torch.cumprod(amask.to(torch.int32), 1).sum(1).to(torch.int32)
+        full = acc >= c - 1
+        at = torch.where(decoding, acc.clamp(0, Call - 1),
+                         (c - 1).clamp(0, Call - 1)).long()
+        pick = at[:, None, None].expand(-1, 1, Vp)
+        l_fin = torch.gather(out, 1, pick)[:, 0]
+        p_fin = torch.gather(probs, 1, pick)[:, 0]
+        kpos = gen + torch.where(decoding, acc, 0)
+        bonus = S.sample_tokens(l_fin, seed, kpos, t, k, p)
+        x_rej = torch.gather(chunk, 1, (acc + 1).clamp(0, Call - 1)
+                             [:, None].long())[:, 0]
+        lanes = torch.arange(Vp, device=out.device)[None]
+        p_masked = torch.where(lanes == x_rej[:, None], 0.0, p_fin)
+        resamp = S.categorical(p_masked, seed, kpos, salt=2)
+        final = torch.where(decoding & ~full, resamp, bonus)
+        dshift = torch.cat([chunk[:, 1:], torch.zeros_like(chunk[:, :1])], 1)
+        E = torch.where(jc < acc[:, None], dshift, 0)
+        E = torch.where(jc == acc[:, None], final[:, None], E)
+        return E, final, acc
+
 
 class DeviceContinuousBatcher:
     """Device-resident continuous batching over the paged cache: the slot
@@ -628,10 +766,17 @@ class DeviceContinuousBatcher:
     the host batcher does (the JAX device batcher checks only under a
     fault injector, at drain).
 
-    Not ported yet, raising ``NotImplementedError`` naming the ROADMAP
-    queue A item: an engine without ``page_size`` (the dense mode, item
-    2), ``tracer``/``metrics``/``fault_injector`` (item 4),
-    ``spec_k``/``draft`` (item 5) and ``mesh`` (item 6).
+    ``spec_k`` with a compiled ``draft`` (``serve.spec``) drafts up to
+    ``spec_k`` tokens a decoding slot inside the step and verifies the
+    chain in the same chunked launch; ``spec_stats()`` reads the step's
+    counters after each ``run()``.  ``tracer``/``metrics`` (``obs``) and
+    ``fault_injector`` (``serve.faults``) act at drain boundaries only: a
+    traced run replays the fill schedule on the host from the drained
+    state (its timestamps interpolated between the boundaries), so the
+    captured step is the untraced one, and without a tracer, an injector,
+    a deadline or a held page the drive loop is unchanged.  An engine
+    without ``page_size`` (the dense mode, ROADMAP queue A item 2) and
+    ``mesh`` (item 6) raise ``NotImplementedError``.
     """
 
     def __init__(self, engine: ServeEngine, eos_token: int = 0,
@@ -646,12 +791,6 @@ class DeviceContinuousBatcher:
                  spec_k: int = 0, draft=None, graph: bool = True):
         if mesh is not None:
             raise NotImplementedError(NOT_PORTED["mesh"])
-        if spec_k or draft is not None:
-            raise NotImplementedError(NOT_PORTED["spec"])
-        if fault_injector is not None:
-            raise NotImplementedError(NOT_PORTED["obs"])
-        engine._require_paged()
-        self.attach_obs(tracer, metrics)
         self.engine = engine
         self.eos = int(eos_token)
         self.max_tokens = int(max_tokens)
@@ -659,12 +798,37 @@ class DeviceContinuousBatcher:
         self.pregate = pregate
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.max_queue = max_queue
+        self.spec_k = int(spec_k)
+        self.draft = draft
+        self._draft_tbl = None
+        if self.spec_k:
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if not engine.scfg.paged:
+                raise ValueError(
+                    "speculative decoding verifies drafts through the "
+                    "chunked paged step: set ServeConfig(page_size=...)")
+            if draft is None:
+                raise ValueError(
+                    "spec_k > 0 needs a compiled draft model "
+                    "(serve.spec.train_draft / compile_draft)")
+            if draft.vocab_size < engine.cfg.vocab_size:
+                raise ValueError(
+                    f"draft table covers {draft.vocab_size} tokens but "
+                    f"the LM vocab is {engine.cfg.vocab_size}")
+            self._draft_tbl = draft.device_table(engine.device)
+        engine._require_paged()
+        self._spec_prop = 0
+        self._spec_acc = 0
         self.max_retries = int(max_retries)
         self.retry_backoff = max(1, int(retry_backoff))
         self.default_deadline_s = deadline_s
+        self.injector = fault_injector
         self._clock = clock
         self._drains = 0
         self._retry_q: collections.deque = collections.deque()
+        self._exh_holds: List[list] = []  # [due drain, held page ids]
+        self._host_drops: Dict[int, Tuple[int, str, float]] = {}
         self._vocab = engine.cfg.vocab_size
         self.graph = bool(graph) and engine.device.type == "cuda"
         scfg = engine.scfg
@@ -688,6 +852,12 @@ class DeviceContinuousBatcher:
         self._steps: Dict[Tuple, _FusedStep] = {}
         self.steps = 0  # fused steps that had an active slot
         self.steps_executed = 0  # fused steps run (graph replays or eager)
+        self.tracer = None
+        self.metrics = None
+        self.trace_shard = 0
+        # steps across run() calls: trace events carry absolute steps
+        self._steps_total = 0
+        self.attach_obs(tracer, metrics)
 
     @property
     def steps_wasted(self) -> int:
@@ -695,9 +865,18 @@ class DeviceContinuousBatcher:
         return self.steps_executed - self.steps
 
     def attach_obs(self, tracer=None, metrics=None) -> None:
-        """Not ported yet: ``None`` for both is the only accepted call."""
-        if tracer is not None or metrics is not None:
-            raise NotImplementedError(NOT_PORTED["obs"])
+        """Attach an ``obs`` Tracer/Metrics pair (None detaches).  The
+        fused step is the same either way: lifecycles are replayed on the
+        host after each run."""
+        _attach_obs(self, tracer, metrics)
+
+    def spec_stats(self) -> dict:
+        """Speculative decoding so far: drafted tokens, accepted tokens
+        and the acceptance rate."""
+        prop = int(self._spec_prop)
+        return {"spec_k": self.spec_k, "drafted": prop,
+                "accepted": int(self._spec_acc),
+                "acceptance_rate": (self._spec_acc / prop) if prop else 0.0}
 
     def submit(self, request_id, prompt_tokens,
                features: Optional[np.ndarray] = None,
@@ -707,9 +886,7 @@ class DeviceContinuousBatcher:
         bounds queue + serve time; ``seed`` keys the sampling noise."""
         self.seeds[request_id] = (int(seed) if seed is not None
                                   else _default_seed(request_id))
-        prompt = validate_prompt_or_drop(
-            self.engine.scfg, request_id, prompt_tokens, self.max_tokens,
-            self.dropped, self.drop_reasons, dropped_at=self.dropped_at)
+        prompt = _submit_traced(self, request_id, prompt_tokens, False)
         ddl = deadline_s if deadline_s is not None else self.default_deadline_s
         dabs = None
         if ddl is not None:
@@ -749,28 +926,84 @@ class DeviceContinuousBatcher:
                 fs.capture()
         return fs
 
-    def _evict_deadlines(self, fs: _FusedStep, req_ids: list,
-                         now: float) -> None:
-        """Deadline eviction at one drain boundary (the deadline part of
-        the JAX batcher's ``_apply_drain_faults``): an expired live slot
-        frees its pages without registering its prefix."""
-        NP = self.engine.scfg.n_pages
-        host = fs.read("free", "req")
-        free, req = host["free"].copy(), host["req"]
-        evict = [b for b in range(self._B)
-                 if not free[b] and int(req[b]) < len(req_ids)
-                 and now > self.deadline.get(req_ids[int(req[b])],
-                                             float("inf"))]
-        if not evict:
-            return
-        host = fs.read("tbl", "pref")
-        tbl, pref = host["tbl"].copy(), host["pref"].copy()
-        for b in evict:
-            free[b] = True
-            np.subtract.at(pref, tbl[b][tbl[b] < NP], 1)
-            tbl[b] = NP
-            _drop_request(self, req_ids[int(req[b])], "deadline", now)
-        fs.write({}, dict(free=free, tbl=tbl, pref=pref))
+    def _apply_drain_faults(self, fs: _FusedStep, req_ids: list, now: float,
+                            steps_run: int, traced: bool) -> list:
+        """One drain boundary's faults (the JAX batcher's
+        ``_apply_drain_faults``): an injected corruption of a slot's last
+        token and the finite check that quarantines it, deadline
+        eviction, and ``PoolExhaust`` holds on every free page.  Only the
+        host-rebuildable state (``free``, ``tbl``, ``pref``) is written,
+        between rounds.  Returns the ``(step, slots, pages)`` releases a
+        traced run's replay folds in."""
+        inj = self.injector
+        shard = self.trace_shard
+        drain = self._drains - 1  # the boundary just completed
+        B, NP = self._B, self.engine.scfg.n_pages
+        host = fs.read("free", "req", "gen", "tbl", "pref",
+                       *(("out_tok",) if inj is not None else ()))
+        free, req, gen = host["free"].copy(), host["req"], host["gen"]
+        evict: Dict[int, str] = {}
+        if inj is not None:
+            out_tok = host["out_tok"].copy()
+            for ev in inj.corruptions(shard, drain):
+                b = ev.slot
+                if b < B and not free[b] and gen[b] > 0:
+                    out_tok[int(req[b]), min(int(gen[b]) - 1,
+                                             self.max_tokens - 1)] = ev.value
+            # the finite check: an out-of-range last token is a poisoned
+            # sample, and exactly that slot is quarantined
+            for b in range(B):
+                if free[b] or gen[b] == 0:
+                    continue
+                t = int(out_tok[int(req[b]), min(int(gen[b]) - 1,
+                                                 self.max_tokens - 1)])
+                if not 0 <= t < self._vocab:
+                    evict[b] = "quarantined"
+        if self.deadline:
+            for b in range(B):
+                if free[b] or b in evict or int(req[b]) >= len(req_ids):
+                    continue
+                dabs = self.deadline.get(req_ids[int(req[b])])
+                if dabs is not None and now > dabs:
+                    evict[b] = "deadline"
+        upd: Dict[str, np.ndarray] = {}
+        events: List[Tuple[int, int, int]] = []
+        pref = None
+        if evict:
+            tbl, pref = host["tbl"].copy(), host["pref"].copy()
+            for b, reason in evict.items():
+                qi = int(req[b])
+                free[b] = True
+                valid = tbl[b][tbl[b] < NP]
+                np.subtract.at(pref, valid, 1)
+                pages = int((pref[valid] == 0).sum())
+                tbl[b] = NP
+                _drop_request(self, req_ids[qi], reason, now,
+                              trace=not traced)
+                if traced:
+                    self._host_drops[qi] = (steps_run, reason, now)
+                    events.append((steps_run + 1, 1, pages))
+            upd.update(free=free, tbl=tbl)
+        if inj is not None:
+            for ev in inj.exhaustions(shard, drain):
+                if pref is None:
+                    pref = host["pref"].copy()
+                held = np.where(pref[:NP] == 0)[0]
+                pref[held] += 1
+                self._exh_holds.append([self._drains + ev.hold_drains, held])
+        due = [h for h in self._exh_holds if h[0] <= self._drains]
+        if due:
+            if pref is None:
+                pref = host["pref"].copy()
+            for _, pages in due:
+                pref[pages] -= 1
+            self._exh_holds = [h for h in self._exh_holds
+                               if h[0] > self._drains]
+        if pref is not None:
+            upd["pref"] = pref
+        if upd:
+            fs.write({}, upd)
+        return events
 
     def run(self, max_steps: int = 1000) -> dict:
         """Decode until queue + slots drain (or ``max_steps``); returns
@@ -790,6 +1023,12 @@ class DeviceContinuousBatcher:
                 return self.done
         eng = self.engine
         scfg = eng.scfg
+        traced = self.tracer is not None
+        if traced and self.spec_k:
+            raise ValueError(
+                "speculative decoding is unsupported on a traced run: the "
+                "schedule replay assumes one emitted token per decode "
+                "step, which an accepted draft chain violates")
         # batched admission: one gate launch over the whole waiting queue
         keep = np.ones(len(pending), bool)
         gated = [i for i, (_, _, f) in enumerate(pending) if f is not None]
@@ -861,8 +1100,15 @@ class DeviceContinuousBatcher:
         wave_pins: List[int] = []  # host pins on in-wave shared pages
         wave_deps = False  # any reader waiting on an in-wave writer?
         if scfg.share_prefix:
-            wave_pins, wave_deps = self._plan_in_wave(
-                kept, qsh, qdem, qstart, qcow, qwsrc, qwneed, wplans)
+            # pressure-release cached prefixes (LRU leaf-first) so the
+            # wave's largest own demand can be met; pages the wave shares
+            # are pinned
+            keep_pin = set(int(p) for p in qsh[qsh < NP])
+            keep_pin |= set(int(p) for p in qcow[qcow < NP])
+            self.pool.ensure_free(int(qdem.max(initial=0)), keep_pin)
+            if not traced:  # the replay does not model admission waits
+                wave_pins, wave_deps = self._plan_in_wave(
+                    kept, qsh, qdem, qstart, qcow, qwsrc, qwneed, wplans)
 
         B = self._B
         free = np.ones(B, bool)
@@ -893,7 +1139,8 @@ class DeviceContinuousBatcher:
             pbuf[b, : len(c["prompt"])] = c["prompt"]
             tbl[b] = c["tbl"]
             reg[b] = c.get("reg", False)
-        fs = self._fused((Nq, R, n_feat, p_max, bool(feats)))
+        pref0 = self.pool.ref.copy() if traced else None
+        fs = self._fused((Nq, R, n_feat, p_max, bool(feats), self.spec_k))
         fs.reset()
         fs.write(
             dict(tok=qtok, len=qlen, req=qreq, feat=qfeat, hasf=qhasf,
@@ -905,9 +1152,22 @@ class DeviceContinuousBatcher:
                  pbuf=pbuf, tbl=tbl, reg=reg, pref=self.pool.ref,
                  qidx=np.full(B, -1, np.int32)))
 
+        inj = self.injector
+        if (traced and inj is not None
+                and inj.pending_kinds(self.trace_shard, PoolExhaust)):
+            raise ValueError(
+                "pool-exhaust injection is unsupported on a traced run: the "
+                "schedule replay models page releases only at slot "
+                "evictions, so phantom holds would make tracer spans lie")
+        self._host_drops = {}
+        fault_events: List[Tuple[int, int, int]] = []
         seen = np.zeros(R, bool)
         remaining = max_steps
         alive = True
+        steps_run = 0
+        # (step, host time) at each drain boundary: a traced run's events
+        # get host times interpolated between them
+        boundaries = [(0, self._clock())]
         while remaining > 0:
             k = min(self.sync_every, remaining)
             fs.run(k)
@@ -917,37 +1177,66 @@ class DeviceContinuousBatcher:
                                fs.st["more"].view(1)]).cpu().numpy()
             done_mask, alive, more = flags[:R], bool(flags[R]), flags[R + 1]
             now = self._clock()
+            steps_run += k
+            if traced:
+                boundaries.append((steps_run, now))
             remaining -= k
             for qi in np.where(done_mask & ~seen)[0]:
                 self.done_at[req_ids[qi]] = now
                 self.deadline.pop(req_ids[qi], None)
+                if traced:  # the done_at stamp
+                    self.tracer.drained(req_ids[qi], t=now)
             seen = done_mask
             self._drains += 1
-            if self.deadline:
-                self._evict_deadlines(fs, req_ids, now)
+            # no injector, deadline or held page: the loop is the plain one
+            if (self.deadline or self._exh_holds
+                    or (inj is not None and inj.pending_for(self.trace_shard))):
+                fault_events += self._apply_drain_faults(
+                    fs, req_ids, now, steps_run, traced)
             if not alive:
                 break
             if not more and remaining > 0:
-                # the next round could only find no work: count its
-                # drain boundary as the JAX loop does, without running it
-                self._clock()
+                # the next round could only find no work: count its drain
+                # boundary as the JAX loop does, without running it
+                k = min(self.sync_every, remaining)
+                now = self._clock()
+                steps_run += k
+                if traced:
+                    boundaries.append((steps_run, now))
+                remaining -= k
                 self._drains += 1
+                if (self.deadline or self._exh_holds
+                        or (inj is not None
+                            and inj.pending_for(self.trace_shard))):
+                    fault_events += self._apply_drain_faults(
+                        fs, req_ids, now, steps_run, traced)
                 alive = False
                 break
         out = fs.read("pref", "head", "out_tok", "out_len", "out_drop",
                       "out_quar", "out_at", "out_tbl", "n_work", "free",
                       "req", "gen", "last", "feat", "hasf", "seed", "pos",
-                      "plen", "pbuf", "tbl", "reg")
+                      "plen", "pbuf", "tbl", "reg", "spec_prop", "spec_acc")
         self.steps += int(out["n_work"])
+        self._spec_prop += int(out["spec_prop"])
+        self._spec_acc += int(out["spec_acc"])
         self.pool.ref[:] = out["pref"][:NP]
         if wave_pins:
             # drop the host pins on in-wave shared node pages
             np.subtract.at(self.pool.ref, np.asarray(wave_pins), 1)
+        if self._exh_holds:
+            # held pages never outlive the run
+            for _, pages in self._exh_holds:
+                self.pool.ref[pages] -= 1
+            self._exh_holds = []
         self.pool.observe_occupancy()
         # sharing stats: exactly the entries the step admitted this run
         head = int(out["head"])
         for k in range(min(head, n)):
             self.pool.record_plan(wplans[k], len(kept[k][1]))
+        if traced:
+            self._replay(out, seen, carry, req_ids, pref0, qdem, qlen,
+                         qstart, qsh, qreg, fault_events, boundaries,
+                         steps_run, alive)
         drops = []
         for qi in range(C + n):
             if seen[qi]:
@@ -962,10 +1251,12 @@ class DeviceContinuousBatcher:
                         prompt, [int(p) for p in out["out_tbl"][qi][:nfp]])
             elif out["out_drop"][qi] or out["out_quar"][qi]:
                 drops.append(qi)
-        # in-step drops in the order the step made them: (step, slot)
+        # in-step drops in the order the step made them: (step, slot); a
+        # traced run's tracer events come from the replay
         for qi in sorted(drops, key=lambda qi: out["out_at"][qi]):
             _drop_request(self, req_ids[qi], "quarantined"
-                          if out["out_quar"][qi] else "gate-reject")
+                          if out["out_quar"][qi] else "gate-reject",
+                          trace=False)
         self._carry = [None] * B
         if alive:
             for b in range(B):
@@ -994,6 +1285,188 @@ class DeviceContinuousBatcher:
             return self.run(remaining)
         return self.done
 
+    def _replay(self, out, seen, carry, req_ids, pref0, qdem, qlen, qstart,
+                qsh, qreg, fault_events, boundaries, steps_run,
+                alive) -> None:
+        """A traced run's request lifecycles, replayed on the host (the
+        JAX batcher's schedule replay): the step's fill is a function of
+        the FIFO queue, the free slots and the free pages, and an admitted
+        slot advances every step until it is evicted, so from the drained
+        outcomes the host finds each request's admit, first-token and
+        terminal steps; steps map to host times by interpolation between
+        the drain boundaries.  Besides the JAX replay, a request
+        quarantined in the step (``out_quar``, at ``out_at``) ends there
+        and frees its slot and pages.  Emission is deferred to the
+        tracer's next read."""
+        eng = self.engine
+        B, NP, page = self._B, eng.scfg.n_pages, eng.scfg.page_size
+        Ck = self.prefill_chunk
+        C, n = len(carry), len(req_ids) - len(carry)
+        out_len, out_drop = out["out_len"], out["out_drop"]
+        out_quar, out_at = out["out_quar"], out["out_at"]
+        s_admit: List = [None] * (C + n)  # fresh admits only
+        s_first: List = [None] * (C + n)
+        s_done: List = [None] * (C + n)
+        events: List[Tuple[int, int, int]] = []  # step, slots, pages
+        for qi in range(C):
+            # a resumed slot, occupied from step 1: its admit (and first
+            # token) were reported by the run that saw them
+            cst = carry[qi][1]
+            g0 = int(cst["gen"])
+            if g0 == 0:  # resumed mid-prefill
+                rem = len(cst["prompt"]) - int(cst["pos"])
+                s_first[qi] = max(-(-rem // Ck), 1)
+            if seen[qi]:
+                s_done[qi] = (s_first[qi] + int(out_len[qi]) - 1
+                              if s_first[qi] is not None
+                              else int(out_len[qi]) - g0)
+            elif out_drop[qi] or out_quar[qi]:
+                s_done[qi] = int(out_at[qi]) // B + 1
+            if s_done[qi] is not None:
+                # pages released at eviction: those at refcount 1 when the
+                # run started (shared pages keep the prefix cache's hold);
+                # a completed reg slot keeps its full-prompt pages
+                tbl_c = np.asarray(cst["tbl"])
+                own = (tbl_c < NP) & (pref0[np.clip(tbl_c, 0, NP - 1)] == 1)
+                if cst.get("reg", False) and seen[qi]:
+                    own[: len(cst["prompt"]) // page] = False
+                heapq.heappush(events, (s_done[qi] + 1, 1, int(own.sum())))
+        for ev in fault_events:
+            # host fault evictions free their slot and pages one step past
+            # the drain boundary they fired at
+            heapq.heappush(events, ev)
+        free_slots = B - C
+        free_pages = int((pref0 == 0).sum())
+        step, qp = 1, 0
+        while qp < n and step <= steps_run:
+            qi = C + qp
+            dem = int(qdem[qp])
+            if free_slots < 1 or dem > free_pages:
+                # blocked: resources change only at evictions
+                if not events:
+                    break
+                s2, sl, pg = heapq.heappop(events)
+                if s2 > steps_run:
+                    break
+                step = max(step, s2)
+                free_slots += sl
+                free_pages += pg
+                continue
+            s_admit[qi] = step
+            free_slots -= 1
+            free_pages -= dem
+            if out_drop[qi]:  # the gate's verdict evicts on the admit step
+                s_done[qi] = step
+                heapq.heappush(events, (step + 1, 1, dem))
+            else:
+                pre = -(-(int(qlen[qp]) - int(qstart[qp])) // Ck)
+                s_first[qi] = step + max(pre, 1) - 1
+                if seen[qi]:
+                    s_done[qi] = s_first[qi] + int(out_len[qi]) - 1
+                    held = 0
+                    if qreg[qp]:
+                        nsh = int((qsh[qp] < NP).sum())
+                        held = min(max(int(qlen[qp]) // page - nsh, 0), dem)
+                    heapq.heappush(events, (s_done[qi] + 1, 1, dem - held))
+                elif out_quar[qi]:
+                    s_done[qi] = int(out_at[qi]) // B + 1
+                    heapq.heappush(events, (s_done[qi] + 1, 1, dem))
+            qp += 1
+        admitted = sum(1 for s in s_admit if s is not None)
+        if admitted != int(out["head"]):
+            raise RuntimeError(
+                f"obs: schedule replay diverged from the device fill "
+                f"(replayed {admitted} admits, the step consumed "
+                f"{int(out['head'])}): tracer spans would lie")
+        # steps actually run: one past the last eviction, unless a slot is
+        # still in flight
+        dsteps = [s for s in s_done if s is not None]
+        in_flight = any((qi < C or s_admit[qi] is not None)
+                        and s_done[qi] is None for qi in range(C + n))
+        actual = (steps_run if in_flight else
+                  min(steps_run, (max(dsteps) if dsteps else 0) + 1))
+        if boundaries[-1][0] > actual:
+            boundaries[-1] = (actual, boundaries[-1][1])
+        base = self._steps_total
+        self._steps_total += actual
+        gen_end = {}  # row -> generated count, for carried-out rows
+        if alive:
+            for b in range(B):
+                if not out["free"][b]:
+                    gen_end[int(out["req"][b])] = int(out["gen"][b])
+        tracer, shard = self.tracer, self.trace_shard
+        rids = list(req_ids)
+        host_drops = dict(self._host_drops)
+
+        def emit():
+            b_s = np.array([s for s, _ in boundaries], float)
+            b_t = np.array([t for _, t in boundaries], float)
+
+            def interp_all(steps):
+                return np.interp([0 if s is None else s for s in steps],
+                                 b_s, b_t)
+
+            t_adm, t_fst = interp_all(s_admit), interp_all(s_first)
+            t_don = interp_all(s_done)
+            for qi in range(C + n):
+                rid = rids[qi]
+                if qi >= C:
+                    if s_admit[qi] is None:
+                        continue  # still queued: no events this run
+                    tracer.admitted(rid, t=float(t_adm[qi]),
+                                    step=base + s_admit[qi], shard=shard)
+                    if out_drop[qi]:
+                        tracer.dropped(rid, "gate-reject",
+                                       t=float(t_don[qi]),
+                                       step=base + s_done[qi])
+                        continue
+                hd = host_drops.get(qi)
+                if hd is not None:
+                    # a host fault eviction: terminal at the drain boundary
+                    # that saw it
+                    step_h, reason, t_h = hd
+                    if (s_first[qi] is not None and s_first[qi] <= step_h
+                            and gen_end.get(qi, 1) >= 1):
+                        tracer.first_token(rid, t=float(t_fst[qi]),
+                                           step=base + s_first[qi])
+                    if reason == "deadline":
+                        tracer.deadline_dropped(rid, t=t_h,
+                                                step=base + step_h,
+                                                shard=shard)
+                    else:
+                        tracer.quarantined(rid, t=t_h, step=base + step_h,
+                                           shard=shard)
+                    continue
+                if seen[qi]:
+                    if s_first[qi] is not None:
+                        tracer.first_token(rid, t=float(t_fst[qi]),
+                                           step=base + s_first[qi])
+                    tracer.finished(rid, n_tokens=int(out_len[qi]),
+                                    t=float(t_don[qi]),
+                                    step=base + s_done[qi])
+                elif out_quar[qi]:
+                    # quarantined in the step: a first token before it
+                    # was recorded when the bad one was not the first
+                    if (s_first[qi] is not None
+                            and s_first[qi] < s_done[qi]):
+                        tracer.first_token(rid, t=float(t_fst[qi]),
+                                           step=base + s_first[qi])
+                    tracer.quarantined(rid, t=float(t_don[qi]),
+                                       step=base + s_done[qi], shard=shard)
+                elif out_drop[qi]:
+                    if s_done[qi] is not None:
+                        tracer.dropped(rid, "gate-reject",
+                                       t=float(t_don[qi]),
+                                       step=base + s_done[qi])
+                elif s_first[qi] is not None and gen_end.get(qi, 0) >= 1:
+                    # carried out mid-run, first token produced
+                    tracer.first_token(rid, t=float(t_fst[qi]),
+                                       step=base + s_first[qi])
+
+        # the replay is cheap; the per-request emission runs at the
+        # tracer's next read, off the serve path
+        tracer.defer(emit)
+
     def _plan_in_wave(self, kept, qsh, qdem, qstart, qcow, qwsrc, qwneed,
                       wplans) -> Tuple[List[int], bool]:
         """In-wave prefix sharing (JAX ``run``'s share_prefix block): cold
@@ -1005,11 +1478,6 @@ class DeviceContinuousBatcher:
         NP = self.engine.scfg.n_pages
         page = self.engine.scfg.page_size
         n = len(kept)
-        # pressure-release cached prefixes (LRU leaf-first) so the wave's
-        # largest own demand can be met; pages the wave shares are pinned
-        keep_pin = set(int(p) for p in qsh[qsh < NP])
-        keep_pin |= set(int(p) for p in qcow[qcow < NP])
-        self.pool.ensure_free(int(qdem.max(initial=0)), keep_pin)
         cold = [k for k in range(n)
                 if qstart[k] == 0 and qcow[k] == NP
                 and bool((qsh[k] >= NP).all()) and len(kept[k][1]) >= page]
@@ -1073,9 +1541,11 @@ class ContinuousBatcher:
     """Slot-based continuous batching over a paged ServeEngine
     (host-driven: one step and one token sync per generated token).
 
-    ``tracer``, ``metrics`` and ``fault_injector`` are the JAX package's
-    hooks for ``obs`` and ``serve.faults``; passing one raises
-    ``NotImplementedError`` (ROADMAP queue A item 4)."""
+    ``tracer``/``metrics`` (``obs``) record each request's lifecycle as it
+    happens; ``fault_injector`` (``serve.faults``) corrupts sampled tokens
+    (the finite check quarantines exactly that slot) and pins the free
+    pages (``PoolExhaust``) at drain boundaries, which for this batcher
+    is every step."""
 
     def __init__(self, engine: ServeEngine, eos_token: int = 0,
                  max_tokens: int = 32, max_queue: Optional[int] = None,
@@ -1085,19 +1555,21 @@ class ContinuousBatcher:
                  fault_injector=None,
                  clock: Callable[[], float] = time.perf_counter):
         engine._require_paged()
-        if fault_injector is not None:
-            raise NotImplementedError(NOT_PORTED["obs"])
-        self.attach_obs(tracer, metrics)
         self.engine = engine
         self.eos = eos_token
         self.max_tokens = max_tokens
         self.max_queue = max_queue
+        self.tracer = None
+        self.metrics = None
+        self.trace_shard = 0
         self.max_retries = int(max_retries)
         self.retry_backoff = max(1, int(retry_backoff))
         self.default_deadline_s = deadline_s
+        self.injector = fault_injector
         self._clock = clock
         self._drains = 0
         self._retry_q: collections.deque = collections.deque()
+        self._exh_holds: List[list] = []  # [due drain, held page ids]
         self._vocab = engine.cfg.vocab_size
         scfg = engine.scfg
         B = scfg.max_batch
@@ -1129,12 +1601,12 @@ class ContinuousBatcher:
                                 np.int32)
         self.pool = scfg.make_pool()
         self.slot_res: list = [None] * B
+        self.attach_obs(tracer, metrics)
 
     def attach_obs(self, tracer=None, metrics=None) -> None:
-        """Not ported yet: ``None`` for both (no instrumentation) is the
-        only accepted call."""
-        if tracer is not None or metrics is not None:
-            raise NotImplementedError(NOT_PORTED["obs"])
+        """Attach an ``obs`` Tracer/Metrics pair (None detaches); the
+        streams are the same with it on or off."""
+        _attach_obs(self, tracer, metrics)
 
     def submit(self, request_id, prompt_tokens,
                features: Optional[np.ndarray] = None,
@@ -1145,10 +1617,7 @@ class ContinuousBatcher:
         bounds queue + serve time; ``seed`` keys its sampling noise."""
         self.seeds[request_id] = (int(seed) if seed is not None
                                   else _default_seed(request_id))
-        prompt = validate_prompt_or_drop(
-            self.engine.scfg, request_id, prompt_tokens, self.max_tokens,
-            self.dropped, self.drop_reasons, dense_ok=True,
-            dropped_at=self.dropped_at)
+        prompt = _submit_traced(self, request_id, prompt_tokens, True)
         ddl = deadline_s if deadline_s is not None else self.default_deadline_s
         dabs = None
         if ddl is not None:
@@ -1175,7 +1644,8 @@ class ContinuousBatcher:
     def _fill_slots(self):
         scfg = self.engine.scfg
         self.pool.begin_wave()
-        now = self._clock() if self.deadline else 0.0
+        track = self.tracer is not None or bool(self.deadline)
+        now = self._clock() if track else 0.0
         free_idx = list(np.where(self.slot_free)[0])
         fi = 0
         while fi < len(free_idx) and self.queue:
@@ -1206,6 +1676,8 @@ class ContinuousBatcher:
             self.slot_free[b] = False
             self.slot_req[b] = rid
             self.slot_seed[b] = self.seeds.get(rid, _default_seed(rid))
+            if self.tracer is not None:
+                self.tracer.admitted(rid, t=now, shard=self.trace_shard)
             self.slot_prompt[b] = prompt
             # shared prefix tokens are already in the pool: skip them
             self.slot_ptr[b] = res.start
@@ -1216,6 +1688,11 @@ class ContinuousBatcher:
         self.done[self.slot_req[b]] = self.slot_gen[b]
         self.done_at[self.slot_req[b]] = now
         self.deadline.pop(self.slot_req[b], None)
+        if self.tracer is not None:
+            # the done_at stamp: tracer spans and drain times agree
+            self.tracer.finished(self.slot_req[b],
+                                 n_tokens=len(self.slot_gen[b]), t=now)
+            self.tracer.drained(self.slot_req[b], t=now)
         self.slot_free[b] = True
         self.slot_req[b] = None
         # completed full prompt pages register in the prefix trie
@@ -1238,6 +1715,7 @@ class ContinuousBatcher:
     def run(self, max_steps: int = 1000) -> dict:
         """Decode until queue + slots drain; returns {request_id: tokens}."""
         B = self.engine.scfg.max_batch
+        inj = self.injector
         for _ in range(max_steps):
             _service_retries(self)
             self._fill_slots()
@@ -1272,6 +1750,16 @@ class ContinuousBatcher:
                 nxt = self._sampler(logits, self.slot_seed, gi).cpu().numpy()
             self.steps += 1
             now = self._clock()
+            if inj is not None:
+                # faults apply here, at the host drain boundary (every
+                # step for this batcher), never inside the step
+                for ev in inj.corruptions(self.trace_shard, self._drains):
+                    if ev.slot < B and not self.slot_free[ev.slot]:
+                        nxt[ev.slot] = ev.value
+                for ev in inj.exhaustions(self.trace_shard, self._drains):
+                    held = self.pool.hold_free_pages()
+                    self._exh_holds.append(
+                        [self._drains + ev.hold_drains, held])
             for b in range(B):
                 if self.slot_free[b]:
                     continue
@@ -1288,6 +1776,8 @@ class ContinuousBatcher:
                     # exactly this slot
                     self._evict_drop(b, "quarantined", now)
                     continue
+                if self.tracer is not None and len(self.slot_gen[b]) == 1:
+                    self.tracer.first_token(self.slot_req[b], t=now)
                 if (len(self.slot_gen[b]) >= self.max_tokens
                         or tokv == self.eos):
                     self._evict(b, now)
@@ -1299,4 +1789,11 @@ class ContinuousBatcher:
                     if dabs is not None and now > dabs:
                         self._evict_drop(b, "deadline", now)
             self._drains += 1
+            if self._exh_holds:
+                due = [h for h in self._exh_holds if h[0] <= self._drains]
+                if due:
+                    self._exh_holds = [h for h in self._exh_holds
+                                       if h[0] > self._drains]
+                    for _, pages in due:
+                        self.pool.release_held(pages)
         return self.done

@@ -117,7 +117,7 @@ class PagePool:
         self._cached: "collections.OrderedDict[int, tuple]" = \
             collections.OrderedDict()
         self._planned = 0  # new cache keys promised this wave
-        self.metrics = None  # optional obs Metrics registry (not ported yet)
+        self.metrics = None  # optional obs Metrics registry
         self.metrics_prefix = "pool"
         self.reset_stats()
 

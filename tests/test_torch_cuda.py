@@ -148,6 +148,38 @@ def _bnn_case(seed, B, n_in, n_out):
     return xb, w, pack_bits_uint32(xb), pack_bits_uint32(w)
 
 
+# (K, N, out float32) of the serve step's products: qwen2-1.5b's wq / wo,
+# wk / wv, w_gate / w_up, w_down and the head (float32 logits), the smoke
+# config's, and a K past no 64-row tile with N under one 128-column tile
+LINEAR_SHAPES = [(1536, 1536, False), (1536, 256, False),
+                 (1536, 8960, False), (8960, 1536, False),
+                 (1536, 152064, True), (48, 48, False), (48, 16, False),
+                 (96, 48, False), (48, 256, True), (40, 24, False)]
+LINEAR_ROWS = (1, 3, 16, 48, 64, 128, 256)
+
+
+def _linear_case(seed, M, K, N):
+    """bf16 activations ~ N(0, 1) [M, K] and weights ~ N(0, 1/K) [K, N],
+    as numpy float32 arrays holding bf16 values."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((M, K), np.float32))
+    w = torch.as_tensor(rng.standard_normal((K, N), np.float32) / np.sqrt(K))
+    return (x.to(torch.bfloat16).float().numpy(),
+            w.to(torch.bfloat16).float().numpy())
+
+
+def linear_limit(x: torch.Tensor, w: torch.Tensor, want: torch.Tensor,
+                 f32: bool) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for x [M, K] @ w [K, N]: the
+    bf16 products are exact in float32, and any two float32 summation
+    orders of K terms differ by at most 2 K 2^-24 sum|x||w|; a bf16 output
+    adds one bf16 ulp (2^-7 of the magnitude) of the larger result."""
+    gap = 2 * w.shape[0] * 2.0 ** -24 * (x.float().abs() @ w.float().abs())
+    if f32:
+        return gap
+    return gap + 2.0 ** -7 * (want.float().abs() + gap)
+
+
 # ------------------------------------------------------- on the card only
 @pytest.fixture
 def cuda_device():
@@ -504,7 +536,8 @@ def test_cuda_serve_launches_paged_attention_per_layer(cuda_device):
     assert len(done) + len(cb.dropped) == 6
 
 
-def _device_serve(cuda_device, graph, n=6, max_steps=200, **scfg):
+def _device_serve(cuda_device, graph, n=6, max_steps=200, prefill_chunk=4,
+                  **scfg):
     """The device batcher on the smoke config (rf-S gate), ``n`` requests
     of 2-7 tokens, chunk 4, three steps a round."""
     from repro_torch.arch import model as M
@@ -523,7 +556,8 @@ def _device_serve(cuda_device, graph, n=6, max_steps=200, **scfg):
                                      **scfg),
                          gate=gate, device=cuda_device)
     cb = DeviceContinuousBatcher(engine, eos_token=-1, max_tokens=4,
-                                 sync_every=3, prefill_chunk=4, graph=graph)
+                                 sync_every=3, prefill_chunk=prefill_chunk,
+                                 graph=graph)
     for rid in range(n):
         cb.submit(rid, [rid + 1] * (rid + 2), features=ds.X_test[rid])
     cb.run(max_steps=max_steps)
@@ -597,3 +631,62 @@ def test_cuda_sync_free_pool_write_equals_the_filtered_write(cuda_device,
                       off.reshape(-1)[keep].long()),
                      rows.reshape(-1, KV, hd)[keep])
     assert torch.equal(kv.k, pool[0]) and torch.equal(kv.v, pool[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,f32", LINEAR_SHAPES)
+def test_cuda_linear_within_limits_of_plain(cuda_device, K, N, f32):
+    """The kernel against ``ref.linear_ref`` on the card (float32
+    accumulation on both: reduced-precision reductions off), elementwise
+    within ``linear_limit``."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = torch.float32 if f32 else None
+    for M in (1, 16, 128):
+        x, w = (torch.as_tensor(a).to(cuda_device).to(torch.bfloat16)
+                for a in _linear_case(M + K, M, K, N))
+        got = ops.linear(x, w, out)
+        want = ref.linear_ref(x, w, out)
+        assert got.dtype == want.dtype and got.shape == (M, N)
+        bad = (got.float() - want.float()).abs() > linear_limit(x, w, want,
+                                                                f32)
+        assert not bad.any(), (M, int(bad.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,f32", LINEAR_SHAPES)
+def test_cuda_linear_rows_are_invariant(cuda_device, K, N, f32):
+    """Bitwise: a row's result is the same whatever M and wherever the
+    row sits (alone, at the start, at an offset, at the end)."""
+    out = torch.float32 if f32 else None
+    x, w = (torch.as_tensor(a).to(cuda_device).to(torch.bfloat16)
+            for a in _linear_case(K + N, 300, K, N))
+    full = ops.linear(x, w, out)
+    for M in LINEAR_ROWS:
+        for o in (0, 7, 300 - M):
+            part = ops.linear(x[o:o + M].contiguous(), w, out)
+            assert torch.equal(part, full[o:o + M]), (M, o)
+
+
+@pytest.mark.cuda
+def test_cuda_linear_refuses_what_it_does_not_take(cuda_device):
+    x = torch.ones((4, 12), dtype=torch.bfloat16, device=cuda_device)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.linear(x, torch.ones((12, 16), dtype=torch.bfloat16,
+                                 device=cuda_device))
+    with pytest.raises(TypeError, match="bf16"):
+        ops.linear(x.float()[:, :8], torch.ones((8, 16), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.linear(x[:, :8], torch.ones((16, 8), dtype=torch.bfloat16,
+                                        device=cuda_device).T)
+    assert ops.launch_counts()["linear"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_prefill_equals_token_by_token(cuda_device):
+    """Through the device batcher on the card: chunk 4 and chunk 1 give
+    every stream bitwise (the products no longer depend on M)."""
+    a = _device_serve(cuda_device, True, n=8)
+    b = _device_serve(cuda_device, True, n=8, prefill_chunk=1)
+    assert a.done == b.done and len(a.done) > 0
+    assert a.dropped == b.dropped

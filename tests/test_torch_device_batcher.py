@@ -385,19 +385,7 @@ def test_sync_free_pool_write_equals_the_filtered_write(case, quantized):
 
 
 # ------------------------------------------------------- not ported
-@pytest.mark.parametrize("kw,item", [
-    (dict(spec_k=2), "item 5"), (dict(draft=object()), "item 5"),
-    (dict(tracer=object()), "item 4"), (dict(metrics=object()), "item 4"),
-    (dict(fault_injector=object()), "item 4"), (dict(mesh=object()),
-                                                "item 6")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 6")])
 def test_device_batcher_modes_not_ported_raise(both, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TE.DeviceContinuousBatcher(_engine(both), **kw)
-
-
-def test_device_batcher_attach_obs_not_ported(both):
-    cb = _device(both)
-    cb.attach_obs()  # None for both: accepted
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cb.attach_obs(metrics=object())
-    assert cb.graph is False  # the CUDA graph is the card's only

@@ -41,7 +41,9 @@ def test_imports_every_module_without_jax():
             "arch.config", "arch.model", "arch.convert", "arch.sampling",
             "configs.registry", "configs.qwen2_1_5b", "nn.common", "nn.mlp",
             "nn.attn_backend", "nn.attention", "kernels.paged_attention",
-            "serve.engine", "serve.pages", "serve.faults", "launch.serve")}
+            "kernels.linear", "serve.engine", "serve.pages", "serve.faults",
+            "serve.spec", "obs", "obs.metrics", "obs.trace",
+            "launch.serve")}
         assert serve_slice <= set(names), serve_slice - set(names)
         print("CLEAN", len(names))
     """)
@@ -192,7 +194,7 @@ def test_cpu_tensors_take_the_plain_versions_and_inputs_are_checked():
     assert ops.launch_counts() == {"bucketize": 0, "ternary_match": 0,
                                    "fused_eb": 0, "lb_lookup": 0,
                                    "bnn_popcount_matmul": 0,
-                                   "paged_attention": 0}
+                                   "paged_attention": 0, "linear": 0}
     codes = torch.zeros((4, 2), dtype=torch.int32)
     luts = torch.ones((2, 3, 5), dtype=torch.int32)
     assert ops.lb_lookup(codes, luts).tolist() == [[2] * 5] * 4
@@ -204,6 +206,11 @@ def test_cpu_tensors_take_the_plain_versions_and_inputs_are_checked():
     out = ops.paged_attention(q, pages, pages, tbl, pos, 0)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert torch.equal(out, torch.ones_like(q))  # softmax-weighted ones
+    x, w = torch.ones((3, 8), dtype=torch.bfloat16), torch.ones((8, 16),
+                                                                dtype=torch.bfloat16)
+    assert torch.equal(ops.linear(x, w), torch.full((3, 16), 8.0,
+                                                    dtype=torch.bfloat16))
+    assert ops.linear(x, w, out_dtype=torch.float32).dtype == torch.float32
     assert sum(ops.launch_counts().values()) == 0
     cpu = torch.device("cpu")
     with pytest.raises(TypeError, match="int32"):
