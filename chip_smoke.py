@@ -60,14 +60,18 @@ Phases, in order; the first failure exits non-zero:
    128, 256}, every row bitwise equal at offsets 0 and 7 and computed
    alone; within ``linear_limit`` of its plain version (2 K 2^-24
    sum|x||w| plus one bf16 ulp of a bf16 output, fixed before any run);
-   each product timed at M = 16 and 128 beside cuBLAS (``x @ w``) and its
-   byte bound;
+   the step's two groups (``linear_group`` of wq/wk/wv and of
+   w_gate/w_up) at the same M, each member bitwise its lone launch; each
+   product and group timed at M = 16 and 128, L2-cold (rotating over
+   copies of its weights past 120 MB), beside cuBLAS (``x @ w``, a
+   group's members one after another) and its byte bound, and summed
+   into a step's products at C = 8 and C = 1;
 9. serve: qwen2-1.5b at full width and depth, weights random-init from
    ``--seed`` (default 0), through ``ServeEngine`` + ``ContinuousBatcher``
    over the paged cache (16 slots, cache 1024, page 16) with an rf-S
    admission gate on unsw features: 32 requests, prompt lengths drawn in
    [16, 256] from the seed, 32 tokens each.  ``paged_attention`` launches
-   equal steps x 28, ``linear`` steps x (7 x 28 + 1), ``fused_eb``
+   equal steps x 28, ``linear`` steps x (4 x 28 + 1), ``fused_eb``
    launched at admission, served + dropped
    = submitted; tokens/s and ms per step; a torch.profiler window for the
    device's busy and idle share;
@@ -94,9 +98,9 @@ Phases, in order; the first failure exits non-zero:
    operand; (e) rounds of the eager and the replayed step under
    ``torch.cuda.set_sync_debug_mode("error")``; (f) the profiler's
    kernels over one round and its gate call: ``paged_attention`` = steps
-   run x 28, ``linear`` = steps run x (7 x 28 + 1) (and its split-K sum
-   pass once a split product), ``fused_eb`` = (steps run + 1) x the
-   gate's tables, no other kernel of the repo.  Tokens/s and ms a step,
+   run x 28, ``linear`` = steps run x (4 x 28 + 1), ``fused_eb`` =
+   (steps run + 1) x the gate's tables, no other kernel of the repo.
+   Tokens/s and ms a step,
    graph and eager, beside phase 9's, the steps with work, run and wasted,
    and the device's idle share of a replayed step;
 12. speculative decoding: phase 9's workload through the device batcher
@@ -572,24 +576,33 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20):
+def device_ms(fn, reps: int = 20, spins: bool = False):
     """Mean device time per call of the kernels ``fn`` launches, from
     torch.profiler (CUPTI): the card's own time, without the host's launch
     overhead that a single call's CUDA events also span while the card
-    idles.  None when the profiler saw no kernel."""
+    idles.  With ``spins`` the window opens with ``open_window``'s spin
+    kernels, not counted, which absorb the records the profiler drops at
+    a window's start.  None when the profiler saw no kernel in three
+    windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if spins:
+                open_window(torch.device("cuda"))
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation and "spin_kernel" not in e.key)
+        if us > 0:
+            return us / reps / 1e3
+    return None
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -1142,81 +1155,167 @@ def check_linear(cfg, dev) -> str:
             f"M in {LINEAR_TIMED}")
 
 
-def linear_library(x, w, f32):
-    """One PyTorch call computing the same function (cuBLAS): ``x @ w``,
-    or for the float32 head ``torch.mm`` with ``out_dtype`` where this
-    PyTorch has it (else None)."""
-    if not f32:
-        return lambda: x @ w
-    try:
-        torch.mm(x[:1], w, out_dtype=torch.float32)
-    except (TypeError, RuntimeError):
-        return None
-    return lambda: torch.mm(x, w, out_dtype=torch.float32)
+def linear_groups(cfg):
+    """The step's grouped launches: (name, member names) of
+    ``linear_weights``."""
+    return [("qkv", ("wq", "wk", "wv")), ("gate_up", ("w_gate", "w_up"))]
+
+
+def check_linear_groups(cfg, dev) -> str:
+    """Each member of the step's two grouped launches bitwise its lone
+    launch, for M in LINEAR_ROWS; a group is one launch."""
+    from repro_torch.kernels import ops
+
+    shapes = {name: (K, N) for name, K, N, _ in linear_weights(cfg)}
+    n = 0
+    for gname, members in linear_groups(cfg):
+        K = shapes[members[0]][0]
+        X, _ = linear_case(dev, max(LINEAR_ROWS), K, 8, SEED + 100)
+        ws = [linear_case(dev, 1, K, shapes[m][1], SEED + 101 + i)[1]
+              for i, m in enumerate(members)]
+        for M in LINEAR_ROWS:
+            x = X[:M].contiguous()
+            before = ops.launch_counts()["linear"]
+            got = ops.linear_group(x, ws)
+            if ops.launch_counts()["linear"] != before + 1:
+                fail(f"(8 linear) the {gname} group made more than one "
+                     f"launch")
+            for m, g, w in zip(members, got, ws):
+                if not torch.equal(g, ops.linear(x, w)):
+                    fail(f"(8 linear) {gname} at M = {M}: {m} differs from "
+                         f"its lone launch")
+                n += 1
+    return (f"(c) the groups {[g for g, _ in linear_groups(cfg)]} at M in "
+            f"{LINEAR_ROWS}: {n} members bitwise their lone launches, one "
+            f"launch a group")
+
+
+# a timing rotates over copies of its weights that together pass this many
+# bytes, so every call finds them out of the 50 MB L2, as a serve step does
+COLD_BYTES = 120e6
+
+
+def rotating(copies, call):
+    """A callable that runs ``call(copy)`` over ``copies`` in turn."""
+    state = {"i": 0}
+
+    def fn():
+        i = state["i"]
+        state["i"] = (i + 1) % len(copies)
+        return call(copies[i])
+
+    return fn
 
 
 def linear_timings(cfg, dev):
-    """Each of the eight products at M in LINEAR_TIMED: the kernel's events
-    and device time, the plain version's, cuBLAS's, and the byte bound;
-    then the sums over one device-batcher step (7 x layers products at
-    M = 16 x DEVICE_CHUNK and the head at M = 16) for the JSON row."""
+    """Each of the eight products and the two groups at M in LINEAR_TIMED,
+    L2-cold (rotating over copies of the weights past COLD_BYTES): the
+    kernel's events and device time, cuBLAS's (``x @ w``, or the head's
+    ``torch.mm(out_dtype=float32)``; a group's members one after another),
+    the plain version's, the error against it and the byte bound."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.linear import linear_hbm_bytes
 
+    shapes = {name: (K, N, f32) for name, K, N, f32 in linear_weights(cfg)}
+    units = [(name, (name,)) for name in shapes] + linear_groups(cfg)
     per = []
-    for i, (name, K, N, f32) in enumerate(linear_weights(cfg)):
+    for i, (name, members) in enumerate(units):
+        f32 = shapes[members[0]][2]
         out = torch.float32 if f32 else None
-        X, w = linear_case(dev, max(LINEAR_TIMED), K, N, SEED + i)
+        K = shapes[members[0]][0]
+        ws = [linear_case(dev, 1, K, shapes[m][1], SEED + 10 * i + j)[1]
+              for j, m in enumerate(members)]
+        w_bytes = sum(w.numel() * 2 for w in ws)
+        copies = [ws] + [[w.clone() for w in ws]
+                         for _ in range(int(np.ceil(COLD_BYTES / w_bytes))
+                                        - 1)]
+        X, _ = linear_case(dev, max(LINEAR_TIMED), K, 8, SEED + 10 * i + 9)
         for M in LINEAR_TIMED:
             x = X[:M].contiguous()
-            lib = linear_library(x, w, f32)
-            n_bytes = linear_hbm_bytes(M, K, N, 4 if f32 else 2)
+            if len(ws) == 1:
+                kernel = rotating(copies, lambda c: ops.linear(x, c[0], out))
+            else:
+                kernel = rotating(copies, lambda c: ops.linear_group(x, c))
+            lib = linear_library(x, f32)
+            library = lib and rotating(copies,
+                                       lambda c: [lib(w) for w in c])
+            got = ops.linear_group(x, ws, out)
+            err = max((g.float() - ref.linear_ref(x, w, out).float())
+                      .abs().max().item() for g, w in zip(got, ws))
+            n_bytes = 2 * M * K + sum(
+                linear_hbm_bytes(M, K, w.shape[1], 4 if f32 else 2)
+                - 2 * M * K for w in ws)
+            flops = sum(2 * M * K * w.shape[1] for w in ws)
             t_bytes = n_bytes / PEAK_BYTES * 1e3
-            t_ops = 2 * M * K * N / PEAK_BF16_FLOPS * 1e3
-            err = (ops.linear(x, w, out).float()
-                   - ref.linear_ref(x, w, out).float()).abs().max().item()
+            t_ops = flops / PEAK_BF16_FLOPS * 1e3
             per.append({
-                "weight": name, "M": M, "K": K, "N": N, "max_abs_err": err,
-                "ms": time_ms(lambda: ops.linear(x, w, out)),
-                "device_ms": device_ms(lambda: ops.linear(x, w, out)),
-                "plain_ms": time_ms(lambda: ref.linear_ref(x, w, out),
-                                    reps=5, warmup=1),
+                "weight": name, "members": list(members), "M": M, "K": K,
+                "N": [w.shape[1] for w in ws], "max_abs_err": err,
+                "copies": len(copies),
+                "ms": time_ms(kernel),
+                "device_ms": device_ms(kernel, spins=True),
+                "plain_ms": time_ms(
+                    lambda: [ref.linear_ref(x, w, out) for w in ws],
+                    reps=5, warmup=1),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": time_ms(lib) if lib else None,
-                "library_device_ms": device_ms(lib) if lib else None})
+                "library_ms": time_ms(library) if library else None,
+                "library_device_ms": (device_ms(library, spins=True)
+                                      if library else None)})
+        del copies, ws
+        torch.cuda.empty_cache()
     return per
+
+
+def linear_library(x, f32):
+    """``w -> `` one PyTorch call computing the same product (cuBLAS):
+    ``x @ w``, or for the float32 head ``torch.mm`` with ``out_dtype``
+    where this PyTorch has it (else None)."""
+    if not f32:
+        return lambda w: x @ w
+    try:
+        torch.mm(x[:1], x[:1].T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return None
+    return lambda w: torch.mm(x, w, out_dtype=torch.float32)
+
+
+def linear_step(cfg, per, m_layer: int, m_head: int, key: str):
+    """``key`` summed over one step's launches: per layer the q/k/v group,
+    wo, the gate/up group and w_down at ``m_layer`` rows, and the head at
+    ``m_head``; for cuBLAS (``library*``) the seven products alone.  None
+    when a term is missing."""
+    by = {(r["weight"], r["M"]): r[key] for r in per}
+    lone = key.startswith("library")
+    names = (("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down") if lone
+             else ("qkv", "wo", "gate_up", "w_down"))
+    vals = [by[(n, m_layer)] for n in names] * cfg.n_layers
+    vals.append(by[("head", m_head)])
+    return None if None in vals else sum(vals)
 
 
 def linear_step_row(cfg, per, launches: int) -> Dict[str, Any]:
     """The JSON row: one device-batcher step's products at C = DEVICE_CHUNK
-    (each layer's seven at M = 16 x DEVICE_CHUNK, the head at M = 16),
-    summed from ``per``."""
-    M_layer = SERVE["max_batch"] * DEVICE_CHUNK
-    count = {name: (1 if name == "head" else cfg.n_layers)
-             for name, _, _, _ in linear_weights(cfg)}
-    pick = [(r, count[r["weight"]]) for r in per
-            if r["M"] == (SERVE["max_batch"] if r["weight"] == "head"
-                          else M_layer)]
-
-    def total(key):
-        vals = [(r[key], n) for r, n in pick]
-        if any(v is None for v, _ in vals):
-            return None
-        return sum(v * n for v, n in vals)
-
-    return {"name": "linear", "route": "cuda", "source": LINEAR_SOURCE,
-            "replaces": REPLACES["linear"], "launches": launches,
-            "bitwise": False,
-            "max_abs_err": max(r["max_abs_err"] for r, _ in pick),
-            "ms": total("ms"), "device_ms": total("device_ms"),
-            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": "bytes", "library_ms": total("library_ms"),
-            "library_device_ms": total("library_device_ms"),
-            "shape": {"step": f"{cfg.n_layers} x 7 products at M = "
-                              f"{M_layer}, the head at M = "
-                              f"{SERVE['max_batch']}"},
-            "per_product": per}
+    (each layer's four launches at M = 16 x DEVICE_CHUNK, the head at
+    M = 16), summed from ``per``; ``c1`` the same at C = 1 (M = 16
+    throughout, the host batcher's step)."""
+    B = SERVE["max_batch"]
+    m8 = B * DEVICE_CHUNK
+    row = {"name": "linear", "route": "cuda", "source": LINEAR_SOURCE,
+           "replaces": REPLACES["linear"], "launches": launches,
+           "bitwise": False,
+           "max_abs_err": max(r["max_abs_err"] for r in per),
+           "bound_by": "bytes",
+           "shape": {"step": f"{cfg.n_layers} x (q/k/v group, wo, gate/up "
+                             f"group, w_down) at M = {m8}, the head at "
+                             f"M = {B}; L2-cold"},
+           "per_product": per}
+    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                "library_device_ms"):
+        row[key] = linear_step(cfg, per, m8, B, key)
+    row["c1"] = {key: linear_step(cfg, per, B, B, key)
+                 for key in ("device_ms", "bound_ms", "library_device_ms")}
+    return row
 
 
 # ------------------------------------------------------ phases 9 and 10
@@ -1333,8 +1432,9 @@ def check_serve(run: ServeRun) -> str:
 
 
 def step_products(cfg) -> int:
-    """``ops.linear`` launches a serve step: 7 a layer and the head."""
-    return 7 * cfg.n_layers + 1
+    """``linear`` launches a serve step: 4 a layer (the q/k/v group, wo,
+    the gate/up group, w_down) and the head."""
+    return 4 * cfg.n_layers + 1
 
 
 def kernel_class(name: str) -> str:
@@ -1562,8 +1662,7 @@ DEVICE_ROUND, DEVICE_CHUNK = 16, 8  # sync_every, prefill_chunk of (a)
 PROFILER_SPINS = 256
 OUR_KERNELS = ("bucketize_kernel", "ternary_match_kernel", "fused_eb_kernel",
                "lb_lookup_kernel", "bnn_counts_kernel", "bnn_rows_kernel",
-               "paged_attention_kernel", "linear_mma_kernel",
-               "linear_splitk_sum_kernel")
+               "paged_attention_kernel", "linear_wgmma_kernel")
 
 
 @dataclasses.dataclass
@@ -1804,17 +1903,10 @@ def profile_device(cb, run: ServeRun, dev) -> Dict[str, Any]:
     the profiler give the device time a step and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.linear import plan
-
     L, T = run.cfg.n_layers, gate_tables(run.gate)
-    # a split-K product adds its in-order sum pass
-    *layer, head = linear_weights(run.cfg)
-    split = (sum(plan(K, N)[1] > 1 for _, K, N, _ in layer) * L
-             + (plan(head[1], head[2])[1] > 1))
     want = {"paged_attention_kernel": DEVICE_ROUND * L,
             "fused_eb_kernel": (DEVICE_ROUND + 1) * T,
-            "linear_mma_kernel": DEVICE_ROUND * step_products(run.cfg),
-            "linear_splitk_sum_kernel": DEVICE_ROUND * split}
+            "linear_wgmma_kernel": DEVICE_ROUND * step_products(run.cfg)}
     want = {k: n for k, n in want.items() if n}
     counts, rsteps = profile_round(cb, run, dev, "round")
     if counts != want:
@@ -2052,13 +2144,21 @@ def main() -> None:
 
     qwen = get_config("qwen2-1.5b")
     print(f"[8 linear] {check_linear(qwen, dev)}")
+    print(f"[8 linear] {check_linear_groups(qwen, dev)}")
     linear_per = linear_timings(qwen, dev)
     for t in linear_per:
         print(f"[8 linear timing] {t['weight']} [{t['M']}, {t['K']}] x "
-              f"[{t['K']}, {t['N']}]: kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']}), cuBLAS {t['library_ms']} ms (device "
-              f"{t['library_device_ms']}), plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) ({card})")
+              f"[{t['K']}, {t['N']}], L2-cold over {t['copies']} copies: "
+              f"kernel {t['ms']:.4f} ms (device {t['device_ms']}), cuBLAS "
+              f"{t['library_ms']} ms (device {t['library_device_ms']}), "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}) ({card})")
+    lin_row = linear_step_row(qwen, linear_per, 0)
+    for tag, r in (("C = 8", lin_row), ("C = 1", lin_row["c1"])):
+        print(f"[8 linear step] {tag}, device ms a step's products "
+              f"(phase 8's L2-cold launches summed): kernel "
+              f"{r['device_ms']}, cuBLAS {r['library_device_ms']}, bound "
+              f"{r['bound_ms']:.4f} ({card})")
     serve = drive_serve(dev, args.seed)
     cfg = serve.cfg
     print(f"[9 serve] qwen2-1.5b at full width and depth ({cfg.n_layers} "
@@ -2136,7 +2236,8 @@ def main() -> None:
     print(f"[13 faults] {check_faults(serve, d, dev)}")
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
-    rows.append(linear_step_row(qwen, linear_per, serve.launches["linear"]))
+    lin_row["launches"] = serve.launches["linear"]
+    rows.append(lin_row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

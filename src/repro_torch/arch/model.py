@@ -9,8 +9,9 @@ its slice of the ``[n_layers, N, page, KV, hd]`` pools in place.
 Parameters are kept as the compute copies the JAX forward makes at each
 use: matrices, biases, the embedding and the LM head in bf16 (the JAX
 forward's ``astype(bfloat16)`` of its float32 masters, done once at load)
-and norm scales in float32.  Every product of a step is ``ops.linear``
-(the row-invariant kernel on the card); the head's is the JAX head's bf16
+and norm scales in float32.  Every product of a step is ``ops.linear``,
+or ``ops.linear_group`` for q/k/v and gate/up (the row-invariant kernel
+on the card, one launch a group); the head's is the JAX head's bf16
 x bf16 einsum with float32 accumulation (``preferred_element_type=
 float32``): the logits are never rounded to bf16.
 

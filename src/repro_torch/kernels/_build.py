@@ -48,7 +48,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                             _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
     "linear": {
-        "linear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "linear_weight_map": [_P, _I, _I, _P],
+        "linear": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     },
 }
 

@@ -6,7 +6,7 @@ fallback from a kernel that fails to build or launch.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,7 +21,7 @@ from . import ternary_match as _ternary_match
 
 __all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
            "bnn_popcount_matmul", "pack_bits", "bnn_forward",
-           "paged_attention", "linear", "launch_counts",
+           "paged_attention", "linear", "linear_group", "launch_counts",
            "reset_launch_counts"]
 
 _KERNELS = {"bucketize": _bucketize, "ternary_match": _ternary_match,
@@ -111,6 +111,13 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     other rows (``linear.linear``); ``out_dtype=torch.float32`` for the
     LM head."""
     return _linear.linear(x, w, out_dtype)
+
+
+def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                 out_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    """``[x @ w for w in ws]`` (up to three weights) in one launch, each
+    output bitwise its own ``linear(x, w)`` (``linear.linear_group``)."""
+    return _linear.linear_group(x, ws, out_dtype)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -256,7 +256,13 @@ def linear_ref(x: torch.Tensor, w: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]`` in x's type; with ``out_dtype =
     torch.float32`` the float32 product of the float32 copies (the JAX
-    head's bf16 x bf16 einsum with ``preferred_element_type=float32``)."""
+    head's bf16 x bf16 einsum with ``preferred_element_type=float32``),
+    one row at a time: a BLAS may block a product over its rows and give a
+    row other bits in another row count (ROADMAP §C.6), so each row is its
+    own ``[1, K] @ [K, N]``, the same call whatever M is."""
     if out_dtype == torch.float32:
-        return x.float() @ w.float()
+        x2, wf = x.reshape(-1, x.shape[-1]).float(), w.float()
+        y = (torch.cat([r @ wf for r in x2.split(1)]) if len(x2)
+             else x2 @ wf)
+        return y.reshape(*x.shape[:-1], w.shape[1])
     return x @ w.to(x.dtype)

@@ -44,9 +44,7 @@ def _project_qkv(p: Dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope, qk_norm: bool, norm_eps: float):
     dt = x.dtype
     B, S, _ = x.shape
-    q = ops.linear(x, p["wq"])
-    k = ops.linear(x, p["wk"])
-    v = ops.linear(x, p["wv"])
+    q, k, v = ops.linear_group(x, [p["wq"], p["wk"], p["wv"]])
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)

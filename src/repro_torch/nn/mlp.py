@@ -19,8 +19,9 @@ def init_mlp(gen: Optional[torch.Generator], d_model: int, d_ff: int,
 
 
 def mlp_block(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """``act(x W_gate) * (x W_up) W_down`` in ``x.dtype``; each product is
-    ``ops.linear`` (the row-invariant kernel on the card)."""
-    fn = ACTIVATIONS[act]
-    h = fn(ops.linear(x, p["w_gate"])) * ops.linear(x, p["w_up"])
+    """``act(x W_gate) * (x W_up) W_down`` in ``x.dtype``; the products
+    are the row-invariant kernel on the card, gate and up in one launch
+    (``ops.linear_group``)."""
+    gate, up = ops.linear_group(x, [p["w_gate"], p["w_up"]])
+    h = ACTIVATIONS[act](gate) * up
     return ops.linear(h, p["w_down"])

@@ -667,6 +667,34 @@ def test_cuda_linear_rows_are_invariant(cuda_device, K, N, f32):
             assert torch.equal(part, full[o:o + M]), (M, o)
 
 
+# groups of weights sharing K: qwen2-1.5b's q/k/v and gate/up, and one whose
+# members have S = 8, 2 and 8 (a cluster of 8 holding four tiles of the
+# middle member, two of them padding)
+LINEAR_GROUPS = [((1536, 1536), (1536, 256), (1536, 256)),
+                 ((1536, 8960), (1536, 8960)),
+                 ((2048, 136), (2048, 8960), (2048, 24))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", LINEAR_GROUPS)
+def test_cuda_linear_group_equals_lone_launches(cuda_device, shapes):
+    """Bitwise: each member of a grouped launch is its own launch alone,
+    at every M (bf16 and float32 out); a group is one launch."""
+    K = shapes[0][0]
+    x = torch.as_tensor(_linear_case(K, 300, K, 8)[0]).to(
+        cuda_device).to(torch.bfloat16)
+    ws = [torch.as_tensor(_linear_case(K + i, 1, K, N)[1]).to(
+        cuda_device).to(torch.bfloat16) for i, (_, N) in enumerate(shapes)]
+    for out in (None, torch.float32):
+        for M in (1, 16, 100, 128, 256):
+            xm = x[:M].contiguous()
+            ops.reset_launch_counts()
+            got = ops.linear_group(xm, ws, out)
+            assert ops.launch_counts()["linear"] == 1
+            for g, w in zip(got, ws):
+                assert torch.equal(g, ops.linear(xm, w, out)), (M, w.shape)
+
+
 @pytest.mark.cuda
 def test_cuda_linear_refuses_what_it_does_not_take(cuda_device):
     x = torch.ones((4, 12), dtype=torch.bfloat16, device=cuda_device)
