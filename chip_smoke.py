@@ -49,12 +49,17 @@ Phases, in order; the first failure exits non-zero:
    (C 1 and 8, page 8 and 16, H/KV 12/2 and 4/4, bf16 and int8 pools,
    window 0 and 13, table entries past the pool, and a row at position -1
    that sees no key) within one bf16 ulp of the output's largest
-   magnitude; its rows bitwise invariant to the batch (a slot alone vs in
-   a batch of 16), the chunk (C = 8 vs C = 1 calls), the physical page
-   order and other values in the rows past each slot's position; timed at
-   the serve decode shape (16 slots, 64 pages of 16, bf16) with every
-   position weighed and with 256 of 1,024 visible, each beside its plain
-   version and a gather + ``F.scaled_dot_product_attention`` yardstick.
+   magnitude, and the dense cache's ring (one layer [4, 1024, 2, 128] as
+   4 pages of 1,024 positions, bf16 and int8, window 0 and 13, positions
+   past the wrap) within one bf16 ulp, below the wrap bitwise the launch
+   without the ring; its rows bitwise invariant to the batch (a slot
+   alone vs in a batch of 16), the chunk (C = 8 vs C = 1 calls), the
+   physical page order and other values in the rows past each slot's
+   position; timed at the serve decode shape (16 slots, 64 pages of 16,
+   bf16) with every position weighed and with 256 of 1,024 visible, and
+   at the device batcher's shape (C = 8: each slot's 8 rows at [p, p + 8),
+   p in phase 9's prompt range), each beside its plain version and a
+   gather + ``F.scaled_dot_product_attention`` yardstick.
    ``linear``: for each of a qwen2-1.5b step's eight products (wq, wk, wv,
    wo, w_gate, w_up, w_down, the float32 head) and M in {1, 16, 48, 64,
    128, 256}, every row bitwise equal at offsets 0 and 7 and computed
@@ -99,7 +104,10 @@ Phases, in order; the first failure exits non-zero:
    ``torch.cuda.set_sync_debug_mode("error")``; (f) the profiler's
    kernels over one round and its gate call: ``paged_attention`` = steps
    run x 28, ``linear`` = steps run x (4 x 28 + 1), ``fused_eb`` =
-   (steps run + 1) x the gate's tables, no other kernel of the repo.
+   (steps run + 1) x the gate's tables, no other kernel of the repo; a
+   count over these fails at once, a short one (the profiler can drop
+   records) profiles a fresh round, up to three, and passes only on an
+   exact match, every try's counts printed.
    Tokens/s and ms a step,
    graph and eager, beside phase 9's, the steps with work, run and wasted,
    and the device's idle share of a replayed step;
@@ -114,7 +122,33 @@ Phases, in order; the first failure exits non-zero:
    decode ms a token (p50, p99) printed; a fault-plan run (a corrupted
    token in slot 3 at drain 1, every free page held at drain 2 for two
    drains): exactly that request quarantined, every other stream phase
-   11's, ``pool.ref`` back to its prefix holds.
+   11's, ``pool.ref`` back to its prefix holds;
+14. the dense ring cache: phase 9's model and gate with
+   ``ServeConfig(max_batch=16, cache_len=1024)`` (no ``page_size``),
+   phase 9's 32 requests with their first prompt token only, 32 tokens
+   each: (a) the host batcher == the device batcher (sync_every 16, graph
+   on), bitwise, every stream, drop and reason; served + dropped =
+   submitted; the global position = the steps with work; (b) paged ==
+   dense bitwise on the card: ``generate`` on the dense engine against
+   ``step_paged`` one token a step on a paged engine (page 16, cache
+   1024), 16 slots x 64 generated positions; (c) the wrap: cache 128, the
+   first 16 requests with 336 tokens each, so the global position passes
+   2.5 x 128; the
+   kernel on the attention inputs of all 28 layers at positions 200 and
+   330 within one bf16 ulp of its plain version, host == device batcher
+   bitwise; (d) a round of the eager and the replayed dense step under
+   ``set_sync_debug_mode("error")``; (e) launch counts, fixed before the
+   first run from the JAX package's step: the host batcher's wrappers
+   count ``paged_attention`` = steps x 28, ``linear`` = steps x 113 and
+   ``fused_eb`` = the gate's tables x (32 + steps): ``submit`` gates each
+   request once (``ServeEngine.admit``) and every step runs the gate fused
+   (``ServeEngine.step`` with the slots' features, its labels advisory);
+   the profiler over one round of the device batcher and its gate call
+   sees ``paged_attention`` = 16 x 28, ``linear`` = 16 x 113 and
+   ``fused_eb`` = 17 x the tables (the pregate call and the in-step gate
+   of every step, as in phase 11), exact under (f)'s retry rule.  Tokens/s,
+   ms a step and device ms a step by kernel class for both dense batchers,
+   beside phase 11's paged numbers.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
@@ -961,6 +995,31 @@ def check_paged_attention(dev) -> str:
             ops.paged_attention(q, k, v, tbl, pos, 13),
             ref.paged_attention_ref(q, k, v, tbl, pos, 13)))
         n += 1
+    # the dense cache's ring: one layer [B, S, KV, hd] read as B pages of
+    # S positions; rows past the wrap (a window inside one lap and one
+    # wrapping round cell 0) within one bf16 ulp, rows below it bitwise
+    # the launch without the ring
+    S, n_ring = DENSE["cache_len"], 0
+    for quantized in (False, True):
+        for window in (0, 13):
+            q, k, v, tbl, pos, ks, vs = pa_case(rng, dev, 4, 1, 12, 2, 128,
+                                                S, 1, quantized, past=False)
+            pos = torch.tensor([[S], [S + 7], [2 * S + 300], [3 * S + 12]],
+                               dtype=torch.int32, device=dev)
+            worst = max(worst, pa_err_ulps(
+                f"paged_attention ring int8={quantized} window={window}",
+                ops.paged_attention(q, k, v, tbl, pos, window, ks, vs,
+                                    ring=True),
+                ref.paged_attention_ref(q, k, v, tbl, pos, window, ks, vs,
+                                        ring=True)))
+            pos = torch.tensor([[0], [12], [300], [S - 1]], dtype=torch.int32,
+                               device=dev)
+            same(f"paged_attention ring below the wrap int8={quantized} "
+                 f"window={window}",
+                 ops.paged_attention(q, k, v, tbl, pos, window, ks, vs,
+                                     ring=True),
+                 ops.paged_attention(q, k, v, tbl, pos, window, ks, vs))
+            n_ring += 1
     # the invariances, bitwise, at the serve decode shape
     B, H, KV, hd, page, n_ps = 16, 12, 2, 128, 16, 64
     q, k, v, tbl, pos, _, _ = pa_case(rng, dev, B, 1, H, KV, hd, page, n_ps,
@@ -1003,8 +1062,11 @@ def check_paged_attention(dev) -> str:
          "overwritten", ops.paged_attention(qi, *pools[:2], tbli, posi, 0,
                                             *pools[2:]), want)
     torch.cuda.synchronize(dev)
-    return (f"{n} grid cases (2 with a row at position -1) within one bf16 "
-            f"ulp of the output's largest magnitude (worst {worst:.2f} ulp); "
+    return (f"{n} grid cases (2 with a row at position -1) and {n_ring} "
+            f"ring cases (S = {S}, bf16 and int8 caches, window 0 and 13, "
+            f"positions past the wrap) within one bf16 ulp of the output's "
+            f"largest magnitude (worst {worst:.2f} ulp), the ring below the "
+            f"wrap bitwise the launch without it; "
             f"rows bitwise invariant to B (3 slots alone vs in a batch of "
             f"{B}), C (8 rows vs C = 1), the physical page order, and the "
             f"rows past each position (3 cases)")
@@ -1020,23 +1082,37 @@ def paged_attention_row(dev):
     position PA_VISIBLE - 1 (the serve cell's range), where the kernel
     reads a quarter of the rows.  Each beside its plain version and a
     gather + ``F.scaled_dot_product_attention`` yardstick (at the second,
-    of the pages up to the position)."""
+    of the pages up to the position).  Then at the device batcher's shape
+    (``c8``): the same 16 slots with DEVICE_CHUNK query rows each, slot b's
+    rows at positions [p_b, p_b + 8), p_b drawn in phase 9's prompt range
+    (a prefill chunk, or a decode row and its 7 padded rows)."""
     B, C, H, KV, hd, page, n_ps = 16, 1, 12, 2, 128, 16, 64
     S = n_ps * page
     rng = np.random.default_rng(SEED)
     q, k, v, tbl, _, _, _ = pa_case(rng, dev, B, C, H, KV, hd, page, n_ps,
                                     False, past=False)
-    full = pa_timing(q, k, v, tbl, S, dev)
+
+    def at(p: int, C: int = 1) -> torch.Tensor:
+        return torch.full((B, C), p, dtype=torch.int32, device=dev)
+
+    full = pa_timing(q, k, v, tbl, at(S - 1), dev)
     row = {"name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
            "replaces": REPLACES["paged_attention"], "launches": None,
            "bitwise": False, **full}
-    row["skip"] = pa_timing(q, k, v, tbl, PA_VISIBLE, dev)
+    row["skip"] = pa_timing(q, k, v, tbl, at(PA_VISIBLE - 1), dev)
+    q8 = torch.as_tensor(rng.normal(0, 1, (B, DEVICE_CHUNK, H, hd)),
+                         dtype=torch.bfloat16, device=dev)
+    p0 = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, B)
+    pos8 = torch.as_tensor(p0[:, None] + np.arange(DEVICE_CHUNK)[None],
+                           dtype=torch.int32, device=dev)
+    row["c8"] = pa_timing(q8, k, v, tbl, pos8, dev)
     return row
 
 
-def pa_timing(q, k, v, tbl, visible: int, dev) -> Dict[str, Any]:
-    """The kernel, its plain version and gather + SDPA with every slot at
-    position ``visible - 1``, timed; the bound from the rows it must read."""
+def pa_timing(q, k, v, tbl, pos, dev) -> Dict[str, Any]:
+    """The kernel, its plain version and gather + SDPA at positions ``pos``
+    [B, C], timed; the bound from the rows it must read and the products
+    its visible positions need."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1046,13 +1122,13 @@ def pa_timing(q, k, v, tbl, visible: int, dev) -> Dict[str, Any]:
     B, C, H, hd = q.shape
     N, page, KV, _ = k.shape
     n_ps = tbl.shape[1]
-    pos = torch.full((B, C), visible - 1, dtype=torch.int32, device=dev)
     args = (q, k, v, tbl, pos, 0)
     got, want = ops.paged_attention(*args), ref.paged_attention_ref(*args)
-    pa_err_ulps(f"paged_attention at the serve decode shape, {visible} "
-                f"positions visible", got, want)
+    hi = int(pos.max().item())
+    pa_err_ulps(f"paged_attention at B = {B}, C = {C}, positions up to "
+                f"{hi}", got, want)
     err = (got.float() - want.float()).abs().max().item()
-    n_pg = -(-visible // page)  # the pages up to the position
+    n_pg = hi // page + 1  # the pages up to the last position
     gtbl = tbl[:, :n_pg].long()
     S_lib = n_pg * page
 
@@ -1069,7 +1145,8 @@ def pa_timing(q, k, v, tbl, visible: int, dev) -> Dict[str, Any]:
         quantized=False, act_bytes=q.element_size(),
         positions=pos.cpu().numpy(), window=0)
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = 4 * B * C * H * hd * visible / PEAK_BF16_FLOPS * 1e3  # qk, PV
+    seen = int((pos.long() + 1).sum().item())  # positions the rows weigh
+    t_ops = 4 * H * hd * seen / PEAK_BF16_FLOPS * 1e3  # q.k and P.V
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.paged_attention(*args)),
@@ -1082,7 +1159,8 @@ def pa_timing(q, k, v, tbl, visible: int, dev) -> Dict[str, Any]:
         "library_max_abs_err": (library().float() - want.float()).abs().max()
         .item(),
         "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd, "page": page,
-                  "n_ps": n_ps, "visible": visible, "bytes": n_bytes},
+                  "n_ps": n_ps, "positions": [int(pos.min()), hi],
+                  "bytes": n_bytes},
     }
 
 
@@ -1449,18 +1527,20 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_serve(run: ServeRun, dev, steps: int = 24) -> str:
+def profile_serve(run: ServeRun, dev, steps: int = 24,
+                  scfg: Dict[str, Any] = SERVE) -> str:
     """Where a serve step's time goes, at 16 live slots: ``steps`` host-
     batcher steps timed with the host clock, then ``steps`` more under
     torch.profiler for the device time by kernel; the device's idle share
-    is 1 - device time / the unprofiled wall time of a step."""
+    is 1 - device time / the unprofiled wall time of a step.  ``scfg``:
+    the ServeConfig (phase 9's paged cache, or phase 14's dense one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
                                           ServeEngine)
 
-    engine = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE),
+    engine = ServeEngine(run.cfg, run.params, ServeConfig(**scfg),
                          device=dev)
     cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=2 * steps + 8)
     for rid in range(SERVE["max_batch"]):
@@ -1687,13 +1767,16 @@ def device_batcher(run: ServeRun, dev, chunk=DEVICE_CHUNK,
                                    prefill_chunk=chunk, graph=graph, **kw)
 
 
-def device_wave(cb, run: ServeRun, dev, tag=None, n=SERVE_REQUESTS) -> float:
-    """Submit phase 9's requests (ids ``(tag, i)`` past the first wave),
-    run them to the end; seconds on the host clock, synchronised."""
+def device_wave(cb, run: ServeRun, dev, tag=None, n=SERVE_REQUESTS,
+                dense: bool = False) -> float:
+    """Submit phase 9's requests (ids ``(tag, i)`` past the first wave;
+    ``dense``: each prompt's first token only), run them to the end;
+    seconds on the host clock, synchronised."""
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for i, (p, f) in enumerate(zip(run.prompts[:n], run.feats[:n])):
-        cb.submit(i if tag is None else (tag, i), p, features=f)
+        cb.submit(i if tag is None else (tag, i), p[:1] if dense else p,
+                  features=f)
     cb.run(max_steps=20000)
     torch.cuda.synchronize(dev)
     return time.perf_counter() - t0
@@ -1874,14 +1957,16 @@ def kernel_counts(prof) -> tuple:
     return dict(counts), dict(by), events
 
 
-def profile_round(cb, run: ServeRun, dev, tag: str) -> tuple:
+def profile_round(cb, run: ServeRun, dev, tag: str,
+                  dense: bool = False) -> tuple:
     """A fresh wave's first round (its gate call and ``DEVICE_ROUND``
     replays) under torch.profiler, then the rest of the wave unprofiled:
-    (the repo's kernels by name, steps run in the round)."""
+    (the repo's kernels by name, steps run in the round).  ``dense``:
+    each prompt's first token only."""
     from torch.profiler import ProfilerActivity, profile
 
     for i, (p, f) in enumerate(zip(run.prompts, run.feats)):
-        cb.submit((tag, i), p, features=f)
+        cb.submit((tag, i), p[:1] if dense else p, features=f)
     s0, keys = cb.steps_executed, len(cb._steps)
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1896,24 +1981,64 @@ def profile_round(cb, run: ServeRun, dev, tag: str) -> tuple:
     return kernel_counts(prof)[0], steps
 
 
-def profile_device(cb, run: ServeRun, dev) -> Dict[str, Any]:
-    """(f) the kernels of one round: its gate call and ``DEVICE_ROUND``
-    replays (about 37,000 device events; a window of a whole run, about
-    220,000).  Then one warm wave timed on the host clock and one under
-    the profiler give the device time a step and the idle share."""
-    from torch.profiler import ProfilerActivity, profile
+# rounds profiled at most before a short count fails: the profiler can drop
+# records mid-window (it once lost about one step's, PERF.md §7)
+PROFILE_TRIES = 3
 
+
+def round_counts(cb, run: ServeRun, dev, tag: str,
+                 dense: bool = False) -> tuple:
+    """The profiler's kernels of one round: its gate call and
+    ``DEVICE_ROUND`` replays, which launch ``paged_attention`` once a layer
+    and ``linear`` ``step_products`` times a step, and ``fused_eb`` once a
+    gate table in each step and in the gate call.  A count over the
+    expected one fails at once; a short one profiles a fresh round again,
+    up to PROFILE_TRIES rounds, and passes only on an exact match (a short
+    count is never accepted).  Returns (counts, steps, every try's
+    counts)."""
     L, T = run.cfg.n_layers, gate_tables(run.gate)
     want = {"paged_attention_kernel": DEVICE_ROUND * L,
             "fused_eb_kernel": (DEVICE_ROUND + 1) * T,
             "linear_wgmma_kernel": DEVICE_ROUND * step_products(run.cfg)}
     want = {k: n for k, n in want.items() if n}
-    counts, rsteps = profile_round(cb, run, dev, "round")
-    if counts != want:
-        fail(f"(f) the profiler saw {counts} in a round of {rsteps} steps, "
-             f"expected {want} (one gate call of {T} tables)")
+    # the same wave unprofiled first, so that every shape key a round's
+    # wave takes is captured before a profiler window: late in a full run
+    # a CUDA graph captured just after a window (the dense step's second
+    # key) failed as invalidated, where the same sequence in a fresh
+    # process did not (PERF.md §7)
+    for i, (p, f) in enumerate(zip(run.prompts, run.feats)):
+        cb.submit((f"{tag}warm", i), p[:1] if dense else p, features=f)
+    cb.run(max_steps=DEVICE_ROUND)
+    cb.run(max_steps=20000)
+    keys = len(cb._steps)
+    tries = []
+    for t in range(PROFILE_TRIES):
+        counts, rsteps = profile_round(cb, run, dev, f"{tag}{t}", dense)
+        if len(cb._steps) != keys:
+            fail(f"{tag}: a profiled round's wave captured a new shape key")
+        tries.append(counts)
+        over = {k: n for k, n in counts.items() if n > want.get(k, 0)}
+        if over:
+            fail(f"{tag}: the profiler saw {counts} in a round of {rsteps} "
+                 f"steps, more than the expected {want} (one gate call of "
+                 f"{T} tables); tries {tries}")
+        if counts == want:
+            return counts, rsteps, tries
+    fail(f"{tag}: the profiler's counts stayed short of {want} in "
+         f"{PROFILE_TRIES} rounds: {tries}")
+
+
+def profile_device(cb, run: ServeRun, dev, dense: bool = False,
+                   tag: str = "(f)") -> Dict[str, Any]:
+    """(f) the kernels of one round (``round_counts``; about 37,000 device
+    events, a window of a whole run about 220,000).  Then one warm wave
+    timed on the host clock and one under the profiler give the device
+    time a step and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts, rsteps, tries = round_counts(cb, run, dev, tag, dense)
     s0 = cb.steps_executed
-    wall = device_wave(cb, run, dev, tag="timed")
+    wall = device_wave(cb, run, dev, tag="timed", dense=dense)
     steps = cb.steps_executed - s0
     n_tok = sum(len(t) for r, t in cb.done.items()
                 if isinstance(r, tuple) and r[0] == "timed")
@@ -1921,7 +2046,7 @@ def profile_device(cb, run: ServeRun, dev) -> Dict[str, Any]:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         open_window(dev)
-        device_wave(cb, run, dev, tag="profiled")
+        device_wave(cb, run, dev, tag="profiled", dense=dense)
     psteps = cb.steps_executed - s0
     wcounts, by, events = kernel_counts(prof)
     busy = sum(by.values())
@@ -1929,7 +2054,8 @@ def profile_device(cb, run: ServeRun, dev) -> Dict[str, Any]:
                 ms_step=wall / steps * 1e3, busy_ms_step=busy / psteps,
                 by={k: round(v / psteps, 4) for k, v in by.items()},
                 idle=1 - (busy / psteps) / (wall / steps * 1e3),
-                counts=counts, rsteps=rsteps, wcounts=wcounts, psteps=psteps, events=events)
+                counts=counts, rsteps=rsteps, tries=tries, wcounts=wcounts,
+                psteps=psteps, events=events)
 
 
 # ------------------------------------------------------------ phase 12
@@ -2026,6 +2152,216 @@ def check_faults(run: ServeRun, d: DeviceRun, dev) -> str:
             f"{FAULT_DRAIN}, the other {len(wave_streams(cb))} streams "
             f"bitwise phase 11's, pool back to {cb.pool.n_cached} prefix "
             f"holds")
+
+
+# ------------------------------------------------------------ phase 14
+DENSE = dict(max_batch=16, cache_len=1024)  # phase 9's cell, no page_size
+WRAP_CACHE = 128  # cache_len of (c)
+# (c): the first 16 requests, one wave, 336 tokens each, so the run passes
+# 2.5 x 128 unless every admitted request is quarantined
+WRAP_REQUESTS, WRAP_TOKENS = 16, 336
+WRAP_CAPTURE = (200, 330)  # global positions whose attention (c) captures
+DENSE_GENERATE = 64  # positions generated in (b), after 4 prompt tokens
+
+
+def dense_engine(run: ServeRun, dev, gate: bool = True, **kw):
+    """Phase 9's model and gate over the dense ring cache (``DENSE``,
+    ``kw`` overriding it)."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    return ServeEngine(run.cfg, run.params, ServeConfig(**{**DENSE, **kw}),
+                       gate=run.gate if gate else None, device=dev)
+
+
+def dense_batchers(run: ServeRun, dev, max_tokens: int = 0, **kw) -> tuple:
+    """The host batcher and the device batcher (sync_every DEVICE_ROUND,
+    graph on) over fresh dense engines (``kw`` to their ServeConfig),
+    ``max_tokens`` (default SERVE_TOKENS) a request."""
+    from repro_torch.serve.engine import (ContinuousBatcher,
+                                          DeviceContinuousBatcher)
+
+    max_tokens = max_tokens or SERVE_TOKENS
+    host = ContinuousBatcher(dense_engine(run, dev, **kw), eos_token=-1,
+                             max_tokens=max_tokens)
+    device = DeviceContinuousBatcher(
+        dense_engine(run, dev, **{k: v for k, v in kw.items()
+                                  if k != "attn_impl"}),
+        eos_token=-1, max_tokens=max_tokens, sync_every=DEVICE_ROUND)
+    return host, device
+
+
+def check_terminal(cb, run: ServeRun, tag: str, max_tokens: int,
+                   n: int = 0) -> None:
+    """Served + dropped = the ``n`` (default SERVE_REQUESTS) submitted,
+    the gate-reject set the gate's numpy verdicts, no other drop than
+    gate-reject or quarantined, every stream ``max_tokens`` in-vocabulary
+    tokens."""
+    n = n or SERVE_REQUESTS
+    served, dropped = set(wave_streams(cb)), set(first_wave_drops(cb)[0])
+    if served & dropped or len(served) + len(dropped) != n:
+        fail(f"{tag}: served {len(served)} + dropped {len(dropped)} != {n}")
+    keep = run.gate.predict(run.feats[:n]) != 1
+    reasons = first_wave_drops(cb)[1]
+    if {r for r, w in reasons.items() if w == "gate-reject"} != set(
+            np.where(~keep)[0].tolist()):
+        fail(f"{tag}: gate-reject drops differ from the gate's verdicts")
+    if set(reasons.values()) - {"gate-reject", "quarantined"}:
+        fail(f"{tag}: unexpected drops {reasons}")
+    for rid, toks in wave_streams(cb).items():
+        if len(toks) != max_tokens or not all(
+                0 <= t < run.cfg.vocab_size for t in toks):
+            fail(f"{tag} request {rid}: {len(toks)} tokens, or out of vocab")
+
+
+def drive_dense(run: ServeRun, dev) -> Dict[str, Any]:
+    """(a) phase 9's traffic (first prompt token only) through the dense
+    host batcher (wrapper counts reset just before, read just after) and
+    the dense device batcher: every stream, drop and reason bitwise."""
+    from repro_torch.kernels import ops
+
+    host, device = dense_batchers(run, dev)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    host_s = device_wave(host, run, dev, dense=True)
+    counts = ops.launch_counts()
+    device_s = device_wave(device, run, dev, dense=True)
+    same_run("(14a) dense host batcher vs dense device batcher", host,
+             device)
+    for cb, tag in ((host, "(14a) host"), (device, "(14a) device")):
+        check_terminal(cb, run, tag, SERVE_TOKENS)
+    if not (int(host.engine.state["pos"]) == host.steps == device.steps
+            == int(device._decode["pos"])):
+        fail(f"(14a) global positions {int(host.engine.state['pos'])}, "
+             f"{int(device._decode['pos'])} for {host.steps} and "
+             f"{device.steps} steps with work")
+    return dict(host=host, host_s=host_s, counts=counts, device=device,
+                device_s=device_s)
+
+
+def check_dense_launches(d: Dict[str, Any], run: ServeRun) -> str:
+    """(e) the host batcher's wrapper counts: ``paged_attention`` = steps x
+    28, ``linear`` = steps x 113, ``fused_eb`` = the gate's tables x (one
+    admission call a submitted request + one fused gate call a step)."""
+    host, counts = d["host"], d["counts"]
+    L, T, steps = run.cfg.n_layers, gate_tables(run.gate), host.steps
+    want = {"paged_attention": steps * L,
+            "linear": steps * step_products(run.cfg),
+            "fused_eb": T * (SERVE_REQUESTS + steps)}
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        fail(f"(14e) the dense host batcher launched {got} in {steps} steps, "
+             f"expected {want}")
+    return (f"(e) host batcher, {steps} steps: wrapper launches {got} == "
+            f"steps x {L}, steps x {step_products(run.cfg)}, {T} x "
+            f"({SERVE_REQUESTS} admissions + {steps} steps)")
+
+
+def check_paged_vs_dense(run: ServeRun, dev) -> str:
+    """(b) ``generate`` on the dense engine against ``step_paged`` one
+    token a step on a paged engine (page 16, the same cache_len), the
+    same 4-token prompts (phase 9's first 16 prompts' heads), greedy: the
+    generated tokens bitwise equal over DENSE_GENERATE positions."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    B, P, n = DENSE["max_batch"], 4, DENSE_GENERATE
+    prompts = np.array([p[:P] for p in run.prompts[:B]], np.int32)
+    got = dense_engine(run, dev, gate=False).generate(prompts, n)
+    paged = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE),
+                        device=dev)
+    n_ps = SERVE["cache_len"] // SERVE["page_size"]
+    tbl = np.arange(B * n_ps, dtype=np.int32).reshape(B, n_ps)
+    tok, outs = prompts[:, 0], []
+    for t in range(P + n - 1):
+        nxt = paged.step_paged(tok[:, None], tbl, np.full(B, t, np.int32),
+                               np.ones(B, np.int32))
+        tok = prompts[:, t + 1] if t + 1 < P else nxt
+        if t + 1 >= P:
+            outs.append(nxt)
+    want = np.stack(outs, 1)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"(14b) dense generate differs from the paged step at "
+             f"{int((got != want).sum())} of {want.size} tokens")
+    return (f"(b) paged == dense bitwise on the card: generate over the "
+            f"dense cache vs step_paged (page {SERVE['page_size']}), {B} "
+            f"slots x {n} generated positions ({P} prompt tokens each)")
+
+
+def check_wrap(run: ServeRun, dev) -> str:
+    """(c) cache_len WRAP_CACHE, the first WRAP_REQUESTS requests with
+    WRAP_TOKENS tokens each: the global position passes 2.5 x
+    WRAP_CACHE.  The host batcher attends through a backend that runs the
+    kernel and, at the global positions WRAP_CAPTURE, also the plain
+    version on the same inputs (all 28 layers): within one bf16 ulp.
+    Host == device batcher bitwise."""
+    from repro_torch.nn import attn_backend as AB
+
+    kernel, plain = AB.get("cuda"), AB.get("torch")
+    L = run.cfg.n_layers
+    calls, worst, n = [0], [0.0], [0]
+
+    def capturing(q, kv, *, n_heads, head_dim, window):
+        out = kernel(q, kv, n_heads=n_heads, head_dim=head_dim,
+                     window=window)
+        step, layer = divmod(calls[0], L)
+        calls[0] += 1
+        if step in WRAP_CAPTURE:
+            want = plain(q, kv, n_heads=n_heads, head_dim=head_dim,
+                         window=window)
+            worst[0] = max(worst[0], pa_err_ulps(
+                f"(14c) ring at position {step}, layer {layer}", out, want))
+            n[0] += 1
+        return out
+
+    AB.register("cuda-capture", capturing)
+    host, device = dense_batchers(run, dev, max_tokens=WRAP_TOKENS,
+                                  cache_len=WRAP_CACHE,
+                                  attn_impl="cuda-capture")
+    host_s = device_wave(host, run, dev, n=WRAP_REQUESTS, dense=True)
+    device_s = device_wave(device, run, dev, n=WRAP_REQUESTS, dense=True)
+    same_run("(14c) host vs device batcher across the wrap", host, device)
+    check_terminal(device, run, "(14c)", WRAP_TOKENS, WRAP_REQUESTS)
+    pos = int(host.engine.state["pos"])
+    if n[0] != len(WRAP_CAPTURE) * L or pos <= 2.5 * WRAP_CACHE or (
+            int(device._decode["pos"]) != pos):
+        fail(f"(14c) captured {n[0]} layer calls; global position {pos} "
+             f"(device {int(device._decode['pos'])}), cache {WRAP_CACHE}")
+    return (f"(c) cache {WRAP_CACHE}, {WRAP_TOKENS} tokens a request: "
+            f"global position {pos} ({pos / WRAP_CACHE:.2f} laps); the "
+            f"kernel on the captured inputs of all {L} layers at positions "
+            f"{WRAP_CAPTURE} ({n[0]} calls) within one bf16 ulp of the plain "
+            f"version (worst {worst[0]:.2f} ulp); host == device batcher "
+            f"bitwise ({len(wave_streams(host))} streams, "
+            f"{sum(len(t) for t in wave_streams(host).values())} tokens; "
+            f"host {host_s:.3f} s, device {device_s:.3f} s with its capture)")
+
+
+def check_dense_no_sync(run: ServeRun, dev) -> str:
+    """(d) one round of the eager and of the replayed dense step, from a
+    mid-flight state, under ``set_sync_debug_mode("error")``."""
+    from repro_torch.serve.engine import DeviceContinuousBatcher
+
+    out = []
+    for graph in (False, True):
+        cb = DeviceContinuousBatcher(dense_engine(run, dev), eos_token=-1,
+                                     max_tokens=SERVE_TOKENS,
+                                     sync_every=DEVICE_ROUND, graph=graph)
+        for i in range(DENSE["max_batch"]):
+            cb.submit(i, run.prompts[i][:1], features=run.feats[i])
+        cb.run(max_steps=4)
+        (fs,) = cb._steps.values()
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fs.run(DEVICE_ROUND)
+        except RuntimeError as exc:
+            fail(f"(14d) a {'replayed' if graph else 'eager'} dense round "
+                 f"made the host wait: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize(dev)
+        out.append("replayed" if graph else "eager")
+    return (f"(d) {DEVICE_ROUND}-step dense rounds, {' and '.join(out)}, "
+            f"under set_sync_debug_mode(\"error\"): no synchronising call")
 
 
 def main() -> None:
@@ -2134,8 +2470,8 @@ def main() -> None:
 
     print(f"[8 paged_attention] {check_paged_attention(dev)}")
     pa_row = paged_attention_row(dev)
-    for t in (pa_row, pa_row["skip"]):
-        print(f"[8 paged_attention timing] decode shape {t['shape']}: "
+    for t in (pa_row, pa_row["skip"], pa_row["c8"]):
+        print(f"[8 paged_attention timing] shape {t['shape']}: "
               f"kernel {t['ms']:.4f} ms (device {t['device_ms']}), plain "
               f"{t['plain_ms']:.4f} ms, gather + SDPA {t['library_ms']:.4f} "
               f"ms (device {t['library_device_ms']}), bound "
@@ -2198,6 +2534,8 @@ def main() -> None:
     n_tok = sum(len(t) for t in serve.cb.done.values())
     print(f"[11 device batcher] (f) profiler over a round of "
           f"{prof['rsteps']} steps and its gate call: {prof['counts']}, "
+          f"exact on try {len(prof['tries'])} of at most {PROFILE_TRIES} "
+          f"(each try's counts: {prof['tries']}), "
           f"no other kernel of the repo (over a whole run of "
           f"{prof['psteps']} "
           f"steps, {prof['events']} device events: {prof['wcounts']}, not "
@@ -2234,6 +2572,40 @@ def main() -> None:
           f"{prof['tokens'] / prof['seconds']:.1f} tokens/s ({card})")
     print(f"[13 obs] {check_traced(serve, d, dev)} ({card})")
     print(f"[13 faults] {check_faults(serve, d, dev)}")
+    dense = drive_dense(serve, dev)
+    host = dense["host"]
+    print(f"[14 dense] (a) {DENSE}, phase 9's {SERVE_REQUESTS} requests "
+          f"(first prompt token) x {SERVE_TOKENS} tokens: host batcher == "
+          f"device batcher (sync_every {DEVICE_ROUND}, graph) bitwise: "
+          f"{len(wave_streams(host))} served, drops "
+          f"{first_wave_drops(host)[1]}; {host.steps} steps with work, "
+          f"global position {int(host.engine.state['pos'])} ({card})")
+    print(f"[14 dense] {check_dense_launches(dense, serve)}")
+    print(f"[14 dense] {check_paged_vs_dense(serve, dev)}")
+    print(f"[14 dense] {check_wrap(serve, dev)} ({card})")
+    print(f"[14 dense] {check_dense_no_sync(serve, dev)}")
+    dprof = profile_device(dense["device"], serve, dev, dense=True,
+                           tag="(14e)")
+    print(f"[14 dense] (e) profiler over a dense round of "
+          f"{dprof['rsteps']} steps and its gate call: {dprof['counts']}, "
+          f"exact on try {len(dprof['tries'])} of at most {PROFILE_TRIES} "
+          f"(each try's counts: {dprof['tries']}) ({card})")
+    hprof = profile_serve(serve, dev, scfg=DENSE)
+    dev_tok = sum(len(t) for t in wave_streams(dense["device"]).values())
+    host_tok = sum(len(t) for t in host.done.values())
+    print(f"[14 dense timing] device batcher, warm wave, graph: "
+          f"{dprof['tokens']} tokens in {dprof['seconds']:.4f} s, "
+          f"{dprof['tokens'] / dprof['seconds']:.1f} tokens/s, "
+          f"{dprof['ms_step']:.4f} ms per step run ({dprof['steps']} steps); "
+          f"device {dprof['busy_ms_step']:.4f} ms a step (profiler: "
+          f"{dprof['by']}), idle {dprof['idle']:.3f}; first wave with the "
+          f"capture {dev_tok / dense['device_s']:.1f} tokens/s; host "
+          f"batcher: {host_tok / dense['host_s']:.1f} tokens/s, "
+          f"{dense['host_s'] / host.steps * 1e3:.4f} ms per step "
+          f"({host.steps} steps), {hprof}; phase 11's paged device batcher "
+          f"{prof['tokens'] / prof['seconds']:.1f} tokens/s, "
+          f"{prof['ms_step']:.4f} ms per step run, device "
+          f"{prof['busy_ms_step']:.4f} ms a step ({prof['by']}) ({card})")
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
     lin_row["launches"] = serve.launches["linear"]

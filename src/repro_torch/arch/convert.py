@@ -1,11 +1,13 @@
-"""Carry the JAX package's parameters across to the port.
+"""Carry the JAX package's parameters and decode state across to the port.
 
 ``params_from_arrays(np_tree, cfg, device)`` takes the numpy tree of
 ``jax.tree.map(np.asarray, repro.arch.model.init_params(cfg, key))`` (the
 float32 masters, layers stacked on axis 0) and returns the port's compute
 parameters (``arch.model``), so that both packages compute the same
-function on the same inputs.  Nothing here imports JAX: the caller hands
-over plain numpy arrays.
+function on the same inputs; ``decode_state_from_arrays`` does the same
+for a dense decode state (``init_decode_state``), so both can continue
+from one mid-run cache.  Nothing here imports JAX: the caller hands over
+plain numpy arrays.
 """
 from __future__ import annotations
 
@@ -49,3 +51,38 @@ def params_from_arrays(np_tree: Dict, cfg: ArchConfig,
     return compute_params({k: [_tensors(l, device) for l in v]
                            if k == "layers" else _tensors(v, device)
                            for k, v in tree.items()})
+
+
+def _cache(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """One numpy cache plane -> a tensor of ``dtype`` on ``device`` (bf16
+    planes come as float32 values: numpy has no bf16 of its own, and the
+    values are exact in both)."""
+    a = np.asarray(a)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            device=device, dtype=dtype)
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def decode_state_from_arrays(np_state: Dict, cfg: ArchConfig,
+                             device: Union[str, torch.device] = "cuda"
+                             ) -> Dict:
+    """The JAX package's dense decode state as numpy arrays (``pos``,
+    ``kv = (k, v)`` ``[n_layers, B, S, KV, hd]`` bf16 or int8, and for int8
+    ``kv_scales``) -> the port's ``arch.model.init_decode_state`` layout on
+    ``device``, so that both packages can continue from one mid-run state."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    k, v = (np.asarray(a) for a in np_state["kv"])
+    if k.ndim != 5 or k.shape[0] != cfg.n_layers or v.shape != k.shape:
+        raise ValueError(f"kv planes {k.shape} / {v.shape} are not "
+                         f"[{cfg.n_layers}, B, S, KV, hd]")
+    int8 = "kv_scales" in np_state
+    dt = torch.int8 if int8 else torch.bfloat16
+    state = {"pos": torch.tensor(int(np.asarray(np_state["pos"])),
+                                 dtype=torch.int32, device=device),
+             "kv": (_cache(k, dt, device), _cache(v, dt, device))}
+    if int8:
+        state["kv_scales"] = tuple(_cache(a, torch.float32, device)
+                                   for a in np_state["kv_scales"])
+    return state

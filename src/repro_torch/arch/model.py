@@ -1,10 +1,12 @@
-"""The dense decoder's paged serve path (mirrors ``repro.arch.model``).
+"""The dense decoder's serve paths (mirrors ``repro.arch.model``).
 
 Ported here: ``layer_windows``, ``init_params``, ``init_paged_kv``,
-``paged_decode_step`` (with ``all_positions``) and ``lm_head``, for the
-dense family.  The JAX package scans stacked layers with ``lax.scan``;
-here the layers are a list walked by a Python loop, and each layer writes
-its slice of the ``[n_layers, N, page, KV, hd]`` pools in place.
+``paged_decode_step`` (with ``all_positions``), ``init_decode_state`` and
+``decode_step`` (the dense ring cache) and ``lm_head``, for the dense
+family.  The JAX package scans stacked layers with ``lax.scan``; here the
+layers are a list walked by a Python loop, and each layer writes its slice
+of the ``[n_layers, N, page, KV, hd]`` pools, or of the ``[n_layers, B,
+S, KV, hd]`` ring cache, in place.
 
 Parameters are kept as the compute copies the JAX forward makes at each
 use: matrices, biases, the embedding and the LM head in bf16 (the JAX
@@ -15,9 +17,8 @@ on the card, one launch a group); the head's is the JAX head's bf16
 x bf16 einsum with float32 accumulation (``preferred_element_type=
 float32``): the logits are never rounded to bf16.
 
-Not ported yet (ROADMAP queue A items 2, 8 and 9): the dense ring cache
-(``init_decode_state``, ``decode_step``), the training forward, and the
-MoE, recurrent, enc-dec and VLM families.
+Not ported yet (ROADMAP queue A items 8 and 9): the training forward,
+and the MoE, recurrent, enc-dec and VLM families.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ Params = Dict[str, Any]
 COMPUTE_DTYPE = torch.bfloat16
 
 __all__ = ["COMPUTE_DTYPE", "layer_windows", "init_params", "compute_params",
-           "init_paged_kv", "paged_decode_step", "lm_head"]
+           "init_paged_kv", "paged_decode_step", "init_decode_state",
+           "decode_step", "lm_head"]
 
 
 def check_dense(cfg: ArchConfig) -> None:
@@ -133,6 +135,31 @@ def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
                    v=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device))
 
 
+def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
+                      kv_dtype: str = "bf16",
+                      device: Union[str, torch.device] = "cuda") -> Params:
+    """The dense decode state: ``pos``, one global position (a 0-dim int32
+    tensor on the device, advanced in place by ``decode_step``), and the
+    ring cache ``kv = (k, v)``, ``[n_layers, batch, cache_len, KV, hd]``
+    bf16, or int8 with ``kv_scales`` float32 ``[..., KV, 1]``, zero-filled."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+    state: Params = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if kv_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        state["kv"] = tuple(torch.zeros(shape, dtype=torch.int8,
+                                        device=device) for _ in range(2))
+        state["kv_scales"] = tuple(torch.zeros(sshape, dtype=torch.float32,
+                                               device=device) for _ in range(2))
+        return state
+    if kv_dtype != "bf16":
+        raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+    state["kv"] = tuple(torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+                        for _ in range(2))
+    return state
+
+
 # --------------------------------------------------------------- forward
 def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.d_ff == 0:
@@ -210,3 +237,59 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     if sample_greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32), kv
     return logits, kv
+
+
+def _decode_mixer(lp: Params, cfg: ArchConfig, x: torch.Tensor, window: int,
+                  kv: PagedKV, slot: torch.Tensor, rope, gqa_impl: str,
+                  attn_impl: str, commit) -> torch.Tensor:
+    """One decode step through one attention layer of the ring cache."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    out, _ = A.decode_attention_block(
+        lp["mixer"], h, kv, slot, n_heads=cfg.q_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_, window=window,
+        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, rope=rope,
+        gqa_impl=gqa_impl, impl=attn_impl, commit=commit)
+    return x + out
+
+
+def decode_step(params: Params, state: Params, tokens: torch.Tensor,
+                cfg: ArchConfig, *, gqa_impl: str = "repeat",
+                sample_greedy: bool = False, attn_impl: str = "auto",
+                commit: Optional[torch.Tensor] = None):
+    """One token for every sequence of the batch through the dense ring
+    cache of ``init_decode_state``; ``tokens [B, 1]``, every slot at the
+    state's one position ``pos``.
+
+    Returns ``(logits [B, Vp] float32, state)``, or with ``sample_greedy``
+    ``(next tokens [B] int32, state)`` (the argmax stays on the device).
+    The state is updated in place: each layer writes its cell ``pos % S``
+    and ``pos`` advances by one.  ``commit`` (a 0-dim bool on the device)
+    makes the step conditional without a host sync: False drops every
+    write and leaves ``pos`` as it was (the JAX device batcher skips the
+    step with ``lax.cond`` instead).  Each layer attends through the
+    paged backends over ``nn.attention.dense_view`` of its cache.
+    """
+    check_dense(cfg)
+    pos = state["pos"]
+    ck, cv = state["kv"]
+    sk, sv = state.get("kv_scales", (None, None))
+    dev = tokens.device
+    B, S = tokens.shape[0], ck.shape[2]
+    positions = pos.to(torch.int32).reshape(1, 1).repeat(B, 1)  # a copy
+    slot = torch.remainder(pos.long(), S).reshape(1)
+    tbl = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    rope = (rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+            if cfg.rope_theta > 0 else None)
+    x = params["embed"][tokens.long()]
+    windows = layer_windows(cfg)
+    for i, lp_i in enumerate(params["layers"]):
+        kv = A.dense_view(ck[i], cv[i], None if sk is None else sk[i],
+                          None if sv is None else sv[i], tbl, positions)
+        x = _decode_mixer(lp_i, cfg, x, int(windows[i]), kv, slot, rope,
+                          gqa_impl, attn_impl, commit)
+        x = _ffn(lp_i, cfg, x)
+    logits = lm_head(params, x, cfg.norm_eps)[:, 0]
+    pos.add_(1 if commit is None else commit.to(torch.int32))
+    if sample_greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32), state
+    return logits, state

@@ -45,7 +45,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "paged_attention": {
         "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
     "linear": {
         "linear_weight_map": [_P, _I, _I, _P],

@@ -58,6 +58,20 @@
 // exact too: where a row can see a position, a masked one contributes
 // exp(-2^30 + x - M) = +0.0, and adding +0.0 changes no sum.
 //
+// The ring (`ring` = 1): the dense decode cache of the JAX package
+// (src/repro/nn/attention.py:293 `decode_attention_block`) is a ring of S
+// cells written at pos % S, which this kernel reads as a pool of B pages of
+// S positions with the identity table.  A query row at p >= S, with
+// w = p / S and s = p % S, finds in cell i the absolute position i + w*S
+// if i <= s, else i + (w-1)*S, so its distance to cell i is
+// d = (s - i) mod S, in [0, S); the causal and window terms apply to d,
+// and no cell lies before position 0.  Its visible cells are one range
+// when the window does not wrap ([s - window + 1, s]) and the whole axis
+// otherwise (window 0, or s - window + 1 < 0: the two ranges [0, s] and
+// [S + s - window + 1, S - 1] are read as one, the cells between them
+// masked).  A row at p < S is read as without the ring, so below the wrap
+// the same rows are read and the same sums taken in the same order.
+//
 // Plain C interface, loaded with ctypes; the entry launches on the stream
 // it is given, allocates nothing and returns cudaGetLastError().
 
@@ -192,6 +206,7 @@ struct Args {
   const int32_t* pos;
   void* out;
   int C, H, KV, hd, N, page, n_ps, window;
+  int ring;  // 1: the positions are a ring of S cells (see the header)
   float sqrt_hd;
   int S, RS, TP, KST;  // score row stride; positions a tile; tile row stride
   int vec;  // rows copied 16 bytes a thread
@@ -278,10 +293,18 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 3)
     int lo = S, hi = -1;
     for (int c = lane; c < a.C; c += 32) {
       const long long p = a.pos[(size_t)b * a.C + c];
-      long long vlo = a.window > 0 ? p - a.window + 1 : 0;
-      if (vlo < 0) vlo = 0;
-      long long vhi = p < S - 1 ? p : S - 1;
-      if (vlo > vhi) vlo = 0, vhi = S - 1;  // sees nothing: the full axis
+      long long vlo, vhi;
+      if (a.ring && p >= S) {  // past the wrap: the cells d = (s - i) mod S
+        const long long s = p % S;
+        const bool wraps = a.window <= 0 || s - a.window + 1 < 0;
+        vlo = wraps ? 0 : s - a.window + 1;
+        vhi = wraps ? S - 1 : s;
+      } else {
+        vlo = a.window > 0 ? p - a.window + 1 : 0;
+        if (vlo < 0) vlo = 0;
+        vhi = p < S - 1 ? p : S - 1;
+        if (vlo > vhi) vlo = 0, vhi = S - 1;  // sees nothing: the full axis
+      }
       lo = min(lo, (int)vlo);
       hi = max(hi, (int)vhi);
     }
@@ -353,8 +376,12 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 3)
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
               if (i0 + k < n_rows) {
-                const long long diff =
-                    (long long)qpos_s[row[k]] - (p0 + jr);
+                const long long qp = qpos_s[row[k]];
+                long long diff = qp - (p0 + jr);
+                if (a.ring && qp >= S) {  // d = (qp % S - cell) mod S
+                  diff = qp % S - (p0 + jr);
+                  if (diff < 0) diff += S;
+                }
                 const bool ok =
                     diff >= 0 && (a.window <= 0 || diff < a.window);
                 sc[(size_t)row[k] * RS + jr] =
@@ -587,12 +614,13 @@ const char* error_string(int err) {
 
 // q_dtype: 0 float32, 1 bfloat16.  pool_dtype: 0 float32, 1 bfloat16,
 // 2 int8 (then k_scale / v_scale are the [N, page, KV, 1] float32 planes;
-// otherwise they are null).
+// otherwise they are null).  ring: 1 when the S = n_ps * page positions are
+// the dense cache's ring (see the header), else 0.
 int paged_attention(const void* q, const void* k_pages, const void* v_pages,
                     const float* k_scale, const float* v_scale,
                     const int32_t* block_tbl, const int32_t* positions,
                     void* out, int B, int C, int H, int KV, int hd, int N,
-                    int page, int n_ps, int window, float sqrt_hd,
+                    int page, int n_ps, int window, int ring, float sqrt_hd,
                     int q_dtype, int pool_dtype, void* stream) {
   if (B == 0 || C == 0) return (int)cudaGetLastError();
   if (KV < 1 || H % KV || H / KV > kMaxGroup || hd < 8 || hd % 8 ||
@@ -605,7 +633,8 @@ int paged_attention(const void* q, const void* k_pages, const void* v_pages,
   a.q = q, a.kp = k_pages, a.vp = v_pages, a.ks = k_scale, a.vs = v_scale;
   a.tbl = block_tbl, a.pos = positions, a.out = out;
   a.C = C, a.H = H, a.KV = KV, a.hd = hd, a.N = N, a.page = page;
-  a.n_ps = n_ps, a.window = window, a.sqrt_hd = sqrt_hd, a.S = n_ps * page;
+  a.n_ps = n_ps, a.window = window, a.ring = ring != 0;
+  a.sqrt_hd = sqrt_hd, a.S = n_ps * page;
   cudaStream_t st = (cudaStream_t)stream;
 #define PA_LAUNCH(QT, PT) return launch<QT, PT>(a, B, st)
   if (q_dtype == 0) {

@@ -16,6 +16,12 @@ together through distributed shared memory, every cross-rank sum in rank
 order.  Every sum's order is fixed by S and hd, so a row's result
 is bitwise the same whatever B, C or the page order, and whatever the
 rows no query can see hold.
+
+``ring=True`` reads the ``S = n_ps * page`` positions as the dense decode
+cache's ring (``nn.attention.decode_attention_block``): a query row at
+``p >= S`` sees cell ``i`` at distance ``(p % S - i) mod S``, the
+reference's absolute-position mask (``abs_pos``); a row below the wrap is
+read as without the ring.
 """
 from __future__ import annotations
 
@@ -38,23 +44,33 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def visible_rows(positions, window: int, S: int) -> np.ndarray:
+def visible_rows(positions, window: int, S: int,
+                 ring: bool = False) -> np.ndarray:
     """K/V rows each slot's launch reads: the length of ``[min over the
     slot's rows of max(0, pos - window + 1), max over them of pos]``
     within ``[0, S)``; a row that sees no position (pos < 0, or past S
-    with a window) makes it the whole axis.  ``positions`` [B, C]."""
+    with a window) makes it the whole axis.  With ``ring``, a row past the
+    wrap reads ``[pos % S - window + 1, pos % S]``, or the whole axis when
+    that range wraps or the window is 0.  ``positions`` [B, C]."""
     pos = np.asarray(positions, np.int64)
     lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros_like(pos)
     hi = np.minimum(pos, S - 1)
     blind = lo > hi
     lo, hi = np.where(blind, 0, lo), np.where(blind, S - 1, hi)
+    if ring:
+        s = pos % S
+        wraps = (window <= 0) | (s - window + 1 < 0)
+        past = pos >= S
+        lo = np.where(past, np.where(wraps, 0, s - window + 1), lo)
+        hi = np.where(past, np.where(wraps, S - 1, s), hi)
     return hi.max(axis=1) - lo.min(axis=1) + 1
 
 
 def paged_attention_hbm_bytes(B: int, C: int, H: int, KV: int, hd: int,
                               n_ps: int, page: int, *, pool_bytes: int,
                               quantized: bool, act_bytes: int,
-                              positions=None, window: int = 0) -> int:
+                              positions=None, window: int = 0,
+                              ring: bool = False) -> int:
     """Device-memory bytes one launch of this kernel moves.
 
     The K and V rows of each slot's visible range (``visible_rows`` of
@@ -68,7 +84,7 @@ def paged_attention_hbm_bytes(B: int, C: int, H: int, KV: int, hd: int,
     if positions is None:
         rows = B * n_ps * page
     else:
-        rows = int(visible_rows(positions, window, n_ps * page).sum())
+        rows = int(visible_rows(positions, window, n_ps * page, ring).sum())
     cells = rows * KV
     kv_bytes = 2 * cells * hd * pool_bytes
     scale_bytes = 2 * cells * 4 if quantized else 0
@@ -88,15 +104,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tbl: torch.Tensor,
                     positions: torch.Tensor, window,
                     k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None,
+                    ring: bool = False) -> torch.Tensor:
     """q [B, C, H, hd] bf16/f32; pools [N, page, KV, hd] bf16/f32, or int8
     with float32 scale planes [N, page, KV, 1]; block_tbl [B, n_ps] int32
     (clipped to the pool); positions [B, C] int32; window an int (0 =
-    full) -> [B, C, H, hd] in q's type."""
+    full); ``ring`` the dense cache's ring (module docstring) -> [B, C, H,
+    hd] in q's type."""
     global launches
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tbl, positions,
-                                   window, k_scale=k_scale, v_scale=v_scale)
+                                   window, k_scale=k_scale, v_scale=v_scale,
+                                   ring=ring)
     dev = q.device
     if q.dtype not in _Q_DTYPES or q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous [B, C, H, hd] bf16/f32 "
@@ -142,7 +161,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         block_tbl.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, C, H, KV, hd, N, page, n_ps, int(window),
+        B, C, H, KV, hd, N, page, n_ps, int(window), int(bool(ring)),
         float(np.float32(np.sqrt(hd))), _Q_DTYPES[q.dtype],
         _POOL_DTYPES[k_pages.dtype], stream_ptr(dev))
     # a refused launch: a rank's [C*G, S/8] scores past shared memory

@@ -209,7 +209,8 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tbl: torch.Tensor,
                         positions: torch.Tensor, window,
                         k_scale: Optional[torch.Tensor] = None,
-                        v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        v_scale: Optional[torch.Tensor] = None,
+                        ring: bool = False) -> torch.Tensor:
     """Attend ``q [B, C, H, hd]`` over a paged pool through its block table.
 
     The jnp oracle's op sequence and roundings: gather the logical
@@ -224,8 +225,15 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     accumulation does not depend on a library's bf16 reduction settings,
     and sqrt(hd) is a tensor: CUDA divides a tensor by a host scalar as a
     multiplication by its reciprocal, which can differ in the last bit.
+
+    ``ring=True``: the ``S`` logical positions are the dense decode cache's
+    ring (the reference's ``decode_attention_block``): for a query at
+    ``p``, cell ``i`` holds absolute position ``i + (p // S) * S`` when
+    ``i <= p % S``, else ``i + (p // S - 1) * S``, and the causal and window
+    mask applies to that position, with ``abs >= 0`` besides.  Below the
+    wrap the mask is the one without the ring, value for value.
     """
-    from ..nn.attn_backend import position_mask, repeat_kv
+    from ..nn.attn_backend import NEG_INF, position_mask, repeat_kv
 
     dt = q.dtype
     B, C, H, hd = q.shape
@@ -242,8 +250,17 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
         return x.float()
 
     kf, vf = view(k_pages, k_scale), view(v_pages, v_scale)
-    k_pos = torch.arange(S, device=q.device)[None].expand(B, S)
-    mask = position_mask(positions, k_pos, window, causal=True)  # [B, C, S]
+    k_pos = torch.arange(S, device=q.device)
+    if ring:
+        p = positions.long()[..., None]  # [B, C, 1]
+        w = torch.div(p, S, rounding_mode="floor")
+        cell = torch.where(k_pos <= p - w * S, k_pos + w * S,
+                           k_pos + (w - 1) * S)  # [B, C, S] absolute
+        mask = position_mask(p, cell, window, causal=True)[..., 0, :]
+        mask = torch.where(cell >= 0, mask, torch.full_like(mask, NEG_INF))
+    else:
+        mask = position_mask(positions, k_pos[None].expand(B, S), window,
+                             causal=True)  # [B, C, S]
     sqrt_hd = torch.full((), np.sqrt(hd), dtype=torch.float32, device=q.device)
     s = torch.einsum("bqhd,bshd->bhqs", q.float(), kf).to(dt)
     s = s.float() / sqrt_hd + mask[:, None, :, :]

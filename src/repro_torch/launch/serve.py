@@ -1,6 +1,14 @@
 """Serving entry point of the port: requests through the Planter gate + LM
 decode.
 
+    # one fixed generate() batch over the dense ring cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --smoke --requests 64 --tokens 8 --gate rf
+
+    # the device batcher over the dense ring cache (single-token prompts)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --smoke --continuous --requests 64 --tokens 8 --sync-every 16
+
     # the device batcher (fused step, CUDA graph) over the paged KV cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --continuous --page-size 16 --requests 16 --tokens 8 \
@@ -18,19 +26,19 @@ decode.
     ... --trace t.json --metrics-out m.jsonl
     ... --fault-plan "nan:1@2,exhaust:0:2@3"
 
-The flags are the JAX package's (``repro.launch.serve``).  Ported: both
-batchers over the paged cache (``--continuous --page-size N``, with
-``--batcher device``, the default, taking ``--sync-every``,
-``--prefill-chunk`` and ``--spec-k`` / ``--draft``, or ``--batcher
-host``) with ``--pages``, ``--kv-int8``, ``--share-prefix``
-(``--shared-prefix-len``), ``--prompt-len``, ``--temperature`` /
-``--top-k`` / ``--top-p``, ``--gate`` / ``--gate-backend``,
-``--attn-impl``, ``--deadline-s``, ``--max-retries``, ``--trace``,
-``--metrics-out`` and ``--fault-plan``.  Every other mode (the dense
-cache, the router and mesh, ``--snapshot-dir``) raises
-``NotImplementedError`` naming its ROADMAP item.  Weights are random-init
-from ``--seed`` with a ``torch.Generator`` (other numbers than the JAX
-package's for the same seed).
+The flags are the JAX package's (``repro.launch.serve``).  Ported: the
+fixed ``generate()`` batch (no ``--continuous``), and both batchers
+(``--batcher device``, the default, taking ``--sync-every``, or
+``--batcher host``) over the dense ring cache (``--continuous`` without
+``--page-size``) and over the paged cache (``--page-size N``, with
+``--pages``, ``--kv-int8``, ``--share-prefix`` (``--shared-prefix-len``),
+``--prompt-len``, ``--prefill-chunk`` and ``--spec-k`` / ``--draft``),
+with ``--temperature`` / ``--top-k`` / ``--top-p``, ``--gate`` /
+``--gate-backend``, ``--attn-impl``, ``--deadline-s``, ``--max-retries``,
+``--trace``, ``--metrics-out`` and ``--fault-plan``.  The router and mesh
+and ``--snapshot-dir`` raise ``NotImplementedError`` naming their ROADMAP
+item.  Weights are random-init from ``--seed`` with a ``torch.Generator``
+(other numbers than the JAX package's for the same seed).
 """
 from __future__ import annotations
 
@@ -57,8 +65,6 @@ def _not_ported(args) -> str:
     """The ROADMAP item of the first mode asked for that is not ported."""
     if args.router or args.mesh or args.rebalance_margin is not None:
         return NOT_PORTED["mesh"]
-    if not args.continuous or not args.page_size:
-        return NOT_PORTED["dense"]
     if args.snapshot_dir:
         return ("--snapshot-dir needs the checkpoint manager, not ported "
                 "yet: ROADMAP queue A item 8")
@@ -83,7 +89,7 @@ def main(argv=None):
                          "card, the plain version on the CPU)")
     ap.add_argument("--continuous", action="store_true",
                     help="slot-based continuous batching over the request "
-                         "stream (the only serve mode ported)")
+                         "stream instead of one fixed generate() batch")
     ap.add_argument("--batcher", default="device",
                     choices=["device", "host"],
                     help="continuous-batching engine: the fused device "
@@ -92,7 +98,7 @@ def main(argv=None):
                     help="device batcher: steps per host round trip")
     ap.add_argument("--page-size", type=int, default=0,
                     help="paged KV cache: tokens per page (0 = the dense "
-                         "ring cache, not ported)")
+                         "ring cache)")
     ap.add_argument("--pages", type=int, default=0,
                     help="paged KV cache: physical page pool size (0 = "
                          "max_batch * cache_len/page_size)")
@@ -163,6 +169,8 @@ def main(argv=None):
     why = _not_ported(args)
     if why:
         raise NotImplementedError(why)
+    if args.prompt_len > 1 and not args.page_size:
+        ap.error("--prompt-len > 1 needs --page-size (paged KV cache)")
     if (args.share_prefix or args.kv_int8) and not args.page_size:
         ap.error("--share-prefix/--kv-int8 need --page-size")
     if args.shared_prefix_len and not args.share_prefix:
@@ -170,6 +178,11 @@ def main(argv=None):
     if (args.top_k or args.top_p < 1.0) and args.temperature == 0.0:
         ap.error("--top-k/--top-p need --temperature > 0")
     if args.spec_k:
+        if not args.page_size:
+            ap.error("--spec-k needs --page-size (drafts verify through "
+                     "the chunked paged step)")
+        if not args.continuous:
+            ap.error("--spec-k needs --continuous")
         if args.batcher == "host":
             ap.error("--spec-k needs the device batcher")
         if args.trace:
@@ -201,6 +214,9 @@ def main(argv=None):
           f"{AB.resolve(args.attn_impl, dev)} on {dev}")
 
     feats = ds.X_test[np.arange(args.requests) % len(ds.X_test)]
+    if not args.continuous:
+        return _generate_batch(args, cfg, params, scfg, gate, feats, rng,
+                               dev)
     prefix = rng.integers(1, cfg.vocab_size, args.shared_prefix_len).tolist()
     prompts = [
         prefix + rng.integers(
@@ -292,6 +308,32 @@ def main(argv=None):
                                 tokens_per_s=n_tok / dt)
             print(f"  metrics -> {args.metrics_out}")
     return done
+
+
+def _generate_batch(args, cfg, params, scfg, gate, feats, rng, dev):
+    """The request stream as one fixed ``generate()`` batch over the dense
+    cache: the gate's verdicts on every request, then ``--batch`` prompts
+    of 4 tokens generated ``--tokens`` further with the gate fused."""
+    engine = ServeEngine(cfg, params, scfg, gate=gate,
+                         gate_backend=args.gate_backend, device=dev)
+    keep = engine.admit(feats)
+    print(f"admitted {keep.sum()}/{len(keep)} requests "
+          f"(dropped {100 * (1 - keep.mean()):.1f}% as attack traffic)")
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, 4))
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.tokens,
+                          features=feats[: args.batch])
+    dt = time.perf_counter() - t0
+    n_tok = out.size
+    print(f"generated {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s "
+          f"on {dev})")
+    print("sample:", out[0][:8])
+    if args.metrics_out:
+        metrics = Metrics()
+        metrics.write_jsonl(args.metrics_out, kind="serve-batch",
+                            tokens_per_s=n_tok / dt)
+        print(f"metrics -> {args.metrics_out}")
+    return out
 
 
 if __name__ == "__main__":

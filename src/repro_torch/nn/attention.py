@@ -1,9 +1,15 @@
 """GQA attention with qk-norm, biases and sliding windows over the paged
-KV cache (mirrors the paged half of ``repro.nn.attention``).
+KV cache and the dense ring cache (mirrors the decode half of
+``repro.nn.attention``).
 
-The dense ring cache (``decode_attention_block``) and the blocked
-training/prefill attention are not ported yet (ROADMAP queue A items 2
-and 8: the dense ``decode_step``/``generate``; training).
+Both caches attend through the same backend (``attn_backend``): the dense
+cache's layer ``[B, S, KV, hd]`` is read as a pool of ``B`` pages of ``S``
+positions with the identity table and the ring flag (``dense_view``), so
+on the card the dense step runs the same ``paged_attention`` kernel at the
+same ``S`` as the paged step, and the two give the same bits.
+
+The blocked training/prefill attention is not ported yet (ROADMAP queue A
+item 8).
 """
 from __future__ import annotations
 
@@ -175,4 +181,86 @@ def paged_decode_attention_block(
     attend = AB.get(AB.resolve(impl, x.device))
     out = attend(q, kv, n_heads=n_heads, head_dim=head_dim, window=window)
     out = ops.linear(out.reshape(B, C, n_heads * head_dim), p["wo"])
+    return out, kv
+
+
+# ------------------------------------------------------------ dense ring
+GQA_IMPLS = ("repeat", "grouped")
+
+
+def dense_view(k: torch.Tensor, v: torch.Tensor,
+               k_scale: Optional[torch.Tensor],
+               v_scale: Optional[torch.Tensor], block_tbl: torch.Tensor,
+               positions: torch.Tensor) -> PagedKV:
+    """One layer of the dense cache (``[B, S, KV, hd]`` views into the
+    stacked ``[n_layers, ...]`` cache, int8 with float32 scale planes
+    ``[B, S, KV, 1]``) as the paged backends' pool: ``B`` pages of ``S``
+    positions, ``block_tbl [B, 1]`` the identity table, ``positions [B, 1]``
+    the step's position, the ring flag set."""
+    return PagedKV(k=k, v=v, k_scale=k_scale, v_scale=v_scale,
+                   block_tbl=block_tbl, pos=positions, ring=True)
+
+
+def _ring_write(kv: PagedKV, k: torch.Tensor, v: torch.Tensor,
+                slot: torch.Tensor, commit: Optional[torch.Tensor]) -> None:
+    """Write every slot's token K/V ``[B, 1, KV, hd]`` into cell ``slot``
+    (``[1]``, ``pos % S``) of the ring, in place: the JAX package's
+    ``dynamic_update_slice`` at ``(0, pos % S_max, 0, 0)``; the int8 cache
+    quantizes per token vector and writes the scales beside it.  With
+    ``commit`` (a 0-dim bool on the device) False the cell is written back
+    as it was, so a step that has no work leaves the cache unchanged
+    without the host looking at the flag."""
+    planes = [(kv.k, k), (kv.v, v)]
+    if kv.quantized:
+        kq, ks = quantize_kv_int8(k)
+        vq, vs = quantize_kv_int8(v)
+        planes = [(kv.k, kq), (kv.v, vq), (kv.k_scale, ks), (kv.v_scale, vs)]
+    for cache, new in planes:
+        new = new.to(cache.dtype)
+        if commit is not None:
+            new = torch.where(commit, new, cache.index_select(1, slot))
+        cache.index_copy_(1, slot, new)
+
+
+def decode_attention_block(
+    p: Dict,
+    x: torch.Tensor,  # [B, 1, D] current token
+    kv: PagedKV,  # one layer of the dense cache, ``dense_view``
+    slot: torch.Tensor,  # [1] int64, the step's cell pos % S
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    window,
+    qk_norm: bool,
+    norm_eps: float,
+    rope,
+    gqa_impl: str = "repeat",
+    impl: str = "auto",
+    commit: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, PagedKV]:
+    """One decode step through the dense ring cache: insert K/V at
+    ``pos % S`` (in place; ``commit`` False drops the insert), then attend
+    over the valid cells through the backend that ``impl`` names, the
+    ring's absolute positions masked (causal, window, ``abs >= 0``).
+
+    ``gqa_impl`` is the JAX package's choice of score einsum, ``"repeat"``
+    (K/V broadcast to every query head) or ``"grouped"``; both compute the
+    same function, and here both reach the same backend, which reads each
+    K/V row once for all the heads of its group.  Returns ``(out [B, 1, D],
+    kv)``.
+    """
+    if gqa_impl not in GQA_IMPLS:
+        raise ValueError(f"gqa_impl must be one of {GQA_IMPLS}, got "
+                         f"{gqa_impl!r}")
+    if not isinstance(kv, PagedKV) or not kv.ring:
+        raise TypeError(f"decode_attention_block expects the dense_view of "
+                        f"a layer, got {type(kv)}")
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rope,
+                           qk_norm, norm_eps)
+    _ring_write(kv, k, v, slot, commit)
+    attend = AB.get(AB.resolve(impl, x.device))
+    out = attend(q, kv, n_heads=n_heads, head_dim=head_dim, window=window)
+    out = ops.linear(out.reshape(B, 1, n_heads * head_dim), p["wo"])
     return out, kv

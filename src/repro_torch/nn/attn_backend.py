@@ -70,6 +70,10 @@ class PagedKV:
       write's plan (``nn.attention.write_rows``: a dropped row repeats a
       kept row's write, so the host never waits), found once per step
       rather than once per layer.
+    * **the dense ring** (``ring=True``, ``nn.attention.dense_view``): one
+      layer of the dense decode cache ``[B, S, KV, hd]`` read as a pool of
+      ``B`` pages of ``S`` positions with the identity table, its positions
+      a ring of ``S`` cells (``kernels.paged_attention``).
     """
 
     k: torch.Tensor
@@ -81,6 +85,7 @@ class PagedKV:
     page_ids: Optional[torch.Tensor] = None
     page_off: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None
+    ring: bool = False
 
     @property
     def quantized(self) -> bool:
@@ -162,7 +167,8 @@ def valid_impls() -> Tuple[str, ...]:
 def _attend_torch(q, kv: PagedKV, *, n_heads: int, head_dim: int, window):
     from ..kernels.ref import paged_attention_ref
     return paged_attention_ref(q, kv.k, kv.v, kv.block_tbl, kv.pos, window,
-                               k_scale=kv.k_scale, v_scale=kv.v_scale)
+                               k_scale=kv.k_scale, v_scale=kv.v_scale,
+                               ring=kv.ring)
 
 
 def _attend_cuda(q, kv: PagedKV, *, n_heads: int, head_dim: int, window):
@@ -171,7 +177,8 @@ def _attend_cuda(q, kv: PagedKV, *, n_heads: int, head_dim: int, window):
         raise ValueError(f"attention backend 'cuda' got a tensor on "
                          f"{q.device}; use 'torch' or 'auto' there")
     return paged_attention(q, kv.k, kv.v, kv.block_tbl, kv.pos, window,
-                           k_scale=kv.k_scale, v_scale=kv.v_scale)
+                           k_scale=kv.k_scale, v_scale=kv.v_scale,
+                           ring=kv.ring)
 
 
 register("torch", _attend_torch)

@@ -1,27 +1,41 @@
-"""Serving engine over the paged KV cache, with a Planter admission gate.
+"""Serving engine over the dense ring cache or the paged KV cache, with a
+Planter admission gate.
 
-Mirrors the host-driven paged path of ``repro.serve.engine``:
+Mirrors ``repro.serve.engine``.  Both batchers run either decode-cache
+layout, as the JAX package's do:
 
-* ``ServeEngine`` holds the model parameters on the device, the lazy
-  physical page pool (``paged_kv``), the chunked paged step
-  (``step_paged`` greedy, ``step_paged_logits`` for sampling), the
-  copy-on-write page copy of prefix sharing (``copy_page``) and the
-  admission gate (``admit``: the Planter-mapped classifier through
-  ``MappedModel.torch_predict("auto", device)``, the ``fused_eb`` kernel
-  for a gate-sized table on the card).
+* **dense** (the default, no ``page_size``): one global position and the
+  ``[B, cache_len]`` ring cache (``arch.model.decode_step``), one token a
+  slot a step; a slot filled mid-run starts at the global position and
+  sees the cells its slot held before (the JAX package's semantics, kept
+  as they are).  The device batcher takes single-token prompts only; the
+  host batcher loops a longer prompt through the cache a token a step.
+* **paged** (``ServeConfig(page_size=...)``): the block-table page pool
+  with per-slot positions and chunked prefill.
+
+* ``ServeEngine`` holds the model parameters on the device, the lazy dense
+  decode state (``state``) with its step (``step``: logits, the gate fused
+  when features are given) and greedy ``generate`` (the argmax stays on
+  the device; one sync at the end), the lazy physical page pool
+  (``paged_kv``), the chunked paged step (``step_paged`` greedy,
+  ``step_paged_logits`` for sampling), the copy-on-write page copy of
+  prefix sharing (``copy_page``) and the admission gate (``admit``: the
+  Planter-mapped classifier through ``MappedModel.torch_predict("auto",
+  device)``, the ``fused_eb`` kernel for a gate-sized table on the card).
 * ``ContinuousBatcher`` is the host-driven slot scheduler: ascending-slot
   fill from a FIFO queue, one token per slot per step (prompt tokens
-  first, then the last generated token), EOS / max-token eviction, the
+  first, then the last generated token), EOS / max-token eviction, greedy
+  or sampled decoding, deadlines and queue-full retries; in paged mode the
   refcounted ``PagePool`` with reservation-based admission, prefix sharing
-  (``share_prefix``), the int8 page pool (``kv_int8``), greedy or sampled
-  decoding, deadlines and queue-full retries.  Dropped requests record a
+  (``share_prefix``) and the int8 page pool (``kv_int8``).  Dropped requests record a
   reason: ``gate-reject``, ``queue-full``, ``empty-prompt``, ``deadline``,
   ``quarantined``.
 * ``DeviceContinuousBatcher`` is the serve hot path: the same schedule
   with the slot state on the device and fill -> gate -> decode -> sample
-  -> evict as one fused step (``_FusedStep``), ``prefill_chunk`` prompt
-  tokens a slot a step, ``sync_every`` steps a host round trip; on the
-  card each step shape is a CUDA graph.  With ``spec_k`` and a table-
+  -> evict as one fused step (``_FusedStep``, or ``_DenseStep`` over the
+  ring cache), ``prefill_chunk`` prompt tokens a slot a step (paged),
+  ``sync_every`` steps a host round trip; on the card each step shape is
+  a CUDA graph.  With ``spec_k`` and a table-
   mapped ``draft`` (``serve.spec``) a decoding slot drafts ``spec_k``
   tokens in the step and the LM verifies the chain in the same launch.
 
@@ -32,10 +46,8 @@ schedule on the host from the drained state, so its captured step is the
 untraced one.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item rather than taking another path: the dense ring cache
-(``step``, ``generate``, either batcher over an engine without
-``page_size``; queue A item 2) and ``mesh`` / ``tp_params`` sharded
-serving (item 6).
+ROADMAP item rather than taking another path: ``mesh`` / ``tp_params``
+sharded serving (queue A item 6).
 """
 from __future__ import annotations
 
@@ -61,9 +73,6 @@ from .pages import PagePool
 from .pages import page_demand as _page_demand
 
 NOT_PORTED = {
-    "dense": "the dense ring cache (decode_step / generate / step) is not "
-             "ported yet: ROADMAP queue A item 2; serve through the paged "
-             "cache, ServeConfig(page_size=...)",
     "mesh": "sharded serving (mesh / tp_params / the router) is not ported "
             "yet: ROADMAP queue A item 6",
 }
@@ -277,12 +286,12 @@ def _service_retries(b) -> None:
 
 def _attach_obs(b, tracer, metrics) -> None:
     """Attach an ``obs`` Tracer/Metrics pair to a batcher (None detaches);
-    the metrics also mirror the page pool's allocator activity."""
+    the metrics also mirror the page pool's allocator activity (paged)."""
     b.tracer = tracer
     b.metrics = metrics
     if tracer is not None and metrics is not None and tracer.metrics is None:
         tracer.metrics = metrics
-    if metrics is not None:
+    if metrics is not None and b.pool is not None:
         b.pool.bind_metrics(metrics)
 
 
@@ -305,7 +314,8 @@ def _submit_traced(b, request_id, prompt_tokens, dense_ok: bool) -> list:
 
 
 class ServeEngine:
-    """The model, its page pool and the admission gate on one device."""
+    """The model, its decode cache (the dense ring or the page pool) and the
+    admission gate on one device."""
 
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig,
                  gate: Optional[MappedModel] = None,
@@ -322,24 +332,83 @@ class ServeEngine:
         self.gate = gate
         self.gate_fn = (gate.torch_predict(gate_backend, device=self.device)
                         if gate is not None else None)
+        # the caches are lazy: the host-driven paths touch them, and the
+        # device batcher keeps its own
+        self._state = None
         self._paged_kv = None
 
-    # ------------------------------------------------------- not ported
+    # ------------------------------------------------------------ dense
     @property
     def state(self):
-        raise NotImplementedError(NOT_PORTED["dense"])
+        """The dense decode state (``arch.model.init_decode_state``),
+        allocated on first use."""
+        if self._state is None:
+            self._state = M.init_decode_state(
+                self.cfg, self.scfg.max_batch, self.scfg.cache_len,
+                device=self.device)
+        return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        self._state = value
+
+    def _gate(self, features) -> Optional[torch.Tensor]:
+        """The gate's labels on the device, or None without a gate or
+        features."""
+        if self.gate_fn is None or features is None:
+            return None
+        return self.gate_fn(self._ints(features))
 
     def step(self, tokens, features=None, block: bool = True):
-        raise NotImplementedError(NOT_PORTED["dense"])
+        """One dense decode step for the whole batch, ``tokens [B, 1]``;
+        the gate runs in the same step when ``features`` are given.
+        Returns ``(logits [B, Vp] float32, labels or None)``, as numpy, or
+        with ``block=False`` as tensors on the device (no host sync)."""
+        labels = self._gate(features)
+        logits, self._state = M.decode_step(
+            self.params, self.state, self._ints(tokens), self.cfg,
+            attn_impl=self.scfg.attn_impl)
+        if not block:
+            return logits, labels
+        return (logits.cpu().numpy(),
+                None if labels is None else labels.cpu().numpy())
 
     def generate(self, prompts, n_tokens: int, features=None,
                  block: bool = True):
-        raise NotImplementedError(NOT_PORTED["dense"])
+        """Greedy generation; ``prompts [B, P]`` seed the cache token by
+        token, then ``n_tokens`` are generated.  The argmax stays on the
+        device and the gate (with ``features``) runs in every step, as in
+        the JAX package's fused step; the one sync is the result (none
+        with ``block=False``, which returns the ``[B, n_tokens]`` int32
+        tensor)."""
+        prompts = np.asarray(prompts)
+        B, P = prompts.shape
+        if B != self.scfg.max_batch:
+            raise ValueError(f"generate takes max_batch = "
+                             f"{self.scfg.max_batch} prompts, got {B}")
+        dprompts = self._ints(prompts)
+        feats = None if features is None else self._ints(features)
+        out = []
+        tok = dprompts[:, :1]
+        for i in range(P + n_tokens - 1):
+            self._gate(feats)
+            nxt, self._state = M.decode_step(
+                self.params, self.state, tok, self.cfg, sample_greedy=True,
+                attn_impl=self.scfg.attn_impl)
+            nxt = nxt[:, None]
+            tok = dprompts[:, i + 1: i + 2] if i + 1 < P else nxt
+            if i + 1 >= P:
+                out.append(nxt)
+        res = (torch.cat(out, 1) if out else
+               torch.zeros((B, 0), dtype=torch.int32, device=self.device))
+        return res.cpu().numpy() if block else res
 
     # ------------------------------------------------------------ paged
     def _require_paged(self) -> None:
         if not self.scfg.paged:
-            raise NotImplementedError(NOT_PORTED["dense"])
+            raise ValueError("the page pool and the paged step need "
+                             "ServeConfig(page_size=...); this engine "
+                             "serves the dense ring cache")
 
     @property
     def paged_kv(self) -> AB.PagedKV:
@@ -359,6 +428,8 @@ class ServeEngine:
             pool[:, dst] = pool[:, src]
 
     def _ints(self, a) -> torch.Tensor:
+        if torch.is_tensor(a):
+            return a.to(device=self.device, dtype=torch.int32)
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
     def _paged(self, tokens, block_tbl, pos, n_new, sample_greedy: bool):
@@ -476,7 +547,10 @@ class _FusedStep:
         st["out_tbl"].fill_(self.b.engine.scfg.n_pages)
 
     def read(self, *names: str) -> Dict[str, np.ndarray]:
-        return {n: self.st[n].cpu().numpy() for n in names}
+        """Copies of the named state buffers on the host (never views of
+        them: on the CPU ``.numpy()`` would share the buffer that the next
+        wave's ``reset`` clears, under a traced run's deferred emission)."""
+        return {n: self.st[n].cpu().numpy().copy() for n in names}
 
     def run(self, k: int) -> None:
         """``k`` fused steps: graph replays on the card, else eager."""
@@ -741,6 +815,115 @@ class _FusedStep:
         return E, final, acc
 
 
+class _DenseStep(_FusedStep):
+    """One shape key's fused step over the dense ring cache: the JAX
+    package's ``_make_run_k`` one_step on torch tensors.  Fill freed slots
+    from the queue (FIFO, ascending slot), the in-step gate, one
+    ``decode_step`` of every slot at the global position (a free slot feeds
+    token 0), greedy or sampled, and eviction.  The cache and ``pos`` are
+    the batcher's decode state, written in place.
+
+    The JAX step skips the decode with ``lax.cond`` when no slot works;
+    this one always runs and hands ``decode_step`` the device flag
+    ``commit`` instead: with no work every cache write drops and ``pos``
+    stays, so the step is the identity and never makes the host wait.  As
+    in the paged step, a recorded token outside the vocabulary
+    quarantines its slot at once."""
+
+    def __init__(self, b: "DeviceContinuousBatcher", Nq: int, R: int,
+                 n_feat: int, gated: bool):
+        dev = b.engine.device
+        B = b.engine.scfg.max_batch
+        self.b, self.Nq, self.R = b, Nq, R
+        self.gate_fn = b.engine.gate_fn if gated else None
+
+        def i32(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        def flag(*shape):
+            return torch.zeros(shape, dtype=torch.bool, device=dev)
+
+        self.q = dict(tok=i32(Nq), req=i32(Nq), feat=i32(Nq, n_feat),
+                      hasf=flag(Nq), seed=i32(Nq), n=i32())
+        self.st = dict(
+            free=flag(B), req=i32(B), gen=i32(B), last=i32(B),
+            feat=i32(B, n_feat), hasf=flag(B), seed=i32(B), head=i32(),
+            out_tok=i32(R + 1, b.max_tokens), out_len=i32(R + 1),
+            out_done=flag(R + 1), out_drop=flag(R + 1),
+            out_quar=flag(R + 1), out_at=i32(R + 1), alive=flag(),
+            more=flag(), n_work=i32())
+        self.graph = None
+
+    def reset(self) -> None:
+        for name in ("head", "out_len", "out_done", "out_drop", "out_quar",
+                     "out_at", "n_work"):
+            self.st[name].zero_()
+
+    def step(self) -> None:
+        b = self.b
+        eng, scfg = b.engine, b.engine.scfg
+        q, st = self.q, self.st
+        Nq, R = self.Nq, self.R
+        free = st["free"]
+        B = free.shape[0]
+        slots = torch.arange(B, device=free.device)
+
+        # --- fill (FIFO, ascending slot index)
+        rank = torch.cumsum(free.to(torch.int32), 0) - 1
+        cand = st["head"] + rank
+        take = free & (cand < q["n"])
+        idx = cand.clamp(0, Nq - 1)
+        req = torch.where(take, q["req"][idx], st["req"])
+        last = torch.where(take, q["tok"][idx], st["last"])
+        feat = torch.where(take[:, None], q["feat"][idx], st["feat"])
+        hasf = torch.where(take, q["hasf"][idx], st["hasf"])
+        seed = torch.where(take, q["seed"][idx], st["seed"])
+        gen = torch.where(take, 0, st["gen"])
+        free = free & ~take
+        head = st["head"] + take.sum()
+        active = ~free
+        work = active.any()
+        # --- the in-step gate: its verdict evicts a slot before its first
+        # token is recorded
+        if self.gate_fn is not None:
+            labels = self.gate_fn(feat)
+            gdrop = active & hasf & (labels == scfg.gate_action_drop)
+        else:
+            gdrop = torch.zeros_like(free)
+        # --- decode every slot at the global position; no work: identity
+        greedy = scfg.temperature == 0.0
+        tok = torch.where(free, 0, last)[:, None]
+        out, _ = M.decode_step(eng.params, b._decode, tok, eng.cfg,
+                               sample_greedy=greedy,
+                               attn_impl=scfg.attn_impl, commit=work)
+        nxt = out if greedy else S.sample_tokens(
+            out, seed, gen, scfg.temperature, scfg.top_k, scfg.top_p)
+        live = active & ~gdrop
+        st["out_tok"].index_put_(
+            (torch.where(live, req, R).long(),
+             gen.clamp(max=b.max_tokens - 1).long()), nxt)
+        gen = gen + live.to(torch.int32)
+        bad = live & ((nxt < 0) | (nxt >= b._vocab))
+        fin = live & ~bad & ((gen >= b.max_tokens) | (nxt == b.eos))
+        evict = gdrop | fin | bad
+        fidx = torch.where(fin, req, R).long()
+        st["out_len"].index_put_((fidx,), gen)
+        st["out_done"].index_fill_(0, fidx, True)
+        st["out_drop"].index_fill_(0, torch.where(gdrop, req, R).long(), True)
+        st["out_quar"].index_fill_(0, torch.where(bad, req, R).long(), True)
+        st["out_at"].index_put_(
+            (torch.where(gdrop | bad, req, R).long(),),
+            (st["n_work"] * B + slots).to(torch.int32))
+        new = dict(free=free | evict, req=req, gen=gen,
+                   last=torch.where(live, nxt, last), feat=feat, hasf=hasf,
+                   seed=seed, head=head)
+        for name, val in new.items():
+            st[name].copy_(val)
+        st["alive"].logical_and_(work)
+        st["n_work"].add_(work.to(torch.int32))
+        st["more"].copy_((~new["free"]).any() | (head < q["n"]))
+
+
 class DeviceContinuousBatcher:
     """Device-resident continuous batching over the paged cache: the slot
     state lives on the device and fill -> gate -> decode -> sample ->
@@ -774,9 +957,14 @@ class DeviceContinuousBatcher:
     traced run replays the fill schedule on the host from the drained
     state (its timestamps interpolated between the boundaries), so the
     captured step is the untraced one, and without a tracer, an injector,
-    a deadline or a held page the drive loop is unchanged.  An engine
-    without ``page_size`` (the dense mode, ROADMAP queue A item 2) and
-    ``mesh`` (item 6) raise ``NotImplementedError``.
+    a deadline or a held page the drive loop is unchanged.  ``mesh``
+    (ROADMAP queue A item 6) raises ``NotImplementedError``.
+
+    Over an engine without ``page_size`` (the dense mode) the batcher owns
+    a dense decode state and runs ``_DenseStep``: one global position, one
+    token a slot a step, single-token prompts (a longer one is refused at
+    ``submit``), no page pool (``pool`` is None, ``PoolExhaust`` never
+    fires); ``spec_k`` needs the paged cache.
     """
 
     def __init__(self, engine: ServeEngine, eos_token: int = 0,
@@ -817,7 +1005,6 @@ class DeviceContinuousBatcher:
                     f"draft table covers {draft.vocab_size} tokens but "
                     f"the LM vocab is {engine.cfg.vocab_size}")
             self._draft_tbl = draft.device_table(engine.device)
-        engine._require_paged()
         self._spec_prop = 0
         self._spec_acc = 0
         self.max_retries = int(max_retries)
@@ -833,12 +1020,23 @@ class DeviceContinuousBatcher:
         self.graph = bool(graph) and engine.device.type == "cuda"
         scfg = engine.scfg
         self._B = scfg.max_batch
-        # the batcher's own page pool (fixed addresses: a captured step
-        # writes it in place) and its host mirror with the prefix trie
-        self._pages = M.init_paged_kv(engine.cfg, scfg.n_pages,
-                                      scfg.page_size, kv_dtype=scfg.kv_dtype,
-                                      device=engine.device)
-        self.pool = scfg.make_pool()
+        self.paged = scfg.paged
+        self.pool = None
+        if self.paged:
+            # the batcher's own page pool (fixed addresses: a captured
+            # step writes it in place) and its host mirror with the
+            # prefix trie
+            self._pages = M.init_paged_kv(engine.cfg, scfg.n_pages,
+                                          scfg.page_size,
+                                          kv_dtype=scfg.kv_dtype,
+                                          device=engine.device)
+            self.pool = scfg.make_pool()
+        else:
+            # the batcher's own dense decode state, ``pos`` included, at
+            # fixed addresses
+            self._decode = M.init_decode_state(engine.cfg, scfg.max_batch,
+                                               scfg.cache_len,
+                                               device=engine.device)
         self.seeds: dict = {}
         self.queue: collections.deque = collections.deque()
         self.done: dict = {}
@@ -921,7 +1119,8 @@ class DeviceContinuousBatcher:
     def _fused(self, key: Tuple) -> _FusedStep:
         fs = self._steps.get(key)
         if fs is None:
-            fs = self._steps[key] = _FusedStep(self, *key)
+            step = _FusedStep if self.paged else _DenseStep
+            fs = self._steps[key] = step(self, *key)
             if self.graph:
                 fs.capture()
         return fs
@@ -938,8 +1137,10 @@ class DeviceContinuousBatcher:
         inj = self.injector
         shard = self.trace_shard
         drain = self._drains - 1  # the boundary just completed
-        B, NP = self._B, self.engine.scfg.n_pages
-        host = fs.read("free", "req", "gen", "tbl", "pref",
+        B = self._B
+        NP = self.engine.scfg.n_pages if self.paged else 0
+        host = fs.read("free", "req", "gen",
+                       *(("tbl", "pref") if self.paged else ()),
                        *(("out_tok",) if inj is not None else ()))
         free, req, gen = host["free"].copy(), host["req"], host["gen"]
         evict: Dict[int, str] = {}
@@ -970,21 +1171,26 @@ class DeviceContinuousBatcher:
         events: List[Tuple[int, int, int]] = []
         pref = None
         if evict:
-            tbl, pref = host["tbl"].copy(), host["pref"].copy()
+            if self.paged:
+                tbl, pref = host["tbl"].copy(), host["pref"].copy()
             for b, reason in evict.items():
                 qi = int(req[b])
                 free[b] = True
-                valid = tbl[b][tbl[b] < NP]
-                np.subtract.at(pref, valid, 1)
-                pages = int((pref[valid] == 0).sum())
-                tbl[b] = NP
+                pages = 0
+                if self.paged:
+                    valid = tbl[b][tbl[b] < NP]
+                    np.subtract.at(pref, valid, 1)
+                    pages = int((pref[valid] == 0).sum())
+                    tbl[b] = NP
                 _drop_request(self, req_ids[qi], reason, now,
                               trace=not traced)
                 if traced:
                     self._host_drops[qi] = (steps_run, reason, now)
                     events.append((steps_run + 1, 1, pages))
-            upd.update(free=free, tbl=tbl)
-        if inj is not None:
+            upd["free"] = free
+            if self.paged:
+                upd["tbl"] = tbl
+        if inj is not None and self.paged:
             for ev in inj.exhaustions(shard, drain):
                 if pref is None:
                     pref = host["pref"].copy()
@@ -1057,11 +1263,14 @@ class DeviceContinuousBatcher:
         # pow2 buckets bound the shape keys across queue sizes
         Nq = max(8, 1 << (max(1, n) - 1).bit_length())
         R = max(8, 1 << (C + n - 1).bit_length())
+        paged = self.paged
         longest = max([len(p) for _, p, _ in kept]
-                      + [len(c["prompt"]) for _, c in carry] + [1])
+                      + [len(c.get("prompt", ())) for _, c in carry] + [1])
         p_max = max(4, 1 << (longest - 1).bit_length())
-        NP, n_ps = scfg.n_pages, scfg.pages_per_slot
-        qtok = np.zeros((Nq, p_max), np.int32)
+        NP = scfg.n_pages if paged else 0
+        n_ps = scfg.pages_per_slot if paged else 0
+        # the dense queue holds one token an entry
+        qtok = np.zeros((Nq, p_max) if paged else Nq, np.int32)
         qlen = np.zeros(Nq, np.int32)
         qsh = np.full((Nq, n_ps), NP, np.int32)
         qdem = np.zeros(Nq, np.int32)
@@ -1074,13 +1283,22 @@ class DeviceContinuousBatcher:
         qseed = np.zeros(Nq, np.int32)
         qfeat = np.zeros((Nq, n_feat), np.int32)
         qhasf = np.zeros(Nq, bool)
-        self.pool.begin_wave()
+        if paged:
+            self.pool.begin_wave()
         # qi -> (prompt, register-on-completion) for drain registration
         winfo: List[Tuple[list, bool]] = [
-            (c["prompt"], c.get("reg", False)) for _, c in carry]
+            (c.get("prompt", []), c.get("reg", False)) for _, c in carry]
         wplans: List = []  # kept index -> PagePlan (stats at drain)
         for k, (rid, prompt, f) in enumerate(kept):
             qseed[k] = self.seeds.get(rid, _default_seed(rid))
+            qreq[k] = C + k  # output row: carryover rows come first
+            if f is not None:
+                qfeat[k, : len(f)] = f[:n_feat]
+                qhasf[k] = True
+            if not paged:
+                qtok[k] = prompt[0]
+                winfo.append(([], False))
+                continue
             qtok[k, : len(prompt)] = prompt
             qlen[k] = len(prompt)
             # prefix-trie plan: shared pages, start, COW source, own demand
@@ -1093,10 +1311,6 @@ class DeviceContinuousBatcher:
             qreg[k] = plan.reg
             winfo.append((prompt, plan.reg))
             wplans.append(plan)
-            qreq[k] = C + k  # output row: carryover rows come first
-            if f is not None:
-                qfeat[k, : len(f)] = f[:n_feat]
-                qhasf[k] = True
         wave_pins: List[int] = []  # host pins on in-wave shared pages
         wave_deps = False  # any reader waiting on an in-wave writer?
         if scfg.share_prefix:
@@ -1134,23 +1348,28 @@ class DeviceContinuousBatcher:
             if c["feat"] is not None:
                 feat[b, : len(c["feat"])] = c["feat"][:n_feat]
             out_tok[row, : c["gen"]] = c["toks"]
-            pos[b] = c["pos"]
-            plen[b] = len(c["prompt"])
-            pbuf[b, : len(c["prompt"])] = c["prompt"]
-            tbl[b] = c["tbl"]
-            reg[b] = c.get("reg", False)
-        pref0 = self.pool.ref.copy() if traced else None
-        fs = self._fused((Nq, R, n_feat, p_max, bool(feats), self.spec_k))
+            if paged:
+                pos[b] = c["pos"]
+                plen[b] = len(c["prompt"])
+                pbuf[b, : len(c["prompt"])] = c["prompt"]
+                tbl[b] = c["tbl"]
+                reg[b] = c.get("reg", False)
+        pref0 = self.pool.ref.copy() if traced and paged else None
+        queue = dict(tok=qtok, req=qreq, feat=qfeat, hasf=qhasf, seed=qseed,
+                     n=np.asarray(n, np.int32))
+        state = dict(free=free, req=req, gen=gen, last=last, feat=feat,
+                     hasf=hasf, seed=seed, out_tok=out_tok)
+        if paged:
+            fs = self._fused((Nq, R, n_feat, p_max, bool(feats),
+                              self.spec_k))
+            queue.update(len=qlen, sh=qsh, dem=qdem, start=qstart, cow=qcow,
+                         reg=qreg, wsrc=qwsrc, wneed=qwneed)
+            state.update(pos=pos, plen=plen, pbuf=pbuf, tbl=tbl, reg=reg,
+                         pref=self.pool.ref, qidx=np.full(B, -1, np.int32))
+        else:
+            fs = self._fused((Nq, R, n_feat, bool(feats)))
         fs.reset()
-        fs.write(
-            dict(tok=qtok, len=qlen, req=qreq, feat=qfeat, hasf=qhasf,
-                 sh=qsh, dem=qdem, start=qstart, cow=qcow, reg=qreg,
-                 seed=qseed, wsrc=qwsrc, wneed=qwneed,
-                 n=np.asarray(n, np.int32)),
-            dict(free=free, req=req, gen=gen, last=last, feat=feat,
-                 hasf=hasf, seed=seed, out_tok=out_tok, pos=pos, plen=plen,
-                 pbuf=pbuf, tbl=tbl, reg=reg, pref=self.pool.ref,
-                 qidx=np.full(B, -1, np.int32)))
+        fs.write(queue, state)
 
         inj = self.injector
         if (traced and inj is not None
@@ -1212,27 +1431,29 @@ class DeviceContinuousBatcher:
                         fs, req_ids, now, steps_run, traced)
                 alive = False
                 break
-        out = fs.read("pref", "head", "out_tok", "out_len", "out_drop",
-                      "out_quar", "out_at", "out_tbl", "n_work", "free",
-                      "req", "gen", "last", "feat", "hasf", "seed", "pos",
-                      "plen", "pbuf", "tbl", "reg", "spec_prop", "spec_acc")
+        out = fs.read("head", "out_tok", "out_len", "out_drop", "out_quar",
+                      "out_at", "n_work", "free", "req", "gen", "last",
+                      "feat", "hasf", "seed",
+                      *(("pref", "out_tbl", "pos", "plen", "pbuf", "tbl",
+                         "reg", "spec_prop", "spec_acc") if paged else ()))
         self.steps += int(out["n_work"])
-        self._spec_prop += int(out["spec_prop"])
-        self._spec_acc += int(out["spec_acc"])
-        self.pool.ref[:] = out["pref"][:NP]
-        if wave_pins:
-            # drop the host pins on in-wave shared node pages
-            np.subtract.at(self.pool.ref, np.asarray(wave_pins), 1)
-        if self._exh_holds:
-            # held pages never outlive the run
-            for _, pages in self._exh_holds:
-                self.pool.ref[pages] -= 1
-            self._exh_holds = []
-        self.pool.observe_occupancy()
-        # sharing stats: exactly the entries the step admitted this run
         head = int(out["head"])
-        for k in range(min(head, n)):
-            self.pool.record_plan(wplans[k], len(kept[k][1]))
+        if paged:
+            self._spec_prop += int(out["spec_prop"])
+            self._spec_acc += int(out["spec_acc"])
+            self.pool.ref[:] = out["pref"][:NP]
+            if wave_pins:
+                # drop the host pins on in-wave shared node pages
+                np.subtract.at(self.pool.ref, np.asarray(wave_pins), 1)
+            if self._exh_holds:
+                # held pages never outlive the run
+                for _, pages in self._exh_holds:
+                    self.pool.ref[pages] -= 1
+                self._exh_holds = []
+            self.pool.observe_occupancy()
+            # sharing stats: exactly the entries the step admitted
+            for k in range(min(head, n)):
+                self.pool.record_plan(wplans[k], len(kept[k][1]))
         if traced:
             self._replay(out, seen, carry, req_ids, pref0, qdem, qlen,
                          qstart, qsh, qreg, fault_events, boundaries,
@@ -1269,11 +1490,13 @@ class DeviceContinuousBatcher:
                     hasf=bool(out["hasf"][b]),
                     feat=out["feat"][b].copy() if out["hasf"][b] else None,
                     seed=int(out["seed"][b]),
-                    toks=out["out_tok"][qi, :g].copy(),
-                    pos=int(out["pos"][b]),
-                    prompt=[int(t) for t in
-                            out["pbuf"][b, : out["plen"][b]]],
-                    tbl=out["tbl"][b].copy(), reg=bool(out["reg"][b]))
+                    toks=out["out_tok"][qi, :g].copy())
+                if paged:
+                    self._carry[b].update(
+                        pos=int(out["pos"][b]),
+                        prompt=[int(t) for t in
+                                out["pbuf"][b, : out["plen"][b]]],
+                        tbl=out["tbl"][b].copy(), reg=bool(out["reg"][b]))
         # re-enqueue un-admitted entries regardless of the alive flag: a
         # reader blocked on a dead writer idles the step out while its
         # entry is still pending
@@ -1297,10 +1520,13 @@ class DeviceContinuousBatcher:
         the drain boundaries.  Besides the JAX replay, a request
         quarantined in the step (``out_quar``, at ``out_at``) ends there
         and frees its slot and pages.  Emission is deferred to the
-        tracer's next read."""
+        tracer's next read.  In dense mode there are no pages and a slot's
+        first token comes on its admit step (fill and decode share it)."""
         eng = self.engine
-        B, NP, page = self._B, eng.scfg.n_pages, eng.scfg.page_size
-        Ck = self.prefill_chunk
+        paged = self.paged
+        B, page = self._B, eng.scfg.page_size
+        NP = eng.scfg.n_pages if paged else 0
+        Ck = self.prefill_chunk if paged else 1
         C, n = len(carry), len(req_ids) - len(carry)
         out_len, out_drop = out["out_len"], out["out_drop"]
         out_quar, out_at = out["out_quar"], out["out_at"]
@@ -1313,7 +1539,7 @@ class DeviceContinuousBatcher:
             # token) were reported by the run that saw them
             cst = carry[qi][1]
             g0 = int(cst["gen"])
-            if g0 == 0:  # resumed mid-prefill
+            if paged and g0 == 0:  # resumed mid-prefill
                 rem = len(cst["prompt"]) - int(cst["pos"])
                 s_first[qi] = max(-(-rem // Ck), 1)
             if seen[qi]:
@@ -1326,17 +1552,21 @@ class DeviceContinuousBatcher:
                 # pages released at eviction: those at refcount 1 when the
                 # run started (shared pages keep the prefix cache's hold);
                 # a completed reg slot keeps its full-prompt pages
-                tbl_c = np.asarray(cst["tbl"])
-                own = (tbl_c < NP) & (pref0[np.clip(tbl_c, 0, NP - 1)] == 1)
-                if cst.get("reg", False) and seen[qi]:
-                    own[: len(cst["prompt"]) // page] = False
-                heapq.heappush(events, (s_done[qi] + 1, 1, int(own.sum())))
+                pages = 0
+                if paged:
+                    tbl_c = np.asarray(cst["tbl"])
+                    own = ((tbl_c < NP)
+                           & (pref0[np.clip(tbl_c, 0, NP - 1)] == 1))
+                    if cst.get("reg", False) and seen[qi]:
+                        own[: len(cst["prompt"]) // page] = False
+                    pages = int(own.sum())
+                heapq.heappush(events, (s_done[qi] + 1, 1, pages))
         for ev in fault_events:
             # host fault evictions free their slot and pages one step past
             # the drain boundary they fired at
             heapq.heappush(events, ev)
         free_slots = B - C
-        free_pages = int((pref0 == 0).sum())
+        free_pages = int((pref0 == 0).sum()) if paged else 0
         step, qp = 1, 0
         while qp < n and step <= steps_run:
             qi = C + qp
@@ -1538,14 +1768,20 @@ class DeviceContinuousBatcher:
 
 
 class ContinuousBatcher:
-    """Slot-based continuous batching over a paged ServeEngine
-    (host-driven: one step and one token sync per generated token).
+    """Slot-based continuous batching over a ServeEngine (host-driven: one
+    step and one token sync per generated token).
+
+    Over a dense engine every step decodes all ``max_batch`` slots at the
+    one global position (a free slot feeds token 0), with the gate fused
+    into the step once a request brought features (its labels are
+    advisory here, as in the JAX package); a prompt is fed a token a step.
+    Over a paged engine each slot has its own position and block table.
 
     ``tracer``/``metrics`` (``obs``) record each request's lifecycle as it
     happens; ``fault_injector`` (``serve.faults``) corrupts sampled tokens
     (the finite check quarantines exactly that slot) and pins the free
-    pages (``PoolExhaust``) at drain boundaries, which for this batcher
-    is every step."""
+    pages (``PoolExhaust``, paged only) at drain boundaries, which for this
+    batcher is every step."""
 
     def __init__(self, engine: ServeEngine, eos_token: int = 0,
                  max_tokens: int = 32, max_queue: Optional[int] = None,
@@ -1554,7 +1790,6 @@ class ContinuousBatcher:
                  deadline_s: Optional[float] = None,
                  fault_injector=None,
                  clock: Callable[[], float] = time.perf_counter):
-        engine._require_paged()
         self.engine = engine
         self.eos = eos_token
         self.max_tokens = max_tokens
@@ -1578,6 +1813,7 @@ class ContinuousBatcher:
         self.slot_ptr = np.zeros(B, np.int64)  # prompt tokens consumed
         self.slot_gen: list = [[] for _ in range(B)]
         self.slot_req: list = [None] * B
+        self.slot_feat: Optional[np.ndarray] = None  # [B, F] once known
         self.seeds: dict = {}
         self.slot_seed = np.zeros(B, np.int32)
         self._sampler = None
@@ -1595,12 +1831,14 @@ class ContinuousBatcher:
         self.dropped_at: dict = {}  # request_id -> perf_counter at drop
         self.deadline: dict = {}  # request_id -> absolute deadline
         self.max_live = 0  # peak concurrent slots
-        self.steps = 0  # paged steps run (one paged_decode_step each)
-        self.slot_pos = np.zeros(B, np.int64)
-        self.slot_tbl = np.full((B, scfg.pages_per_slot), scfg.n_pages,
-                                np.int32)
-        self.pool = scfg.make_pool()
-        self.slot_res: list = [None] * B
+        self.steps = 0  # steps run (one decode step each)
+        self.pool = None  # the page allocator (paged mode)
+        if scfg.paged:
+            self.slot_pos = np.zeros(B, np.int64)
+            self.slot_tbl = np.full((B, scfg.pages_per_slot), scfg.n_pages,
+                                    np.int32)
+            self.pool = scfg.make_pool()
+            self.slot_res: list = [None] * B
         self.attach_obs(tracer, metrics)
 
     def attach_obs(self, tracer=None, metrics=None) -> None:
@@ -1643,7 +1881,8 @@ class ContinuousBatcher:
 
     def _fill_slots(self):
         scfg = self.engine.scfg
-        self.pool.begin_wave()
+        if scfg.paged:
+            self.pool.begin_wave()
         track = self.tracer is not None or bool(self.deadline)
         now = self._clock() if track else 0.0
         free_idx = list(np.where(self.slot_free)[0])
@@ -1657,21 +1896,24 @@ class ContinuousBatcher:
                 self.queue.popleft()
                 _drop_request(self, rid, "deadline", now)
                 continue
-            # reservation-based admission: the request's whole worst-case
-            # footprint (minus shared prefix pages) must be free; FIFO
-            # blocks when the head does not fit
-            res = self.pool.reserve(prompt, self.max_tokens)
-            if res is None:
-                break
-            self.slot_tbl[b] = scfg.n_pages
-            self.slot_tbl[b, : len(res.tbl)] = res.tbl
-            if res.cow is not None:
-                # the fresh tail page starts as a copy of the partially
-                # matching cached page; rows past the match stay stale
-                # until overwritten (masked by the causal term)
-                self.engine.copy_page(*res.cow)
-            self.slot_pos[b] = res.start
-            self.slot_res[b] = res
+            res = None
+            if scfg.paged:
+                # reservation-based admission: the request's whole
+                # worst-case footprint (minus shared prefix pages) must be
+                # free; FIFO blocks when the head does not fit
+                res = self.pool.reserve(prompt, self.max_tokens)
+                if res is None:
+                    break
+                self.slot_tbl[b] = scfg.n_pages
+                self.slot_tbl[b, : len(res.tbl)] = res.tbl
+                if res.cow is not None:
+                    # the fresh tail page starts as a copy of the
+                    # partially matching cached page; rows past the match
+                    # stay stale until overwritten (masked by the causal
+                    # term)
+                    self.engine.copy_page(*res.cow)
+                self.slot_pos[b] = res.start
+                self.slot_res[b] = res
             self.queue.popleft()
             self.slot_free[b] = False
             self.slot_req[b] = rid
@@ -1680,8 +1922,13 @@ class ContinuousBatcher:
                 self.tracer.admitted(rid, t=now, shard=self.trace_shard)
             self.slot_prompt[b] = prompt
             # shared prefix tokens are already in the pool: skip them
-            self.slot_ptr[b] = res.start
+            self.slot_ptr[b] = res.start if res is not None else 0
             self.slot_gen[b] = []
+            if feat is not None:
+                if self.slot_feat is None:
+                    self.slot_feat = np.zeros((len(self.slot_free),
+                                               len(feat)), np.int32)
+                self.slot_feat[b] = feat
             fi += 1
 
     def _evict(self, b, now):
@@ -1695,26 +1942,29 @@ class ContinuousBatcher:
             self.tracer.drained(self.slot_req[b], t=now)
         self.slot_free[b] = True
         self.slot_req[b] = None
-        # completed full prompt pages register in the prefix trie
-        self.pool.release(self.slot_res[b], self.slot_prompt[b])
-        self.slot_res[b] = None
-        self.slot_tbl[b] = self.engine.scfg.n_pages
+        if self.engine.scfg.paged:
+            # completed full prompt pages register in the prefix trie
+            self.pool.release(self.slot_res[b], self.slot_prompt[b])
+            self.slot_res[b] = None
+            self.slot_tbl[b] = self.engine.scfg.n_pages
 
     def _evict_drop(self, b, reason: str, now: float):
         """Mid-flight eviction on the drop path (deadline / quarantine):
-        frees this slot's pages without registering its prefix."""
+        frees this slot (and its pages, without registering its prefix)."""
         rid = self.slot_req[b]
         self.slot_free[b] = True
         self.slot_req[b] = None
-        self.pool.release(self.slot_res[b], self.slot_prompt[b],
-                          register=False)
-        self.slot_res[b] = None
-        self.slot_tbl[b] = self.engine.scfg.n_pages
+        if self.engine.scfg.paged:
+            self.pool.release(self.slot_res[b], self.slot_prompt[b],
+                              register=False)
+            self.slot_res[b] = None
+            self.slot_tbl[b] = self.engine.scfg.n_pages
         _drop_request(self, rid, reason, now)
 
     def run(self, max_steps: int = 1000) -> dict:
         """Decode until queue + slots drain; returns {request_id: tokens}."""
         B = self.engine.scfg.max_batch
+        paged = self.engine.scfg.paged
         inj = self.injector
         for _ in range(max_steps):
             _service_retries(self)
@@ -1737,14 +1987,22 @@ class ContinuousBatcher:
                 tok[b] = (prompt[ptr] if ptr < len(prompt)
                           else self.slot_gen[b][-1])
             n_new = (~self.slot_free).astype(np.int32)
-            if self._sampler is None:
+            gi = np.array([len(g) for g in self.slot_gen], np.int32)
+            if not paged:
+                # every slot at the global position; the gate's labels
+                # are advisory here (the device batcher acts on them)
+                logits, _ = self.engine.step(tok[:, None], self.slot_feat,
+                                             block=False)
+                nxt = (torch.argmax(logits, dim=-1) if self._sampler is None
+                       else self._sampler(logits, self.slot_seed, gi))
+                nxt = nxt.cpu().numpy()
+            elif self._sampler is None:
                 nxt = self.engine.step_paged(tok[:, None], self.slot_tbl,
                                              self.slot_pos, n_new)
             else:
                 # sample on the last-position logits, keyed by (request
                 # seed, generated-token index); mid-prompt draws are
                 # discarded below like argmaxes
-                gi = np.array([len(g) for g in self.slot_gen], np.int32)
                 logits = self.engine.step_paged_logits(
                     tok[:, None], self.slot_tbl, self.slot_pos, n_new)
                 nxt = self._sampler(logits, self.slot_seed, gi).cpu().numpy()
@@ -1756,14 +2014,17 @@ class ContinuousBatcher:
                 for ev in inj.corruptions(self.trace_shard, self._drains):
                     if ev.slot < B and not self.slot_free[ev.slot]:
                         nxt[ev.slot] = ev.value
-                for ev in inj.exhaustions(self.trace_shard, self._drains):
-                    held = self.pool.hold_free_pages()
-                    self._exh_holds.append(
-                        [self._drains + ev.hold_drains, held])
+                if paged:
+                    for ev in inj.exhaustions(self.trace_shard,
+                                              self._drains):
+                        held = self.pool.hold_free_pages()
+                        self._exh_holds.append(
+                            [self._drains + ev.hold_drains, held])
             for b in range(B):
                 if self.slot_free[b]:
                     continue
-                self.slot_pos[b] += 1
+                if paged:
+                    self.slot_pos[b] += 1
                 self.slot_ptr[b] = min(self.slot_ptr[b] + 1,
                                        len(self.slot_prompt[b]))
                 if self.slot_ptr[b] < len(self.slot_prompt[b]):

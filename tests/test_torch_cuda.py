@@ -718,3 +718,129 @@ def test_cuda_chunked_prefill_equals_token_by_token(cuda_device):
     b = _device_serve(cuda_device, True, n=8, prefill_chunk=1)
     assert a.done == b.done and len(a.done) > 0
     assert a.dropped == b.dropped
+
+
+# ------------------------------------------------------ the dense ring
+def _ring_case(dev, seed, B, S, quantized, H=12, KV=2, hd=128):
+    """bf16 q and one layer of a dense cache [B, S, KV, hd] (bf16, or int8
+    with scales) read as B pages of S positions: the identity table."""
+    rng = np.random.default_rng(seed)
+    shape = (B, S, KV, hd)
+
+    def t(a, dt):
+        return torch.as_tensor(a, device=dev).to(dt)
+
+    q = t(rng.normal(0, 1, (B, 1, H, hd)), torch.bfloat16)
+    if quantized:
+        k, v = (t(rng.integers(-127, 128, shape), torch.int8) for _ in "kv")
+        ks, vs = (t(rng.uniform(0.005, 0.02, shape[:-1] + (1,)),
+                    torch.float32) for _ in "kv")
+    else:
+        k, v = (t(rng.normal(0, 1, shape), torch.bfloat16) for _ in "kv")
+        ks = vs = None
+    tbl = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    return q, k, v, tbl, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 13])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_paged_attention_ring_equals_plain(cuda_device, window,
+                                                quantized):
+    """The ring past the wrap (positions S to 3S + 5, the window inside
+    one lap or wrapping round cell 0) within one bf16 ulp of the plain
+    version; below the wrap bitwise the launch without the ring."""
+    S = 96
+    q, k, v, tbl, ks, vs = _ring_case(cuda_device, window, 4, S, quantized)
+    for p0 in (S, S + 5, 2 * S + 50, 3 * S + 5):
+        pos = torch.tensor([[p0], [p0 + 1], [p0 + 12], [p0 + 40]],
+                           dtype=torch.int32, device=cuda_device)
+        got = ops.paged_attention(q, k, v, tbl, pos, window, ks, vs,
+                                  ring=True)
+        want = ref.paged_attention_ref(q, k, v, tbl, pos, window, ks, vs,
+                                       ring=True)
+        ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= ulp
+    pos = torch.tensor([[0], [7], [50], [S - 1]], dtype=torch.int32,
+                       device=cuda_device)
+    assert torch.equal(
+        ops.paged_attention(q, k, v, tbl, pos, window, ks, vs, ring=True),
+        ops.paged_attention(q, k, v, tbl, pos, window, ks, vs))
+
+
+def _dense_serve(cuda_device, cls, graph=True, page_size=0, n=4,
+                 max_tokens=5, cache_len=32, max_steps=200):
+    """The smoke config (rf-S gate) through a dense or paged batcher on
+    the card: ``n`` single-token requests."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+    from repro_torch.serve import engine as E
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    ds = load_dataset("unsw", n=1500)
+    gate = plant(PlanterConfig(model="rf", size="S"), ds.X_train,
+                 ds.y_train).mapped
+    engine = E.ServeEngine(cfg, M.init_params(cfg, 0, cuda_device),
+                           E.ServeConfig(max_batch=4, cache_len=cache_len,
+                                         page_size=page_size),
+                           gate=gate, device=cuda_device)
+    kw = dict(eos_token=-1, max_tokens=max_tokens)
+    cb = (E.ContinuousBatcher(engine, **kw) if cls == "host" else
+          E.DeviceContinuousBatcher(engine, sync_every=3, graph=graph, **kw))
+    for rid in range(n):
+        cb.submit(rid, rid + 7, features=ds.X_test[rid])
+    cb.run(max_steps=max_steps)
+    return cb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["device", "host"])
+def test_cuda_paged_decode_bit_identical_to_dense(cuda_device, cls):
+    """On the card, where attention is the kernel: one wave of single-token
+    requests, every slot admitted at step 0, paged == dense bitwise."""
+    dense = _dense_serve(cuda_device, cls)
+    paged = _dense_serve(cuda_device, cls, page_size=8)
+    assert dense.done == paged.done and len(dense.done) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_dense_device_equals_host_across_the_wrap(cuda_device):
+    """Ten requests through four slots, cache 8 (the global position
+    wraps): the dense device batcher (graph and eager) == the dense host
+    batcher, bitwise; a step launches paged_attention once a layer."""
+    host = _dense_serve(cuda_device, "host", n=10, cache_len=8)
+    ops.reset_launch_counts()
+    graph = _dense_serve(cuda_device, "device", n=10, cache_len=8)
+    eager = _dense_serve(cuda_device, "device", graph=False, n=10,
+                         cache_len=8)
+    assert graph.done == eager.done == host.done and host.steps > 8
+    assert graph.dropped == eager.dropped == host.dropped
+    assert graph.steps == eager.steps == host.steps
+    assert ops.launch_counts()["paged_attention"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+def test_cuda_dense_round_never_syncs(cuda_device, graph):
+    """A round of the dense fused step, from a mid-flight state, makes no
+    synchronising call; a round past the work leaves ``pos`` and the cache
+    bitwise as they were."""
+    cb = _dense_serve(cuda_device, "device", graph=graph, max_steps=2)
+    (fs,) = cb._steps.values()
+    assert not fs.st["free"].all()
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fs.run(3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(cuda_device)
+    cb.run(max_steps=200)
+    assert fs.st["free"].all()
+    pos = int(cb._decode["pos"])
+    planes = [p.clone() for p in cb._decode["kv"]]
+    fs.run(4)  # every slot free, the queue empty: identity steps
+    assert int(cb._decode["pos"]) == pos
+    assert all(torch.equal(a, b) for a, b in zip(planes, cb._decode["kv"]))

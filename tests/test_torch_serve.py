@@ -450,7 +450,6 @@ def test_launcher_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "item 2"), (["--continuous", "--batcher", "host"], "item 2"),
     (["--router"], "item 6"), (["--mesh", "1x1"], "item 6")])
 def test_launcher_modes_not_ported_raise(argv, item):
     from repro_torch.launch import serve
@@ -459,15 +458,41 @@ def test_launcher_modes_not_ported_raise(argv, item):
         serve.main(["--smoke", "--device", "cpu", *argv])
 
 
+@pytest.mark.parametrize("argv,tag", [
+    ([], "generated 32 tokens"),
+    (["--continuous"], "[device] served"),
+    (["--continuous", "--batcher", "host"], "[host] served")])
+def test_launcher_serves_the_dense_modes_on_cpu(argv, tag, capsys):
+    """The launcher's default (one fixed ``generate()`` batch) and
+    ``--continuous`` without ``--page-size`` (both batchers) serve over
+    the dense ring cache."""
+    from repro_torch.launch import serve
+
+    out = serve.main(["--smoke", "--device", "cpu", "--requests", "12",
+                      "--tokens", "4", *argv])
+    text = capsys.readouterr().out
+    assert tag in text
+    if argv:
+        assert len(out) > 0 and all(len(t) == 4 for t in out.values())
+    else:
+        assert out.shape == (8, 4)
+
+
+def test_launcher_refuses_paged_only_flags_on_the_dense_cache():
+    from repro_torch.launch import serve
+
+    for argv in (["--prompt-len", "4"], ["--spec-k", "2"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--smoke", "--device", "cpu", "--continuous", *argv])
+
+
 def test_not_ported_paths_raise(both):
     _, tp, _, _ = both
     dense = TE.ServeEngine(CFG, tp, TE.ServeConfig(max_batch=2), device="cpu")
-    for call in (lambda: dense.step(np.zeros((2, 1))),
-                 lambda: dense.generate(np.zeros((2, 2)), 2),
-                 lambda: dense.state,
-                 lambda: TE.ContinuousBatcher(dense),
-                 lambda: TE.DeviceContinuousBatcher(dense)):
-        with pytest.raises(NotImplementedError, match="queue A item 2"):
+    for call in (lambda: dense.paged_kv,
+                 lambda: dense.step_paged(np.zeros((2, 1)), np.zeros((2, 1)),
+                                          np.zeros(2), np.ones(2))):
+        with pytest.raises(ValueError, match="page_size"):
             call()
     with pytest.raises(NotImplementedError, match="item 6"):
         TE.ServeEngine(CFG, tp, TE.ServeConfig(page_size=8), mesh=object(),
