@@ -56,10 +56,12 @@ Phases, in order; the first failure exits non-zero:
    alone vs in a batch of 16), the chunk (C = 8 vs C = 1 calls), the
    physical page order and other values in the rows past each slot's
    position; timed at the serve decode shape (16 slots, 64 pages of 16,
-   bf16) with every position weighed and with 256 of 1,024 visible, and
-   at the device batcher's shape (C = 8: each slot's 8 rows at [p, p + 8),
-   p in phase 9's prompt range), each beside its plain version and a
-   gather + ``F.scaled_dot_product_attention`` yardstick.
+   bf16) with every position weighed and with 256 of 1,024 visible, at
+   the device batcher's shape (C = 8: each slot's 8 rows at [p, p + 8),
+   p in phase 9's prompt range), and the ring at the dense step's shape
+   (16 slots of 1,024 cells, C = 1, positions past the wrap), each beside
+   its plain version and a gather + ``F.scaled_dot_product_attention``
+   yardstick.
    ``linear``: for each of a qwen2-1.5b step's eight products (wq, wk, wv,
    wo, w_gate, w_up, w_down, the float32 head) and M in {1, 16, 48, 64,
    128, 256}, every row bitwise equal at offsets 0 and 7 and computed
@@ -148,7 +150,30 @@ Phases, in order; the first failure exits non-zero:
    ``fused_eb`` = 17 x the tables (the pregate call and the in-step gate
    of every step, as in phase 11), exact under (f)'s retry rule.  Tokens/s,
    ms a step and device ms a step by kernel class for both dense batchers,
-   beside phase 11's paged numbers.
+   beside phase 11's paged numbers;
+15. the trainer: (a) ``repro_torch.launch.train`` at its defaults
+   (qwen2-1.5b at full width and depth, float32 masters from ``--seed``,
+   20 steps of 8 x 64 tokens in 2 microbatches, lr 1e-3, ``"full"``
+   remat): 20 finite losses whose last five's mean is below the first
+   five's, the host wrappers' ``linear`` launches exactly 20 x 2 x (2 x 4
+   x 28 + 1) = 9,000 (each layer's four products in the forward and in
+   its recomputation, the head once; the backward's products are
+   ``torch.matmul``) and no other kernel of the repo; (b) 4 layers at full
+   width, 3 steps through the kernel and through ``linear_ref``: each
+   step's loss within 2e-3 relative, each gradient leaf at step 0 within
+   0.03 x max|g_plain|; (c) ``linear``'s backward for the eight weight
+   shapes at M = 256 and 512: ``dx`` and ``dw`` bitwise autograd's through
+   the plain product; (d) in child processes with deterministic
+   algorithms (4 layers at full width): a run stopped by SIGTERM after its
+   step-9 line saves and stops, ``--resume auto`` gives the uninterrupted
+   run's losses bitwise from the resumed step, both runs' final
+   checkpoints equal in every leaf and the preempted one restores onto
+   the card bitwise; (e) printed, not gated: ms a step (median of steps
+   5-19), tokens/s, device ms a step by class (``linear`` forward, the
+   backward's matmuls, attention, optimizer and elementwise, other), idle
+   share, peak memory, the model-FLOP share of the bf16 peak, and
+   ``linear``'s forward at M = 256 beside cuBLAS and its bound (the
+   ``linear`` JSON row's ``train``).
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
@@ -162,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -1106,13 +1132,23 @@ def paged_attention_row(dev):
     pos8 = torch.as_tensor(p0[:, None] + np.arange(DEVICE_CHUNK)[None],
                            dtype=torch.int32, device=dev)
     row["c8"] = pa_timing(q8, k, v, tbl, pos8, dev)
+    # the dense step's launch: 16 slots, each its own page of the ring's
+    # 1,024 cells (cache_len), one row a slot past the wrap
+    S = DENSE["cache_len"]
+    qr, kr, vr, tr, _, _, _ = pa_case(rng, dev, B, 1, H, KV, hd, S, 1, False,
+                                      past=False)
+    posr = torch.as_tensor(S + rng.integers(0, S, (B, 1)), dtype=torch.int32,
+                           device=dev)
+    row["ring"] = pa_timing(qr, kr, vr, tr, posr, dev, ring=True)
     return row
 
 
-def pa_timing(q, k, v, tbl, pos, dev) -> Dict[str, Any]:
+def pa_timing(q, k, v, tbl, pos, dev, ring: bool = False) -> Dict[str, Any]:
     """The kernel, its plain version and gather + SDPA at positions ``pos``
     [B, C], timed; the bound from the rows it must read and the products
-    its visible positions need."""
+    its visible positions need.  ``ring``: the dense cache's ring (window
+    0, so a row past the wrap sees all ``n_ps * page`` cells, and the
+    yardstick attends over all of them)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1123,12 +1159,14 @@ def pa_timing(q, k, v, tbl, pos, dev) -> Dict[str, Any]:
     N, page, KV, _ = k.shape
     n_ps = tbl.shape[1]
     args = (q, k, v, tbl, pos, 0)
-    got, want = ops.paged_attention(*args), ref.paged_attention_ref(*args)
+    kw = {"ring": True} if ring else {}
+    got = ops.paged_attention(*args, **kw)
+    want = ref.paged_attention_ref(*args, **kw)
     hi = int(pos.max().item())
     pa_err_ulps(f"paged_attention at B = {B}, C = {C}, positions up to "
-                f"{hi}", got, want)
+                f"{hi}{' (ring)' if ring else ''}", got, want)
     err = (got.float() - want.float()).abs().max().item()
-    n_pg = hi // page + 1  # the pages up to the last position
+    n_pg = min(hi // page + 1, n_ps)  # the pages up to the last position
     gtbl = tbl[:, :n_pg].long()
     S_lib = n_pg * page
 
@@ -1143,15 +1181,17 @@ def pa_timing(q, k, v, tbl, pos, dev) -> Dict[str, Any]:
     n_bytes = paged_attention_hbm_bytes(
         B, C, H, KV, hd, n_ps, page, pool_bytes=k.element_size(),
         quantized=False, act_bytes=q.element_size(),
-        positions=pos.cpu().numpy(), window=0)
+        positions=pos.cpu().numpy(), window=0, ring=ring)
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    seen = int((pos.long() + 1).sum().item())  # positions the rows weigh
+    # positions the rows weigh (a ring row at most the ring's cells)
+    seen = pos.long() + 1
+    seen = int((torch.clamp(seen, max=S_lib) if ring else seen).sum().item())
     t_ops = 4 * H * hd * seen / PEAK_BF16_FLOPS * 1e3  # q.k and P.V
     return {
         "max_abs_err": err,
-        "ms": time_ms(lambda: ops.paged_attention(*args)),
-        "device_ms": device_ms(lambda: ops.paged_attention(*args)),
-        "plain_ms": time_ms(lambda: ref.paged_attention_ref(*args)),
+        "ms": time_ms(lambda: ops.paged_attention(*args, **kw)),
+        "device_ms": device_ms(lambda: ops.paged_attention(*args, **kw)),
+        "plain_ms": time_ms(lambda: ref.paged_attention_ref(*args, **kw)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": time_ms(library),
@@ -1160,7 +1200,7 @@ def pa_timing(q, k, v, tbl, pos, dev) -> Dict[str, Any]:
         .item(),
         "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd, "page": page,
                   "n_ps": n_ps, "positions": [int(pos.min()), hi],
-                  "bytes": n_bytes},
+                  "ring": ring, "bytes": n_bytes},
     }
 
 
@@ -1285,8 +1325,8 @@ def rotating(copies, call):
     return fn
 
 
-def linear_timings(cfg, dev):
-    """Each of the eight products and the two groups at M in LINEAR_TIMED,
+def linear_timings(cfg, dev, Ms=LINEAR_TIMED):
+    """Each of the eight products and the two groups at M in ``Ms``,
     L2-cold (rotating over copies of the weights past COLD_BYTES): the
     kernel's events and device time, cuBLAS's (``x @ w``, or the head's
     ``torch.mm(out_dtype=float32)``; a group's members one after another),
@@ -1307,8 +1347,8 @@ def linear_timings(cfg, dev):
         copies = [ws] + [[w.clone() for w in ws]
                          for _ in range(int(np.ceil(COLD_BYTES / w_bytes))
                                         - 1)]
-        X, _ = linear_case(dev, max(LINEAR_TIMED), K, 8, SEED + 10 * i + 9)
-        for M in LINEAR_TIMED:
+        X, _ = linear_case(dev, max(Ms), K, 8, SEED + 10 * i + 9)
+        for M in Ms:
             x = X[:M].contiguous()
             if len(ws) == 1:
                 kernel = rotating(copies, lambda c: ops.linear(x, c[0], out))
@@ -2364,6 +2404,465 @@ def check_dense_no_sync(run: ServeRun, dev) -> str:
             f"under set_sync_debug_mode(\"error\"): no synchronising call")
 
 
+# ------------------------------------------------------------ phase 15
+# the launcher's defaults (src/repro/launch/train.py:32-39): 20 steps of a
+# batch of 8 sequences of 64 tokens in 2 microbatches, lr 1e-3
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 20, 8, 64, 2
+TRAIN_TIMED = (5, 20)  # (e): steps whose median wall time is a step's
+TRAIN_CUT = 4  # layers of (b) and (d): full width, depth cut
+TRAIN_PARITY_STEPS = 3  # (b)
+# (b), fixed before any run: each step's loss through the kernel within
+# this relative distance of the plain run's (bf16 products summed in
+# another order, about one bf16 ulp of an activation; the port against the
+# JAX package on the CPU stays within 3e-4 over ten steps and is held to
+# 2e-3 in tests/test_torch_train.py), and each gradient leaf at step 0
+# within LOGIT_TOL (the serve parity delta) of the plain leaf's largest
+# magnitude
+TRAIN_LOSS_RTOL = 2e-3
+RESUME_SIGTERM_AFTER = 9  # (d): SIGTERM once the step-9 line is read
+# (d): a child runs the launcher with deterministic algorithms, set here
+# and not by the launcher (CUBLAS_WORKSPACE_CONFIG in its environment)
+RESUME_CHILD = ("import sys, torch\n"
+                "torch.use_deterministic_algorithms(True)\n"
+                "from repro_torch.launch.train import main\n"
+                "main(sys.argv[1:])\n")
+
+
+def train_config(n_layers: int = 0):
+    """qwen2-1.5b, depth cut to ``n_layers`` when given, and the launcher's
+    TrainConfig at its defaults."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config("qwen2-1.5b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, TrainConfig(
+        microbatches=TRAIN_MICRO, q_block=min(512, TRAIN_SEQ),
+        adamw=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
+
+
+def train_batches(cfg, dev, seed: int, n: int):
+    """The launcher's first ``n`` batches (``TokenPipeline``) on ``dev``."""
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=seed))
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(s).items()} for s in range(n)]
+
+
+def train_launches(cfg) -> int:
+    """``linear`` launches of the launcher's run, fixed before any run from
+    the JAX package's step: per microbatch each layer's four products in
+    the forward and again when ``"full"`` remat recomputes the layer in
+    the backward (the backward's products are ``torch.matmul``), and the
+    head once (outside the remat)."""
+    return TRAIN_STEPS * TRAIN_MICRO * (2 * 4 * cfg.n_layers + 1)
+
+
+def drive_train(dev, seed: int) -> Dict[str, Any]:
+    """(a) ``repro_torch.launch.train.main`` at its defaults (qwen2-1.5b at
+    full width and depth), the wrapper counts reset just before and read
+    just after: 20 finite losses, the last five's mean below the first
+    five's, ``linear`` launched exactly ``train_launches`` times and no
+    other kernel of the repo."""
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cfg, _ = train_config()
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(["--arch", "qwen2-1.5b", "--seed", str(seed)])
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines = out.getvalue().splitlines()
+    step_ms = [float(ln.split()[4]) for ln in lines if ln.startswith("step ")]
+    if (len(losses) != TRAIN_STEPS or not np.isfinite(losses).all()
+            or len(step_ms) != TRAIN_STEPS):
+        fail(f"(15a) the launcher gave {len(losses)} losses {losses}")
+    if not (np.mean(losses[-5:]) < np.mean(losses[:5])
+            and lines[-1].endswith("(improved)")):
+        fail(f"(15a) the loss did not improve: {lines[-1]}")
+    want = {"linear": train_launches(cfg)}
+    if counts != want:
+        fail(f"(15a) the launcher launched {counts}, expected {want}")
+    torch.cuda.empty_cache()
+    lo, hi = TRAIN_TIMED
+    return dict(cfg=cfg, losses=losses, step_ms=step_ms, counts=counts,
+                peak=peak, last=lines[-1], seconds=seconds,
+                ms=statistics.median(step_ms[lo:hi]))
+
+
+class plain_products:
+    """Inside the block every ``linear`` product is ``ref.linear_ref``
+    (the plain version) on any device; the gradient is unchanged."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ref import linear_ref
+
+        self.mod = sys.modules["repro_torch.kernels.linear"]
+        self.real = self.mod._forward
+        self.mod._forward = lambda x, ws, out: [linear_ref(x, w, out)
+                                                for w in ws]
+
+    def __exit__(self, *exc):
+        self.mod._forward = self.real
+
+
+def step_grads(cfg, tcfg, params, batch):
+    """The float32 gradient of every master a train step computes for
+    ``batch`` (microbatches' gradients summed in float32, over their
+    count), as ``{key: [parts]}``."""
+    from repro_torch.arch import model as M
+    from repro_torch.tree import leaves, map_leaves
+
+    masters = map_leaves(lambda l: [p.detach().requires_grad_(True)
+                                    for p in l.parts], params)
+    flat = [(leaf.key, p) for leaf in leaves(masters) for p in leaf.parts]
+    n = tcfg.microbatches
+    size = batch["tokens"].shape[0] // n
+    acc = None
+    for i in range(n):
+        mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        loss = M.loss_fn(masters, mb, cfg, q_block=tcfg.q_block)
+        gs = torch.autograd.grad(loss, [p for _, p in flat])
+        gs = [g.float() for g in gs]
+        acc = gs if acc is None else [a + g for a, g in zip(acc, gs)]
+    out: Dict[str, list] = collections.defaultdict(list)
+    for (key, _), g in zip(flat, acc):
+        out[key].append(g / n)
+    return out
+
+
+def check_train_parity(dev, seed: int) -> str:
+    """(b) qwen2-1.5b at full width, depth cut to TRAIN_CUT, the same
+    masters and batches: TRAIN_PARITY_STEPS launcher steps with every
+    product through the kernel, then through ``linear_ref``; each step's
+    loss within TRAIN_LOSS_RTOL, each gradient leaf at step 0 within
+    LOGIT_TOL x the plain leaf's largest magnitude."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg, tcfg = train_config(TRAIN_CUT)
+    batches = train_batches(cfg, dev, seed, TRAIN_PARITY_STEPS)
+    runs = {}
+    for path in ("kernel", "plain"):
+        ctx = (plain_products() if path == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            ops.reset_launch_counts()
+            params, state = init_train_state(cfg, tcfg, seed, dev)
+            grads = step_grads(cfg, tcfg, params, batches[0])
+            step = make_train_step(cfg, tcfg)
+            losses = []
+            for b in batches:
+                params, state, loss = step(params, state, b)
+                losses.append(float(loss))
+            launched = ops.launch_counts()["linear"]
+        if (launched > 0) != (path == "kernel"):
+            fail(f"(15b) the {path} run launched linear {launched} times")
+        runs[path] = (losses, grads)
+        del params, state, step
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = runs["kernel"], runs["plain"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    if not all(np.isfinite(lk)) or max(rel) > TRAIN_LOSS_RTOL:
+        fail(f"(15b) losses kernel {lk} vs plain {lp}: relative {rel} past "
+             f"{TRAIN_LOSS_RTOL}")
+    worst, worst_key = 0.0, None
+    for key, parts in gp.items():
+        ref_max = max(p.abs().max().item() for p in parts)
+        err = max((a - b).abs().max().item() for a, b in zip(gk[key], parts))
+        if not err <= LOGIT_TOL * ref_max:
+            fail(f"(15b) gradient {key}: {err} past {LOGIT_TOL} x {ref_max}")
+        if ref_max and err / ref_max > worst:
+            worst, worst_key = err / ref_max, key
+    return (f"(b) {TRAIN_CUT} layers at full width, {TRAIN_PARITY_STEPS} "
+            f"steps: losses kernel {lk} vs plain {lp} (relative at most "
+            f"{max(rel):.3e}, limit {TRAIN_LOSS_RTOL}); {len(gp)} gradient "
+            f"leaves at step 0 within {LOGIT_TOL} x max|g_plain| (worst "
+            f"{worst:.4f}, {worst_key})")
+
+
+def check_linear_backward(cfg, dev) -> str:
+    """(c) each of the eight weight shapes at M = 256 and 512: the forward
+    one launch within ``linear_limit`` of the plain version; given the same
+    ``dy``, ``dx`` and ``dw`` bitwise autograd's through the plain product
+    (``linear_ref``; the head's one float32 product ``x.float() @
+    w.float()``): the same ``torch.matmul`` calls."""
+    from test_torch_cuda import linear_limit
+
+    from repro_torch.kernels import ops, ref
+
+    n = 0
+    for i, (name, K, N, f32) in enumerate(linear_weights(cfg)):
+        out = torch.float32 if f32 else None
+        for M in (256, 512):
+            x, w = linear_case(dev, M, K, N, SEED + 200 + i)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 300 + i + M)
+            dy = torch.randn((M, N), generator=gen, device=dev)
+            dy = dy if f32 else dy.to(torch.bfloat16)
+            xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+            before = ops.launch_counts()["linear"]
+            y = ops.linear(xa, wa, out)
+            y.backward(dy)
+            xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+            want = ((xb.float() @ wb.float()) if f32
+                    else ref.linear_ref(xb, wb))
+            want.backward(dy)
+            if ops.launch_counts()["linear"] != before + 1:
+                fail(f"(15c) {name} at M = {M}: not one launch")
+            bad = (y.detach().float() - want.detach().float()).abs() > \
+                linear_limit(x, w, want.detach(), f32)
+            if bad.any():
+                fail(f"(15c) {name} at M = {M}: forward past linear_limit")
+            if not (torch.equal(xa.grad, xb.grad)
+                    and torch.equal(wa.grad, wb.grad)):
+                fail(f"(15c) {name} at M = {M}: dx or dw differs from "
+                     f"autograd through the plain product")
+            n += 1
+            del xa, wa, xb, wb, y, want, dy
+    torch.cuda.empty_cache()
+    return (f"(c) {n} cases (8 weight shapes x M in (256, 512)): dx and dw "
+            f"bitwise autograd's through the plain product, the forward "
+            f"one launch within linear_limit")
+
+
+def _child(args, env, err_path):
+    """A launcher run in a child process, its stdout piped, its stderr to
+    ``err_path``."""
+    import subprocess
+
+    with open(err_path, "w") as err:
+        return subprocess.Popen([sys.executable, "-c", RESUME_CHILD, *args],
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True, cwd=ROOT, env=env)
+
+
+def _losses(path) -> Dict[int, float]:
+    """step -> loss from a launcher's ``--metrics-out`` file (JSON floats:
+    every bit kept)."""
+    with open(path) as f:
+        rows = [json.loads(ln) for ln in f if ln.strip()]
+    return {r["step"]: r["gauges"]["train.loss"] for r in rows}
+
+
+def check_resume(dev, seed: int) -> str:
+    """(d) three launcher runs in child processes (deterministic
+    algorithms, ``CUBLAS_WORKSPACE_CONFIG``) at full width and TRAIN_CUT
+    layers: one uninterrupted; one sent SIGTERM once its step-9 line is
+    read, which must save through ``PreemptionHandler`` and stop; one with
+    ``--resume auto`` on the second's directory.  From the resumed step on
+    its losses are bitwise the uninterrupted run's; its final checkpoint
+    (step 20) equals the uninterrupted run's in every leaf (masters, m, v,
+    count, step), bitwise; the preempted checkpoint restores onto the card
+    bitwise what its archive holds."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.train import init_train_state
+    from repro_torch.tree import leaves
+
+    cfg, tcfg = train_config(TRAIN_CUT)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    base = ["--arch", "qwen2-1.5b", "--layers", str(TRAIN_CUT), "--seed",
+            str(seed), "--ckpt-every", "1000"]
+    try:
+        t0 = time.perf_counter()
+        runs = {name: _child(base + ["--ckpt-dir", str(tmp / name),
+                                     "--metrics-out",
+                                     str(tmp / f"{name}.jsonl")], env,
+                             tmp / f"{name}.err")
+                for name in ("full", "cut")}
+        cut, lines = runs["cut"], []
+        for line in cut.stdout:
+            lines.append(line)
+            if line.startswith(f"step {RESUME_SIGTERM_AFTER:5d} "):
+                cut.send_signal(signal.SIGTERM)
+        for name, proc in runs.items():
+            try:
+                rc = proc.wait(timeout=600)
+            except Exception:
+                proc.kill()
+                raise
+            if rc != 0:
+                fail(f"(15d) the {name} run exited {rc}: "
+                     f"{(tmp / f'{name}.err').read_text()[-2000:]}")
+        stop = [ln for ln in lines if ln.startswith("preempted at step")]
+        if not stop or "checkpoint saved, stopping" not in stop[0]:
+            fail(f"(15d) the SIGTERM run did not stop with a checkpoint: "
+                 f"{lines[-3:]}")
+        at = int(stop[0].split()[3].rstrip(";"))
+        saved = at + 1
+        resumed = _child(base + ["--ckpt-dir", str(tmp / "cut"),
+                                 "--metrics-out", str(tmp / "res.jsonl"),
+                                 "--resume", "auto"], env, tmp / "res.err")
+        out, _ = resumed.communicate(timeout=600)
+        if resumed.returncode != 0 or f"resumed from step {saved}" not in out:
+            fail(f"(15d) the resumed run: rc {resumed.returncode}, "
+                 f"{out[-500:]} {(tmp / 'res.err').read_text()[-2000:]}")
+        seconds = time.perf_counter() - t0
+        full, res = _losses(tmp / "full.jsonl"), _losses(tmp / "res.jsonl")
+        if sorted(res) != list(range(saved, TRAIN_STEPS)) or any(
+                res[s] != full[s] for s in res):
+            fail(f"(15d) resumed losses {res} differ from the uninterrupted "
+                 f"run's {full}")
+        a = CheckpointManager(str(tmp / "full")).restore_flat(TRAIN_STEPS)
+        b = CheckpointManager(str(tmp / "cut")).restore_flat(TRAIN_STEPS)
+        if set(a) != set(b) or any(
+                a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
+                for k in a):
+            fail("(15d) the resumed run's final checkpoint differs from the "
+                 "uninterrupted run's")
+        n_bytes = sum(v.nbytes for v in a.values())
+        del a, b
+        mgr = CheckpointManager(str(tmp / "cut"))
+        flat = mgr.restore_flat(saved)
+        params, state = init_train_state(cfg, tcfg, seed + 1, dev)
+        got = mgr.restore(saved, {"params": params, "state": state})
+        del params, state
+        n_leaves = 0
+        for leaf in leaves(got):
+            arr = flat[leaf.key]
+            parts = list(arr) if leaf.stacked else [arr]
+            for p, want in zip(leaf.parts, parts):
+                if not np.array_equal(p.cpu().numpy(), want):
+                    fail(f"(15d) {leaf.key} of step {saved} did not "
+                         f"restore bitwise")
+            n_leaves += 1
+        if int(got["state"]["step"]) != saved or int(
+                got["state"]["opt"].count) != saved:
+            fail(f"(15d) step/count {int(got['state']['step'])}/"
+                 f"{int(got['state']['opt'].count)} restored for {saved}")
+        del got, flat
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return (f"(d) {TRAIN_CUT} layers at full width: SIGTERM after the "
+            f"step-{RESUME_SIGTERM_AFTER} line stopped the run at step {at} "
+            f"with a checkpoint of step {saved}; --resume auto gave steps "
+            f"{saved}-{TRAIN_STEPS - 1} bitwise the uninterrupted run's "
+            f"losses; the two runs' step-{TRAIN_STEPS} checkpoints equal in "
+            f"every leaf ({n_bytes / 1e9:.2f} GB each); the step-{saved} "
+            f"checkpoint's {n_leaves} leaves restored onto the card bitwise; "
+            f"three runs {seconds:.1f} s")
+
+
+def model_flops(cfg) -> float:
+    """Model FLOPs of one launcher step: 6 x the parameters of the
+    products (the layers' matrices and the head; not the embedding, a
+    gather, nor the norms and biases) x the tokens, and the attention's
+    q.k and P.V, forward and backward (12 x layers x B x S^2 x H x hd,
+    the full S x S the blocked attention computes)."""
+    D, hd, H = cfg.d_model, cfg.head_dim_, cfg.q_heads
+    layer = (D * H * hd * 2 + 2 * D * cfg.n_kv_heads * hd
+             + 3 * D * cfg.d_ff)
+    n_mm = cfg.n_layers * layer + D * cfg.vocab_padded
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 12 * cfg.n_layers * TRAIN_BATCH * TRAIN_SEQ ** 2 * H * hd
+    return 6 * n_mm * tokens + attn
+
+
+def train_class(name: str) -> str:
+    """A device kernel's class in a train step by its name: the ``linear``
+    kernel, the attention's softmax, the loss and the embedding (other),
+    or the rest (the matmuls among them are told apart by their ops)."""
+    low = name.lower()
+    if "linear" in low and "mma" in low:
+        return "linear forward"
+    if "softmax" in low and "logsoftmax" not in low:
+        return "attention"
+    if any(w in low for w in ("logsoftmax", "nll", "index", "embedding",
+                              "scatter", "gather", "sort", "radix")):
+        return "other"
+    return "rest"
+
+
+def profile_train(dev, seed: int, wall_ms: float) -> Dict[str, Any]:
+    """(e) device ms a launcher step by class, over 2 steps after 2 warm
+    ones, at full width and depth: ``linear`` forward (the kernel), the
+    backward's matmuls (the device time of ``aten::mm``: the products'
+    ``dx`` and ``dw``), attention (``aten::bmm``: q.k and P.V forward,
+    recomputed and backward; and the softmax), other (the loss and the
+    embedding's gather and scatter) and the optimizer with every other
+    elementwise kernel; idle = 1 - device / ``wall_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg, tcfg = train_config()
+    params, state = init_train_state(cfg, tcfg, seed, dev)
+    step = make_train_step(cfg, tcfg)
+    batches = train_batches(cfg, dev, seed, 4)
+    for b in batches[:2]:
+        params, state, loss = step(params, state, b)
+    float(loss)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        open_window(dev)
+        for b in batches[2:]:
+            params, state, loss = step(params, state, b)
+        float(loss)
+        torch.cuda.synchronize(dev)
+    by: Dict[str, float] = collections.Counter()
+    ops_ms: Dict[str, float] = collections.Counter()
+    kernels = 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation:
+            if "spin_kernel" not in evt.key:
+                by[train_class(evt.key)] += evt.self_device_time_total / 2e3
+                kernels += evt.count
+        elif evt.key in ("aten::mm", "aten::bmm"):
+            ops_ms[evt.key] += evt.device_time_total / 2e3
+    del params, state, step
+    torch.cuda.empty_cache()
+    busy = sum(by.values())
+    rest = by.pop("rest", 0.0)
+    by["backward matmuls"] = ops_ms["aten::mm"]
+    by["attention"] += ops_ms["aten::bmm"]
+    by["optimizer and elementwise"] = (rest - ops_ms["aten::mm"]
+                                       - ops_ms["aten::bmm"])
+    return {"by": {k: round(v, 4) for k, v in by.items()}, "busy": busy,
+            "idle": 1 - busy / wall_ms if busy else None,
+            "mm_ops": dict(ops_ms), "kernels": kernels / 2}
+
+
+def train_linear_row(cfg, dev, launches: int, backward_ms) -> Dict[str, Any]:
+    """(e) the ``train`` entry of the ``linear`` row: each product and
+    group at M = 256 (a microbatch, 4 x 64 tokens), L2-cold, summed over
+    one forward (each layer's four launches and the head), beside cuBLAS
+    and the byte bound; the launches of phase 15's launcher run and the
+    backward's cuBLAS device ms a step (``aten::mm``)."""
+    M = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+    per = linear_timings(cfg, dev, (M,))
+    row = {"M": M, "launches": launches, "backward_mm_device_ms_a_step":
+           backward_ms, "shape": f"one forward: {cfg.n_layers} x (q/k/v "
+           f"group, wo, gate/up group, w_down) and the head at M = {M}; "
+           f"L2-cold", "per_product": per}
+    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                "library_device_ms"):
+        row[key] = linear_step(cfg, per, M, M, key)
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=SEED,
@@ -2470,7 +2969,7 @@ def main() -> None:
 
     print(f"[8 paged_attention] {check_paged_attention(dev)}")
     pa_row = paged_attention_row(dev)
-    for t in (pa_row, pa_row["skip"], pa_row["c8"]):
+    for t in (pa_row, pa_row["skip"], pa_row["c8"], pa_row["ring"]):
         print(f"[8 paged_attention timing] shape {t['shape']}: "
               f"kernel {t['ms']:.4f} ms (device {t['device_ms']}), plain "
               f"{t['plain_ms']:.4f} ms, gather + SDPA {t['library_ms']:.4f} "
@@ -2606,6 +3105,49 @@ def main() -> None:
           f"{prof['tokens'] / prof['seconds']:.1f} tokens/s, "
           f"{prof['ms_step']:.4f} ms per step run, device "
           f"{prof['busy_ms_step']:.4f} ms a step ({prof['by']}) ({card})")
+    del dense, host
+    torch.cuda.empty_cache()
+    tr = drive_train(dev, args.seed)
+    tcfg = tr["cfg"]
+    print(f"[15 train] (a) repro_torch.launch.train at its defaults: "
+          f"qwen2-1.5b at full width and depth ({tcfg.n_layers} layers, d "
+          f"{tcfg.d_model}, vocab {tcfg.vocab_padded}), float32 masters "
+          f"from seed {args.seed}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches: losses "
+          f"{[round(x, 4) for x in tr['losses']]}, {tr['last']}; wrapper "
+          f"launches {tr['counts']} == {TRAIN_STEPS} x {TRAIN_MICRO} x "
+          f"(2 x 4 x {tcfg.n_layers} + 1), no other kernel; "
+          f"{tr['seconds']:.1f} s in all ({card})")
+    for check in (lambda: check_train_parity(dev, args.seed),
+                  lambda: check_linear_backward(qwen, dev),
+                  lambda: check_resume(dev, args.seed)):
+        t0 = time.perf_counter()
+        line = check()
+        print(f"[15 train] {line} ({time.perf_counter() - t0:.1f} s; "
+              f"{card})")
+    t0 = time.perf_counter()
+    tprof = profile_train(dev, args.seed, tr["ms"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(tcfg)
+    lin_row["train"] = train_linear_row(
+        qwen, dev, tr["counts"]["linear"],
+        tprof["by"].get("backward matmuls"))
+    lt = lin_row["train"]
+    print(f"[15 train timing] ({time.perf_counter() - t0:.1f} s) "
+          f"ms a step (median of steps {TRAIN_TIMED[0]}-"
+          f"{TRAIN_TIMED[1] - 1}, host clock): {tr['ms']:.4f} "
+          f"({tokens / tr['ms'] * 1e3:.1f} tokens/s); device ms a step by "
+          f"class (profiler, 2 steps): {tprof['by']}, busy "
+          f"{tprof['busy']:.4f}, idle {tprof['idle']}, "
+          f"{tprof['kernels']:.0f} kernels a step; aten ops' device ms "
+          f"{tprof['mm_ops']}; peak memory "
+          f"{tr['peak'] / 2**30:.2f} GiB (max_memory_allocated); model FLOPs "
+          f"a step {flops:.4e}, {flops / (tr['ms'] / 1e3) / PEAK_BF16_FLOPS:.4f}"
+          f" of the bf16 peak; linear forward at M = {lt['M']} (one "
+          f"forward's {4 * qwen.n_layers + 1} launches, L2-cold): kernel "
+          f"{lt['ms']} ms (device {lt['device_ms']}), cuBLAS "
+          f"{lt['library_ms']} (device {lt['library_device_ms']}), bound "
+          f"{lt['bound_ms']:.4f} (bytes) ({card})")
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
     lin_row["launches"] = serve.launches["linear"]

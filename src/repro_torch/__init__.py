@@ -11,8 +11,11 @@ lookup-based and direct-map mappers, planter) and the ``bucketize``,
 kernels; and the host-driven paged serve path of the dense LM family:
 ``configs``, ``arch`` (model, weight conversion, sampling), ``nn``,
 ``serve`` (engine, page pool, faults) and the ``paged_attention``
-kernel.  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"`` (see ``device.py``).
+kernel; and the trainer of the dense LM family: ``train`` (AdamW, the
+train step), ``ckpt``, ``data.tokens``, ``dist`` (compression,
+preemption) and ``launch.train``, every forward product through the
+``linear`` kernel.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"`` (see ``device.py``).
 """
 from .device import card_info, resolve_device
 

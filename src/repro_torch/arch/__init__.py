@@ -1,3 +1,3 @@
 """Model architecture: configs (copied from the JAX package), the dense
-decoder's paged decode step, the conversion of JAX-initialised weights,
-and on-device sampling."""
+decoder's training forward and its decode steps, the conversion of
+JAX-initialised weights both ways, and on-device sampling."""

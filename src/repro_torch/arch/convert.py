@@ -4,7 +4,11 @@
 ``jax.tree.map(np.asarray, repro.arch.model.init_params(cfg, key))`` (the
 float32 masters, layers stacked on axis 0) and returns the port's compute
 parameters (``arch.model``), so that both packages compute the same
-function on the same inputs; ``decode_state_from_arrays`` does the same
+function on the same inputs; ``master_params_from_arrays`` returns the
+port's float32 masters instead (the trainer's, or a JAX checkpoint's
+``params`` to seed it), and ``arrays_from_master_params`` turns masters
+back into the JAX package's stacked numpy tree, so that updated
+parameters compare leaf by leaf; ``decode_state_from_arrays`` does the same
 for a dense decode state (``init_decode_state``), so both can continue
 from one mid-run cache.  Nothing here imports JAX: the caller hands over
 plain numpy arrays.
@@ -35,10 +39,11 @@ def _unstack(tree: Dict, n: int) -> list:
     return [pick(tree, i) for i in range(n)]
 
 
-def params_from_arrays(np_tree: Dict, cfg: ArchConfig,
-                       device: Union[str, torch.device] = "cuda") -> Params:
-    """The JAX package's dense-family parameter tree (numpy) -> the port's
-    compute parameters on ``device``."""
+def master_params_from_arrays(np_tree: Dict, cfg: ArchConfig,
+                              device: Union[str, torch.device] = "cuda"
+                              ) -> Params:
+    """The JAX package's dense-family parameter tree (numpy, float32
+    masters, layers stacked) -> the port's float32 masters on ``device``."""
     check_dense(cfg)
     device = resolve_device(device)
     layers = np_tree["layers"]
@@ -46,11 +51,33 @@ def params_from_arrays(np_tree: Dict, cfg: ArchConfig,
     if n != cfg.n_layers:
         raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer "
                          f"config")
-    tree = {"embed": np_tree["embed"], "head": np_tree["head"],
-            "ln_f": np_tree["ln_f"], "layers": _unstack(layers, n)}
-    return compute_params({k: [_tensors(l, device) for l in v]
-                           if k == "layers" else _tensors(v, device)
-                           for k, v in tree.items()})
+    return {"embed": _tensors(np_tree["embed"], device),
+            "head": _tensors(np_tree["head"], device),
+            "ln_f": _tensors(np_tree["ln_f"], device),
+            "layers": [_tensors(l, device) for l in _unstack(layers, n)]}
+
+
+def params_from_arrays(np_tree: Dict, cfg: ArchConfig,
+                       device: Union[str, torch.device] = "cuda") -> Params:
+    """The JAX package's dense-family parameter tree (numpy) -> the port's
+    compute parameters on ``device``."""
+    return compute_params(master_params_from_arrays(np_tree, cfg, device))
+
+
+def arrays_from_master_params(params: Params) -> Dict:
+    """The port's masters -> the JAX package's tree of numpy arrays
+    (layers stacked on axis 0), with the JAX leaves' dtypes."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    def stack(layers):
+        first = layers[0]
+        return {k: stack([l[k] for l in layers]) if isinstance(v, dict)
+                else np.stack([host(l[k]) for l in layers])
+                for k, v in first.items()}
+
+    return {k: stack(v) if k == "layers" else host(v)
+            for k, v in params.items()}
 
 
 def _cache(a, dtype: torch.dtype, device) -> torch.Tensor:

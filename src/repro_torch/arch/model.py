@@ -1,31 +1,42 @@
-"""The dense decoder's serve paths (mirrors ``repro.arch.model``).
+"""The dense decoder: its training forward and its serve paths (mirrors
+``repro.arch.model``).
 
-Ported here: ``layer_windows``, ``init_params``, ``init_paged_kv``,
+Ported here, for the dense family: ``layer_windows``, ``init_params``
+(float32 masters with ``masters=True``), ``forward``, ``lm_head``,
+``token_ce_loss`` and ``loss_fn`` (training), ``init_paged_kv`` and
 ``paged_decode_step`` (with ``all_positions``), ``init_decode_state`` and
-``decode_step`` (the dense ring cache) and ``lm_head``, for the dense
-family.  The JAX package scans stacked layers with ``lax.scan``; here the
-layers are a list walked by a Python loop, and each layer writes its slice
-of the ``[n_layers, N, page, KV, hd]`` pools, or of the ``[n_layers, B,
-S, KV, hd]`` ring cache, in place.
+``decode_step`` (the dense ring cache).  The JAX package scans stacked
+layers with ``lax.scan``; here the layers are a list walked by a Python
+loop (``repro_torch.tree`` gives the JAX package's stacked view where a
+rule needs it), and each layer writes its slice of the ``[n_layers, N,
+page, KV, hd]`` pools, or of the ``[n_layers, B, S, KV, hd]`` ring cache,
+in place.
 
-Parameters are kept as the compute copies the JAX forward makes at each
-use: matrices, biases, the embedding and the LM head in bf16 (the JAX
-forward's ``astype(bfloat16)`` of its float32 masters, done once at load)
-and norm scales in float32.  Every product of a step is ``ops.linear``,
-or ``ops.linear_group`` for q/k/v and gate/up (the row-invariant kernel
-on the card, one launch a group); the head's is the JAX head's bf16
-x bf16 einsum with float32 accumulation (``preferred_element_type=
-float32``): the logits are never rounded to bf16.
+Parameters: the trainer keeps float32 masters; the forward computes on
+the copies the JAX forward makes at each use (``compute_params``):
+matrices, biases and the LM head in bf16 (its ``astype(bfloat16)``),
+norm scales in float32, and the embedding in bf16 for serving or, for
+training, float32 (JAX gathers rows of the float32 master and then casts,
+so the embedding's gradient is scatter-added in float32).  A serve engine
+holds the compute copies only, made once at load.  Every product is
+``ops.linear``, or ``ops.linear_group`` for q/k/v and gate/up (the
+row-invariant kernel on the card, one launch a group, with a gradient in
+training); the head's is the JAX head's bf16 x bf16 einsum with float32
+accumulation (``preferred_element_type=float32``): the logits are never
+rounded to bf16.
 
-Not ported yet (ROADMAP queue A items 8 and 9): the training forward,
-and the MoE, recurrent, enc-dec and VLM families.
+Not ported yet (ROADMAP queue A item 9): the MoE, recurrent, enc-dec and
+VLM families.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Union
+import functools
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -37,10 +48,12 @@ from .config import ArchConfig
 
 Params = Dict[str, Any]
 COMPUTE_DTYPE = torch.bfloat16
+MOE_AUX_WEIGHT = 0.01
+REMAT_POLICIES = ("full", "none")  # "dots": ROADMAP queue A item 13
 
 __all__ = ["COMPUTE_DTYPE", "layer_windows", "init_params", "compute_params",
-           "init_paged_kv", "paged_decode_step", "init_decode_state",
-           "decode_step", "lm_head"]
+           "forward", "lm_head", "token_ce_loss", "loss_fn", "init_paged_kv",
+           "paged_decode_step", "init_decode_state", "decode_step"]
 
 
 def check_dense(cfg: ArchConfig) -> None:
@@ -80,39 +93,46 @@ def _init_layer(gen, cfg: ArchConfig, device) -> Params:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
-                device: Union[str, torch.device] = "cuda") -> Params:
-    """Random-init compute parameters from a seeded ``torch.Generator`` on
+                device: Union[str, torch.device] = "cuda",
+                masters: bool = False) -> Params:
+    """Random-init parameters from a seeded ``torch.Generator`` on
     ``device`` (normal / sqrt(fan_in), as the JAX package's init; the
-    numbers differ from ``jax.random``'s).  One layer's float32 masters
-    exist at a time."""
+    numbers differ from ``jax.random``'s): the compute copies, one layer's
+    float32 masters existing at a time, or with ``masters=True`` the
+    float32 masters themselves (``compute_params`` of them is the same
+    compute tree)."""
     check_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    conv = (lambda t: t) if masters else compute_params
     Vp, D = cfg.vocab_padded, cfg.d_model
-    params: Params = {
-        "embed": _compute("embed", embed_init(gen, (Vp, D), device=dev)),
-        "head": _compute("head", dense_init(gen, (D, Vp), device=dev)),
+    params: Params = conv({
+        "embed": embed_init(gen, (Vp, D), device=dev),
+        "head": dense_init(gen, (D, Vp), device=dev),
         "ln_f": torch.zeros((D,), dtype=torch.float32, device=dev),
-        "layers": [compute_params(_init_layer(gen, cfg, dev))
-                   for _ in range(cfg.n_layers)],
-    }
+    })
+    params["layers"] = [conv(_init_layer(gen, cfg, dev))
+                        for _ in range(cfg.n_layers)]
     return params
 
 
-def _compute(name: str, t: torch.Tensor) -> torch.Tensor:
+def _compute(name: str, t: torch.Tensor, train: bool) -> torch.Tensor:
     """One float32 master -> its compute copy (see the module docstring)."""
-    if name.startswith("ln") or name.endswith("_norm"):
+    if name.startswith("ln") or name.endswith("_norm") or (
+            train and name == "embed"):
         return t.float()
     return t.to(COMPUTE_DTYPE)
 
 
-def compute_params(tree):
-    """A (sub)tree of float32 masters -> the compute copies, by name."""
+def compute_params(tree, train: bool = False):
+    """A (sub)tree of float32 masters -> the compute copies, by name; with
+    ``train`` the embedding stays float32.  The casts carry a gradient, and
+    a tree of compute copies maps to itself."""
     if isinstance(tree, list):
-        return [compute_params(x) for x in tree]
-    return {k: compute_params(v) if isinstance(v, (dict, list))
-            else _compute(k, v) for k, v in tree.items()}
+        return [compute_params(x, train) for x in tree]
+    return {k: compute_params(v, train) if isinstance(v, (dict, list))
+            else _compute(k, v, train) for k, v in tree.items()}
 
 
 def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
@@ -172,6 +192,87 @@ def lm_head(params: Params, x: torch.Tensor, norm_eps: float) -> torch.Tensor:
     """Final norm + vocab projection, float32 logits."""
     x = rms_norm(x, params["ln_f"], norm_eps)
     return ops.linear(x, params["head"], out_dtype=torch.float32)
+
+
+def _layer(lp: Params, cfg: ArchConfig, window: int, positions, q_block: int,
+           rope, x: torch.Tensor) -> torch.Tensor:
+    """One attention layer and its MLP over the whole sequence."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + A.attention_block(
+        lp["mixer"], h, n_heads=cfg.q_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
+        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, positions=positions,
+        q_block=q_block, rope=rope)
+    return _ffn(lp, cfg, x)
+
+
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            *, moe_impl: str = "dense", q_block: int = 512,
+            unroll: bool = False, mlstm_chunk: int = 0,
+            remat_policy: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/prefill forward -> (logits [B, S, Vp] float32, aux loss).
+
+    ``params`` are float32 masters (cast here, the casts carrying the
+    gradient to them) or compute copies (``compute_params(..., train=
+    True)``, used as they are).  ``remat_policy="full"`` recomputes each
+    layer in the backward (``torch.utils.checkpoint``, non-reentrant), as
+    ``jax.checkpoint`` around the JAX package's scanned layer; ``"none"``
+    keeps every activation; ``"dots"`` (save the products' outputs) is not
+    ported (ROADMAP queue A item 13).  ``moe_impl``, ``unroll`` and
+    ``mlstm_chunk`` are accepted and have no effect on the dense family,
+    whose aux loss is 0."""
+    check_dense(cfg)
+    if remat_policy not in REMAT_POLICIES:
+        if remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' (save the products' outputs) is not "
+                "ported: ROADMAP queue A item 13")
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES} or "
+                         f"'dots', got {remat_policy!r}")
+    p = compute_params(params, train=True)
+    tokens = batch["tokens"]
+    x = p["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+        B, S)
+    rope = (rope_cos_sin(pos, cfg.head_dim_, cfg.rope_theta)
+            if cfg.rope_theta > 0 else None)
+    windows = layer_windows(cfg)
+    remat = remat_policy == "full" and torch.is_grad_enabled()
+    for i, lp in enumerate(p["layers"]):
+        body = functools.partial(_layer, lp, cfg, int(windows[i]), pos,
+                                 q_block, rope)
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    logits = lm_head(p, x, cfg.norm_eps)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def token_ce_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                  aux=0.0) -> torch.Tensor:
+    """Next-token CE + z-loss (+ MoE aux) from full-sequence logits, over
+    all ``vocab_padded`` columns (the padded ones too, as the JAX
+    package's)."""
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    # -logp at each target; nll_loss's backward writes each row once
+    nll = F.nll_loss(logp.reshape(-1, logp.shape[-1]), targets.reshape(-1),
+                     reduction="none")
+    z = torch.logsumexp(logits, dim=-1)
+    zloss = 1e-4 * (z ** 2)
+    return nll.mean() + zloss.mean() + MOE_AUX_WEIGHT * torch.as_tensor(
+        aux, dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            *, moe_impl: str = "dense", q_block: int = 512,
+            unroll: bool = False, mlstm_chunk: int = 0,
+            remat_policy: str = "full") -> torch.Tensor:
+    """Next-token CE (+ z-loss + MoE aux) of ``forward``."""
+    logits, aux = forward(params, batch, cfg, moe_impl=moe_impl,
+                          q_block=q_block, unroll=unroll,
+                          mlstm_chunk=mlstm_chunk, remat_policy=remat_policy)
+    return token_ce_loss(logits, batch["tokens"], aux)
 
 
 def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,

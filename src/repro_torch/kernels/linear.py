@@ -21,6 +21,11 @@ instruction shape is the same for every M, so no M changes the order of
 any row's sums.  ``linear_group`` computes up to three products of one
 ``x`` in one launch (q/k/v, gate/up), each with its own plan, so each
 output is bitwise its lone launch.
+
+The trainer's forward products are the same launches.  Their gradient
+(``linear_backward``, through a ``torch.autograd.Function``) is two
+``torch.matmul`` calls a product: JAX transposes its dots with XLA, not
+with a Pallas kernel, and nothing needs the backward's rows invariant.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from . import _build
 from ._launch import stream_ptr
 from .ref import linear_ref
 
-__all__ = ["linear", "linear_group", "plan", "row_tiles", "linear_hbm_bytes"]
+__all__ = ["linear", "linear_group", "linear_backward", "plan", "row_tiles",
+           "linear_hbm_bytes"]
 
 launches = 0  # kernel launches; the main-path check reads and resets it
 
@@ -146,13 +152,10 @@ def _group(lib, ws: Sequence[torch.Tensor]) -> tuple:
     return rec
 
 
-def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                 out_dtype: Optional[torch.dtype] = None
-                 ) -> List[torch.Tensor]:
-    """``[x @ w for w in ws]`` (x [..., K], each w [K, N_w]) in one launch
-    on the card, each output bitwise what ``linear(x, w)`` gives; on the CPU
-    the plain version of each.  In x's type, or float32 with ``out_dtype =
-    torch.float32``."""
+def _forward(x: torch.Tensor, ws: Sequence[torch.Tensor],
+             out_dtype: Optional[torch.dtype]) -> List[torch.Tensor]:
+    """The products without a gradient: the kernel, one launch, for a CUDA
+    tensor; the plain version of each for a CPU tensor."""
     global launches
     if x.device.type == "cpu":
         return [linear_ref(x, w, out_dtype) for w in ws]
@@ -177,6 +180,70 @@ def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
                  f"{[tuple(w.shape) for w in ws]})")
     launches += 1
     return shaped
+
+
+def linear_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of ``y = x @ w`` for the cotangent ``dy``, by
+    ``torch.matmul``: the transposes of the JAX package's XLA dots, which
+    are no Pallas kernel.  bf16 products give ``dy @ w^T`` and ``x^T @ dy``
+    in bf16 (float32 accumulation), the calls autograd makes for ``x @ w``
+    on 2-D operands; the float32 head (``out_dtype=torch.float32``) takes
+    them in float32 on the exact float32 copies of its bf16 operands and
+    rounds ``dx`` and ``dw`` to bf16, as JAX transposes a dot with
+    ``preferred_element_type=float32``."""
+    x2 = x.reshape(-1, x.shape[-1])
+    dy2 = dy.reshape(-1, w.shape[1])
+    if out_dtype == torch.float32:
+        dx = dy2.mm(w.float().t()).to(x.dtype)
+        dw = x2.float().t().mm(dy2).to(w.dtype)
+    else:
+        dx = dy2.mm(w.t())
+        dw = x2.t().mm(dy2)
+    return dx.reshape(x.shape), dw
+
+
+class _LinearGroup(torch.autograd.Function):
+    """``_forward`` with a gradient: the forward is the kernel (or the
+    plain version on the CPU), the backward ``linear_backward`` of each
+    product, the members' ``dx`` summed last to first (the order in which
+    JAX's transpose meets them)."""
+
+    @staticmethod
+    def forward(ctx, x, out_dtype, *ws):
+        x = x.contiguous()
+        ctx.out_dtype = out_dtype
+        ctx.save_for_backward(x, *ws)
+        return tuple(_forward(x, ws, out_dtype))
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, *ws = ctx.saved_tensors
+        pairs = [linear_backward(x, w, dy, ctx.out_dtype)
+                 for w, dy in zip(ws, dys)]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            for dxg, _ in reversed(pairs):
+                dx = dxg if dx is None else dx + dxg
+        dws = [dw if ctx.needs_input_grad[2 + i] else None
+               for i, (_, dw) in enumerate(pairs)]
+        return (dx, None, *dws)
+
+
+def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                 out_dtype: Optional[torch.dtype] = None
+                 ) -> List[torch.Tensor]:
+    """``[x @ w for w in ws]`` (x [..., K], each w [K, N_w]) in one launch
+    on the card, each output bitwise what ``linear(x, w)`` gives; on the CPU
+    the plain version of each.  In x's type, or float32 with ``out_dtype =
+    torch.float32``.  Where autograd records (grad mode on and x or a w
+    requiring grad), the call carries a gradient (``_LinearGroup``); the
+    forward is the same launch."""
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(w.requires_grad for w in ws)):
+        return list(_LinearGroup.apply(x, out_dtype, *ws))
+    return _forward(x, ws, out_dtype)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,

@@ -109,14 +109,16 @@ def linear(x: torch.Tensor, w: torch.Tensor,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]`` with each row's bits independent of the
     other rows (``linear.linear``); ``out_dtype=torch.float32`` for the
-    LM head."""
+    LM head.  Carries a gradient where autograd records
+    (``linear.linear_backward``: ``torch.matmul``)."""
     return _linear.linear(x, w, out_dtype)
 
 
 def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
                  out_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
     """``[x @ w for w in ws]`` (up to three weights) in one launch, each
-    output bitwise its own ``linear(x, w)`` (``linear.linear_group``)."""
+    output bitwise its own ``linear(x, w)`` (``linear.linear_group``), with
+    a gradient as ``linear``."""
     return _linear.linear_group(x, ws, out_dtype)
 
 

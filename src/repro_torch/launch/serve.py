@@ -35,10 +35,13 @@ fixed ``generate()`` batch (no ``--continuous``), and both batchers
 ``--prompt-len``, ``--prefill-chunk`` and ``--spec-k`` / ``--draft``),
 with ``--temperature`` / ``--top-k`` / ``--top-p``, ``--gate`` /
 ``--gate-backend``, ``--attn-impl``, ``--deadline-s``, ``--max-retries``,
-``--trace``, ``--metrics-out`` and ``--fault-plan``.  The router and mesh
-and ``--snapshot-dir`` raise ``NotImplementedError`` naming their ROADMAP
-item.  Weights are random-init from ``--seed`` with a ``torch.Generator``
-(other numbers than the JAX package's for the same seed).
+``--trace``, ``--metrics-out``, ``--fault-plan`` and ``--snapshot-dir``
+(SIGTERM stops admission at the next wave boundary, drains in-flight work
+and snapshots the un-served queue through ``ckpt.CheckpointManager``; a
+later run with the same directory restores it first).  The router and
+mesh raise ``NotImplementedError`` naming their ROADMAP item.  Weights
+are random-init from ``--seed`` with a ``torch.Generator`` (other
+numbers than the JAX package's for the same seed).
 """
 from __future__ import annotations
 
@@ -49,15 +52,17 @@ import time
 import numpy as np
 
 from ..arch import model as M
+from ..ckpt import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..core import PlanterConfig, plant
 from ..data import load_dataset
 from ..device import resolve_device
+from ..dist.stragglers import PreemptionHandler
 from ..nn import attn_backend as AB
 from ..obs import Metrics, Tracer
 from ..serve.engine import (NOT_PORTED, ContinuousBatcher,
                             DeviceContinuousBatcher, ServeConfig, ServeEngine)
-from ..serve.faults import FaultPlan
+from ..serve.faults import FaultPlan, preempt_snapshot, warm_restart
 from ..serve.spec import train_draft
 
 
@@ -65,9 +70,6 @@ def _not_ported(args) -> str:
     """The ROADMAP item of the first mode asked for that is not ported."""
     if args.router or args.mesh or args.rebalance_margin is not None:
         return NOT_PORTED["mesh"]
-    if args.snapshot_dir:
-        return ("--snapshot-dir needs the checkpoint manager, not ported "
-                "yet: ROADMAP queue A item 8")
     if args.jax_profile:
         return "--jax-profile profiles JAX; the port runs no JAX"
     return ""
@@ -154,7 +156,9 @@ def main(argv=None):
                          "boundaries, e.g. 'nan:1@2,exhaust:0:2@3' "
                          "(serve.faults.FaultPlan.parse)")
     ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
-                    help="SIGTERM snapshot / warm restart (not ported)")
+                    help="continuous mode: on SIGTERM stop admitting, drain "
+                         "in-flight work and snapshot the un-served queue "
+                         "here; a later run warm-restarts from it")
     ap.add_argument("--jax-profile", default=None, metavar="DIR",
                     help="JAX profiler trace (not applicable to the port)")
     ap.add_argument("--device", default="cuda",
@@ -263,6 +267,18 @@ def main(argv=None):
     else:
         cb = ContinuousBatcher(engine, eos_token=-1, max_tokens=args.tokens,
                                **ft)
+    handler = None
+    if args.snapshot_dir:
+        manager = CheckpointManager(args.snapshot_dir)
+        restored = warm_restart(cb, manager)
+        if restored:
+            print(f"warm restart: {restored} un-served request(s) "
+                  f"restored from {args.snapshot_dir}")
+        # SIGTERM -> flag only; the serve loop below checks it at the next
+        # wave boundary (stop admitting, drain in-flight, snapshot whatever
+        # never reached a slot)
+        handler = PreemptionHandler(
+            lambda: preempt_snapshot(cb, manager)).install()
     # with sharing, a first wave populates the prefix cache
     split = (min(args.batch, args.requests) if args.share_prefix
              else args.requests)
@@ -270,9 +286,17 @@ def main(argv=None):
     for rid in range(split):
         cb.submit(rid, prompts[rid], features=feats[rid])
     cb.run(max_steps=budget)
-    for rid in range(split, args.requests):
-        cb.submit(rid, prompts[rid], features=feats[rid])
+    if handler is None or not handler.preempted:
+        # a pending SIGTERM stops admission at this wave boundary; in-flight
+        # work still drains below
+        for rid in range(split, args.requests):
+            cb.submit(rid, prompts[rid], features=feats[rid])
     done = cb.run(max_steps=budget)
+    if handler is not None:
+        if handler.drain():
+            print(f"preempted: un-served queue snapshotted to "
+                  f"{args.snapshot_dir} (warm restart restores it)")
+        handler.uninstall()
     dt = time.perf_counter() - t0
     n_tok = sum(len(v) for v in done.values())
     reasons = collections.Counter(cb.drop_reasons.values())

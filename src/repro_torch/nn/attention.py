@@ -8,19 +8,25 @@ positions with the identity table and the ring flag (``dense_view``), so
 on the card the dense step runs the same ``paged_attention`` kernel at the
 same ``S`` as the paged step, and the two give the same bits.
 
-The blocked training/prefill attention is not ported yet (ROADMAP queue A
-item 8).
+Training runs ``attention_block`` over ``attend_blocked``, the JAX
+package's blocked attention in plain torch (JAX runs no Pallas kernel
+there either), with its roundings: the q.k product in bf16, scaled in
+float32, masked and softmaxed in float32, P.V in bf16.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from . import attn_backend as AB
 from .attn_backend import PagedKV
-from .common import apply_rope, dense_init, rms_norm
+from .common import apply_rope, dense_init, rms_norm, rope_cos_sin
+
+DEFAULT_Q_BLOCK = 512
 
 
 def init_attention(gen: Optional[torch.Generator], d_model: int, n_heads: int,
@@ -65,6 +71,66 @@ def _project_qkv(p: Dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)
     return q, k, v
+
+
+def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor, window,
+                   *, causal: bool = True,
+                   q_block: int = DEFAULT_Q_BLOCK) -> torch.Tensor:
+    """Blocked softmax attention.  q [B,Sq,H,hd], k/v [B,Sk,H,hd] ->
+    [B, Sq, H*hd].
+
+    Query blocks of ``q_block`` rows (the last one padded), so the
+    [B,H,qb,Sk] score tile is the peak intermediate.  Roundings as the JAX
+    package's: the bf16 q.k einsum times ``1/sqrt(hd)``, which JAX
+    promotes to float32 (the scale is a numpy float64); the float32 mask
+    (``attn_backend.position_mask``) and softmax; the probabilities cast
+    to v's type and P.V in that type.
+    """
+    B, Sq, H, hd = q.shape
+    qb = min(q_block, Sq)
+    pad = (-Sq) % qb
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad))
+    nblk = (Sq + pad) // qb
+    kT = k.permute(0, 2, 3, 1)  # [B,H,hd,Sk]
+    vT = v.permute(0, 2, 1, 3)  # [B,H,Sk,hd]
+    scale = np.float32(1.0 / np.sqrt(hd))
+    outs = []
+    for i in range(nblk):
+        qi = q[:, i * qb:(i + 1) * qb]  # [B,qb,H,hd]
+        pi = q_pos[:, i * qb:(i + 1) * qb]
+        s = torch.einsum("bqhd,bhds->bhqs", qi, kT).float() * scale
+        m = AB.position_mask(pi, k_pos, window, causal)  # [B,qb,Sk]
+        s = s + m[:, None, :, :]
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhqs,bhsd->bqhd", p, vT))
+    out = torch.cat(outs, dim=1) if nblk > 1 else outs[0]
+    return out[:, :Sq].reshape(B, Sq, H * hd)
+
+
+def attention_block(p: Dict, x: torch.Tensor, *, n_heads: int,
+                    n_kv_heads: int, head_dim: int, rope_theta: float,
+                    window, qk_norm: bool, norm_eps: float,
+                    positions: Optional[torch.Tensor] = None,
+                    causal: bool = True, q_block: int = DEFAULT_Q_BLOCK,
+                    rope=None) -> torch.Tensor:
+    """Causal self-attention over the whole sequence (training and
+    prefill): q/k/v in one ``ops.linear_group`` launch, ``attend_blocked``,
+    ``wo`` through ``ops.linear``.  ``rope`` may pass ``rope_cos_sin`` of
+    ``positions`` computed once for every layer."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if rope is None and rope_theta > 0:
+        rope = rope_cos_sin(positions, head_dim, rope_theta)
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rope,
+                           qk_norm, norm_eps)
+    out = attend_blocked(q, AB.repeat_kv(k, n_heads),
+                         AB.repeat_kv(v, n_heads), positions, positions,
+                         window, causal=causal, q_block=q_block)
+    return ops.linear(out, p["wo"])
 
 
 def quantize_kv_int8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

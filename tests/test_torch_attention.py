@@ -337,3 +337,28 @@ def test_paged_attention_byte_model_counts_visible_rows():
                                    positions=pos, window=5, **kw)
     assert i8 == rows * 2 * (2 * 8 + 2 * 4) + 2 * 4 * 2 * 4 * 8 * 2 + (
         4 * 4 + 4 * 2) * 4
+
+
+@pytest.mark.parametrize("window,causal", [(0, True), (5, True), (0, False)])
+def test_attend_blocked_matches_jax(window, causal):
+    """The training attention (``attend_blocked``) on the same bf16 q, k,
+    v: 20 query rows in blocks of 8, the last one padded, against the JAX
+    package's under ``jax.jit``; within one bf16 ulp of the output's
+    largest magnitude (the same roundings after float32 sums that may
+    differ in the last bit, as the paged cases above)."""
+    rng = np.random.default_rng(window + 7 * causal)
+    B, S, H, hd = 2, 20, 4, 16
+    q, k, v = (rng.normal(0, 1, (B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    want = np.asarray(jax.jit(functools.partial(
+        JA.attend_blocked, window=window, causal=causal, q_block=8))(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+            jnp.asarray(pos), jnp.asarray(pos)).astype(jnp.float32))
+    got = TA.attend_blocked(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        torch.from_numpy(pos.copy()), torch.from_numpy(pos.copy()), window,
+        causal=causal, q_block=8)
+    assert got.shape == (B, S, H * hd) and got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(got.float().numpy() - want).max() <= ulp

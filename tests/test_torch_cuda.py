@@ -844,3 +844,76 @@ def test_cuda_dense_round_never_syncs(cuda_device, graph):
     fs.run(4)  # every slot free, the queue empty: identity steps
     assert int(cb._decode["pos"]) == pos
     assert all(torch.equal(a, b) for a, b in zip(planes, cb._decode["kv"]))
+
+
+# ------------------------------------------------------------ the trainer
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,f32", LINEAR_SHAPES[:5])
+def test_cuda_linear_backward_equals_autograd_of_plain(cuda_device, K, N,
+                                                       f32):
+    """``ops.linear`` with a gradient at M = 256 and 512: the forward is
+    one kernel launch within ``linear_limit`` of the plain version, and
+    given the same ``dy``, ``dx`` and ``dw`` are bitwise autograd's through
+    the plain product (``ref.linear_ref``; for the float32 head, the one
+    float32 product ``x.float() @ w.float()`` whose value ``linear_ref``
+    takes a row at a time): both are the same ``torch.matmul`` calls."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = torch.float32 if f32 else None
+    for M in (256, 512):
+        x, w = (torch.as_tensor(a).to(cuda_device).to(torch.bfloat16)
+                for a in _linear_case(M + N, M, K, N))
+        dy = torch.as_tensor(np.random.default_rng(M).standard_normal(
+            (M, N), np.float32)).to(cuda_device)
+        dy = dy if f32 else dy.to(torch.bfloat16)
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ops.reset_launch_counts()
+        y = ops.linear(xa, wa, out)
+        assert ops.launch_counts()["linear"] == 1
+        y.backward(dy)
+        xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+        want = (xb.float() @ wb.float()) if f32 else ref.linear_ref(xb, wb)
+        want.backward(dy)
+        assert ops.launch_counts()["linear"] == 1  # the backward is matmuls
+        bad = (y.detach().float() - want.detach().float()).abs() > \
+            linear_limit(x, w, want.detach(), f32)
+        assert not bad.any(), (M, int(bad.sum()))
+        assert xa.grad.dtype == torch.bfloat16 == wa.grad.dtype
+        assert torch.equal(xa.grad, xb.grad), (M, "dx")
+        assert torch.equal(wa.grad, wb.grad), (M, "dw")
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_linear_and_tracks_plain(cuda_device):
+    """One train step of the smoke config on the card: ``linear`` launches
+    exactly microbatches x (2 x 4 x layers + 1) (each layer's four products
+    in the forward and again in its recomputation under ``"full"`` remat,
+    the head once), no other kernel; the loss within 5e-3 relative of the
+    same step on the CPU (bf16 products summed in another order: about one
+    bf16 ulp of an activation) and every updated master finite."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, map_leaves
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    tcfg = TrainConfig(microbatches=2, q_block=32)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0))
+    batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        params, state = init_train_state(cfg, tcfg, 0, "cpu")
+        params = map_leaves(lambda l: [p.to(dev) for p in l.parts], params)
+        state = map_leaves(lambda l: [p.to(dev) for p in l.parts], state)
+        ops.reset_launch_counts()
+        params, state, loss = make_train_step(cfg, tcfg)(
+            params, state, {k: v.to(dev) for k, v in batch.items()})
+        losses[str(dev)] = float(loss)
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        if dev != "cpu":
+            assert counts == {"linear": 2 * (8 * cfg.n_layers + 1)}, counts
+            assert all(torch.isfinite(p).all() for leaf in leaves(params)
+                       for p in leaf.parts)
+    cpu, card = losses["cpu"], losses[str(cuda_device)]
+    assert abs(card - cpu) <= 5e-3 * abs(cpu), losses

@@ -255,3 +255,54 @@ def test_launcher_fault_plan_on_cpu(capsys):
         out = capsys.readouterr().out
         assert "fault plan: 2 fault(s) armed" in out
         assert len(done) > 0 and "served" in out
+
+
+# --------------------------------------------------- preemption + warm start
+def test_preempt_snapshot_warm_restart(both, tmp_path, capsys):
+    """Mirror of ``tests/test_faults.py`` ``test_preempt_snapshot_warm_
+    restart`` through the port's checkpoint manager: the un-served queue is
+    drained into a snapshot and a fresh batcher serves exactly those
+    requests.  The JAX package's ``warm_restart`` reads the port's
+    snapshot too, and the launcher's ``--snapshot-dir`` restores it."""
+    from repro.ckpt.manager import CheckpointManager as JaxManager
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch import serve
+
+    jp, tp, _, _ = both
+    scfg = TE.ServeConfig(max_batch=2, cache_len=32)
+
+    def batcher():
+        return TE.ContinuousBatcher(TE.ServeEngine(CFG, tp, scfg,
+                                                   device="cpu"),
+                                    eos_token=-1, max_tokens=MAX_TOKENS)
+
+    manager = CheckpointManager(str(tmp_path))
+    cb = batcher()
+    for rid in range(4):
+        cb.submit(rid, rid + 9, deadline_s=300.0 if rid == 0 else None)
+    assert TF.preempt_snapshot(cb, manager) == 4
+    assert not cb.queue  # drained: the dying process serves nothing more
+
+    fresh = batcher()
+    assert TF.warm_restart(fresh, manager) == 4
+    assert 0 in fresh.deadline  # remaining budget restored, not dropped
+    done = fresh.run(max_steps=60)
+    assert sorted(done) == list(range(4))
+    assert TF.warm_restart(batcher(),
+                           CheckpointManager(str(tmp_path / "none"))) == 0
+
+    jcb = JE.ContinuousBatcher(
+        JE.ServeEngine(jax_smoke("qwen2-1.5b"), jp,
+                       JE.ServeConfig(max_batch=2, cache_len=32)),
+        eos_token=-1, max_tokens=MAX_TOKENS)
+    assert JF.warm_restart(jcb, JaxManager(str(tmp_path))) == 4
+    assert len(jcb.queue) == 4
+
+    serve.main(["--smoke", "--device", "cpu", "--continuous", "--requests",
+                "2", "--tokens", "2", "--gate", "none", "--snapshot-dir",
+                str(tmp_path)])
+    out = capsys.readouterr().out
+    assert f"warm restart: 4 un-served request(s) restored from " \
+           f"{tmp_path}" in out
+    # the launcher's own ids 0 and 1 are among the restored ones
+    assert "served 4 requests (dropped 0" in out

@@ -45,6 +45,11 @@ def test_imports_every_module_without_jax():
             "serve.spec", "obs", "obs.metrics", "obs.trace",
             "launch.serve")}
         assert serve_slice <= set(names), serve_slice - set(names)
+        train_slice = {"repro_torch." + m for m in (
+            "data.tokens", "dist.compress", "dist.stragglers",
+            "train.optimizer", "train.step", "ckpt.manager",
+            "launch.train")}
+        assert train_slice <= set(names), train_slice - set(names)
         print("CLEAN", len(names))
     """)
     r = _run("-c", code)
