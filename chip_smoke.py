@@ -173,13 +173,60 @@ Phases, in order; the first failure exits non-zero:
    backward's matmuls, attention, optimizer and elementwise, other), idle
    share, peak memory, the model-FLOP share of the bf16 peak, and
    ``linear``'s forward at M = 256 beside cuBLAS and its bound (the
-   ``linear`` JSON row's ``train``).
+   ``linear`` JSON row's ``train``);
+16. the mesh-less router (``serve.router.ShardedServe``): phase 9's model,
+   gate, ServeConfig and 32 requests, each shard a device batcher as
+   phase 11's: (a) one shard: every stream, drop and reason bitwise
+   phase 11's batcher; (b) two shards: FIFO within each, each shard's
+   streams and drops bitwise a lone device batcher fed its requests in
+   their order; (c) ``ShardCrash(shard=1, at_drain=1)``, two retries,
+   shards taking 16-step turns: the crash logged first with work moved,
+   every request terminal once, every stream and drop bitwise (a)'s; (d)
+   a ``SlowShard`` (30 s, virtual) at every drain of shard 1 with
+   ``straggler_strikes`` 2: shard 1 evicted, shard 0 never, streams
+   (a)'s; (e) one routed round, eager (the wrappers count every launch):
+   ``fused_eb`` = the gate's tables x (1 gate call + the steps run; the
+   shards' pregate is off, their in-step gate on), ``paged_attention`` =
+   steps x 28, ``linear`` = steps x 113, nothing else; tokens/s and ms a
+   step of a warm wave with one and two shards; the launcher's
+   ``--continuous --router --page-size 16`` in a child process;
+17. MoE, after every earlier model is freed: qwen2-moe-a2.7b at its
+   published width and depth (24 layers, d 2048, 16/16 heads, hd 128, 60
+   experts padded to 64, top-4, expert d_ff 1408, 4 shared experts as one
+   MLP of 5,632, vocab 151,936), random weights from ``--seed``, phase
+   9's ServeConfig, gate and traffic: the host batcher's wrapper launches
+   exactly steps x (``paged_attention`` 24, ``linear`` 24 x 6 + 1,
+   ``moe_down_combine`` 24) (f); ``linear`` timed at the MoE products
+   (router N = 64, the experts' gate/up group N = 90,112, the shared
+   experts' N = 5,632 and their down); (b) ``moe_down_combine`` bitwise
+   its plain version on layer 0's ``w_down`` at M = 1, 7, 16, 128 and 200
+   with tied and zero combine weights, and on layer 0's inputs captured
+   from a C = 8 chunk of 16 sequences, where it is timed beside the plain
+   version, ``torch.einsum`` of the down product plus the weighted sum,
+   and the bound of what those inputs need; (a) the device batcher
+   (sync_every 16, prefill_chunk 8, graph): served + dropped = submitted;
+   (e) the host batcher == the device batcher at prefill_chunk 1,
+   bitwise; (c) chunk 8 == chunk 1 bitwise, every product of layer 0
+   (and ``moe_down_combine``) row-invariant, and 4 served streams
+   teacher-forced at C = 8 and C = 1 bitwise; (d) the same 4 streams
+   teacher-forced: with the plain ``moe_down_combine`` in the kernel
+   path, every logit bitwise; with the plain attention too, routed as the
+   kernel path (every token routed otherwise a near tie), the attention
+   kernel within one bf16 ulp of the plain output on every call's
+   inputs, and the logits' distance in 0.03 max|plain| printed (random
+   MoE layers grow one ulp of attention to about that, so phase 10's
+   gate does not hold end to end); (e)
+   the paged device batcher == the dense one on 16 single-token prompts,
+   bitwise; (f) the profiler's kernels over one round, exact (phase 11's
+   rule, with ``moe_down_combine`` 16 x 24); tokens/s, ms a step, device
+   ms a step by class, idle share and peak memory.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
 printed on the first line beside the card).
 
-Its last three lines are the kernels JSON, the card's ``name, power.limit``
+Its last three lines are the kernels JSON (``moe_down_combine``'s row
+last), the card's ``name, power.limit``
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
@@ -189,6 +236,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import sys
@@ -216,6 +264,7 @@ SOURCE = "src/repro_torch/kernels/csrc/eb_kernels.cu"
 LB_DM_SOURCE = "src/repro_torch/kernels/csrc/lb_dm_kernels.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 LINEAR_SOURCE = "src/repro_torch/kernels/csrc/linear.cu"
+MOE_SOURCE = "src/repro_torch/kernels/csrc/moe.cu"
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), FLOP/s
 PEAK_BF16_FLOPS = 989e12
 REPLACES = {
@@ -228,6 +277,8 @@ REPLACES = {
     # no Pallas kernel: the step's products are XLA dots in the JAX package
     # (attention.py:57-59 and :289, mlp.py:24-25, arch/model.py:330)
     "linear": "src/repro/nn/attention.py:57",
+    # no Pallas kernel: the MoE block's two XLA einsums (nn/moe.py:73-75)
+    "moe_down_combine": "src/repro/nn/moe.py:73",
 }
 LB_MODELS = ("svm", "nb", "kmeans", "pca", "ae")
 
@@ -1232,45 +1283,53 @@ def linear_case(dev, M, K, N, seed):
     return x, w
 
 
-def check_linear(cfg, dev) -> str:
-    """(a) every row of each of the step's eight products bitwise equal to
-    the same row in another row count, at another position and alone, for
-    M in LINEAR_ROWS; (b) within ``linear_limit`` (fixed before any run:
+def check_linear(cfg, dev, weights=None, tag: str = "8 linear") -> str:
+    """(a) every row of each of ``weights`` ((name, K, N, float32 out);
+    the step's eight products by default) bitwise equal to the same row in
+    another row count, at another position and alone, for M in
+    LINEAR_ROWS; (b) within ``linear_limit`` (fixed before any run:
     2 K 2^-24 sum|x||w| for two float32 summation orders, plus one bf16 ulp
     of the output) of the plain version at the timed M."""
     from test_torch_cuda import linear_limit
 
     from repro_torch.kernels import ops, ref
 
+    weights = weights or linear_weights(cfg)
     n_rows = n_cmp = 0
-    for i, (name, K, N, f32) in enumerate(linear_weights(cfg)):
+    worst = 0.0
+    for i, (name, K, N, f32) in enumerate(weights):
         out = torch.float32 if f32 else None
         X, w = linear_case(dev, max(LINEAR_ROWS) + 7, K, N, SEED + i)
         for M in LINEAR_ROWS:
             a = ops.linear(X[:M], w, out)
             b = ops.linear(X[7:7 + M].contiguous(), w, out)
             if not torch.equal(a[7:], b[: M - 7]):
-                fail(f"(8 linear) {name}: rows differ between [{M}, {K}] "
+                fail(f"({tag}) {name}: rows differ between [{M}, {K}] "
                      f"operands at offsets 0 and 7")
             for r in sorted({0, M // 2, M - 1}):
                 alone = ops.linear(X[r:r + 1].contiguous(), w, out)
                 if not torch.equal(alone[0], a[r]):
-                    fail(f"(8 linear) {name}: row {r} alone differs from "
+                    fail(f"({tag}) {name}: row {r} alone differs from "
                          f"row {r} of a [{M}, {K}] operand")
                 n_cmp += 1
             n_rows += M
         for M in LINEAR_TIMED:
             x = X[:M].contiguous()
             got, want = ops.linear(x, w, out), ref.linear_ref(x, w, out)
-            bad = (got.float() - want.float()).abs() > linear_limit(
-                x, w, want, f32)
+            err = (got.float() - want.float()).abs()
+            limit = linear_limit(x, w, want, f32)
+            bad = err > limit
             if bad.any():
-                fail(f"(8 linear) {name} at M = {M}: {int(bad.sum())} "
+                fail(f"({tag}) {name} at M = {M}: {int(bad.sum())} "
                      f"elements past the limit of the plain version")
-    return (f"(a) the 8 weight shapes x M in {LINEAR_ROWS}: {n_rows} rows "
-            f"bitwise equal at offsets 0 and 7, {n_cmp} rows bitwise equal "
-            f"computed alone; (b) within the limit of the plain version at "
-            f"M in {LINEAR_TIMED}")
+            worst = max(worst, (err / limit.clamp_min(1e-30)).max().item())
+        del X, w
+    return (f"(a) the {len(weights)} weight shapes "
+            f"{[(n, K, N) for n, K, N, _ in weights]} x M in {LINEAR_ROWS}: "
+            f"{n_rows} rows bitwise equal at offsets 0 and 7, {n_cmp} rows "
+            f"bitwise equal computed alone; (b) within the limit of the "
+            f"plain version at M in {LINEAR_TIMED} (worst {worst:.4f} of "
+            f"it)")
 
 
 def linear_groups(cfg):
@@ -1325,8 +1384,9 @@ def rotating(copies, call):
     return fn
 
 
-def linear_timings(cfg, dev, Ms=LINEAR_TIMED):
-    """Each of the eight products and the two groups at M in ``Ms``,
+def linear_timings(cfg, dev, Ms=LINEAR_TIMED, units=None):
+    """Each of the eight products and the two groups at M in ``Ms`` (or
+    ``units``: (name, [(K, N, float32 out)]) of ``moe_linear_units``),
     L2-cold (rotating over copies of the weights past COLD_BYTES): the
     kernel's events and device time, cuBLAS's (``x @ w``, or the head's
     ``torch.mm(out_dtype=float32)``; a group's members one after another),
@@ -1334,8 +1394,14 @@ def linear_timings(cfg, dev, Ms=LINEAR_TIMED):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.linear import linear_hbm_bytes
 
-    shapes = {name: (K, N, f32) for name, K, N, f32 in linear_weights(cfg)}
-    units = [(name, (name,)) for name in shapes] + linear_groups(cfg)
+    if units is None:
+        shapes = {name: (K, N, f32) for name, K, N, f32 in linear_weights(cfg)}
+        units = [(name, (name,)) for name in shapes] + linear_groups(cfg)
+    else:
+        shapes = {f"{name}{j}": m for name, members in units
+                  for j, m in enumerate(members)}
+        units = [(name, tuple(f"{name}{j}" for j in range(len(members))))
+                 for name, members in units]
     per = []
     for i, (name, members) in enumerate(units):
         f32 = shapes[members[0]][2]
@@ -1480,8 +1546,9 @@ def serve_workload(cfg, params, gate, prompts, feats, dev, attn_impl="auto"):
     return cb, time.perf_counter() - t0, ops.launch_counts()
 
 
-def drive_serve(dev, seed: int) -> ServeRun:
-    """qwen2-1.5b at full width through ServeEngine + ContinuousBatcher."""
+def drive_serve(dev, seed: int, arch: str = "qwen2-1.5b") -> ServeRun:
+    """``arch`` (qwen2-1.5b) at full width through ServeEngine +
+    ContinuousBatcher."""
     from repro_torch.arch import model as M
     from repro_torch.configs import get_config
     from repro_torch.core import PlanterConfig, plant
@@ -1489,7 +1556,7 @@ def drive_serve(dev, seed: int) -> ServeRun:
     from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
                                           ServeEngine)
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(arch)
     params = M.init_params(cfg, seed, dev)
     ds = load_dataset("unsw", n=4000)
     gate = plant(PlanterConfig(model="rf", size="S", device=str(dev)),
@@ -1513,17 +1580,15 @@ def drive_serve(dev, seed: int) -> ServeRun:
 
 def check_serve(run: ServeRun) -> str:
     cb, cfg = run.cb, run.cfg
-    if run.launches["paged_attention"] != cb.steps * cfg.n_layers:
-        fail(f"paged_attention launched {run.launches['paged_attention']} "
-             f"times in {cb.steps} steps of {cfg.n_layers} layers")
+    for k, n in step_kernels(cfg).items():
+        if run.launches[k] != cb.steps * n:
+            fail(f"{k} launched {run.launches[k]} times in {cb.steps} "
+                 f"steps of {n} launches")
     if run.launches["fused_eb"] < SERVE_REQUESTS:
         fail(f"fused_eb launched {run.launches['fused_eb']} times for "
              f"{SERVE_REQUESTS} admissions")
-    if run.launches["linear"] != cb.steps * step_products(cfg):
-        fail(f"linear launched {run.launches['linear']} times in {cb.steps} "
-             f"steps of {step_products(cfg)} products")
     others = {k: n for k, n in run.launches.items()
-              if n and k not in ("paged_attention", "fused_eb", "linear")}
+              if n and k not in ("fused_eb", *step_kernels(cfg))}
     if others:
         fail(f"the serve path launched other kernels: {others}")
     served, dropped = set(cb.done), set(cb.dropped)
@@ -1550,15 +1615,29 @@ def check_serve(run: ServeRun) -> str:
 
 
 def step_products(cfg) -> int:
-    """``linear`` launches a serve step: 4 a layer (the q/k/v group, wo,
-    the gate/up group, w_down) and the head."""
+    """``linear`` launches a serve step: 4 a layer with an MLP (the q/k/v
+    group, wo, the gate/up group, w_down), 4 with an MoE block (the q/k/v
+    group, wo, the router, the experts' gate/up group) and 2 more with its
+    shared experts (their gate/up group and down), and the head."""
+    if cfg.n_experts:
+        return (4 + 2 * bool(cfg.n_shared_experts)) * cfg.n_layers + 1
     return 4 * cfg.n_layers + 1
+
+
+def step_kernels(cfg) -> Dict[str, int]:
+    """The wrapper launches of one serve step by kernel (without the
+    gate's): ``paged_attention`` once a layer, ``linear``
+    ``step_products``, and ``moe_down_combine`` once an MoE layer."""
+    want = {"paged_attention": cfg.n_layers, "linear": step_products(cfg)}
+    if cfg.n_experts:
+        want["moe_down_combine"] = cfg.n_layers
+    return want
 
 
 def kernel_class(name: str) -> str:
     """A device kernel's class in a serve step's time."""
     name = name.lower()
-    for cls in ("paged_attention", "fused_eb", "linear"):
+    for cls in ("paged_attention", "fused_eb", "linear", "moe_down_combine"):
         if cls in name:
             return cls
     if any(w in name for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
@@ -1646,6 +1725,92 @@ def check_captured_attention(run: ServeRun, dev) -> str:
             f"{CAPTURE_STEPS} ({n[0]} calls) within one bf16 ulp of the "
             f"plain output (worst {worst[0]:.2f} ulp); its served streams "
             f"agree with the kernel run's on {np.mean(agree):.4f} of tokens")
+
+
+@contextlib.contextmanager
+def plain_moe():
+    """The MoE block's expert down product and combine through the plain
+    version (``ref.moe_down_combine_ref``) on the card, inside the block."""
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.moe_down_combine
+    ops.moe_down_combine = ref.moe_down_combine_ref
+    try:
+        yield
+    finally:
+        ops.moe_down_combine = kernel
+
+
+class ForcedRouting:
+    """The kernel path's top-k experts at every ``nn.moe.route`` call
+    (``record``), imposed on another path's calls in the same order
+    (``replay``), with that path's own gates as the weights.  Routing is
+    discontinuous: where a token's k-th and (k+1)-th router logits lie
+    within a rounding of each other, a one-ulp difference upstream picks
+    the other expert and everything downstream moves.  So the other path
+    is held to the kernel path's routing, and every token it would have
+    routed otherwise must be such a near tie: its k-th and (k+1)-th logits
+    within 2 LOGIT_TOL of its largest: ``loose`` counts the flips that
+    are not, ``worst`` is the largest gap over that bound.  With
+    ``misroute`` (the control of phase 17 (d)) each token's top expert is
+    replaced by its best-gated expert that the kernel path did not pick."""
+
+    def __init__(self):
+        self.calls, self.flips, self.rows, self.at = [], 0, 0, 0
+        self.loose, self.worst = 0, 0.0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.nn import moe
+
+        real = moe.route
+        moe.route = lambda *a: fn(real, *a)
+        try:
+            yield
+        finally:
+            moe.route = real
+
+    def record(self):
+        def rec(real, x, router, n_experts, top_k):
+            out = real(x, router, n_experts, top_k)
+            self.calls.append(out[1])
+            return out
+        return self._patched(rec)
+
+    @contextlib.contextmanager
+    def replay(self, misroute: bool = False):
+        from repro_torch.kernels import ops
+        from repro_torch.nn import moe
+
+        self.flips = self.rows = self.at = self.loose = 0
+        self.worst = 0.0
+
+        def rep(real, x, router, n_experts, top_k):
+            gates, idx, _ = real(x, router, n_experts, top_k)
+            forced = self.calls[self.at]
+            self.at += 1
+            if misroute:
+                best = gates.scatter(-1, forced, -1.0).argmax(-1)
+                forced = torch.cat([best[..., None], forced[..., 1:]], -1)
+                return gates, forced, moe.topk_weights(gates, forced)
+            flip = (idx.sort(-1).values != forced.sort(-1).values).any(-1)
+            if flip.any():
+                logits = ops.linear(x, router.to(x.dtype)).float()
+                top = logits[..., :n_experts].sort(-1, descending=True).values
+                gap = top[..., top_k - 1] - top[..., top_k]
+                bound = 2 * LOGIT_TOL * logits[..., :n_experts].abs().amax(-1)
+                over = gap[flip] / bound[flip].clamp_min(1e-30)
+                self.loose += int((over > 1).sum())
+                self.worst = max(self.worst, over.max().item())
+            self.flips += int(flip.sum())
+            self.rows += flip.numel()
+            return gates, forced, moe.topk_weights(gates, forced)
+
+        with self._patched(rep):
+            yield
+        if self.at != len(self.calls):
+            fail(f"(17d) a replayed path made {self.at} routing calls, the "
+                 f"kernel path {len(self.calls)}")
 
 
 def teacher_rows(run: ServeRun, done: Dict[Any, list], dev, impl: str,
@@ -1782,7 +1947,8 @@ DEVICE_ROUND, DEVICE_CHUNK = 16, 8  # sync_every, prefill_chunk of (a)
 PROFILER_SPINS = 256
 OUR_KERNELS = ("bucketize_kernel", "ternary_match_kernel", "fused_eb_kernel",
                "lb_lookup_kernel", "bnn_counts_kernel", "bnn_rows_kernel",
-               "paged_attention_kernel", "linear_wgmma_kernel")
+               "paged_attention_kernel", "linear_wgmma_kernel",
+               "moe_down_combine_kernel")
 
 
 @dataclasses.dataclass
@@ -1842,11 +2008,11 @@ def check_device_main(d: DeviceRun, run: ServeRun) -> str:
     """(a) the terminal states, the gate's verdicts, the pool, the path's
     kernels."""
     cb, cfg = d.cb, run.cfg
-    for k in ("paged_attention", "fused_eb", "linear"):
+    for k in ("fused_eb", *step_kernels(cfg)):
         if d.launches[k] <= 0:
             fail(f"the device batcher did not launch {k}: {d.launches}")
     others = {k: n for k, n in d.launches.items()
-              if n and k not in ("paged_attention", "fused_eb", "linear")}
+              if n and k not in ("fused_eb", *step_kernels(cfg))}
     if others:
         fail(f"the device batcher launched other kernels: {others}")
     served, dropped = set(cb.done), set(cb.dropped)
@@ -1895,11 +2061,23 @@ def same_run(name: str, a, b) -> None:
         fail(f"{name}: streams or drops differ")
 
 
+def layer_products(layer, prefix: str = ""):
+    """(name, weight) of a layer's matrices (the 2-D bf16 leaves), in tree
+    order."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            yield from layer_products(v, f"{prefix}{k}/")
+        elif v.dim() == 2 and v.dtype == torch.bfloat16:
+            yield f"{prefix}{k}", v
+
+
 def gemm_rows_invariant(run: ServeRun, dev) -> str:
     """Each of layer 0's products through ``ops.linear``, the step's
-    product: a row of a chunked step's [16 x DEVICE_CHUNK, K] operand has
-    the bits of the same row in a token-by-token step's [16, K] (random
-    bf16 activations); fails otherwise."""
+    product (and for an MoE layer ``ops.moe_down_combine`` on its
+    ``w_down``, each row's top-k of the real experts): a row of a chunked
+    step's [16 x DEVICE_CHUNK, K] operand has the bits of the same row in a
+    token-by-token step's [16, K] (random bf16 activations); fails
+    otherwise."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
@@ -1907,11 +2085,7 @@ def gemm_rows_invariant(run: ServeRun, dev) -> str:
     layer = run.params["layers"][0]
     B = SERVE["max_batch"]
     names = []
-    for name, w in (("wq", layer["mixer"]["wq"]), ("wk", layer["mixer"]["wk"]),
-                    ("wv", layer["mixer"]["wv"]), ("wo", layer["mixer"]["wo"]),
-                    ("w_gate", layer["mlp"]["w_gate"]),
-                    ("w_up", layer["mlp"]["w_up"]),
-                    ("w_down", layer["mlp"]["w_down"])):
+    for name, w in layer_products(layer):
         x = torch.randn((B * DEVICE_CHUNK, w.shape[0]), generator=gen,
                         device=dev).to(w.dtype)
         rows = x.reshape(B, DEVICE_CHUNK, -1)[:, 0].contiguous()
@@ -1921,15 +2095,32 @@ def gemm_rows_invariant(run: ServeRun, dev) -> str:
                  f"[{B * DEVICE_CHUNK}, K] product differs from its "
                  f"[{B}, K] product's")
         names.append(f"{name} {tuple(w.shape)}")
+    if "moe" in layer:
+        from test_torch_cuda import combine_case
+
+        w = layer["moe"]["w_down"]
+        E, F, D = w.shape
+        c = combine_case(SEED, B * DEVICE_CHUNK, E, run.cfg.n_experts,
+                         run.cfg.n_experts_active, dev)
+        h = torch.randn((B * DEVICE_CHUNK, E, F), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        rows = h.reshape(B, DEVICE_CHUNK, E, F)[:, 0].contiguous()
+        crow = c.reshape(B, DEVICE_CHUNK, E)[:, 0].contiguous()
+        if not torch.equal(
+                ops.moe_down_combine(h, w, c).reshape(B, DEVICE_CHUNK, D)[:, 0],
+                ops.moe_down_combine(rows, w, crow)):
+            fail(f"(d) moe_down_combine {tuple(w.shape)}: a row differs "
+                 f"between [{B * DEVICE_CHUNK}, ...] and [{B}, ...] calls")
+        names.append(f"moe/w_down {tuple(w.shape)} (moe_down_combine)")
     return ", ".join(names)
 
 
-def check_chunked(chunked, tbt, run: ServeRun, dev) -> str:
+def check_chunked(chunked, tbt, run: ServeRun, dev, tag: str = "(d)") -> str:
     """(d) chunk 8 against token-by-token: the same drops and every stream
     bitwise equal (ROADMAP §C.5)."""
     a = wave_streams(chunked)
-    same_run("(d) chunk 8 vs 1", chunked, tbt)
-    return (f"(d) chunk {DEVICE_CHUNK} vs 1: all {len(a)} streams bitwise "
+    same_run(f"{tag} chunk 8 vs 1", chunked, tbt)
+    return (f"{tag} chunk {DEVICE_CHUNK} vs 1: all {len(a)} streams bitwise "
             f"equal ({sum(len(t) for t in a.values())} tokens), drops "
             f"equal; a row of each product of layer 0 has the same bits in "
             f"[{SERVE['max_batch']} x {DEVICE_CHUNK}, K] and "
@@ -2036,10 +2227,10 @@ def round_counts(cb, run: ServeRun, dev, tag: str,
     up to PROFILE_TRIES rounds, and passes only on an exact match (a short
     count is never accepted).  Returns (counts, steps, every try's
     counts)."""
-    L, T = run.cfg.n_layers, gate_tables(run.gate)
-    want = {"paged_attention_kernel": DEVICE_ROUND * L,
-            "fused_eb_kernel": (DEVICE_ROUND + 1) * T,
-            "linear_wgmma_kernel": DEVICE_ROUND * step_products(run.cfg)}
+    T = gate_tables(run.gate)
+    want = {f"{k}_kernel" if k != "linear" else "linear_wgmma_kernel":
+            DEVICE_ROUND * n for k, n in step_kernels(run.cfg).items()}
+    want["fused_eb_kernel"] = (DEVICE_ROUND + 1) * T
     want = {k: n for k, n in want.items() if n}
     # the same wave unprofiled first, so that every shape key a round's
     # wave takes is captured before a profiler window: late in a full run
@@ -2863,6 +3054,620 @@ def train_linear_row(cfg, dev, launches: int, backward_ms) -> Dict[str, Any]:
     return row
 
 
+# ------------------------------------------------------------ phase 16
+ROUTER_SHARDS = 2  # (b)-(e)
+ROUTER_STRIKES = 2  # (d): straggler_strikes
+ROUTER_SLOW_S = 30.0  # (d): SlowShard's virtual delay at each drain
+
+
+def sharded(run: ServeRun, dev, n_shards: int, graph: bool = True, **kw):
+    """Phase 9's model, gate and ServeConfig through the mesh-less router:
+    ``n_shards`` shards, each a device batcher as phase 11's (sync_every
+    DEVICE_ROUND, prefill_chunk DEVICE_CHUNK), ``kw`` (faults, retries,
+    strikes) to the router."""
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.router import ShardedServe
+
+    return ShardedServe(run.cfg, run.params, ServeConfig(**SERVE), None,
+                        gate=run.gate, eos_token=-1, max_tokens=SERVE_TOKENS,
+                        sync_every=DEVICE_ROUND, prefill_chunk=DEVICE_CHUNK,
+                        n_shards=n_shards, device=dev, graph=graph, **kw)
+
+
+def route_wave(r, run: ServeRun, dev, tag=None, **run_kw) -> float:
+    """Phase 9's 32 requests (ids ``(tag, i)`` past the first wave) through
+    router ``r`` to the end; seconds on the host clock, synchronised."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i, (p, f) in enumerate(zip(run.prompts, run.feats)):
+        r.submit(i if tag is None else (tag, i), p, features=f)
+    r.run(max_steps=20000, **run_kw)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def router_steps(r) -> int:
+    return sum(b.steps_executed for b in r.batchers)
+
+
+def timed_route(r, run: ServeRun, dev) -> Dict[str, float]:
+    """A warm wave through ``r``: tokens/s and ms per step run (the
+    shards' steps one after another on the one card)."""
+    s0 = router_steps(r)
+    seconds = route_wave(r, run, dev, tag="timed")
+    steps = router_steps(r) - s0
+    n_tok = sum(len(t) for k, t in r.done.items()
+                if isinstance(k, tuple) and k[0] == "timed")
+    return {"tokens": n_tok, "seconds": seconds, "steps": steps,
+            "tokens_s": n_tok / seconds, "ms_step": seconds / steps * 1e3}
+
+
+def check_terminal_once(r, n: int, tag: str) -> None:
+    served, dropped = set(wave_streams(r)), set(first_wave_drops(r)[0])
+    if served & dropped or len(served) + len(dropped) != n or len(
+            first_wave_drops(r)[0]) != len(dropped):
+        fail(f"{tag}: served {len(served)} + dropped {len(dropped)} is not "
+             f"the {n} submitted, each terminal once")
+
+
+def check_replayed(r, want, tag: str) -> None:
+    """Every stream of ``r``'s first wave bitwise ``want``'s, every drop
+    reason ``want``'s."""
+    if wave_streams(r) != wave_streams(want):
+        bad = [k for k, t in wave_streams(r).items()
+               if wave_streams(want).get(k) != t]
+        fail(f"{tag}: streams differ from (a)'s: {bad[:5]}")
+    if first_wave_drops(r)[1] != first_wave_drops(want)[1]:
+        fail(f"{tag}: drops {first_wave_drops(r)[1]} differ from (a)'s "
+             f"{first_wave_drops(want)[1]}")
+
+
+def drive_router(run: ServeRun, d: DeviceRun, dev) -> Dict[str, Any]:
+    """(a) one shard == phase 11's device batcher, bitwise; (b) two shards:
+    FIFO within each, each shard's streams bitwise a lone device batcher
+    fed its requests in their order; tokens/s and ms a step of both."""
+    from repro_torch.kernels import ops
+
+    one = sharded(run, dev, 1)
+    ops.reset_launch_counts()
+    one_s = route_wave(one, run, dev)
+    launches = ops.launch_counts()
+    same_run("(16a) one shard vs phase 11's device batcher", one, d.cb)
+    check_terminal(one, run, "(16a)", SERVE_TOKENS)
+    for k in ("fused_eb", *step_kernels(run.cfg)):
+        if launches[k] <= 0:
+            fail(f"(16a) the router did not launch {k}: {launches}")
+    two = sharded(run, dev, ROUTER_SHARDS)
+    two_s = route_wave(two, run, dev)
+    check_terminal(two, run, "(16b)", SERVE_TOKENS)
+    for s, rids in enumerate(two.assigned):
+        if not rids or rids != sorted(rids):
+            fail(f"(16b) shard {s} holds {rids}: empty, or not FIFO")
+        lone = device_batcher(run, dev)
+        for rid in rids:
+            lone.submit(rid, run.prompts[rid], features=run.feats[rid])
+        lone.run(max_steps=20000)
+        for rid in rids:
+            if two.done.get(rid) != lone.done.get(rid) or (
+                    two.drop_reasons.get(rid) != lone.drop_reasons.get(rid)):
+                fail(f"(16b) request {rid} on shard {s} differs from the "
+                     f"lone batcher's")
+        del lone
+    torch.cuda.empty_cache()
+    return dict(one=one, one_s=one_s, two=two, two_s=two_s,
+                launches=launches, t_one=timed_route(one, run, dev),
+                t_two=timed_route(two, run, dev))
+
+
+def check_router_faults(run: ServeRun, one, dev) -> str:
+    """(c) ``ShardCrash(shard=1, at_drain=1)``, two retries, shards taking
+    DEVICE_ROUND-step turns: the crash is logged first, some work moves,
+    every request is terminal once and every stream and drop is (a)'s;
+    (d) shard 1 slowed by ROUTER_SLOW_S (virtually) at each drain with
+    ``straggler_strikes`` ROUTER_STRIKES: evicted, shard 0 never, and the
+    same streams."""
+    from repro_torch.serve.faults import FaultPlan, ShardCrash, SlowShard
+
+    crash = sharded(run, dev, ROUTER_SHARDS, max_retries=2,
+                    fault_injector=FaultPlan(
+                        [ShardCrash(shard=1, at_drain=1)]).injector())
+    route_wave(crash, run, dev, drain_chunk=DEVICE_ROUND)
+    log = crash.failover_log
+    if not log or log[0][:2] != (1, "crash-injected") or log[0][2] <= 0:
+        fail(f"(16c) failover log {log}: no crash of shard 1 that moved work")
+    if crash.alive != [True, False] or not crash.retries:
+        fail(f"(16c) alive {crash.alive}, retries {crash.retries}")
+    check_terminal_once(crash, SERVE_REQUESTS, "(16c)")
+    check_replayed(crash, one, "(16c)")
+    slow = sharded(run, dev, ROUTER_SHARDS, max_retries=2,
+                   straggler_strikes=ROUTER_STRIKES,
+                   fault_injector=FaultPlan(
+                       [SlowShard(shard=1, delay_s=ROUTER_SLOW_S, at_drain=i)
+                        for i in range(8)]).injector())
+    route_wave(slow, run, dev, drain_chunk=DEVICE_ROUND)
+    if not any(why == "straggler" for _, why, _ in slow.failover_log) or (
+            slow.alive != [True, False]):
+        fail(f"(16d) failover log {slow.failover_log}, alive {slow.alive}: "
+             f"the slow shard was not the one evicted")
+    check_terminal_once(slow, SERVE_REQUESTS, "(16d)")
+    check_replayed(slow, one, "(16d)")
+    hops = len(crash.retries)
+    slow_log = slow.failover_log
+    del crash, slow
+    torch.cuda.empty_cache()
+    return (f"(c) ShardCrash(shard=1, at_drain=1), drain_chunk "
+            f"{DEVICE_ROUND}: failover log {log}, {hops} requests replayed "
+            f"on shard 0; every request terminal once, every stream and drop "
+            f"bitwise (a)'s; (d) SlowShard({ROUTER_SLOW_S} s) on shard 1 at "
+            f"every drain, straggler_strikes {ROUTER_STRIKES}: failover log "
+            f"{slow_log}, shard 0 kept; every stream and drop bitwise (a)'s")
+
+
+def check_router_launches(run: ServeRun, dev) -> str:
+    """(e) one routed round, eager (the wrappers count every launch; a
+    CUDA graph's replays tick no counter): the router's gate call, then
+    each shard's first round of DEVICE_ROUND steps (pregate off, the
+    in-step gate on): ``fused_eb`` = the gate's tables x (1 + the steps
+    run), ``paged_attention`` = steps x layers, ``linear`` = steps x
+    ``step_products``, and nothing else."""
+    from repro_torch.kernels import ops
+
+    r = sharded(run, dev, ROUTER_SHARDS, graph=False)
+    for i, (p, f) in enumerate(zip(run.prompts, run.feats)):
+        r.submit(i, p, features=f)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    r.run(max_steps=DEVICE_ROUND)
+    torch.cuda.synchronize(dev)
+    got = {k: n for k, n in ops.launch_counts().items() if n}
+    steps = router_steps(r)
+    T = gate_tables(run.gate)
+    want = {k: steps * n for k, n in step_kernels(run.cfg).items()}
+    want["fused_eb"] = T * (1 + steps)
+    if steps != ROUTER_SHARDS * DEVICE_ROUND or got != want:
+        fail(f"(16e) one routed round: {steps} steps, launches {got}, "
+             f"expected {ROUTER_SHARDS} x {DEVICE_ROUND} steps and {want}")
+    del r
+    torch.cuda.empty_cache()
+    return (f"(e) one routed round (eager, {ROUTER_SHARDS} shards x "
+            f"{DEVICE_ROUND} steps): wrapper launches {got} == {T} tables x "
+            f"(1 gate call + {steps} steps), {steps} x {run.cfg.n_layers}, "
+            f"{steps} x {step_products(run.cfg)}")
+
+
+def launcher_router(dev) -> str:
+    """``python -m repro_torch.launch.serve --continuous --router
+    --page-size 16`` in a child process on the card: exit 0, one shard."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--continuous",
+         "--router", "--page-size", "16"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("router:", "[router]"))]
+    if proc.returncode != 0 or len(lines) != 2 or "1 shard" not in lines[0]:
+        fail(f"(16) the launcher's --router run: rc {proc.returncode}, "
+             f"{proc.stdout[-800:]} {proc.stderr[-2000:]}")
+    return (f"launcher --continuous --router --page-size 16 "
+            f"({time.perf_counter() - t0:.1f} s): {' | '.join(lines)}")
+
+
+# ------------------------------------------------------------ phase 17
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_FORCED = 4  # (d) requests teacher-forced (the plain MoE is slow)
+# (d): deltas a position's logits may lie from the reference path's, and
+# on average over the positions: about 2x and 1.4x the largest readings of
+# one rounding's effect (the plain path 1.961 / 1.193 at worst / on
+# average, the witness 3.169 / 1.446), far under the control's (59.661 /
+# 46.908; all four on the H100, seed 0)
+MOE_LOGIT_LIMIT = 6.0
+MOE_LOGIT_MEAN = 2.0
+MOE_ROWS = (1, 7, 16, 128, 200)  # (b): M of the kernel vs plain
+
+
+def moe_kernel_row(moe: ServeRun, dev, captured) -> Dict[str, Any]:
+    """(b) ``moe_down_combine`` bitwise its plain version at M in MOE_ROWS
+    on layer 0's ``w_down`` (each row's top-k of the real experts, tied
+    and zero weights among them: ``test_torch_cuda.combine_case``), and the
+    JSON row at the step's shape on the inputs ``captured`` from a C = 8
+    chunk of 16 sequences (layer 0's h and combine): events, device time,
+    the plain version, ``torch.einsum`` of the down product plus the
+    weighted sum (the library yardstick), and the bound of what these
+    inputs need (the picked experts' W_down slices and h rows read once,
+    2 flops a product)."""
+    from test_torch_cuda import combine_case
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe import moe_down_combine_bytes
+
+    w = moe.params["layers"][0]["moe"]["w_down"]
+    E, F, D = w.shape
+    cfg = moe.cfg
+    for M in MOE_ROWS:
+        c = combine_case(SEED + M, M, E, cfg.n_experts, cfg.n_experts_active,
+                         dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + M)
+        h = torch.randn((M, E, F), generator=gen, device=dev).to(
+            torch.bfloat16)
+        if not torch.equal(ops.moe_down_combine(h, w, c),
+                           ref.moe_down_combine_ref(h, w, c)):
+            fail(f"(17b) moe_down_combine at M = {M} differs from its plain "
+                 f"version")
+    h, c = captured
+    got = ops.moe_down_combine(h, w, c)
+    want = ref.moe_down_combine_ref(h, w, c)
+    if not torch.equal(got, want):
+        fail("(17b) moe_down_combine on the captured step inputs differs "
+             "from its plain version")
+    M = h.shape[0]
+    pairs = int((c != 0).sum())
+
+    def library():
+        y = torch.einsum("mef,efd->med", h, w)
+        return torch.einsum("med,me->md", y, c)
+
+    n_bytes = moe_down_combine_bytes(h, w, c)
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = 2 * pairs * F * D / PEAK_BF16_FLOPS * 1e3
+    return {
+        "name": "moe_down_combine", "route": "cuda", "source": MOE_SOURCE,
+        "replaces": REPLACES["moe_down_combine"], "launches": None,
+        "bitwise": True, "max_abs_err": 0.0,
+        "ms": time_ms(lambda: ops.moe_down_combine(h, w, c)),
+        "device_ms": device_ms(lambda: ops.moe_down_combine(h, w, c),
+                               spins=True),
+        "plain_ms": time_ms(lambda: ref.moe_down_combine_ref(h, w, c),
+                            reps=3, warmup=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_ms(library),
+        "library_device_ms": device_ms(library, spins=True),
+        "library_max_abs_err": (library().float() - want.float()).abs().max()
+        .item(),
+        "shape": {"M": M, "E": E, "F": F, "D": D, "pairs": pairs,
+                  "experts_picked": int((c != 0).any(0).sum()),
+                  "bytes": n_bytes, "checked_bitwise_at_M": list(MOE_ROWS)},
+    }
+
+
+def capture_moe_inputs(moe: ServeRun, dev):
+    """Layer 0's (h, combine) of the first ``moe_down_combine`` call of a
+    C = DEVICE_CHUNK chunk over 16 sequences (phase 9's first 16 prompts'
+    heads): the kernel's inputs at the device batcher's step shape."""
+    from repro_torch.arch import model as M
+    from repro_torch.kernels import ops
+
+    kernel, got = ops.moe_down_combine, []
+
+    def record(h, w, c):
+        if not got:
+            got.append((h.clone(), c.clone()))
+        return kernel(h, w, c)
+
+    B, n_ps = SERVE["max_batch"], SERVE["cache_len"] // SERVE["page_size"]
+    kv = M.init_paged_kv(moe.cfg, B * n_ps, SERVE["page_size"], device=dev)
+    toks = np.zeros((B, DEVICE_CHUNK), np.int32)
+    n_new = np.zeros(B, np.int32)
+    for b, p in enumerate(moe.prompts[:B]):
+        n_new[b] = min(len(p), DEVICE_CHUNK)
+        toks[b, : n_new[b]] = p[: n_new[b]]
+    ops.moe_down_combine = record
+    try:
+        M.paged_decode_step(
+            moe.params, kv,
+            torch.arange(B * n_ps, dtype=torch.int32,
+                         device=dev).reshape(B, n_ps),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.as_tensor(toks, device=dev),
+            torch.as_tensor(n_new, device=dev), moe.cfg)
+    finally:
+        ops.moe_down_combine = kernel
+    del kv
+    return got[0]
+
+
+def check_moe_rows(moe: ServeRun, dev) -> str:
+    """(c) the first MOE_FORCED served streams teacher-forced at C = 8 and
+    C = 1 through the kernel path: every logit bitwise (each row's bits
+    independent of the chunk)."""
+    done = {r: moe.cb.done[r] for r in sorted(moe.cb.done)[:MOE_FORCED]}
+    c8 = teacher_rows(moe, done, dev, "cuda", chunk=DEVICE_CHUNK)
+    c1 = teacher_rows(moe, done, dev, "cuda", chunk=1)
+    if c8.keys() != c1.keys() or any(not torch.equal(c8[k], c1[k])
+                                     for k in c8):
+        fail("(17c) teacher-forced logits at C = 8 differ from C = 1")
+    return (f"(c) {len(c8)} teacher-forced positions of {len(done)} streams "
+            f"bitwise equal at C = {DEVICE_CHUNK} and C = 1")
+
+
+def ordered_bf16(t: torch.Tensor) -> torch.Tensor:
+    """int32 keys of bf16 ``t``, monotone in the value, adjacent bf16
+    values one apart (both zeros are 0)."""
+    i = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(i >= 0, i, -32768 - i)
+
+
+def from_ordered(o: torch.Tensor) -> torch.Tensor:
+    """The bf16 values of ``ordered_bf16`` keys."""
+    return torch.where(o >= 0, o, -32768 - o).to(torch.int16).view(
+        torch.bfloat16)
+
+
+def check_moe_parity(moe: ServeRun, dev) -> str:
+    """(d) The first MOE_FORCED served streams teacher-forced (C = 32) on
+    the card, every other path held to the kernel path's routing
+    (``ForcedRouting``: in the plain path each token that would have
+    routed otherwise must be a near tie), logits compared per position in
+    deltas of LOGIT_TOL * max |reference logits|.  (i) The plain path
+    (plain attention and plain ``moe_down_combine``): the attention kernel
+    on the inputs of every one of its calls within one bf16 ulp of the
+    plain output (phase 10 (a)'s gate), and the kernel path's logits
+    within MOE_LOGIT_LIMIT deltas at every position and MOE_LOGIT_MEAN on
+    average.  Phase 10's one delta does not hold here: the kernel and the
+    plain attention differ by one rounding on a few of their elements,
+    and through 24 random MoE layers that moves the logits by about one
+    delta.  (ii) The witness of that cause: the kernel path with one bf16
+    ulp added to or taken from the same share of its attention outputs'
+    nonzero elements, at random, must lie within the gate of the kernel
+    path too.  (iii) The control: the kernel path with each token's top
+    expert replaced by its best unpicked one must lie past the gate of
+    the plain path, or the gate could not see a misrouted expert."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn import attn_backend as AB
+
+    done = {r: moe.cb.done[r] for r in sorted(moe.cb.done)[:MOE_FORCED]}
+    forced = ForcedRouting()
+    with forced.record():
+        kern = teacher_rows(moe, done, dev, "cuda")
+    plain, kernel = AB.get("torch"), AB.get("cuda")
+    worst, calls, differ = [0.0], [0], [0, 0]
+
+    def capturing(q, kv, *, n_heads, head_dim, window):
+        out = plain(q, kv, n_heads=n_heads, head_dim=head_dim, window=window)
+        got = ops.paged_attention(q, kv.k, kv.v, kv.block_tbl, kv.pos,
+                                  window, kv.k_scale, kv.v_scale)
+        worst[0] = max(worst[0], pa_err_ulps(
+            f"(17d) attention call {calls[0]}", got, out))
+        calls[0] += 1
+        differ[0] += int((got != out).sum())
+        differ[1] += int((out != 0).sum())
+        return out
+
+    AB.register("torch-capture-moe", capturing)
+    with forced.replay(), plain_moe():
+        full = teacher_rows(moe, done, dev, "torch-capture-moe")
+    routings, plain_flips = forced.rows, (forced.flips, forced.loose,
+                                          forced.worst)
+    share = differ[0] / differ[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def noisy(q, kv, **kw):
+        out = kernel(q, kv, **kw)
+        r = torch.rand(out.shape, generator=gen, device=out.device)
+        r = torch.where((out != 0) & torch.isfinite(out), r, 1.0)
+        step = torch.where(r < share / 2, -1, (r < share).to(torch.int32))
+        return from_ordered(ordered_bf16(out) + step).view(out.shape)
+
+    AB.register("cuda-ulp-noise", noisy)
+    with forced.replay():
+        noise = teacher_rows(moe, done, dev, "cuda-ulp-noise")
+    noise_flips = (forced.flips, forced.loose, forced.worst)
+    with forced.replay(misroute=True):
+        control = teacher_rows(moe, done, dev, "cuda")
+    keys = sorted(kern)
+
+    def deltas(got, want):
+        a = torch.stack([got[k] for k in keys])
+        c = torch.stack([want[k] for k in keys])
+        return (a - c).abs().amax(-1) / (LOGIT_TOL * c.abs().amax(-1)), (
+            a.argmax(-1) == c.argmax(-1)).float().mean().item()
+
+    (sound, agree), (wit, _), (ctl, _) = (
+        deltas(kern, full), deltas(noise, kern), deltas(control, full))
+    lim = MOE_LOGIT_LIMIT
+
+    def reading(r):
+        return (f"{r.mean().item():.3f} delta on average, "
+                f"{r.min().item():.3f} to {r.max().item():.3f}, "
+                f"{int((r > 1).sum())} past one delta, "
+                f"{int((r > lim).sum())} past {lim}")
+
+    def passes(r):
+        return r.max() <= lim and r.mean() <= MOE_LOGIT_MEAN
+
+    def flips(f):
+        return (f"{f[0]} routings would have flipped, {f[1]} of them no near "
+                f"tie (worst {f[2]:.3f} of the near-tie bound)")
+
+    line = (f"(d) {len(keys)} teacher-forced positions of {len(done)} "
+            f"streams, {routings} token-layer routings a path: (i) the plain "
+            f"path ({flips(plain_flips)}): the attention kernel within one "
+            f"bf16 ulp of the plain output on all {calls[0]} calls' inputs "
+            f"(worst {worst[0]:.2f} ulp of the largest; {differ[0]} of its "
+            f"{differ[1]} nonzero elements differ, a share of {share:.3e}); "
+            f"logits {reading(sound)}; greedy agreement {agree:.4f}; (ii) "
+            f"the witness, the kernel path with one ulp on that share of "
+            f"its attention elements ({flips(noise_flips)}): {reading(wit)} "
+            f"from the kernel path; (iii) the control, the top expert "
+            f"misrouted: {reading(ctl)} from the plain path")
+    if plain_flips[1]:
+        fail(f"(17d) the plain path routed a token otherwise than the kernel "
+             f"path where its top-k was no near tie: {line}")
+    gate = f"{lim} deltas a position, {MOE_LOGIT_MEAN} on average"
+    if not passes(sound):
+        fail(f"(17d) the kernel path's logits lie past {gate} of the plain "
+             f"path's: {line}")
+    if not passes(wit):
+        fail(f"(17d) the witness lies past {gate}: {line}")
+    if passes(ctl):
+        fail(f"(17d) the control lies within {gate} of the plain path, so "
+             f"the gate cannot see it: {line}")
+    return (f"{line}; the gate, {gate}: both sound readings within it, the "
+            f"control past it")
+
+
+def check_moe_dense(moe: ServeRun, dev) -> str:
+    """(e) one wave of phase 9's first 16 requests, first prompt token
+    only (every kept slot admitted at step 0): the paged device batcher
+    (page 16) and the dense one (no page_size, the same cache_len) give
+    every stream and drop bitwise."""
+    from repro_torch.serve.engine import (DeviceContinuousBatcher,
+                                          ServeConfig, ServeEngine)
+
+    n, out = SERVE["max_batch"], []
+    for scfg in (SERVE, DENSE):
+        cb = DeviceContinuousBatcher(
+            ServeEngine(moe.cfg, moe.params, ServeConfig(**scfg),
+                        gate=moe.gate, device=dev),
+            eos_token=-1, max_tokens=SERVE_TOKENS, sync_every=DEVICE_ROUND)
+        device_wave(cb, moe, dev, n=n, dense=True)
+        check_terminal(cb, moe, f"(17e) {scfg}", SERVE_TOKENS, n)
+        out.append(cb)
+    same_run("(17e) paged vs dense device batcher", *out)
+    del out
+    torch.cuda.empty_cache()
+    return (f"(e) paged == dense device batcher bitwise on {n} single-token "
+            f"prompts (one wave)")
+
+
+def moe_linear_units(cfg):
+    """The MoE step's products that a dense step lacks: the router (N =
+    E), the experts' gate/up group (N = E x F each), the shared experts'
+    gate/up group and down."""
+    D, EF, S = cfg.d_model, cfg.n_experts_padded * cfg.d_ff, cfg.shared_d_ff
+    return [("router", [(D, cfg.n_experts_padded, False)]),
+            ("experts_gate_up", [(D, EF, False), (D, EF, False)]),
+            ("shared_gate_up", [(D, S, False), (D, S, False)]),
+            ("shared_down", [(S, D, False)])]
+
+
+def moe_linear_weights(cfg):
+    """``moe_linear_units`` as ``check_linear``'s (name, K, N, float32
+    out): one entry a unit, since a group's members share their shape."""
+    return [(name, *members[0]) for name, members in moe_linear_units(cfg)]
+
+
+def phase16(serve: ServeRun, d: DeviceRun, prof: Dict[str, Any], dev,
+            card: str) -> None:
+    """Phase 16: phase 9's model, gate and traffic through the mesh-less
+    router (checks (a)-(e), the timings, the launcher's --router run)."""
+    t0 = time.perf_counter()
+    r16 = drive_router(serve, d, dev)
+    print(f"[16 router] (a) {SERVE}, phase 9's {SERVE_REQUESTS} requests "
+          f"through ShardedServe(mesh=None, n_shards=1): every stream, drop "
+          f"and reason bitwise phase 11's device batcher "
+          f"({len(wave_streams(r16['one']))} served, drops "
+          f"{first_wave_drops(r16['one'])[1]}), wrapper launches "
+          f"{ {k: n for k, n in r16['launches'].items() if n} }; (b) "
+          f"n_shards={ROUTER_SHARDS}: shards hold "
+          f"{[len(a) for a in r16['two'].assigned]} requests in FIFO order, "
+          f"each shard's streams and drops bitwise a lone device batcher's "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    for tag, key in (("1 shard", "t_one"), (f"{ROUTER_SHARDS} shards",
+                                            "t_two")):
+        t = r16[key]
+        print(f"[16 router timing] {tag}, warm wave, graph: {t['tokens']} "
+              f"tokens in {t['seconds']:.4f} s, {t['tokens_s']:.1f} "
+              f"tokens/s, {t['ms_step']:.4f} ms per step run ({t['steps']} "
+              f"steps; the shards take turns on the card); phase 11's warm "
+              f"wave {prof['tokens'] / prof['seconds']:.1f} tokens/s, "
+              f"{prof['ms_step']:.4f} ms per step run ({card})")
+    for check in (lambda: check_router_faults(serve, r16["one"], dev),
+                  lambda: check_router_launches(serve, dev),
+                  lambda: launcher_router(dev)):
+        t0 = time.perf_counter()
+        line = check()
+        print(f"[16 router] {line} ({time.perf_counter() - t0:.1f} s; "
+              f"{card})")
+
+
+def phase17(dev, seed: int, card: str) -> tuple:
+    """Phase 17: qwen2-moe-a2.7b at full width and depth through the
+    host and device batchers (checks (a)-(f), the timings): (the
+    ``moe_down_combine`` JSON row, the MoE step's ``linear`` timings)."""
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    moe = drive_serve(dev, seed, arch=MOE_ARCH)
+    mcfg = moe.cfg
+    n_params = sum(p.numel() for leaf in leaves(moe.params)
+                   for p in leaf.parts)
+    print(f"[17 moe] {MOE_ARCH} at full width and depth ({mcfg.n_layers} "
+          f"layers, d {mcfg.d_model}, {mcfg.n_heads}/{mcfg.n_kv_heads} heads, "
+          f"hd {mcfg.head_dim_}, {mcfg.n_experts} experts padded to "
+          f"{mcfg.n_experts_padded}, top-{mcfg.n_experts_active}, expert "
+          f"d_ff {mcfg.d_ff}, shared {mcfg.shared_d_ff}, vocab "
+          f"{mcfg.vocab_padded}), {n_params / 1e9:.2f} B parameters "
+          f"({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated), "
+          f"RANDOM weights from seed {seed}; host batcher, {SERVE}: "
+          f"{check_serve(moe)} ({time.perf_counter() - t0:.1f} s; {card})")
+    print(f"[17 moe] (f) host batcher, {moe.cb.steps} steps: wrapper "
+          f"launches == steps x {step_kernels(mcfg)} exactly")
+    t0 = time.perf_counter()
+    line = check_linear(mcfg, dev, moe_linear_weights(mcfg), "17 linear")
+    print(f"[17 linear] the MoE step's new products: {line} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    moe_lin = linear_timings(mcfg, dev, units=moe_linear_units(mcfg))
+    for t in moe_lin:
+        print(f"[17 linear timing] {t['weight']} [{t['M']}, {t['K']}] x "
+              f"N {t['N']}, max |kernel - plain| {t['max_abs_err']}, "
+              f"L2-cold over {t['copies']} copies: kernel "
+              f"{t['ms']:.4f} ms (device {t['device_ms']}), cuBLAS "
+              f"{t['library_ms']} ms (device {t['library_device_ms']}), "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}) ({card})")
+    moe_row = moe_kernel_row(moe, dev, capture_moe_inputs(moe, dev))
+    print(f"[17 moe] (b) moe_down_combine bitwise its plain version on "
+          f"layer 0's w_down at M in {MOE_ROWS} (tied and zero weights) and "
+          f"on the captured step inputs {moe_row['shape']}: kernel "
+          f"{moe_row['ms']:.4f} ms (device {moe_row['device_ms']}), plain "
+          f"{moe_row['plain_ms']:.4f} ms, einsum pair "
+          f"{moe_row['library_ms']:.4f} ms (device "
+          f"{moe_row['library_device_ms']}), bound "
+          f"{moe_row['bound_ms']:.4f} ms ({moe_row['bound_by']}) ({card})")
+    dm = drive_device(moe, dev)
+    print(f"[17 moe] {check_device_main(dm, moe)} ({card})")
+    tbt = device_batcher(moe, dev, chunk=1)
+    device_wave(tbt, moe, dev)
+    same_run("(17e) device batcher prefill_chunk 1 vs the host batcher", tbt,
+             moe.cb)
+    print(f"[17 moe] (e) host batcher == device batcher (prefill_chunk 1) "
+          f"bitwise: {len(moe.cb.done)} streams, drops "
+          f"{moe.cb.drop_reasons}")
+    print(f"[17 moe] {check_chunked(dm.cb, tbt, moe, dev, '(c)')}")
+    del tbt
+    torch.cuda.empty_cache()
+    for check in (lambda: check_moe_rows(moe, dev),
+                  lambda: check_moe_parity(moe, dev),
+                  lambda: check_moe_dense(moe, dev)):
+        t0 = time.perf_counter()
+        line = check()
+        print(f"[17 moe] {line} ({time.perf_counter() - t0:.1f} s; {card})")
+    mprof = profile_device(dm.cb, moe, dev)
+    print(f"[17 moe] (f) profiler over a round of {mprof['rsteps']} steps "
+          f"and its gate call: {mprof['counts']}, exact on try "
+          f"{len(mprof['tries'])} of at most {PROFILE_TRIES} (each try's "
+          f"counts: {mprof['tries']}) ({card})")
+    print(f"[17 moe timing] device batcher, warm wave, graph: "
+          f"{mprof['tokens']} tokens in {mprof['seconds']:.4f} s, "
+          f"{mprof['tokens'] / mprof['seconds']:.1f} tokens/s, "
+          f"{mprof['ms_step']:.4f} ms per step run ({mprof['steps']} steps); "
+          f"device {mprof['busy_ms_step']:.4f} ms a step (profiler: "
+          f"{mprof['by']}), idle {mprof['idle']:.3f}; host batcher "
+          f"{sum(len(t) for t in moe.cb.done.values()) / moe.seconds:.1f} "
+          f"tokens/s, {moe.seconds / moe.cb.steps * 1e3:.4f} ms per step; "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+          f"GiB ({card})")
+    moe_row["launches"] = moe.launches["moe_down_combine"]
+    return moe_row, moe_lin
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=SEED,
@@ -3148,10 +3953,17 @@ def main() -> None:
           f"{lt['ms']} ms (device {lt['device_ms']}), cuBLAS "
           f"{lt['library_ms']} (device {lt['library_device_ms']}), bound "
           f"{lt['bound_ms']:.4f} (bytes) ({card})")
+    phase16(serve, d, prof, dev, card)
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
     lin_row["launches"] = serve.launches["linear"]
     rows.append(lin_row)
+    # phase 17 runs alone on the card: every earlier model is freed
+    del serve, d, tbt, eager, one, spec, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_row, lin_row["moe_products"] = phase17(dev, args.seed, card)
+    rows.append(moe_row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

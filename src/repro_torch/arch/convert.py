@@ -8,7 +8,10 @@ function on the same inputs; ``master_params_from_arrays`` returns the
 port's float32 masters instead (the trainer's, or a JAX checkpoint's
 ``params`` to seed it), and ``arrays_from_master_params`` turns masters
 back into the JAX package's stacked numpy tree, so that updated
-parameters compare leaf by leaf; ``decode_state_from_arrays`` does the same
+parameters compare leaf by leaf (an MoE layer's ``moe`` subtree keeps the
+JAX layout, ``[E, D, F]`` experts, in the masters and in the numpy tree;
+only its compute copy flattens them, ``nn.moe.compute_moe``);
+``decode_state_from_arrays`` does the same
 for a dense decode state (``init_decode_state``), so both can continue
 from one mid-run cache.  Nothing here imports JAX: the caller hands over
 plain numpy arrays.
@@ -42,8 +45,9 @@ def _unstack(tree: Dict, n: int) -> list:
 def master_params_from_arrays(np_tree: Dict, cfg: ArchConfig,
                               device: Union[str, torch.device] = "cuda"
                               ) -> Params:
-    """The JAX package's dense-family parameter tree (numpy, float32
-    masters, layers stacked) -> the port's float32 masters on ``device``."""
+    """The JAX package's parameter tree of a dense or MoE config (numpy,
+    float32 masters, layers stacked) -> the port's float32 masters on
+    ``device``."""
     check_dense(cfg)
     device = resolve_device(device)
     layers = np_tree["layers"]
@@ -59,8 +63,8 @@ def master_params_from_arrays(np_tree: Dict, cfg: ArchConfig,
 
 def params_from_arrays(np_tree: Dict, cfg: ArchConfig,
                        device: Union[str, torch.device] = "cuda") -> Params:
-    """The JAX package's dense-family parameter tree (numpy) -> the port's
-    compute parameters on ``device``."""
+    """The JAX package's parameter tree of a dense or MoE config (numpy) ->
+    the port's compute parameters on ``device``."""
     return compute_params(master_params_from_arrays(np_tree, cfg, device))
 
 

@@ -25,8 +25,18 @@ training); the head's is the JAX head's bf16 x bf16 einsum with float32
 accumulation (``preferred_element_type=float32``): the logits are never
 rounded to bf16.
 
-Not ported yet (ROADMAP queue A item 9): the MoE, recurrent, enc-dec and
-VLM families.
+The MoE family (``n_experts``) runs through the same paths: a layer's
+``moe`` subtree (``nn.moe``; float32 masters in the JAX layout, the serve
+copy with the experts' gate and up flattened to ``[D, E * F]``) takes the
+place of its ``mlp``, ``_ffn`` runs ``nn.moe.moe_block`` (the JAX
+package's default dense dispatch; ``moe_impl="sparse"`` its capacity
+dispatch, in plain torch), and ``forward`` returns the summed aux loss as
+the JAX forward does.  The serve steps discard the aux loss, as the JAX
+package's do, and do not compute it.
+
+Not ported yet (ROADMAP queue A item 9): the recurrent, enc-dec and VLM
+families, and MoE training on the card (``ops.moe_down_combine`` carries
+no gradient there).
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from ..nn import attention as A
 from ..nn.attn_backend import PagedKV
 from ..nn.common import dense_init, embed_init, rms_norm, rope_cos_sin
 from ..nn.mlp import init_mlp, mlp_block
+from ..nn.moe import compute_moe, init_moe, moe_block, moe_block_sparse
 from .config import ArchConfig
 
 Params = Dict[str, Any]
@@ -57,12 +68,13 @@ __all__ = ["COMPUTE_DTYPE", "layer_windows", "init_params", "compute_params",
 
 
 def check_dense(cfg: ArchConfig) -> None:
-    """The port runs the dense family only (ROADMAP queue A, item 9)."""
-    if cfg.block_pattern or cfg.family == "encdec" or cfg.n_experts:
+    """The port runs attention stacks with an MLP or MoE feed-forward: the
+    dense and MoE families (ROADMAP queue A, item 9)."""
+    if cfg.block_pattern or cfg.family == "encdec" or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported: the port runs dense "
-            "attention stacks; MoE, recurrent, enc-dec and VLM families are "
-            "ROADMAP queue A item 9")
+            "and MoE attention stacks; recurrent, enc-dec and VLM families "
+            "are ROADMAP queue A item 9")
 
 
 def layer_windows(cfg: ArchConfig, n: Optional[int] = None) -> np.ndarray:
@@ -88,7 +100,12 @@ def _init_layer(gen, cfg: ArchConfig, device) -> Params:
     p: Params = {"mixer": mixer, "ln1": zeros.clone()}
     if cfg.d_ff > 0:
         p["ln2"] = zeros.clone()
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, device=device)
+        if cfg.n_experts:
+            p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff,
+                                cfg.n_experts_padded, cfg.n_shared_experts,
+                                cfg.shared_d_ff, device=device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, device=device)
     return p
 
 
@@ -131,7 +148,8 @@ def compute_params(tree, train: bool = False):
     a tree of compute copies maps to itself."""
     if isinstance(tree, list):
         return [compute_params(x, train) for x in tree]
-    return {k: compute_params(v, train) if isinstance(v, (dict, list))
+    return {k: compute_moe(v) if k == "moe"
+            else compute_params(v, train) if isinstance(v, (dict, list))
             else _compute(k, v, train) for k, v in tree.items()}
 
 
@@ -181,11 +199,24 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
 
 
 # --------------------------------------------------------------- forward
-def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
+         moe_impl: str = "dense", with_aux: bool = False):
+    """``(x + the layer's MLP or MoE block, its aux loss)``: the aux loss
+    is a 0-dim float32 tensor for MoE with ``with_aux``, else None."""
     if cfg.d_ff == 0:
-        return x
+        return x, None
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_block(p["mlp"], h, cfg.act)
+    if cfg.n_experts:
+        if moe_impl == "sparse":
+            out, aux = moe_block_sparse(p["moe"], h, n_experts=cfg.n_experts,
+                                        top_k=cfg.n_experts_active,
+                                        act=cfg.act)
+        else:
+            out, aux = moe_block(p["moe"], h, n_experts=cfg.n_experts,
+                                 top_k=cfg.n_experts_active, act=cfg.act,
+                                 with_aux=with_aux)
+        return x + out, aux
+    return x + mlp_block(p["mlp"], h, cfg.act), None
 
 
 def lm_head(params: Params, x: torch.Tensor, norm_eps: float) -> torch.Tensor:
@@ -195,15 +226,16 @@ def lm_head(params: Params, x: torch.Tensor, norm_eps: float) -> torch.Tensor:
 
 
 def _layer(lp: Params, cfg: ArchConfig, window: int, positions, q_block: int,
-           rope, x: torch.Tensor) -> torch.Tensor:
-    """One attention layer and its MLP over the whole sequence."""
+           rope, moe_impl: str, x: torch.Tensor):
+    """One attention layer and its MLP or MoE block over the whole
+    sequence: (x, the layer's aux loss, None for an MLP)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + A.attention_block(
         lp["mixer"], h, n_heads=cfg.q_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
         qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, positions=positions,
         q_block=q_block, rope=rope)
-    return _ffn(lp, cfg, x)
+    return _ffn(lp, cfg, x, moe_impl, with_aux=True)
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -218,9 +250,10 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     layer in the backward (``torch.utils.checkpoint``, non-reentrant), as
     ``jax.checkpoint`` around the JAX package's scanned layer; ``"none"``
     keeps every activation; ``"dots"`` (save the products' outputs) is not
-    ported (ROADMAP queue A item 13).  ``moe_impl``, ``unroll`` and
-    ``mlstm_chunk`` are accepted and have no effect on the dense family,
-    whose aux loss is 0."""
+    ported (ROADMAP queue A item 13).  ``moe_impl`` picks the MoE block
+    (``"dense"``, or ``"sparse"``: the capacity dispatch); the aux loss is
+    the MoE layers' summed in layer order (0 for the dense family).
+    ``unroll`` and ``mlstm_chunk`` are accepted and have no effect."""
     check_dense(cfg)
     if remat_policy not in REMAT_POLICIES:
         if remat_policy == "dots":
@@ -239,12 +272,15 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             if cfg.rope_theta > 0 else None)
     windows = layer_windows(cfg)
     remat = remat_policy == "full" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(p["layers"]):
         body = functools.partial(_layer, lp, cfg, int(windows[i]), pos,
-                                 q_block, rope)
-        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+                                 q_block, rope, moe_impl)
+        x, a = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+        if a is not None:
+            aux = aux + a
     logits = lm_head(p, x, cfg.norm_eps)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def token_ce_loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -326,7 +362,7 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, rope=rope,
             impl=attn_impl)
         x = x + out
-        x = _ffn(lp_i, cfg, x)
+        x = _ffn(lp_i, cfg, x)[0]
     if all_positions:
         logits = lm_head(params, x, cfg.norm_eps)  # [B, C, Vp]
     else:
@@ -388,7 +424,7 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
                           None if sv is None else sv[i], tbl, positions)
         x = _decode_mixer(lp_i, cfg, x, int(windows[i]), kv, slot, rope,
                           gqa_impl, attn_impl, commit)
-        x = _ffn(lp_i, cfg, x)
+        x = _ffn(lp_i, cfg, x)[0]
     logits = lm_head(params, x, cfg.norm_eps)[:, 0]
     pos.add_(1 if commit is None else commit.to(torch.int32))
     if sample_greedy:

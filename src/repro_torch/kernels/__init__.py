@@ -17,10 +17,12 @@ import.
   of the serve path (``paged_attention``).
 * ``linear.py``        — the serve step's products, each row's bits
   independent of the other rows (no Pallas kernel: XLA's dots).
+* ``moe.py``           — the MoE block's expert down product and combine
+  in one launch (no Pallas kernel: XLA's einsums).
 
 The first three live in ``csrc/eb_kernels.cu``, the next two in
-``csrc/lb_dm_kernels.cu``, then ``csrc/paged_attention.cu`` and
-``csrc/linear.cu``.
+``csrc/lb_dm_kernels.cu``, then ``csrc/paged_attention.cu``,
+``csrc/linear.cu`` and ``csrc/moe.cu``.
 """
 from .ops import (
     bnn_forward,
@@ -30,6 +32,7 @@ from .ops import (
     launch_counts,
     lb_lookup,
     linear,
+    moe_down_combine,
     pack_bits,
     paged_attention,
     reset_launch_counts,
@@ -38,5 +41,5 @@ from .ops import (
 
 __all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
            "bnn_popcount_matmul", "pack_bits", "bnn_forward",
-           "paged_attention", "linear", "launch_counts",
+           "paged_attention", "linear", "moe_down_combine", "launch_counts",
            "reset_launch_counts"]

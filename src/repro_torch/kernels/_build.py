@@ -51,6 +51,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "linear_weight_map": [_P, _I, _I, _P],
         "linear": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     },
+    "moe": {
+        "moe_down_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -15,19 +15,21 @@ from . import bucketize as _bucketize
 from . import fused_eb as _fused_eb
 from . import lb_lookup as _lb_lookup
 from . import linear as _linear
+from . import moe as _moe
 from . import paged_attention as _paged_attention
 from . import ref
 from . import ternary_match as _ternary_match
 
 __all__ = ["bucketize", "ternary_match", "fused_eb_match", "lb_lookup",
            "bnn_popcount_matmul", "pack_bits", "bnn_forward",
-           "paged_attention", "linear", "linear_group", "launch_counts",
-           "reset_launch_counts"]
+           "paged_attention", "linear", "linear_group", "moe_down_combine",
+           "launch_counts", "reset_launch_counts"]
 
 _KERNELS = {"bucketize": _bucketize, "ternary_match": _ternary_match,
             "fused_eb": _fused_eb, "lb_lookup": _lb_lookup,
             "bnn_popcount_matmul": _bnn_mlp,
-            "paged_attention": _paged_attention, "linear": _linear}
+            "paged_attention": _paged_attention, "linear": _linear,
+            "moe_down_combine": _moe}
 
 
 def bucketize(values: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
@@ -120,6 +122,14 @@ def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
     output bitwise its own ``linear(x, w)`` (``linear.linear_group``), with
     a gradient as ``linear``."""
     return _linear.linear_group(x, ws, out_dtype)
+
+
+def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
+                     combine: torch.Tensor) -> torch.Tensor:
+    """The MoE block's expert down product and combine, ``h [M, E, F]``,
+    ``w_down [E, F, D]``, ``combine [M, E]`` bf16 -> ``[M, D]`` bf16, each
+    row's bits independent of the other rows (``moe.moe_down_combine``)."""
+    return _moe.moe_down_combine(h, w_down, combine)
 
 
 def launch_counts() -> Dict[str, int]:

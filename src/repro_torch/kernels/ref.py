@@ -6,7 +6,9 @@ mirror its ``kernels/ref.py``, ``fused_eb_ref`` its jnp composition of
 encode, pack and match, ``pack_bits_ref`` its ``ops.pack_bits_jnp``, and
 ``paged_attention_ref`` its jnp paged-attention oracle
 (``nn.attn_backend._attend_jnp``), ``linear_ref`` the serve step's
-products (``x @ w``; the head's float32 einsum).  The CPU tests compare the integer ones
+products (``x @ w``; the head's float32 einsum), ``moe_down_combine_ref``
+the MoE block's expert down product and combine (``nn/moe.py``'s two
+einsums, each float32 sum in a fixed order).  The CPU tests compare the integer ones
 with the JAX package bit for bit and the float one within a stated
 tolerance; on the card the CUDA kernels are compared with these.
 
@@ -25,7 +27,7 @@ __all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
            "fused_eb_ref", "lb_lookup_ref", "LB_EPILOGUES", "popcount32",
            "bnn_popcount_matmul_ref", "bnn_pack_input_ref", "BNN_EPILOGUES",
            "pack_bits_ref", "paged_attention_ref", "linear_ref",
-           "as_i32"]
+           "moe_down_combine_ref", "as_i32"]
 
 
 def as_i32(x: int) -> int:
@@ -283,3 +285,29 @@ def linear_ref(x: torch.Tensor, w: torch.Tensor,
              else x2 @ wf)
         return y.reshape(*x.shape[:-1], w.shape[1])
     return x @ w.to(x.dtype)
+
+
+def moe_down_combine_ref(h: torch.Tensor, w_down: torch.Tensor,
+                         combine: torch.Tensor) -> torch.Tensor:
+    """The JAX MoE block's ``"bsef,efd->bsed"`` rounded to bf16, then
+    ``"bsed,bse->bsd"`` with float32 accumulation, on ``h [M, E, F]``,
+    ``w_down [E, F, D]`` and ``combine [M, E]`` bf16 -> ``[M, D]`` bf16.
+
+    XLA leaves the order of each float32 sum open; this version fixes it,
+    so that the kernel can be held to it bit for bit: ``y[m, e]`` is
+    ``y + h[m, e, f] * w[e, f]`` for f = 0, 1, ..., F-1 from zeros, and
+    ``out[m]`` is ``out + y[m, e] * combine[m, e]`` for e = 0, 1, ...,
+    E-1.  Each product of two bf16 values is exact in float32, so every
+    step rounds once.  Each row's result depends on that row alone."""
+    M, E, F = h.shape
+    D = w_down.shape[2]
+    wf = w_down.float()
+    y = torch.zeros((M, E, D), dtype=torch.float32, device=h.device)
+    for f in range(F):  # y + h * w: the product is exact, one rounding
+        y.addcmul_(h[:, :, f, None].float(), wf[None, :, f])
+    y = y.to(torch.bfloat16).float()
+    cf = combine.float()
+    out = torch.zeros((M, D), dtype=torch.float32, device=h.device)
+    for e in range(E):
+        out.add_(y[:, e] * cf[:, e, None])
+    return out.to(torch.bfloat16)

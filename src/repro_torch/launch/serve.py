@@ -26,6 +26,12 @@ decode.
     ... --trace t.json --metrics-out m.jsonl
     ... --fault-plan "nan:1@2,exhaust:0:2@3"
 
+    # the request router (one shard on the one device: --mesh auto or 1x1)
+    ... --continuous --page-size 16 --router [--rebalance-margin 4]
+
+    # an MoE model (qwen2-moe-a2.7b, moonshot-v1-16b-a3b) in any mode
+    ... --arch qwen2-moe-a2.7b --smoke --continuous --page-size 16
+
 The flags are the JAX package's (``repro.launch.serve``).  Ported: the
 fixed ``generate()`` batch (no ``--continuous``), and both batchers
 (``--batcher device``, the default, taking ``--sync-every``, or
@@ -38,8 +44,12 @@ with ``--temperature`` / ``--top-k`` / ``--top-p``, ``--gate`` /
 ``--trace``, ``--metrics-out``, ``--fault-plan`` and ``--snapshot-dir``
 (SIGTERM stops admission at the next wave boundary, drains in-flight work
 and snapshots the un-served queue through ``ckpt.CheckpointManager``; a
-later run with the same directory restores it first).  The router and
-mesh raise ``NotImplementedError`` naming their ROADMAP item.  Weights
+later run with the same directory restores it first), and ``--router`` /
+``--mesh`` / ``--rebalance-margin``: the mesh-less ``serve.router.
+ShardedServe``.  The JAX package's ``--mesh auto`` spreads the visible
+devices over one data shard, so on one device (the CPU, or one card)
+``auto`` and ``1x1`` serve one shard there; a mesh of more than one
+device raises ``NotImplementedError`` (ROADMAP queue A item 10).  Weights
 are random-init from ``--seed`` with a ``torch.Generator`` (other
 numbers than the JAX package's for the same seed).
 """
@@ -50,6 +60,7 @@ import collections
 import time
 
 import numpy as np
+import torch
 
 from ..arch import model as M
 from ..ckpt import CheckpointManager
@@ -63,16 +74,40 @@ from ..obs import Metrics, Tracer
 from ..serve.engine import (NOT_PORTED, ContinuousBatcher,
                             DeviceContinuousBatcher, ServeConfig, ServeEngine)
 from ..serve.faults import FaultPlan, preempt_snapshot, warm_restart
+from ..serve.router import ShardedServe
 from ..serve.spec import train_draft
 
 
 def _not_ported(args) -> str:
-    """The ROADMAP item of the first mode asked for that is not ported."""
-    if args.router or args.mesh or args.rebalance_margin is not None:
-        return NOT_PORTED["mesh"]
+    """Why the mode asked for does not run in the port, or ''."""
     if args.jax_profile:
         return "--jax-profile profiles JAX; the port runs no JAX"
     return ""
+
+
+def serve_shards(spec: str, device: torch.device) -> int:
+    """Data shards of a ``DATAxMODEL`` serve-mesh spec (or ``auto``) on
+    the one device the port serves on: ``auto`` (every visible device in
+    one data shard, the JAX ``make_serve_mesh``) and ``1x1`` are one
+    shard; a spec that needs more than one device raises
+    ``NotImplementedError`` (ROADMAP queue A item 10)."""
+    if spec == "auto":
+        data = 1
+        model = (torch.cuda.device_count() if device.type == "cuda" else 1)
+    else:
+        try:
+            d, _, m = spec.lower().partition("x")
+            data, model = int(d), int(m)
+            if data < 1 or model < 1:
+                raise ValueError
+        except ValueError:
+            raise ValueError(f"mesh spec {spec!r} is not DATAxMODEL "
+                             f"(e.g. 1x8)") from None
+    if data * model > 1:
+        raise NotImplementedError(
+            f"--mesh {spec} needs {data * model} devices: "
+            + NOT_PORTED["mesh"])
+    return data
 
 
 def main(argv=None):
@@ -137,11 +172,15 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="sampling: nucleus filter (1.0 = off)")
     ap.add_argument("--mesh", default=None,
-                    help="DATAxMODEL serve mesh (not ported)")
+                    help="DATAxMODEL serve mesh or 'auto'; implies "
+                         "--continuous --router (one device: auto or 1x1)")
     ap.add_argument("--router", action="store_true",
-                    help="route across data-parallel shards (not ported)")
+                    help="route requests across data-parallel shards "
+                         "(ShardedServe; --mesh picks the mesh, default "
+                         "auto)")
     ap.add_argument("--rebalance-margin", type=int, default=None,
-                    help="router queue-depth slack (not ported)")
+                    help="router: queue-depth slack before a request "
+                         "spills off its home shard (default: max_batch)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write the request-lifecycle Chrome trace-event "
                          "JSON here (chrome://tracing, Perfetto)")
@@ -173,6 +212,7 @@ def main(argv=None):
     why = _not_ported(args)
     if why:
         raise NotImplementedError(why)
+    n_shards = serve_shards(args.mesh or "auto", dev) if args.router else 0
     if args.prompt_len > 1 and not args.page_size:
         ap.error("--prompt-len > 1 needs --page-size (paged KV cache)")
     if (args.share_prefix or args.kv_int8) and not args.page_size:
@@ -227,8 +267,9 @@ def main(argv=None):
             1, cfg.vocab_size,
             int(rng.integers(1, args.prompt_len + 1))).tolist()
         for _ in range(args.requests)]
-    engine = ServeEngine(cfg, params, scfg, gate=gate,
-                         gate_backend=args.gate_backend, device=dev)
+    engine = (None if args.router else
+              ServeEngine(cfg, params, scfg, gate=gate,
+                          gate_backend=args.gate_backend, device=dev))
     tracer = metrics = None
     if args.trace or args.metrics_out:
         metrics = Metrics()
@@ -245,7 +286,8 @@ def main(argv=None):
     draft = None
     if args.spec_k:
         chains = [list(p) for p in prompts]
-        if args.draft == "pilot":
+        # the router builds its engines itself: its draft takes the prompts
+        if engine is not None and args.draft == "pilot":
             # a first greedy wave, served without speculation: the draft
             # imitates the streams the LM emits
             pilot = DeviceContinuousBatcher(
@@ -259,7 +301,17 @@ def main(argv=None):
         print(f"spec draft: bigram table over {cfg.vocab_size} tokens, "
               f"coverage {draft.meta.get('coverage', 0.0):.2f}, "
               f"{draft.accounting()}")
-    if args.batcher == "device":
+    if args.router:
+        cb = ShardedServe(cfg, params, scfg, None, n_shards=n_shards,
+                          gate=gate, gate_backend=args.gate_backend,
+                          eos_token=-1, max_tokens=args.tokens,
+                          sync_every=args.sync_every,
+                          rebalance_margin=args.rebalance_margin,
+                          prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+                          draft=draft, device=dev, **ft)
+        print(f"router: {cb.n_shards} shard(s) over mesh "
+              f"{{'data': {n_shards}, 'model': 1}} on {dev}")
+    elif args.batcher == "device":
         cb = DeviceContinuousBatcher(
             engine, eos_token=-1, max_tokens=args.tokens,
             sync_every=args.sync_every, prefill_chunk=args.prefill_chunk,
@@ -300,21 +352,30 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n_tok = sum(len(v) for v in done.values())
     reasons = collections.Counter(cb.drop_reasons.values())
-    steps = (f"{cb.steps} steps" if args.batcher == "host" else
-             f"{cb.steps} steps with work of {cb.steps_executed} run, "
-             f"{cb.steps_wasted} wasted")
-    print(f"[{args.batcher}] served {len(done)} requests "
+    shards = cb.batchers if args.router else [cb]
+    steps = (f"{cb.steps} steps" if args.batcher == "host"
+             and not args.router else
+             f"{sum(b.steps for b in shards)} steps with work of "
+             f"{sum(b.steps_executed for b in shards)} run, "
+             f"{sum(b.steps_wasted for b in shards)} wasted")
+    tag = "router" if args.router else args.batcher
+    print(f"[{tag}] served {len(done)} requests "
           f"(dropped {len(cb.dropped)}: {dict(reasons) or 'none'}) — "
           f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
           f"{steps}, on {dev})")
+    if args.router:
+        print(f"  per-shard served: {[len(a) for a in cb.assigned]}")
     if args.spec_k:
-        st = cb.spec_stats()
-        print(f"  speculative: k={args.spec_k}, drafted {st['drafted']}, "
-              f"accepted {st['accepted']} (acceptance "
-              f"{st['acceptance_rate']:.2f})")
+        drafted = sum(b._spec_prop for b in shards)
+        accepted = sum(b._spec_acc for b in shards)
+        rate = accepted / drafted if drafted else 0.0
+        print(f"  speculative: k={args.spec_k}, drafted {drafted}, "
+              f"accepted {accepted} (acceptance {rate:.2f})")
     if args.share_prefix:
-        print(f"  prefix sharing: {cb.pool.prefix_tokens_per_page():.2f} "
-              f"live prefix tokens per pool page (1.0 = unshared)")
+        ratio = (cb.prefix_tokens_per_page() if args.router
+                 else cb.pool.prefix_tokens_per_page())
+        print(f"  prefix sharing: {ratio:.2f} live prefix tokens per pool "
+              f"page (1.0 = unshared)")
     if tracer is not None:
         probs = tracer.validate()
         if probs:

@@ -15,12 +15,32 @@ import torch
 import torch.nn.functional as F
 
 
+ROW_SUM_WIDTH = 32  # elements a stage of ``row_sum`` adds
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (kept, as length 1), in an order set by its
+    length alone: stages of ``ROW_SUM_WIDTH`` neighbours (zero-padded; a
+    zero adds exactly), until one group is left.  A plain ``sum(-1)`` on
+    the card picks how many threads share a row from the number of rows
+    (PyTorch's reduction config), so a row's bits change with the batch;
+    a reduction over at most 32 elements is one warp's fixed tree whatever
+    the rows (ROADMAP C.11)."""
+    while x.shape[-1] > ROW_SUM_WIDTH:
+        pad = -x.shape[-1] % ROW_SUM_WIDTH
+        if pad:
+            x = F.pad(x, (0, pad))
+        x = x.reshape(*x.shape[:-1], -1, ROW_SUM_WIDTH).sum(-1)
+    return x.sum(-1, keepdim=True)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in float32."""
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in float32, the mean
+    a ``row_sum`` (each row's bits independent of the other rows)."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    var = row_sum(x * x) / x.shape[-1]
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(dt)
 

@@ -45,14 +45,17 @@ boundaries only: the device batcher's traced run replays the fill
 schedule on the host from the drained state, so its captured step is the
 untraced one.
 
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item rather than taking another path: ``mesh`` / ``tp_params``
-sharded serving (queue A item 6).
+The mesh-less request router over several such batchers is
+``serve.router.ShardedServe``.  Not ported yet, and raising
+``NotImplementedError`` that names the ROADMAP item rather than taking
+another path: ``mesh`` / ``tp_params`` placement over several devices
+(queue A item 10).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import heapq
 import time
 import zlib
@@ -73,8 +76,8 @@ from .pages import PagePool
 from .pages import page_demand as _page_demand
 
 NOT_PORTED = {
-    "mesh": "sharded serving (mesh / tp_params / the router) is not ported "
-            "yet: ROADMAP queue A item 6",
+    "mesh": "serving over a device mesh (mesh / tp_params: shards placed on "
+            "several devices) is not ported yet: ROADMAP queue A item 10",
 }
 
 
@@ -565,7 +568,12 @@ class _FusedStep:
         """Capture one step as a CUDA graph.  A warm-up step runs eagerly
         first, on a side stream, from the idle state (every slot free, an
         empty queue), where it is the identity: it loads the kernels and
-        settles the allocator before capture."""
+        settles the allocator before capture.  Python's garbage collector
+        runs just before the capture and is off during it: a dead batcher
+        is a reference cycle (its steps hold it), and collecting one
+        mid-capture destroys its graphs, a call that invalidates the
+        capture (ROADMAP C.12); other threads' calls (the profiler's) do
+        not count against it (``capture_error_mode="thread_local"``)."""
         st = self.st
         st["free"].fill_(True)
         self.q["n"].zero_()
@@ -575,8 +583,15 @@ class _FusedStep:
             self.step()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.step()
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.step()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
 
     # ------------------------------------------------------------- step
@@ -958,7 +973,8 @@ class DeviceContinuousBatcher:
     state (its timestamps interpolated between the boundaries), so the
     captured step is the untraced one, and without a tracer, an injector,
     a deadline or a held page the drive loop is unchanged.  ``mesh``
-    (ROADMAP queue A item 6) raises ``NotImplementedError``.
+    (ROADMAP queue A item 10) raises ``NotImplementedError``; the
+    mesh-less router (``serve.router``) drives several batchers.
 
     Over an engine without ``page_size`` (the dense mode) the batcher owns
     a dense decode state and runs ``_DenseStep``: one global position, one

@@ -150,11 +150,15 @@ def _bnn_case(seed, B, n_in, n_out):
 
 # (K, N, out float32) of the serve step's products: qwen2-1.5b's wq / wo,
 # wk / wv, w_gate / w_up, w_down and the head (float32 logits), the smoke
-# config's, and a K past no 64-row tile with N under one 128-column tile
+# config's, a K past no 64-row tile with N under one 128-column tile, and
+# the products qwen2-moe-a2.7b's step adds: the router, the experts' gate /
+# up ([D, E_p x F]), the shared experts' gate / up and their down
 LINEAR_SHAPES = [(1536, 1536, False), (1536, 256, False),
                  (1536, 8960, False), (8960, 1536, False),
                  (1536, 152064, True), (48, 48, False), (48, 16, False),
-                 (96, 48, False), (48, 256, True), (40, 24, False)]
+                 (96, 48, False), (48, 256, True), (40, 24, False),
+                 (2048, 64, False), (2048, 90112, False),
+                 (2048, 5632, False), (5632, 2048, False)]
 LINEAR_ROWS = (1, 3, 16, 48, 64, 128, 256)
 
 
@@ -537,9 +541,9 @@ def test_cuda_serve_launches_paged_attention_per_layer(cuda_device):
 
 
 def _device_serve(cuda_device, graph, n=6, max_steps=200, prefill_chunk=4,
-                  **scfg):
-    """The device batcher on the smoke config (rf-S gate), ``n`` requests
-    of 2-7 tokens, chunk 4, three steps a round."""
+                  arch="qwen2-1.5b", **scfg):
+    """The device batcher on ``arch``'s smoke config (rf-S gate), ``n``
+    requests of 2-7 tokens, chunk 4, three steps a round."""
     from repro_torch.arch import model as M
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import PlanterConfig, plant
@@ -547,7 +551,7 @@ def _device_serve(cuda_device, graph, n=6, max_steps=200, prefill_chunk=4,
     from repro_torch.serve.engine import (DeviceContinuousBatcher,
                                           ServeConfig, ServeEngine)
 
-    cfg = get_smoke_config("qwen2-1.5b")
+    cfg = get_smoke_config(arch)
     ds = load_dataset("unsw", n=1500)
     gate = plant(PlanterConfig(model="rf", size="S"), ds.X_train,
                  ds.y_train).mapped
@@ -667,12 +671,14 @@ def test_cuda_linear_rows_are_invariant(cuda_device, K, N, f32):
             assert torch.equal(part, full[o:o + M]), (M, o)
 
 
-# groups of weights sharing K: qwen2-1.5b's q/k/v and gate/up, and one whose
+# groups of weights sharing K: qwen2-1.5b's q/k/v and gate/up, one whose
 # members have S = 8, 2 and 8 (a cluster of 8 holding four tiles of the
-# middle member, two of them padding)
+# middle member, two of them padding), and qwen2-moe-a2.7b's experts' and
+# shared experts' gate/up
 LINEAR_GROUPS = [((1536, 1536), (1536, 256), (1536, 256)),
                  ((1536, 8960), (1536, 8960)),
-                 ((2048, 136), (2048, 8960), (2048, 24))]
+                 ((2048, 136), (2048, 8960), (2048, 24)),
+                 ((2048, 90112), (2048, 90112)), ((2048, 5632), (2048, 5632))]
 
 
 @pytest.mark.cuda
@@ -917,3 +923,144 @@ def test_cuda_train_step_launches_linear_and_tracks_plain(cuda_device):
                        for p in leaf.parts)
     cpu, card = losses["cpu"], losses[str(cuda_device)]
     assert abs(card - cpu) <= 5e-3 * abs(cpu), losses
+
+
+# ------------------------------------------------------------- MoE
+MOE_DIMS = dict(E=64, F=1408, D=2048, n_real=60, top_k=4)  # qwen2-moe
+MOE_ROWS = (1, 7, 16, 128, 200)
+
+
+def _bf16(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=dev).to(
+        torch.bfloat16)
+
+
+def combine_case(seed, M, E, n_real, top_k, dev="cpu") -> torch.Tensor:
+    """bf16 ``combine [M, E]``: each row's ``top_k`` of the ``n_real``
+    experts with normalised weights, the rest 0; every third row's weights
+    tied (1 / top_k each), every fifth row with one picked weight 0, and
+    the last row all 0."""
+    rng = np.random.default_rng(seed)
+    c = np.zeros((M, E), np.float32)
+    for m in range(M):
+        pick = rng.choice(n_real, top_k, replace=False)
+        vals = rng.uniform(0.05, 1.0, top_k)
+        if m % 3 == 0:
+            vals[:] = 1.0
+        vals = vals / vals.sum()
+        if m % 5 == 1:
+            vals[0] = 0.0
+        c[m, pick] = vals
+    c[-1] = 0.0
+    return _bf16(c, dev)
+
+
+def moe_case(seed, M, E, F, D, n_real, top_k, dev="cpu"):
+    """bf16 ``h [M, E, F]`` ~ N(0, 1), ``w_down [E, F, D]`` ~ N(0, 1/F) and
+    ``combine_case``'s ``[M, E]`` weights."""
+    rng = np.random.default_rng(seed)
+    h = _bf16(rng.standard_normal((M, E, F)), dev)
+    w = _bf16(rng.standard_normal((E, F, D)) / np.sqrt(F), dev)
+    return h, w, combine_case(seed + 1, M, E, n_real, top_k, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", MOE_ROWS)
+def test_cuda_moe_down_combine_equals_plain(cuda_device, M):
+    """The kernel bitwise equal to ``ref.moe_down_combine_ref`` on the
+    card, at qwen2-moe's widths (64 experts, F 1408, D 2048), with tied
+    and zero combine weights: every float32 sum runs in the plain
+    version's order."""
+    h, w, c = moe_case(M, M, **MOE_DIMS, dev=cuda_device)
+    ops.reset_launch_counts()
+    got = ops.moe_down_combine(h, w, c)
+    assert ops.launch_counts()["moe_down_combine"] == 1
+    want = ref.moe_down_combine_ref(h, w, c)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, MOE_DIMS["D"])
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_down_combine_rows_are_invariant(cuda_device):
+    """Each row of a [16, ...] launch is bitwise the row launched alone."""
+    h, w, c = moe_case(3, 16, **MOE_DIMS, dev=cuda_device)
+    full = ops.moe_down_combine(h, w, c)
+    for m in range(16):
+        alone = ops.moe_down_combine(h[m:m + 1].contiguous(), w,
+                                     c[m:m + 1].contiguous())
+        assert torch.equal(alone[0], full[m]), m
+
+
+@pytest.mark.cuda
+def test_cuda_moe_down_combine_refuses_what_it_does_not_take(cuda_device):
+    h, w, c = moe_case(0, 4, 4, 48, 16, 4, 2, dev=cuda_device)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ops.moe_down_combine(h, w, c)
+    h, w, c = moe_case(0, 4, 4, 32, 16, 4, 2, dev=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        ops.moe_down_combine(h.float(), w, c)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ops.moe_down_combine(h, w.requires_grad_(True), c)
+    assert ops.launch_counts()["moe_down_combine"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"])
+def test_cuda_moe_chunked_prefill_equals_token_by_token(cuda_device, arch):
+    """The MoE smoke configs through the device batcher on the card: chunk
+    4 and chunk 1 give every stream bitwise; the step launches
+    ``moe_down_combine``."""
+    ops.reset_launch_counts()
+    a = _device_serve(cuda_device, True, n=8, arch=arch)
+    assert ops.launch_counts()["moe_down_combine"] > 0
+    b = _device_serve(cuda_device, True, n=8, prefill_chunk=1, arch=arch)
+    assert a.done == b.done and len(a.done) > 0
+    assert a.dropped == b.dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1536, 2048, 64])
+def test_cuda_row_reductions_are_invariant(cuda_device, D):
+    """``nn.common.row_sum`` (the float32 mean of ``rms_norm``, the MoE
+    router's softmax sum) gives each row the same bits whatever the number
+    of rows, where a plain ``sum(-1)`` on the card splits a row over more
+    threads when there are few rows (ROADMAP C.11)."""
+    from repro_torch.nn import moe
+    from repro_torch.nn.common import rms_norm, row_sum
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(D)
+    X = torch.randn((256, D), generator=gen, device=cuda_device)
+    scale = torch.randn((D,), generator=gen, device=cuda_device) * 0.1
+    router = (torch.randn((D, 64), generator=gen, device=cuda_device)
+              / np.sqrt(D)).to(torch.bfloat16)
+    full = (row_sum(X * X), rms_norm(X, scale),
+            moe.route(X.to(torch.bfloat16), router, 60, 4))
+    for M in (1, 2, 3, 4, 5, 8, 16, 32, 128):
+        x = X[:M].contiguous()
+        assert torch.equal(row_sum(x * x), full[0][:M]), M
+        assert torch.equal(rms_norm(x, scale), full[1][:M]), M
+        for got, want in zip(moe.route(x.to(torch.bfloat16), router, 60, 4),
+                             full[2]):
+            assert torch.equal(got, want[:M]), M
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_dead_batcher(cuda_device):
+    """A dead device batcher is a reference cycle with captured graphs; the
+    collector running often (threshold 1) must not free it during another
+    batcher's capture, which would invalidate it (ROADMAP C.12)."""
+    import gc
+
+    dead = _device_serve(cuda_device, True, n=2)
+    assert all(fs.graph is not None for fs in dead._steps.values())
+    del dead
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        live = _device_serve(cuda_device, True, n=2)
+    finally:
+        gc.set_threshold(*old)
+    assert live.graph and len(live.done) > 0

@@ -385,7 +385,7 @@ def test_sync_free_pool_write_equals_the_filtered_write(case, quantized):
 
 
 # ------------------------------------------------------- not ported
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 6")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 10")])
 def test_device_batcher_modes_not_ported_raise(both, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TE.DeviceContinuousBatcher(_engine(both), **kw)

@@ -26,7 +26,7 @@ from test_torch_cuda import (LINEAR_SHAPES, _linear_case,  # noqa: E402
 from test_torch_serve import CFG, both  # noqa: E402,F401
 
 # the CPU-sized shapes of LINEAR_SHAPES (the smoke config's and the odd
-# one) plus qwen2-1.5b's wk / wv
+# one) plus qwen2-1.5b's wk / wv and qwen2-moe-a2.7b's router
 CPU_SHAPES = [s for s in LINEAR_SHAPES if s[0] * s[1] <= 1536 * 256]
 
 

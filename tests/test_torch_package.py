@@ -45,6 +45,10 @@ def test_imports_every_module_without_jax():
             "serve.spec", "obs", "obs.metrics", "obs.trace",
             "launch.serve")}
         assert serve_slice <= set(names), serve_slice - set(names)
+        slice5 = {"repro_torch." + m for m in (
+            "serve.router", "nn.moe", "kernels.moe",
+            "configs.qwen2_moe_a2_7b", "configs.moonshot_v1_16b_a3b")}
+        assert slice5 <= set(names), slice5 - set(names)
         train_slice = {"repro_torch." + m for m in (
             "data.tokens", "dist.compress", "dist.stragglers",
             "train.optimizer", "train.step", "ckpt.manager",
@@ -59,7 +63,10 @@ def test_imports_every_module_without_jax():
 
 def test_no_jax_or_repro_import_in_source():
     bad = []
-    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    sources = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+               + sorted((ROOT / "examples").glob("*_torch.py")))
+    assert ROOT / "examples" / "moe_router_distill_torch.py" in sources
+    for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -199,7 +206,8 @@ def test_cpu_tensors_take_the_plain_versions_and_inputs_are_checked():
     assert ops.launch_counts() == {"bucketize": 0, "ternary_match": 0,
                                    "fused_eb": 0, "lb_lookup": 0,
                                    "bnn_popcount_matmul": 0,
-                                   "paged_attention": 0, "linear": 0}
+                                   "paged_attention": 0, "linear": 0,
+                                   "moe_down_combine": 0}
     codes = torch.zeros((4, 2), dtype=torch.int32)
     luts = torch.ones((2, 3, 5), dtype=torch.int32)
     assert ops.lb_lookup(codes, luts).tolist() == [[2] * 5] * 4
@@ -216,6 +224,11 @@ def test_cpu_tensors_take_the_plain_versions_and_inputs_are_checked():
     assert torch.equal(ops.linear(x, w), torch.full((3, 16), 8.0,
                                                     dtype=torch.bfloat16))
     assert ops.linear(x, w, out_dtype=torch.float32).dtype == torch.float32
+    h = torch.ones((3, 2, 8), dtype=torch.bfloat16)
+    c = torch.tensor([[0.5, 0.5], [1.0, 0.0], [0.0, 0.0]],
+                     dtype=torch.bfloat16)
+    assert ops.moe_down_combine(h, w.reshape(2, 8, 8), c).tolist() == [
+        [8.0] * 8, [8.0] * 8, [0.0] * 8]
     assert sum(ops.launch_counts().values()) == 0
     cpu = torch.device("cpu")
     with pytest.raises(TypeError, match="int32"):

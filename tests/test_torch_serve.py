@@ -450,12 +450,50 @@ def test_launcher_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--router"], "item 6"), (["--mesh", "1x1"], "item 6")])
+    (["--mesh", "2x4"], "item 10"), (["--mesh", "1x2"], "item 10")])
 def test_launcher_modes_not_ported_raise(argv, item):
+    """A serve mesh of more than one device waits for ROADMAP queue A
+    item 10 (the router's shards placed over ``torch.distributed``)."""
     from repro_torch.launch import serve
 
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--smoke", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("cards,want", [(1, 1), (4, None)])
+def test_auto_mesh_spreads_every_visible_card(monkeypatch, cards, want):
+    """``--mesh auto`` is one data shard over every visible device, as
+    the JAX ``make_serve_mesh``: one shard on one card, and more than one
+    card needs a mesh (item 10); a malformed spec is a ValueError."""
+    from repro_torch.launch.serve import serve_shards
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    cuda = torch.device("cuda", 0)
+    if want is None:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            serve_shards("auto", cuda)
+    else:
+        assert serve_shards("auto", cuda) == want
+    assert serve_shards("auto", torch.device("cpu")) == 1
+    with pytest.raises(ValueError, match="DATAxMODEL"):
+        serve_shards("two-by-four", cuda)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--router"], ["--mesh", "1x1"], ["--mesh", "auto"],
+    ["--router", "--rebalance-margin", "2"]])
+def test_launcher_routes_on_one_device(argv, capsys):
+    """``--router`` and a one-device ``--mesh`` serve through the mesh-less
+    router, one shard, as the JAX launcher's ``auto`` mesh on one device;
+    the same streams as the lone device batcher."""
+    from repro_torch.launch import serve
+
+    common = ["--smoke", "--device", "cpu", "--requests", "8", "--tokens",
+              "3", "--page-size", "16", "--prompt-len", "12"]
+    routed = serve.main(common + argv)
+    out = capsys.readouterr().out
+    assert "router: 1 shard(s)" in out and "[router] served" in out
+    assert routed == serve.main(common + ["--continuous"])
 
 
 @pytest.mark.parametrize("argv,tag", [
@@ -494,7 +532,7 @@ def test_not_ported_paths_raise(both):
                                           np.zeros(2), np.ones(2))):
         with pytest.raises(ValueError, match="page_size"):
             call()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         TE.ServeEngine(CFG, tp, TE.ServeConfig(page_size=8), mesh=object(),
                        device="cpu")
     from repro_torch.configs import get_config
