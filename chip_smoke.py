@@ -199,11 +199,16 @@ Phases, in order; the first failure exits non-zero:
    ``moe_down_combine`` 24) (f); ``linear`` timed at the MoE products
    (router N = 64, the experts' gate/up group N = 90,112, the shared
    experts' N = 5,632 and their down); (b) ``moe_down_combine`` bitwise
-   its plain version on layer 0's ``w_down`` at M = 1, 7, 16, 128 and 200
-   with tied and zero combine weights, and on layer 0's inputs captured
-   from a C = 8 chunk of 16 sequences, where it is timed beside the plain
-   version, ``torch.einsum`` of the down product plus the weighted sum,
-   and the bound of what those inputs need; (a) the device batcher
+   its plain version on layer 0's ``w_down`` at M = 1, 7, 16, 128, 200
+   and 256 with tied and zero combine weights, on skewed routing (every
+   row's top expert one expert, every row on experts 0-3, one row an
+   expert, 256 rows on one expert), on every layer's inputs of step 48
+   of an eager device-batcher wave (each layer's routing and device time
+   printed, with the busiest expert of every step of the wave), and on
+   layer 0's inputs captured from a C = 8 chunk of 16 sequences, where it
+   is timed beside the plain version, ``torch.einsum`` of the down
+   product plus the weighted sum, the bound of what those inputs need
+   and the same flops on the float32 lanes; (a) the device batcher
    (sync_every 16, prefill_chunk 8, graph): served + dropped = submitted;
    (e) the host batcher == the device batcher at prefill_chunk 1,
    bitwise; (c) chunk 8 == chunk 1 bitwise, every product of layer 0
@@ -223,7 +228,9 @@ Phases, in order; the first failure exits non-zero:
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
-printed on the first line beside the card).
+printed on the first line beside the card; the float32 lanes are twice
+as many).  ``--phase17`` builds the kernels and runs phase 17 alone, a
+quick MoE run that prints no result line.
 
 Its last three lines are the kernels JSON (``moe_down_combine``'s row
 last), the card's ``name, power.limit``
@@ -260,6 +267,10 @@ PEAK_BYTES = 3.35e12
 # 700.00 W, whose clocks.max.sm is 1980 MHz).
 INT32_LANES_PER_SM = 64
 PEAK_INT32_OPS = 0.0
+# float32 FLOP/s outside the tensor cores: 128 lanes an SM, an fmaf 2 flops
+# (66.9e12 on the same card); ``main`` sets it beside the int32 peak
+FP32_LANES_PER_SM = 128
+PEAK_FP32_FLOPS = 0.0
 SOURCE = "src/repro_torch/kernels/csrc/eb_kernels.cu"
 LB_DM_SOURCE = "src/repro_torch/kernels/csrc/lb_dm_kernels.cu"
 PA_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
@@ -713,6 +724,32 @@ def device_ms(fn, reps: int = 20, spins: bool = False):
                  and not e.is_user_annotation and "spin_kernel" not in e.key)
         if us > 0:
             return us / reps / 1e3
+    return None
+
+
+def kernel_ms(fn, key: str, reps: int = 10):
+    """Mean device time of one launch of the kernel whose name holds
+    ``key``, over the launches the profiler recorded of ``reps`` calls of
+    ``fn`` (a window opened with ``open_window``): unlike ``device_ms``,
+    a record the profiler drops lowers the count, not the mean.  None
+    when it recorded none in three windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_window(torch.device("cuda"))
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        got = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key]
+        n = sum(e.count for e in got)
+        if n:
+            return sum(e.self_device_time_total for e in got) / n / 1e3
     return None
 
 
@@ -3266,38 +3303,43 @@ MOE_FORCED = 4  # (d) requests teacher-forced (the plain MoE is slow)
 # 46.908; all four on the H100, seed 0)
 MOE_LOGIT_LIMIT = 6.0
 MOE_LOGIT_MEAN = 2.0
-MOE_ROWS = (1, 7, 16, 128, 200)  # (b): M of the kernel vs plain
+MOE_ROWS = (1, 7, 16, 128, 200, 256)  # (b): M of the kernel vs plain
+MOE_STEP = 48  # (b): the device-batcher step whose every layer is captured
 
 
-def moe_kernel_row(moe: ServeRun, dev, captured) -> Dict[str, Any]:
+def moe_kernel_row(moe: ServeRun, dev, captured,
+                   layers) -> Dict[str, Any]:
     """(b) ``moe_down_combine`` bitwise its plain version at M in MOE_ROWS
     on layer 0's ``w_down`` (each row's top-k of the real experts, tied
-    and zero weights among them: ``test_torch_cuda.combine_case``), and the
-    JSON row at the step's shape on the inputs ``captured`` from a C = 8
-    chunk of 16 sequences (layer 0's h and combine): events, device time,
-    the plain version, ``torch.einsum`` of the down product plus the
-    weighted sum (the library yardstick), and the bound of what these
-    inputs need (the picked experts' W_down slices and h rows read once,
-    2 flops a product)."""
-    from test_torch_cuda import combine_case
+    and zero weights among them: ``test_torch_cuda.combine_case``) and on
+    the skewed routings of ``MOE_SKEWS``, and the JSON row at the step's
+    shape on the inputs ``captured`` from a C = 8 chunk of 16 sequences
+    (layer 0's h and combine): events, device time, the plain version,
+    ``torch.einsum`` of the down product plus the weighted sum (the
+    library yardstick), and the bound of what these inputs need (the
+    picked experts' W_down slices and h rows read once, 2 flops a
+    product) beside the same flops on the float32 lanes; ``layers``
+    (``moe_layers``) joins it as ``per_layer``."""
+    from test_torch_cuda import MOE_SKEWS, combine_case
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.moe import moe_down_combine_bytes
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.moe import moe_down_combine_bytes, plan
 
     w = moe.params["layers"][0]["moe"]["w_down"]
     E, F, D = w.shape
     cfg = moe.cfg
-    for M in MOE_ROWS:
+    cases = [(M, None) for M in MOE_ROWS] + [(M, s) for s, M in MOE_SKEWS]
+    for M, skew in cases:
         c = combine_case(SEED + M, M, E, cfg.n_experts, cfg.n_experts_active,
-                         dev)
+                         dev, skew)
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + M)
         h = torch.randn((M, E, F), generator=gen, device=dev).to(
             torch.bfloat16)
         if not torch.equal(ops.moe_down_combine(h, w, c),
                            ref.moe_down_combine_ref(h, w, c)):
-            fail(f"(17b) moe_down_combine at M = {M} differs from its plain "
-                 f"version")
+            fail(f"(17b) moe_down_combine at M = {M} (skew {skew}) differs "
+                 f"from its plain version")
     h, c = captured
     got = ops.moe_down_combine(h, w, c)
     want = ref.moe_down_combine_ref(h, w, c)
@@ -3325,14 +3367,79 @@ def moe_kernel_row(moe: ServeRun, dev, captured) -> Dict[str, Any]:
                             reps=3, warmup=1),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "fp32_lane_ms": 2 * pairs * F * D / PEAK_FP32_FLOPS * 1e3,
         "library_ms": time_ms(library),
         "library_device_ms": device_ms(library, spins=True),
         "library_max_abs_err": (library().float() - want.float()).abs().max()
         .item(),
         "shape": {"M": M, "E": E, "F": F, "D": D, "pairs": pairs,
                   "experts_picked": int((c != 0).any(0).sum()),
-                  "bytes": n_bytes, "checked_bitwise_at_M": list(MOE_ROWS)},
+                  "bytes": n_bytes, "checked_bitwise_at_M": list(MOE_ROWS),
+                  "checked_bitwise_skewed": [list(x) for x in MOE_SKEWS],
+                  "grid": _build.load("moe").moe_grid(),
+                  "down_items": len(plan(c, D)["items"])},
+        "per_layer": layers,
     }
+
+
+def capture_moe_step(moe: ServeRun, dev) -> Dict[str, Any]:
+    """Phase 9's wave through an eager device batcher (C = DEVICE_CHUNK,
+    so M = 128 rows a layer): every layer's (h, combine) of step
+    MOE_STEP, and for every step and layer the most rows any expert took
+    (``most`` [steps, layers], on the host after the wave)."""
+    from repro_torch.kernels import ops
+
+    L = moe.cfg.n_layers
+    kernel, layers, most = ops.moe_down_combine, [], []
+
+    def record(h, w, c):
+        if len(most) // L == MOE_STEP:
+            layers.append((h.clone(), c.clone()))
+        most.append((c != 0).sum(0).max())  # stays on the card
+        return kernel(h, w, c)
+
+    cb = device_batcher(moe, dev, graph=False)
+    ops.moe_down_combine = record
+    try:
+        device_wave(cb, moe, dev)
+    finally:
+        ops.moe_down_combine = kernel
+    if len(most) % L or len(layers) != L:
+        fail(f"(17b) the eager wave made {len(most)} moe_down_combine "
+             f"calls, not {L} a step past step {MOE_STEP}")
+    return {"layers": layers, "most": torch.stack(most).reshape(-1, L).cpu()}
+
+
+def moe_layers(moe: ServeRun, dev, step: Dict[str, Any]) -> list:
+    """(b) each layer's ``moe_down_combine`` on the inputs of
+    ``capture_moe_step``: bitwise its plain version; its routing (experts
+    picked, rows an expert: most and mean over the picked ones; the most
+    rows an expert took in any step of the wave, mean and max over the
+    steps), its work items and the kernel's device time (``kernel_ms``)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe import plan
+
+    out = []
+    for layer, (h, c) in enumerate(step["layers"]):
+        w = moe.params["layers"][layer]["moe"]["w_down"]
+        if not torch.equal(ops.moe_down_combine(h, w, c),
+                           ref.moe_down_combine_ref(h, w, c)):
+            fail(f"(17b) moe_down_combine on layer {layer}'s inputs of step "
+                 f"{MOE_STEP} differs from its plain version")
+        rows = (c != 0).sum(0)
+        picked = rows[rows > 0].float()
+        wave = step["most"][:, layer].float()
+        out.append({
+            "layer": layer, "pairs": int(rows.sum()),
+            "picked": int(picked.numel()), "max_rows": int(picked.max()),
+            "mean_rows": round(float(picked.mean()), 3),
+            "wave_max_rows_mean": round(float(wave.mean()), 3),
+            "wave_max_rows_max": int(wave.max()),
+            "down_items": len(plan(c, w.shape[2])["items"]),
+            "device_ms": kernel_ms(
+                lambda h=h, w=w, c=c: ops.moe_down_combine(h, w, c),
+                "moe_down_combine_kernel")})
+    return out
 
 
 def capture_moe_inputs(moe: ServeRun, dev):
@@ -3622,15 +3729,32 @@ def phase17(dev, seed: int, card: str) -> tuple:
               f"{t['library_ms']} ms (device {t['library_device_ms']}), "
               f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}) ({card})")
-    moe_row = moe_kernel_row(moe, dev, capture_moe_inputs(moe, dev))
+    t0 = time.perf_counter()
+    step = capture_moe_step(moe, dev)
+    layers = moe_layers(moe, dev, step)
+    for r in layers:
+        print(f"[17 moe layer {r['layer']}] step {MOE_STEP} of "
+              f"{len(step['most'])}: {r['pairs']} routed pairs, "
+              f"{r['picked']} experts picked, rows an expert max "
+              f"{r['max_rows']} mean {r['mean_rows']}; the wave's most rows "
+              f"an expert a step: mean {r['wave_max_rows_mean']} max "
+              f"{r['wave_max_rows_max']}; {r['down_items']} down items; "
+              f"bitwise its plain version; device {r['device_ms']} ms "
+              f"({card})")
+    del step
+    moe_row = moe_kernel_row(moe, dev, capture_moe_inputs(moe, dev), layers)
     print(f"[17 moe] (b) moe_down_combine bitwise its plain version on "
-          f"layer 0's w_down at M in {MOE_ROWS} (tied and zero weights) and "
+          f"layer 0's w_down at M in {MOE_ROWS} (tied and zero weights), on "
+          f"skewed routing {moe_row['shape']['checked_bitwise_skewed']}, "
+          f"on every layer's inputs of an eager device-batcher step and "
           f"on the captured step inputs {moe_row['shape']}: kernel "
           f"{moe_row['ms']:.4f} ms (device {moe_row['device_ms']}), plain "
           f"{moe_row['plain_ms']:.4f} ms, einsum pair "
           f"{moe_row['library_ms']:.4f} ms (device "
           f"{moe_row['library_device_ms']}), bound "
-          f"{moe_row['bound_ms']:.4f} ms ({moe_row['bound_by']}) ({card})")
+          f"{moe_row['bound_ms']:.4f} ms ({moe_row['bound_by']}), the same "
+          f"flops on the float32 lanes {moe_row['fp32_lane_ms']:.4f} ms "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
     dm = drive_device(moe, dev)
     print(f"[17 moe] {check_device_main(dm, moe)} ({card})")
     tbt = device_batcher(moe, dev, chunk=1)
@@ -3672,6 +3796,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seed of the serve phases' weights and traffic")
+    ap.add_argument("--phase17", action="store_true",
+                    help="build the kernels and run phase 17 alone (a "
+                         "quick MoE run); prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -3687,8 +3814,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = ", ".join(card_info())
-    global PEAK_INT32_OPS
+    global PEAK_INT32_OPS, PEAK_FP32_FLOPS
     PEAK_INT32_OPS = peak_int32_ops(dev)
+    PEAK_FP32_FLOPS = 2 * PEAK_INT32_OPS * FP32_LANES_PER_SM / \
+        INT32_LANES_PER_SM
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}; "
           f"int32 peak {PEAK_INT32_OPS:.4e} ops/s ({INT32_LANES_PER_SM} "
           f"lanes x {torch.cuda.get_device_properties(dev).multi_processor_count}"
@@ -3701,6 +3830,11 @@ def main() -> None:
         print(f"  {name}.cu ptxas:\n" + "\n".join(
             "    " + ln for ln in log.splitlines() if ln.strip()))
 
+    if args.phase17:
+        moe_row, _ = phase17(dev, args.seed, card)
+        print(json.dumps({"kernels": [moe_row]}))
+        print(card)
+        return
     n = check_kernels(dev)
     print(f"[2 kernels] {n} cases bitwise equal to their plain versions")
 

@@ -12,28 +12,111 @@ token-by-token) need each row's bits to depend on that row alone, which
 cuBLAS does not promise.
 
 Bound on the H100 by bytes: a step's rows pick nearly every expert, so the
-launch reads all of ``W_down`` (369 MB a qwen2-moe layer).  Design
-(``csrc/moe.cu``): a block a (128-column tile, expert) computes the rows
-that picked that expert, on the CUDA cores (an IEEE float32 chain, so the
-plain version is matched bit for bit), into an ``[M, E, D]`` bf16 scratch;
-the last block of a column tile adds the tile's rows over their experts in
-ascending order.  An expert whose combine weight is 0 adds nothing, which
-is the plain version's bits for every finite product (ROADMAP C.10).
+launch reads nearly all of ``W_down`` (348-369 MB a qwen2-moe layer), and
+the routed work takes less time on the float32 lanes.  Design
+(``csrc/moe.cu``): a persistent grid (3 blocks an SM) takes work items
+from a counter on the card, costliest first (``item_cost``).  A down item
+is (expert, up to ``MAX_ROWS`` of its rows, a column tile ``item_width``
+wide): a producer warp streams the tile's ``W_down`` slice once with TMA
+through a ring of ``STAGES`` stages of ``FC`` F rows, and 4 consumer warps
+keep every row's accumulators in registers (a thread 2 columns x R rows,
+R in ``R_BUCKETS``), each element's F chain one fmaf chain in one thread,
+so the plain version is matched bit for bit on the CUDA cores.  Then
+combine items of ``COMBINE_ROWS`` rows x 128 columns add each row's
+experts in ascending order over the whole card.  The list is built on the
+card from ``combine`` alone; ``plan`` reckons the same list on the host,
+for tests and reports.  An expert whose combine weight is 0 adds nothing,
+which is the plain version's bits for every finite product (ROADMAP
+C.10).
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Any, Dict, List
+
+import numpy as np
 import torch
 
 from . import _build
 from ._launch import stream_ptr
 from .ref import moe_down_combine_ref
 
-__all__ = ["moe_down_combine", "moe_down_combine_bytes"]
+__all__ = ["moe_down_combine", "moe_down_combine_bytes", "plan",
+           "item_width"]
 
 launches = 0  # kernel launches; the main-path check reads and resets it
 
-TD = 128  # columns a block (kTD in the CUDA source)
+# the constants of csrc/moe.cu (tests/test_torch_moe_kernel.py holds them
+# equal)
+TD = 128  # columns of a combine tile and of the widest item (kTD)
 FC = 32  # F rows a stage (kFC)
+STAGES = 4  # the W ring's stages (kStages)
+MAX_ROWS = 128  # rows of a down item (kMaxRows)
+MAX_E = 256  # experts at most (kMaxE)
+COMBINE_ROWS = 8  # rows of a combine item (kCombineRows)
+R_BUCKETS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16)  # rows a thread holds
+CONSUMERS = 128  # consumer threads a block, each 2 columns (kConsumers)
+MAP_BYTES = 3 * 128  # a W_down's tensor maps: one an item width
+
+# per W_down, by (device, data_ptr, E, F, D): its tensor maps.  A map holds
+# only the address, the shape and the strides, so the key names it fully.
+_MAPS: Dict[tuple, ctypes.Array] = {}
+_MAX_MAPS = 4096
+
+
+def item_width(n: int) -> int:
+    """Columns of a down item of ``n`` rows: 128 up to 32 rows, 64 up to
+    64, else 32, so that no item holds more than 32 x 128 (row, column)
+    pairs; its ``256 // width`` row groups hold ``thread_rows`` rows a
+    thread."""
+    return 128 if n <= 32 else 64 if n <= 64 else 32
+
+
+def thread_rows(n: int, width: int) -> int:
+    """R: the least of ``R_BUCKETS`` that holds an item's ``n`` rows in its
+    ``256 // width`` row groups."""
+    need = -(-n // (2 * CONSUMERS // width))
+    return next(r for r in R_BUCKETS if r >= need)
+
+
+def item_cost(n: int) -> int:
+    """The rank key of an expert of ``n`` rows in the work list: its first
+    item's rows a thread (its fmaf an F row), then its width (its bytes);
+    the costliest go first."""
+    if n == 0:
+        return 0
+    m = min(n, MAX_ROWS)
+    width = item_width(m)
+    return -(-m * width // 256) * 1024 + width
+
+
+def plan(combine: torch.Tensor, D: int) -> Dict[str, Any]:
+    """The work list the kernel builds on the card from ``combine [M, E]``
+    (nonzero weights are the routed pairs), in the order its blocks take
+    it: the experts ranked by ``item_cost``, costliest first, ties to the
+    lower expert; each expert's rows in ascending order, in chunks of
+    ``MAX_ROWS``, each chunk's column tiles (``item_width`` wide) in
+    order; then the combine items.  ``{"rows": [E] rows an
+    expert, "order": experts,
+    "items": [{"e", "rows" (row indices), "c0", "width", "R"}],
+    "combine_items": n}``.  A reckoning on the host (it syncs), for tests
+    and reports; the wrapper never calls it."""
+    pick = (combine != 0).cpu().numpy()
+    M, E = pick.shape
+    cnt = pick.sum(0)
+    order = sorted(range(E), key=lambda e: (-item_cost(int(cnt[e])), e))
+    items: List[Dict[str, Any]] = []
+    for e in order:
+        rows = np.flatnonzero(pick[:, e])
+        for first in range(0, len(rows), MAX_ROWS):
+            chunk = rows[first:first + MAX_ROWS]
+            width = item_width(len(chunk))
+            R = thread_rows(len(chunk), width)
+            items += [{"e": e, "rows": chunk.tolist(), "c0": c0,
+                       "width": width, "R": R}
+                      for c0 in range(0, D, width)]
+    return {"rows": cnt.tolist(), "order": order, "items": items,
+            "combine_items": -(-D // TD) * -(-M // COMBINE_ROWS)}
 
 
 def moe_down_combine_bytes(h: torch.Tensor, w_down: torch.Tensor,
@@ -52,6 +135,9 @@ def moe_down_combine_bytes(h: torch.Tensor, w_down: torch.Tensor,
 
 def _check(h: torch.Tensor, w_down: torch.Tensor,
            combine: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: bf16, contiguous, 16-byte
+    aligned ``h [M, E, F]``, ``w_down [E, F, D]``, ``combine [M, E]`` on
+    one device, F a multiple of ``FC``, D of 8, E of 8 up to ``MAX_E``."""
     for name, t in (("h", h), ("w_down", w_down), ("combine", combine)):
         if t.device != h.device:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
@@ -71,16 +157,32 @@ def _check(h: torch.Tensor, w_down: torch.Tensor,
                          f"{tuple(w_down.shape)}, combine "
                          f"{tuple(combine.shape)}")
     D = w_down.shape[2]
-    if F % FC or D % 8:
+    if F % FC or D % 8 or F == 0 or D == 0:
         raise ValueError(f"the kernel takes F a multiple of {FC} and D of 8, "
                          f"got F = {F}, D = {D}")
+    if E % 8 or not 0 < E <= MAX_E:
+        raise ValueError(f"the kernel takes E a multiple of 8 up to {MAX_E} "
+                         f"experts, got E = {E}")
+
+
+def _weight_maps(lib, w: torch.Tensor) -> ctypes.Array:
+    key = (w.device.index, w.data_ptr(), *w.shape)
+    maps = _MAPS.get(key)
+    if maps is None:
+        if len(_MAPS) >= _MAX_MAPS:
+            _MAPS.clear()
+        maps = ctypes.create_string_buffer(MAP_BYTES)
+        _build.check(lib, lib.moe_weight_map(w.data_ptr(), *w.shape, maps),
+                     f"moe_weight_map ({tuple(w.shape)})")
+        _MAPS[key] = maps
+    return maps
 
 
 def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
                      combine: torch.Tensor) -> torch.Tensor:
     """``h [M, E, F]``, ``w_down [E, F, D]``, ``combine [M, E]`` bf16 ->
-    ``[M, D]`` bf16: the kernel for CUDA tensors (one launch), the plain
-    version for CPU tensors."""
+    ``[M, D]`` bf16: the kernel for CUDA tensors (one launch, after the
+    counters' zeroing), the plain version for CPU tensors."""
     global launches
     if h.device.type == "cpu":
         return moe_down_combine_ref(h, w_down, combine)
@@ -96,9 +198,11 @@ def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
     if M == 0:
         return out
     ys = torch.empty((M, E, D), dtype=torch.bfloat16, device=h.device)
-    counters = torch.zeros(-(-D // TD), dtype=torch.int32, device=h.device)
+    # the next item, then the columns done in each 128-column tile
+    counters = torch.zeros(1 + -(-D // TD), dtype=torch.int32,
+                           device=h.device)
     lib = _build.load("moe")
-    err = lib.moe_down_combine(h.data_ptr(), w_down.data_ptr(),
+    err = lib.moe_down_combine(h.data_ptr(), _weight_maps(lib, w_down),
                                combine.data_ptr(), ys.data_ptr(),
                                counters.data_ptr(), out.data_ptr(), M, E, F,
                                D, stream_ptr(h.device))

@@ -927,7 +927,12 @@ def test_cuda_train_step_launches_linear_and_tracks_plain(cuda_device):
 
 # ------------------------------------------------------------- MoE
 MOE_DIMS = dict(E=64, F=1408, D=2048, n_real=60, top_k=4)  # qwen2-moe
-MOE_ROWS = (1, 7, 16, 128, 200)
+MOE_ROWS = (1, 7, 16, 128, 200, 256)
+# skewed routings of combine_case, each at its M: every row's top expert the
+# same one, every row on experts 0 .. top_k-1, each real expert picked by
+# one row (60 / 4 rows), and every row on one expert alone
+MOE_SKEWS = (("same_top", 128), ("first_k", 128), ("first_k", 200),
+             ("one_each", 15), ("one_expert", 256))
 
 
 def _bf16(a, dev) -> torch.Tensor:
@@ -935,43 +940,63 @@ def _bf16(a, dev) -> torch.Tensor:
         torch.bfloat16)
 
 
-def combine_case(seed, M, E, n_real, top_k, dev="cpu") -> torch.Tensor:
+def combine_case(seed, M, E, n_real, top_k, dev="cpu",
+                 skew=None) -> torch.Tensor:
     """bf16 ``combine [M, E]``: each row's ``top_k`` of the ``n_real``
     experts with normalised weights, the rest 0; every third row's weights
     tied (1 / top_k each), every fifth row with one picked weight 0, and
-    the last row all 0."""
+    the last row all 0.  ``skew`` picks the experts otherwise:
+    ``"same_top"`` gives every row expert ``n_real // 2`` as its first
+    pick, ``"first_k"`` every row experts 0 .. top_k-1, ``"one_each"``
+    row m experts m*top_k .. m*top_k + top_k-1 (each expert one row; rows
+    past the experts pick none), and ``"one_expert"`` every row expert
+    ``n_real // 3`` alone."""
     rng = np.random.default_rng(seed)
     c = np.zeros((M, E), np.float32)
     for m in range(M):
         pick = rng.choice(n_real, top_k, replace=False)
-        vals = rng.uniform(0.05, 1.0, top_k)
+        if skew == "same_top":
+            rest = [e for e in pick if e != n_real // 2]
+            pick = np.array([n_real // 2, *rest[:top_k - 1]])
+        elif skew == "first_k":
+            pick = np.arange(top_k)
+        elif skew == "one_each":
+            pick = np.arange(m * top_k, (m + 1) * top_k)
+            pick = pick[pick < n_real]
+        elif skew == "one_expert":
+            pick = np.array([n_real // 3])
+        elif skew is not None:
+            raise ValueError(f"unknown skew {skew!r}")
+        vals = rng.uniform(0.05, 1.0, len(pick))
         if m % 3 == 0:
             vals[:] = 1.0
-        vals = vals / vals.sum()
-        if m % 5 == 1:
+        vals = vals / max(vals.sum(), 1e-30)
+        if m % 5 == 1 and len(pick) and skew != "one_expert":
             vals[0] = 0.0
         c[m, pick] = vals
     c[-1] = 0.0
     return _bf16(c, dev)
 
 
-def moe_case(seed, M, E, F, D, n_real, top_k, dev="cpu"):
+def moe_case(seed, M, E, F, D, n_real, top_k, dev="cpu", skew=None):
     """bf16 ``h [M, E, F]`` ~ N(0, 1), ``w_down [E, F, D]`` ~ N(0, 1/F) and
-    ``combine_case``'s ``[M, E]`` weights."""
+    ``combine_case``'s ``[M, E]`` weights (``skew`` as there)."""
     rng = np.random.default_rng(seed)
     h = _bf16(rng.standard_normal((M, E, F)), dev)
     w = _bf16(rng.standard_normal((E, F, D)) / np.sqrt(F), dev)
-    return h, w, combine_case(seed + 1, M, E, n_real, top_k, dev)
+    return h, w, combine_case(seed + 1, M, E, n_real, top_k, dev, skew)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", MOE_ROWS)
-def test_cuda_moe_down_combine_equals_plain(cuda_device, M):
+@pytest.mark.parametrize("M,skew", [(M, None) for M in MOE_ROWS]
+                         + [(M, s) for s, M in MOE_SKEWS])
+def test_cuda_moe_down_combine_equals_plain(cuda_device, M, skew):
     """The kernel bitwise equal to ``ref.moe_down_combine_ref`` on the
     card, at qwen2-moe's widths (64 experts, F 1408, D 2048), with tied
-    and zero combine weights: every float32 sum runs in the plain
-    version's order."""
-    h, w, c = moe_case(M, M, **MOE_DIMS, dev=cuda_device)
+    and zero combine weights, on random and on skewed routing (one expert
+    past the 128 rows a work item holds, experts with one row): every
+    float32 sum runs in the plain version's order."""
+    h, w, c = moe_case(M, M, **MOE_DIMS, dev=cuda_device, skew=skew)
     ops.reset_launch_counts()
     got = ops.moe_down_combine(h, w, c)
     assert ops.launch_counts()["moe_down_combine"] == 1
@@ -982,14 +1007,55 @@ def test_cuda_moe_down_combine_equals_plain(cuda_device, M):
 
 
 @pytest.mark.cuda
-def test_cuda_moe_down_combine_rows_are_invariant(cuda_device):
-    """Each row of a [16, ...] launch is bitwise the row launched alone."""
-    h, w, c = moe_case(3, 16, **MOE_DIMS, dev=cuda_device)
+@pytest.mark.parametrize("skew", [None, "same_top", "one_expert"])
+def test_cuda_moe_down_combine_rows_are_invariant(cuda_device, skew):
+    """Each row of a [16, ...] launch is bitwise the row launched alone,
+    and the first 16 rows of a [144, ...] launch (past one work item's
+    128 rows when every row is on one expert) the same rows again."""
+    h, w, c = moe_case(3, 144, **MOE_DIMS, dev=cuda_device, skew=skew)
+    big = ops.moe_down_combine(h, w, c)[:16]
+    h, c = h[:16].contiguous(), c[:16].contiguous()
     full = ops.moe_down_combine(h, w, c)
+    assert torch.equal(big, full)
     for m in range(16):
         alone = ops.moe_down_combine(h[m:m + 1].contiguous(), w,
                                      c[m:m + 1].contiguous())
         assert torch.equal(alone[0], full[m]), m
+
+
+@pytest.mark.cuda
+def test_cuda_moe_down_combine_replays_in_a_graph(cuda_device):
+    """One call captured in a CUDA graph, then replayed on other inputs
+    with other routing (random, then every row on experts 0-3, then every
+    row on one expert): bitwise the plain version each time, and neither
+    the capture nor a replay makes the host wait (the work list is built
+    on the card, the launch depends on the shapes alone)."""
+    M, E, F = 128, MOE_DIMS["E"], MOE_DIMS["F"]
+    h, w, c = moe_case(5, M, **MOE_DIMS, dev=cuda_device)
+    others = []
+    for seed, skew in ((6, None), (7, "first_k"), (8, "one_expert")):
+        rng = np.random.default_rng(seed)
+        others.append((skew, _bf16(rng.standard_normal((M, E, F)),
+                                   cuda_device),
+                       combine_case(seed, M, E, MOE_DIMS["n_real"],
+                                    MOE_DIMS["top_k"], cuda_device, skew)))
+    ops.moe_down_combine(h, w, c)  # build and load outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            torch.cuda.set_sync_debug_mode("error")
+            out = ops.moe_down_combine(h, w, c)
+            torch.cuda.set_sync_debug_mode("default")
+        for skew, h2, c2 in others:
+            torch.cuda.set_sync_debug_mode("error")
+            h.copy_(h2)
+            c.copy_(c2)
+            g.replay()
+            torch.cuda.set_sync_debug_mode("default")
+            assert torch.equal(out, ref.moe_down_combine_ref(h, w, c)), skew
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.cuda
@@ -1003,6 +1069,9 @@ def test_cuda_moe_down_combine_refuses_what_it_does_not_take(cuda_device):
         ops.moe_down_combine(h.float(), w, c)
     with pytest.raises(NotImplementedError, match="item 9"):
         ops.moe_down_combine(h, w.requires_grad_(True), c)
+    h, w, c = moe_case(0, 4, 12, 32, 16, 12, 2, dev=cuda_device)
+    with pytest.raises(ValueError, match="E a multiple of 8"):
+        ops.moe_down_combine(h, w, c)
     assert ops.launch_counts()["moe_down_combine"] == 0
 
 
