@@ -224,16 +224,64 @@ Phases, in order; the first failure exits non-zero:
    the paged device batcher == the dense one on 16 single-token prompts,
    bitwise; (f) the profiler's kernels over one round, exact (phase 11's
    rule, with ``moe_down_combine`` 16 x 24); tokens/s, ms a step, device
-   ms a step by class, idle share and peak memory.
+   ms a step by class, idle share and peak memory;
+18. the recurrent families, after every earlier model is freed: (a)
+   recurrentgemma-9b at its published width and depth (38 layers,
+   pattern rglru, rglru, attn: 26 RG-LRU and 12 windowed attention
+   layers, d 4,096, 16 heads on 1 KV head of hd 256, window 2,048, d_ff
+   12,288 GELU, vocab 256,000; 10.44 B parameters), random weights from
+   ``--seed``, over the dense state (phase 14's ``DENSE`` config): its
+   products' shapes through phase 8's ``linear`` checks; ``generate()``
+   (16 prompts of 4 tokens, 64 generated, the gate fused) with the
+   wrappers' launches exactly steps x (12 ``paged_attention``, 179
+   ``linear``) + the gate's tables; phase 9's 32 requests (first prompt
+   token) through the host batcher and the device batcher (CUDA graph):
+   bitwise, launches exact (phase 14 (e)'s rule), graph == eager bitwise,
+   a round without a synchronising call; the host batcher's streams
+   teacher-forced from a fresh state through the kernel path, the plain
+   path, each half alone, a witness (the plain products' float32 sums in
+   the other operand order) and a control (every recurrent state dropped
+   at every step): the kernel path and the witness within phase 17's
+   gate of the plain path (6 deltas a position, 2 on average; phase 9's
+   one delta printed: the witness itself breaks it on this random
+   38-layer model), the control past it; the profiler over a round
+   (exact), tokens/s, ms and device ms a step by kernel class, idle, the
+   share of the weights' byte bound (18.79 GB, 5.61 ms), and an eager
+   step's device time with the recurrences told apart (the RG-LRU's
+   decode under a ``record_function`` range set by this script); (b) the
+   ring past its wrap: cache 128 under the window of 2,048, phase 14
+   (c)'s check (the kernel on all 12 attention layers' captured inputs
+   within one bf16 ulp, host == device bitwise); (c) ``paged_attention``
+   at this model's step (16 slots x 1,024 ring cells, C = 1, hd 256,
+   16:1 heads, past the wrap) within one bf16 ulp, timed beside gather +
+   SDPA and its bound, and the step's 179 ``linear`` launches L2-cold at
+   M = 16 beside cuBLAS (two new JSON rows); (d) xlstm-125m (12 layers,
+   mLSTM and sLSTM alternating, d 768, 4 heads of 192, vocab 50,304
+   padded to 50,432) through the same checks but the ring's (31
+   ``linear`` launches a step: the mLSTM's q/k/gates and v/gate groups
+   and w_out, the sLSTM's w_gates and w_out, the head); (e)
+   ``repro_torch.launch.train`` on xlstm-125m at ``examples/
+   train_lm.py``'s settings (8 x 128 tokens, 2 microbatches, lr 3e-3, 20
+   steps, a checkpoint): the loss improves, ``linear`` launched exactly
+   20 x 2 x (2 x 30 + 1) times and nothing else, the checkpoint's keys
+   the JAX package's ``_flatten`` keys of the same tree (built from the
+   JAX init functions' leaf names); at 2 layers (one macro, full width,
+   as phase 15 (b) cuts qwen2) kernel vs plain, and a witness, within
+   phase 15's bounds at each of 2 steps, every path from the same masters
+   (two trajectories drift apart through AdamW at lr 3e-3, and the full
+   model's gradient is chaotic, with no fault in either path); ms a step,
+   tokens/s, device ms by class, idle, kernels a step.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
 printed on the first line beside the card; the float32 lanes are twice
 as many).  ``--phase17`` builds the kernels and runs phase 17 alone, a
-quick MoE run that prints no result line.
+quick MoE run that prints no result line; ``--phase18`` the same for
+phase 18.
 
-Its last three lines are the kernels JSON (``moe_down_combine``'s row
-last), the card's ``name, power.limit``
+Its last three lines are the kernels JSON (phase 18's
+``paged_attention`` and ``linear`` rows last, each with its ``cell``), the
+card's ``name, power.limit``
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
@@ -1583,12 +1631,25 @@ def serve_workload(cfg, params, gate, prompts, feats, dev, attn_impl="auto"):
     return cb, time.perf_counter() - t0, ops.launch_counts()
 
 
+def serve_gate(dev):
+    """The serve phases' admission gate: rf-S planted on unsw, on the
+    card (gate-sized, so ``fused_eb``)."""
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+
+    ds = load_dataset("unsw", n=4000)
+    gate = plant(PlanterConfig(model="rf", size="S", device=str(dev)),
+                 ds.X_train, ds.y_train, ds.X_test).mapped
+    if gate.select_backend(dev) != "cuda_fused":
+        fail(f"the rf-S gate takes {gate.select_backend(dev)}, not cuda_fused")
+    return gate
+
+
 def drive_serve(dev, seed: int, arch: str = "qwen2-1.5b") -> ServeRun:
     """``arch`` (qwen2-1.5b) at full width through ServeEngine +
     ContinuousBatcher."""
     from repro_torch.arch import model as M
     from repro_torch.configs import get_config
-    from repro_torch.core import PlanterConfig, plant
     from repro_torch.data import load_dataset
     from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
                                           ServeEngine)
@@ -1596,10 +1657,7 @@ def drive_serve(dev, seed: int, arch: str = "qwen2-1.5b") -> ServeRun:
     cfg = get_config(arch)
     params = M.init_params(cfg, seed, dev)
     ds = load_dataset("unsw", n=4000)
-    gate = plant(PlanterConfig(model="rf", size="S", device=str(dev)),
-                 ds.X_train, ds.y_train, ds.X_test).mapped
-    if gate.select_backend(dev) != "cuda_fused":
-        fail(f"the rf-S gate takes {gate.select_backend(dev)}, not cuda_fused")
+    gate = serve_gate(dev)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
@@ -1651,11 +1709,35 @@ def check_serve(run: ServeRun) -> str:
             f"{ {k: n for k, n in run.launches.items() if n} }")
 
 
+def layer_kinds(cfg) -> list:
+    """Each layer's mixer in order: the pattern's macros, then the tail."""
+    if not cfg.block_pattern:
+        return ["attn"] * cfg.n_layers
+    pat = list(cfg.block_pattern)
+    n_macro, n_tail = divmod(cfg.n_layers, len(pat))
+    return pat * n_macro + pat[:n_tail]
+
+
+# ``linear`` launches of a recurrent or hybrid layer's mixer: the RG-LRU's
+# (w_lin, w_gate) and (w_rec_gate, w_in_gate) groups and w_out; the
+# mLSTM's (wq, wk, w_if) and (wv, w_gate) groups and w_out; the sLSTM's
+# w_gates and w_out; attention's q/k/v group and wo
+MIXER_PRODUCTS = {"attn": 2, "rglru": 3, "mlstm": 3, "slstm": 2}
+
+
+def attention_layers(cfg) -> int:
+    return layer_kinds(cfg).count("attn")
+
+
 def step_products(cfg) -> int:
     """``linear`` launches a serve step: 4 a layer with an MLP (the q/k/v
     group, wo, the gate/up group, w_down), 4 with an MoE block (the q/k/v
     group, wo, the router, the experts' gate/up group) and 2 more with its
-    shared experts (their gate/up group and down), and the head."""
+    shared experts (their gate/up group and down), and the head; a
+    ``block_pattern`` layer's mixer ``MIXER_PRODUCTS`` and its MLP 2."""
+    if cfg.block_pattern:
+        mlp = 2 if cfg.d_ff else 0
+        return sum(MIXER_PRODUCTS[k] + mlp for k in layer_kinds(cfg)) + 1
     if cfg.n_experts:
         return (4 + 2 * bool(cfg.n_shared_experts)) * cfg.n_layers + 1
     return 4 * cfg.n_layers + 1
@@ -1665,7 +1747,8 @@ def step_kernels(cfg) -> Dict[str, int]:
     """The wrapper launches of one serve step by kernel (without the
     gate's): ``paged_attention`` once a layer, ``linear``
     ``step_products``, and ``moe_down_combine`` once an MoE layer."""
-    want = {"paged_attention": cfg.n_layers, "linear": step_products(cfg)}
+    want = {"paged_attention": attention_layers(cfg),
+            "linear": step_products(cfg)}
     if cfg.n_experts:
         want["moe_down_combine"] = cfg.n_layers
     return want
@@ -2481,7 +2564,7 @@ def check_terminal(cb, run: ServeRun, tag: str, max_tokens: int,
             fail(f"{tag} request {rid}: {len(toks)} tokens, or out of vocab")
 
 
-def drive_dense(run: ServeRun, dev) -> Dict[str, Any]:
+def drive_dense(run: ServeRun, dev, tag: str = "(14a)") -> Dict[str, Any]:
     """(a) phase 9's traffic (first prompt token only) through the dense
     host batcher (wrapper counts reset just before, read just after) and
     the dense device batcher: every stream, drop and reason bitwise."""
@@ -2493,31 +2576,34 @@ def drive_dense(run: ServeRun, dev) -> Dict[str, Any]:
     host_s = device_wave(host, run, dev, dense=True)
     counts = ops.launch_counts()
     device_s = device_wave(device, run, dev, dense=True)
-    same_run("(14a) dense host batcher vs dense device batcher", host,
+    same_run(f"{tag} dense host batcher vs dense device batcher", host,
              device)
-    for cb, tag in ((host, "(14a) host"), (device, "(14a) device")):
-        check_terminal(cb, run, tag, SERVE_TOKENS)
+    for cb, who in ((host, f"{tag} host"), (device, f"{tag} device")):
+        check_terminal(cb, run, who, SERVE_TOKENS)
     if not (int(host.engine.state["pos"]) == host.steps == device.steps
             == int(device._decode["pos"])):
-        fail(f"(14a) global positions {int(host.engine.state['pos'])}, "
+        fail(f"{tag} global positions {int(host.engine.state['pos'])}, "
              f"{int(device._decode['pos'])} for {host.steps} and "
              f"{device.steps} steps with work")
     return dict(host=host, host_s=host_s, counts=counts, device=device,
                 device_s=device_s)
 
 
-def check_dense_launches(d: Dict[str, Any], run: ServeRun) -> str:
+def check_dense_launches(d: Dict[str, Any], run: ServeRun,
+                         tag: str = "(14e)") -> str:
     """(e) the host batcher's wrapper counts: ``paged_attention`` = steps x
-    28, ``linear`` = steps x 113, ``fused_eb`` = the gate's tables x (one
-    admission call a submitted request + one fused gate call a step)."""
+    the attention layers (28), ``linear`` = steps x ``step_products``
+    (113), ``fused_eb`` = the gate's tables x (one admission call a
+    submitted request + one fused gate call a step)."""
     host, counts = d["host"], d["counts"]
-    L, T, steps = run.cfg.n_layers, gate_tables(run.gate), host.steps
+    L, T, steps = attention_layers(run.cfg), gate_tables(run.gate), host.steps
     want = {"paged_attention": steps * L,
             "linear": steps * step_products(run.cfg),
             "fused_eb": T * (SERVE_REQUESTS + steps)}
+    want = {k: n for k, n in want.items() if n}
     got = {k: n for k, n in counts.items() if n}
     if got != want:
-        fail(f"(14e) the dense host batcher launched {got} in {steps} steps, "
+        fail(f"{tag} the dense host batcher launched {got} in {steps} steps, "
              f"expected {want}")
     return (f"(e) host batcher, {steps} steps: wrapper launches {got} == "
             f"steps x {L}, steps x {step_products(run.cfg)}, {T} x "
@@ -2564,7 +2650,7 @@ def check_wrap(run: ServeRun, dev) -> str:
     from repro_torch.nn import attn_backend as AB
 
     kernel, plain = AB.get("cuda"), AB.get("torch")
-    L = run.cfg.n_layers
+    L = attention_layers(run.cfg)
     calls, worst, n = [0], [0.0], [0]
 
     def capturing(q, kv, *, n_heads, head_dim, window):
@@ -2593,7 +2679,8 @@ def check_wrap(run: ServeRun, dev) -> str:
             int(device._decode["pos"]) != pos):
         fail(f"(14c) captured {n[0]} layer calls; global position {pos} "
              f"(device {int(device._decode['pos'])}), cache {WRAP_CACHE}")
-    return (f"(c) cache {WRAP_CACHE}, {WRAP_TOKENS} tokens a request: "
+    return (f"(c) cache {WRAP_CACHE}, {WRAP_TOKENS} tokens a request, "
+            f"window {run.cfg.local_window or 'none'}: "
             f"global position {pos} ({pos / WRAP_CACHE:.2f} laps); the "
             f"kernel on the captured inputs of all {L} layers at positions "
             f"{WRAP_CAPTURE} ({n[0]} calls) within one bf16 ulp of the plain "
@@ -2603,7 +2690,7 @@ def check_wrap(run: ServeRun, dev) -> str:
             f"host {host_s:.3f} s, device {device_s:.3f} s with its capture)")
 
 
-def check_dense_no_sync(run: ServeRun, dev) -> str:
+def check_dense_no_sync(run: ServeRun, dev, tag: str = "(14d)") -> str:
     """(d) one round of the eager and of the replayed dense step, from a
     mid-flight state, under ``set_sync_debug_mode("error")``."""
     from repro_torch.serve.engine import DeviceContinuousBatcher
@@ -2622,7 +2709,7 @@ def check_dense_no_sync(run: ServeRun, dev) -> str:
         try:
             fs.run(DEVICE_ROUND)
         except RuntimeError as exc:
-            fail(f"(14d) a {'replayed' if graph else 'eager'} dense round "
+            fail(f"{tag} a {'replayed' if graph else 'eager'} dense round "
                  f"made the host wait: {exc}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -2748,10 +2835,11 @@ class plain_products:
         self.mod._forward = self.real
 
 
-def step_grads(cfg, tcfg, params, batch):
+def step_grads(cfg, tcfg, params, batch, with_loss: bool = False):
     """The float32 gradient of every master a train step computes for
     ``batch`` (microbatches' gradients summed in float32, over their
-    count), as ``{key: [parts]}``."""
+    count), as ``{key: [parts]}``; with ``with_loss`` also the step's loss
+    (the microbatches' mean)."""
     from repro_torch.arch import model as M
     from repro_torch.tree import leaves, map_leaves
 
@@ -2760,17 +2848,18 @@ def step_grads(cfg, tcfg, params, batch):
     flat = [(leaf.key, p) for leaf in leaves(masters) for p in leaf.parts]
     n = tcfg.microbatches
     size = batch["tokens"].shape[0] // n
-    acc = None
+    acc, total = None, 0.0
     for i in range(n):
         mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
         loss = M.loss_fn(masters, mb, cfg, q_block=tcfg.q_block)
         gs = torch.autograd.grad(loss, [p for _, p in flat])
         gs = [g.float() for g in gs]
         acc = gs if acc is None else [a + g for a, g in zip(acc, gs)]
+        total += float(loss.detach())
     out: Dict[str, list] = collections.defaultdict(list)
     for (key, _), g in zip(flat, acc):
         out[key].append(g / n)
-    return out
+    return (out, total / n) if with_loss else out
 
 
 def check_train_parity(dev, seed: int) -> str:
@@ -3792,6 +3881,796 @@ def phase17(dev, seed: int, card: str) -> tuple:
     return moe_row, moe_lin
 
 
+# ------------------------------------------------------------ phase 18
+HYBRID_ARCH, XLSTM_ARCH = "recurrentgemma-9b", "xlstm-125m"
+REC_ARCHS = (HYBRID_ARCH, XLSTM_ARCH)
+# (e): examples/train_lm.py's settings: 8 x 128 tokens in 2 microbatches,
+# lr 3e-3; 20 steps of the launcher
+REC_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--batch", "8", "--seq", "128",
+                  "--microbatches", "2", "--lr", "3e-3", "--steps", "20",
+                  "--ckpt-every", "50"]
+REC_TRAIN_STEPS, REC_TRAIN_BATCH, REC_TRAIN_SEQ, REC_TRAIN_MICRO = (
+    20, 8, 128, 2)
+REC_PARITY_STEPS = 2  # (e): steps through the kernel and the plain path
+# (e): the parity's depth, one macro (an mLSTM and an sLSTM) at full
+# width, as phase 15 (b) cuts qwen2 to TRAIN_CUT layers.  At the full 12
+# layers the random model's gradient is chaotic: the JAX package's own
+# jitted and op-by-op gradients of one xlstm-125m loss differ by 29-36% of
+# each leaf's norm (seq 16, on the CPU), and a product rounded otherwise
+# by 13-46% (seq 16-128); at 2 layers by at most 1.3% (PERF.md §6)
+REC_PARITY_LAYERS = 2
+REC_PROFILE_STEPS = 12  # (a)/(d): eager host-batcher steps profiled
+# the JAX package's leaves of each mixer (src/repro/nn/recurrent.py,
+# src/repro/nn/attention.py) and a layer: (e)'s checkpoint keys are built
+# from these, not from the port's tree
+JAX_MIXER_LEAVES = {
+    "mlstm": ("wq", "wk", "wv", "w_i", "w_f", "b_f", "w_gate", "w_out",
+              "conv"),
+    "slstm": ("w_gates", "r_gates", "b_gates", "w_out"),
+    "rglru": ("w_lin", "w_gate", "w_out", "w_rec_gate", "w_in_gate", "lam",
+              "conv"),
+    "attn": ("wq", "wk", "wv", "wo")}
+
+
+def rec_run(dev, seed: int, arch: str, gate) -> ServeRun:
+    """``arch`` at its published width and depth, random weights from
+    ``seed``, phase 9's gate and traffic (prompts drawn in the model's
+    vocabulary): the ``ServeRun`` the dense checks of phase 14 take."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import load_dataset
+
+    cfg = get_config(arch)
+    params = M.init_params(cfg, seed, dev)
+    ds = load_dataset("unsw", n=4000)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                                     SERVE_REQUESTS)]
+    feats = ds.X_test[np.arange(SERVE_REQUESTS) % len(ds.X_test)]
+    return ServeRun(cfg, params, gate, prompts, feats, None, 0.0, {})
+
+
+def rec_generate(run: ServeRun, dev, tag: str) -> Dict[str, Any]:
+    """``ServeEngine.generate`` on the dense engine with the gate fused,
+    phase 9's first 16 prompts' 4-token heads, DENSE_GENERATE tokens: the
+    wrapper counts, reset just before and read just after, exactly the
+    steps x (``step_kernels`` + the gate's tables); every token in the
+    vocabulary."""
+    from repro_torch.kernels import ops
+
+    B, P, n = DENSE["max_batch"], 4, DENSE_GENERATE
+    eng = dense_engine(run, dev)
+    prompts = np.array([p[:P] for p in run.prompts[:B]], np.int32)
+    feats = run.feats[:B]
+    eng.generate(prompts[:, :1], 2, features=feats)  # warm-up
+    eng.state = None  # a fresh decode state
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, n, features=feats)
+    seconds = time.perf_counter() - t0
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    steps = P + n - 1
+    want = {k: steps * c for k, c in step_kernels(run.cfg).items() if c}
+    want["fused_eb"] = steps * gate_tables(run.gate)
+    if counts != want:
+        fail(f"{tag} generate launched {counts} in {steps} steps, expected "
+             f"{want}")
+    # generate argmaxes over the padded vocabulary, as the JAX package's
+    # does (a random head's padded columns can win; the batchers
+    # quarantine such a token, generate returns it)
+    if out.shape != (B, n) or not ((out >= 0) & (out < run.cfg.vocab_padded)
+                                   ).all():
+        fail(f"{tag} generate gave {out.shape} tokens, or past the padded "
+             f"vocabulary")
+    return dict(seconds=seconds, steps=steps, tokens=B * n, counts=counts)
+
+
+def rec_graph_eager(run: ServeRun, device, dev, tag: str) -> float:
+    """The dense device batcher without its CUDA graph on the same wave:
+    every stream, drop and reason bitwise the captured one's."""
+    from repro_torch.serve.engine import DeviceContinuousBatcher
+
+    eager = DeviceContinuousBatcher(dense_engine(run, dev), eos_token=-1,
+                                    max_tokens=SERVE_TOKENS,
+                                    sync_every=DEVICE_ROUND, graph=False)
+    seconds = device_wave(eager, run, dev, dense=True)
+    same_run(f"{tag} graph vs eager", device, eager)
+    return seconds
+
+
+def kernels_under(evt, skip=("linear_wgmma_kernel",)) -> float:
+    """Device microseconds of the kernels launched under a profiler event
+    (its own and its CPU children's), but those named in ``skip``."""
+    own = sum(k.duration for k in evt.kernels
+              if not any(s in k.name for s in skip))
+    return own + sum(kernels_under(c, skip) for c in evt.cpu_children)
+
+
+def rec_profile_host(run: ServeRun, dev) -> Dict[str, Any]:
+    """Where an eager dense step's device time goes, at 16 live slots:
+    REC_PROFILE_STEPS host-batcher steps timed on the host clock, then as
+    many under torch.profiler, each recurrent layer's decode inside a
+    ``record_function("recurrence")`` range (set here, not in the port):
+    device ms a step by class, ``linear``, ``paged_attention``, the gate
+    (``fused_eb``), the recurrences (every kernel under a range but
+    ``linear``'s) and other; idle = 1 - device / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.nn import recurrent as R
+    from repro_torch.serve.engine import ContinuousBatcher
+
+    steps = REC_PROFILE_STEPS
+    cb = ContinuousBatcher(dense_engine(run, dev), eos_token=-1,
+                           max_tokens=2 * steps + 8)
+    for rid in range(DENSE["max_batch"]):
+        cb.submit(rid, run.prompts[rid][:1], features=run.feats[rid])
+    cb.run(max_steps=4)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    cb.run(max_steps=steps)
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    names = ("rglru_decode", "mlstm_decode", "slstm_decode")
+    real = {n: getattr(R, n) for n in names}
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function("recurrence"):
+                return fn(*a, **kw)
+        return call
+
+    try:
+        for n in names:
+            setattr(R, n, ranged(real[n]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_window(dev)
+            cb.run(max_steps=steps)
+            torch.cuda.synchronize(dev)
+    finally:
+        for n in names:
+            setattr(R, n, real[n])
+    by: Dict[str, float] = collections.Counter()
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA or evt.is_user_annotation
+                or "spin_kernel" in evt.key):
+            continue
+        by[kernel_class(evt.key)] += evt.self_device_time_total / 1e3 / steps
+    rec = sum(kernels_under(e) for e in prof.events()
+              if e.name == "recurrence" and e.device_type == DeviceType.CPU)
+    rec = rec / 1e3 / steps
+    busy = sum(by.values())
+    other = by.pop("other", 0.0) + by.pop("matmul", 0.0)
+    by["recurrences"] = rec if rec > 0 else None
+    by["other"] = other - rec
+    return dict(wall=wall, by={k: (round(v, 4) if v is not None else
+                                   "not measured") for k, v in by.items()},
+                busy=busy, idle=1 - busy / wall if busy else None)
+
+
+class witness_products:
+    """Inside the block every ``linear`` product is the plain product in
+    the other operand order, ``(w^T x^T)^T`` through cuBLAS (the float32
+    head on float32 copies): the same function as ``linear_ref``, its
+    float32 sums taken in another order, so its bf16 outputs round the
+    other way where the two sums straddle a rounding boundary."""
+
+    def __enter__(self):
+        self.mod = sys.modules["repro_torch.kernels.linear"]
+        self.real = self.mod._forward
+
+        def one(x, w, out):
+            x2 = x.reshape(-1, x.shape[-1])
+            if out == torch.float32:
+                y = (w.float().t() @ x2.float().t()).t()
+            else:
+                y = (w.t() @ x2.t()).t()
+            return y.reshape(*x.shape[:-1], w.shape[1])
+
+        self.mod._forward = lambda x, ws, out: [one(x, w, out) for w in ws]
+
+    def __exit__(self, *exc):
+        self.mod._forward = self.real
+
+
+class stateless:
+    """The control of (a) and (d): inside the block every recurrent decode
+    starts from the initial state at every step (h, C, n, c and the conv
+    history zero, the stabilizer m at -1e30): a decode that forgot to
+    carry its state, the rest of the step as it is."""
+
+    def __enter__(self):
+        from repro_torch.nn import recurrent as R
+
+        self.R = R
+        self.real = {n: getattr(R, n) for n in ("rglru_decode",
+                                                "mlstm_decode",
+                                                "slstm_decode")}
+
+        def forgetful(fn):
+            def call(p, x, state, *a):
+                fresh = {k: torch.full_like(v, R.M_START) if k == "m"
+                         else torch.zeros_like(v) for k, v in state.items()}
+                return fn(p, x, fresh, *a)
+            return call
+
+        for n, fn in self.real.items():
+            setattr(R, n, forgetful(fn))
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.R, n, fn)
+
+
+# (a)/(d) teacher-forced paths: (products, attention backend, fault); the
+# kernel path and the witness are held to the gate, the control must lie
+# past it
+TF_PATHS = {"kernel": ("kernel", "auto", None), "plain": ("plain", "torch",
+                                                          None),
+            "plain products": ("plain", "auto", None),
+            "plain attention": ("kernel", "torch", None),
+            "witness": ("witness", "torch", None),
+            "control": ("plain", "torch", stateless)}
+# (a)/(d): phase 17's gate for a deep random model (MOE_LOGIT_LIMIT deltas
+# a position, MOE_LOGIT_MEAN on average).  Phase 9's one delta is printed,
+# not gated: on recurrentgemma-9b (38 random layers, 32 steps of recurrent
+# state) the witness, the plain path with its products' float32 sums in
+# another order, lies 1.372 deltas from the plain path at worst and 0.975
+# on average, 302 of 512 positions past one delta (PERF.md §6, NVIDIA
+# H100 80GB HBM3, 700.00 W), so no correct kernel path can hold it
+
+
+def tf_logits(run: ServeRun, seqs: np.ndarray, dev, products: str,
+              attn: str, fault=None) -> torch.Tensor:
+    """``seqs [B, L]`` teacher-forced through ``decode_step`` from a fresh
+    state: float32 logits ``[B * (L - 1), Vp]`` of every step."""
+    from repro_torch.arch import model as M
+
+    ctx = {"kernel": contextlib.nullcontext, "plain": plain_products,
+           "witness": witness_products}[products]()
+    B, L = seqs.shape
+    with ctx, (fault or contextlib.nullcontext)():
+        st = M.init_decode_state(run.cfg, B, DENSE["cache_len"], device=dev)
+        rows = []
+        for t in range(L - 1):
+            lg, st = M.decode_step(
+                run.params, st, torch.as_tensor(seqs[:, t:t + 1], device=dev),
+                run.cfg, attn_impl=attn)
+            rows.append(lg)
+    return torch.stack(rows, 1).reshape(B * (L - 1), -1)
+
+
+def rec_teacher_forced(run: ServeRun, host, dev, tag: str) -> tuple:
+    """The host batcher's served streams (first prompt token + generated,
+    up to 16 of them) teacher-forced through ``decode_step`` from a fresh
+    state along the ``TF_PATHS``: the kernel path (every product the
+    ``linear`` kernel, the attention kernel), the plain path
+    (``linear_ref``, the ``"torch"`` backend), each half alone, a witness
+    (the plain path with its products' sums in another order) and a
+    control (the plain path with every recurrent state dropped at every
+    step, ``stateless``).  Each path's
+    logits against the plain path's in deltas (LOGIT_TOL * max|plain
+    logits| at the position): the kernel path and the witness within
+    MOE_LOGIT_LIMIT deltas at every position and MOE_LOGIT_MEAN on
+    average, the control past that, or the gate could not see a fault;
+    phase 9's one delta and its greedy-flip rule are printed.  Returns
+    (line, whether every gate held)."""
+    done = wave_streams(host)
+    rids = sorted(done)[:DENSE["max_batch"]]
+    seqs = np.array([run.prompts[r][:1] + done[r] for r in rids], np.int32)
+    B, L = seqs.shape
+    c = tf_logits(run, seqs, dev, *TF_PATHS["plain"])
+    delta = LOGIT_TOL * c.abs().amax(-1)
+    top2 = c.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    dist, held = {}, {}
+    for name, path in TF_PATHS.items():
+        if name == "plain":
+            continue
+        a = tf_logits(run, seqs, dev, *path)
+        if not torch.isfinite(a).all():
+            fail(f"{tag} teacher-forced {name} logits are not finite")
+        r = (a - c).abs().amax(-1) / delta
+        flip = a.argmax(-1) != c.argmax(-1)
+        loose = int((flip & (margin > 2 * delta)).sum())
+        dist[name] = (f"max {r.max().item():.3f} mean {r.mean().item():.3f} "
+                      f"delta, {int((r > 1).sum())} of {r.numel()} positions "
+                      f"past one delta, {int(flip.sum())} greedy flips "
+                      f"({loose} where the plain margin exceeds 2 delta)")
+        held[name] = bool(r.max() <= MOE_LOGIT_LIMIT
+                          and r.mean() <= MOE_LOGIT_MEAN)
+        del a
+    ok = held["kernel"] and held["witness"] and not held["control"]
+    return (f"teacher-forced, {B} served streams x {L - 1} decode steps from "
+            f"a fresh state, against the plain path (delta = {LOGIT_TOL} x "
+            f"max|plain logits|): {dist}; the gate ({MOE_LOGIT_LIMIT} deltas "
+            f"a position, {MOE_LOGIT_MEAN} on average): kernel "
+            f"{'within' if held['kernel'] else 'PAST'}, witness "
+            f"{'within' if held['witness'] else 'PAST'}, control "
+            f"{'past' if not held['control'] else 'WITHIN'}", ok)
+
+
+def weight_bytes(params, skip=("embed",)) -> int:
+    """Bytes of every parameter a decode step reads (all but ``skip``)."""
+    from repro_torch.tree import leaves
+
+    return sum(p.numel() * p.element_size() for leaf in leaves(params)
+               if leaf.key not in skip for p in leaf.parts)
+
+
+def rec_serve(dev, seed: int, arch: str, gate, card: str, tag: str,
+              wrap: bool) -> Dict[str, Any]:
+    """(a) / (d): ``arch`` at full width and depth through ``generate()``,
+    the dense host batcher and the dense device batcher (CUDA graph):
+    host == device and graph == eager bitwise, launches exact, a round
+    without a synchronising call, the kernel path within phase 9's delta
+    of the plain path on teacher-forced steps; tokens/s, ms and device ms a
+    step by class, idle share, the step's share of its byte bound.  With
+    ``wrap``, (b): the ring past its wrap (phase 14 (c)'s check)."""
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = rec_run(dev, seed, arch, gate)
+    cfg = run.cfg
+    n_params = sum(p.numel() for leaf in leaves(run.params)
+                   for p in leaf.parts)
+    w_bytes = weight_bytes(run.params)
+    print(f"[18 {tag}] {arch} at full width and depth ({cfg.n_layers} "
+          f"layers, pattern {cfg.block_pattern} "
+          f"{dict(collections.Counter(layer_kinds(cfg)))}, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
+          f"{cfg.head_dim_}, window {cfg.local_window}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_padded}), {n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, a "
+          f"step reads {w_bytes / 1e9:.3f} GB of weights (all but the "
+          f"embedding), RANDOM weights from seed {seed}; {DENSE} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    t0 = time.perf_counter()
+    line = check_linear(cfg, dev, rec_linear_weights(cfg), f"18{tag} linear")
+    print(f"[18 {tag} linear] the model's products: {line} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    g = rec_generate(run, dev, f"(18{tag})")
+    print(f"[18 {tag}] generate(), 16 prompts of 4 tokens + "
+          f"{DENSE_GENERATE} generated, gate fused: wrapper launches "
+          f"{g['counts']} == {g['steps']} steps x {step_kernels(cfg)} + the "
+          f"gate's tables; {g['tokens'] / g['seconds']:.1f} tokens/s, "
+          f"{g['seconds'] / g['steps'] * 1e3:.4f} ms a step ({card})")
+    t0 = time.perf_counter()
+    dense = drive_dense(run, dev, f"(18{tag})")
+    host, device = dense["host"], dense["device"]
+    print(f"[18 {tag}] phase 9's {SERVE_REQUESTS} requests (first prompt "
+          f"token) x {SERVE_TOKENS} tokens: host batcher == device batcher "
+          f"(sync_every {DEVICE_ROUND}, graph) bitwise: "
+          f"{len(wave_streams(host))} served, drops "
+          f"{first_wave_drops(host)[1]}; {host.steps} steps with work, "
+          f"global position {int(host.engine.state['pos'])}; "
+          f"{check_dense_launches(dense, run, f'(18{tag})')}")
+    eager_s = rec_graph_eager(run, device, dev, f"(18{tag})")
+    print(f"[18 {tag}] graph == eager bitwise (eager wave {eager_s:.3f} s); "
+          f"{check_dense_no_sync(run, dev, f'(18{tag})')} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    line, tf_ok = rec_teacher_forced(run, host, dev, f"(18{tag})")
+    print(f"[18 {tag}] {line} ({card})")
+    dprof = profile_device(device, run, dev, dense=True, tag=f"(18{tag})")
+    hprof = rec_profile_host(run, dev)
+    bound = w_bytes / PEAK_BYTES * 1e3
+    host_tok = sum(len(t) for t in host.done.values())
+    print(f"[18 {tag}] profiler over a dense round of {dprof['rsteps']} "
+          f"steps and its gate call: {dprof['counts']}, exact on try "
+          f"{len(dprof['tries'])} of at most {PROFILE_TRIES} ({card})")
+    print(f"[18 {tag} timing] device batcher, warm wave, graph: "
+          f"{dprof['tokens']} tokens in {dprof['seconds']:.4f} s, "
+          f"{dprof['tokens'] / dprof['seconds']:.1f} tokens/s, "
+          f"{dprof['ms_step']:.4f} ms per step run ({dprof['steps']} "
+          f"steps); device {dprof['busy_ms_step']:.4f} ms a step "
+          f"(profiler, by kernel name: {dprof['by']}), idle "
+          f"{dprof['idle']:.3f}; the weights' byte bound {bound:.4f} ms a "
+          f"step ({w_bytes / 1e9:.3f} GB / 3.35 TB/s), "
+          f"{bound / max(dprof['busy_ms_step'], 1e-9):.3f} of the device "
+          f"step; host "
+          f"batcher (eager, first wave): {host_tok / dense['host_s']:.1f} "
+          f"tokens/s, {dense['host_s'] / host.steps * 1e3:.4f} ms a step; "
+          f"eager, {REC_PROFILE_STEPS} steps of 16 live slots: "
+          f"{hprof['wall']:.4f} ms a step, device ms a step by class "
+          f"{hprof['by']} (busy {hprof['busy']:.4f}), idle "
+          f"{hprof['idle']}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB ({card})")
+    if wrap:
+        t0 = time.perf_counter()
+        print(f"[18 b] {check_wrap(run, dev)} ({time.perf_counter() - t0:.1f}"
+              f" s; {card})")
+    return dict(cfg=cfg, launches=dense["counts"], dprof=dprof, hprof=hprof,
+                bound=bound, tf_ok=tf_ok)
+
+
+def rec_pa_row(dev, launches: int) -> Dict[str, Any]:
+    """(c) ``paged_attention`` at recurrentgemma-9b's dense step: 16 slots
+    x 1,024 ring cells, C = 1, ``ring=True``, hd 256, 16 query heads on 1
+    KV head, every row past the wrap; within one bf16 ulp of its plain
+    version (``pa_timing``), timed beside gather + SDPA and its bound."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    B, S = DENSE["max_batch"], DENSE["cache_len"]
+    rng = np.random.default_rng(SEED + 18)
+    q, k, v, tbl, _, _, _ = pa_case(rng, dev, B, 1, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim_, S, 1,
+                                    False, past=False)
+    pos = torch.as_tensor(S + rng.integers(0, S, (B, 1)), dtype=torch.int32,
+                          device=dev)
+    row = {"name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
+           "replaces": REPLACES["paged_attention"], "launches": launches,
+           "bitwise": False, "cell": f"{HYBRID_ARCH} dense step",
+           **pa_timing(q, k, v, tbl, pos, dev, ring=True)}
+    return row
+
+
+def rec_linear_units(cfg):
+    """recurrentgemma-9b's dense-step products as ``linear_timings`` units
+    (name, [(K, N, float32 out)]) and how many a step launches."""
+    D, R, F, hd = cfg.d_model, cfg.d_model, cfg.d_ff, cfg.head_dim_
+    kinds = collections.Counter(layer_kinds(cfg))
+    units = [("rglru_lin_gate", [(D, R, False), (D, R, False)]),
+             ("rglru_rec_in", [(R, R, False), (R, R, False)]),
+             ("rglru_out", [(R, D, False)]),
+             ("qkv", [(D, cfg.q_heads * hd, False),
+                      (D, cfg.n_kv_heads * hd, False),
+                      (D, cfg.n_kv_heads * hd, False)]),
+             ("wo", [(cfg.q_heads * hd, D, False)]),
+             ("gate_up", [(D, F, False), (D, F, False)]),
+             ("w_down", [(F, D, False)]),
+             ("head", [(D, cfg.vocab_padded, True)])]
+    count = {"rglru_lin_gate": kinds["rglru"], "rglru_rec_in": kinds["rglru"],
+             "rglru_out": kinds["rglru"], "qkv": kinds["attn"],
+             "wo": kinds["attn"], "gate_up": cfg.n_layers,
+             "w_down": cfg.n_layers, "head": 1}
+    return units, count
+
+
+def rec_linear_weights(cfg):
+    """The distinct product shapes of a recurrent config's decode step as
+    ``check_linear``'s (name, K, N, float32 out): recurrentgemma-9b's from
+    ``rec_linear_units``, xlstm-125m's (the mLSTM's ``w_if``, N = 8 for
+    its 2 x 4 gate columns, among them)."""
+    from repro_torch.nn.recurrent import GATE_COLS
+
+    if cfg.family == "hybrid":
+        units, _ = rec_linear_units(cfg)
+        shapes = {}
+        for name, members in units:
+            for j, m in enumerate(members):
+                shapes.setdefault(m, f"{name}{j}" if len(members) > 1
+                                  else name)
+        return [(name, *m) for m, name in shapes.items()]
+    D, H = cfg.d_model, cfg.n_heads
+    return [("wq", D, D, False), ("w_if", D, -(-2 * H // GATE_COLS)
+                                  * GATE_COLS, False),
+            ("w_gates", D, 4 * D, False), ("head", D, cfg.vocab_padded, True)]
+
+
+def rec_linear_row(dev, launches: int) -> Dict[str, Any]:
+    """The ``linear`` row of recurrentgemma-9b's dense step: each unit at
+    M = 16 (one token of each of 16 slots), L2-cold, summed over the
+    step's launches (179), beside cuBLAS (each product one ``x @ w``) and
+    the byte bound."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    units, count = rec_linear_units(cfg)
+    M = DENSE["max_batch"]
+    per = linear_timings(cfg, dev, (M,), units=units)
+    if sum(count.values()) != step_products(cfg):
+        fail(f"(18c) the linear units count {sum(count.values())} launches, "
+             f"not {step_products(cfg)}")
+    row = {"name": "linear", "route": "cuda", "source": LINEAR_SOURCE,
+           "replaces": REPLACES["linear"], "launches": launches,
+           "bitwise": False, "cell": f"{HYBRID_ARCH} dense step",
+           "max_abs_err": max(r["max_abs_err"] for r in per),
+           "bound_by": "bytes",
+           "shape": {"step": f"{sum(count.values())} launches at M = {M}: "
+                             f"{count}; L2-cold"},
+           "per_product": per}
+    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                "library_device_ms"):
+        vals = [r[key] for r in per]
+        row[key] = (None if None in vals else
+                    sum(r[key] * count[r["weight"]] for r in per))
+    return row
+
+
+def rec_train_config(n_layers: int = 0):
+    """xlstm-125m at full width and depth (or cut to ``n_layers``) and the
+    launcher's TrainConfig for REC_TRAIN_ARGS."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config(XLSTM_ARCH)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, TrainConfig(
+        microbatches=REC_TRAIN_MICRO, q_block=min(512, REC_TRAIN_SEQ),
+        adamw=AdamWConfig(lr=3e-3, warmup_steps=5,
+                          total_steps=REC_TRAIN_STEPS))
+
+
+def rec_train_batches(cfg, dev, seed: int, n: int):
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=REC_TRAIN_SEQ,
+        global_batch=REC_TRAIN_BATCH, seed=seed))
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(s).items()} for s in range(n)]
+
+
+def jax_ckpt_keys(cfg) -> set:
+    """The keys the JAX package's ``_flatten`` gives the launcher's
+    checkpoint tree ``{"params", "state": {"opt": AdamWState(m, v, count),
+    "step"}}`` of a ``block_pattern`` config, from its init functions'
+    leaf names: ``macros/m{i}_{kind}/...`` stacked, ``tail/{j}/...``."""
+    pat = cfg.block_pattern
+    n_tail = cfg.n_layers % len(pat)
+
+    def layer(kind):
+        out = ["ln1"] + [f"mixer/{n}" for n in JAX_MIXER_LEAVES[kind]]
+        if cfg.d_ff:
+            out += ["ln2", "mlp/w_gate", "mlp/w_up", "mlp/w_down"]
+        return out
+
+    params = ["embed", "head", "ln_f"]
+    params += [f"macros/m{i}_{kind}/{n}" for i, kind in enumerate(pat)
+               for n in layer(kind)]
+    params += [f"tail/{j}/{n}" for j in range(n_tail) for n in layer(pat[j])]
+    keys = {f"params/{k}" for k in params}
+    for moment in (".m", ".v"):
+        keys |= {f"state/opt/{moment}/{k}" for k in params}
+    return keys | {"state/opt/.count", "state/step"}
+
+
+def drive_rec_train(dev, seed: int, ckpt_dir: Path) -> Dict[str, Any]:
+    """(e) ``repro_torch.launch.train.main`` with REC_TRAIN_ARGS and a
+    checkpoint directory, the wrapper counts reset just before and read
+    just after: 20 finite losses whose last five's mean is below the first
+    five's, ``linear`` launched exactly 20 x 2 x (2 x 30 + 1) times (each
+    layer's products in the forward and in its recomputation, the head
+    once) and nothing else; the final checkpoint's keys those of
+    ``jax_ckpt_keys``, its stacked leaves ``[6, ...]``."""
+    import io
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cfg, _ = rec_train_config()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(REC_TRAIN_ARGS + ["--seed", str(seed),
+                                              "--ckpt-dir", str(ckpt_dir)])
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines = out.getvalue().splitlines()
+    step_ms = [float(ln.split()[4]) for ln in lines if ln.startswith("step ")]
+    if (len(losses) != REC_TRAIN_STEPS or not np.isfinite(losses).all()
+            or len(step_ms) != REC_TRAIN_STEPS):
+        fail(f"(18e) the launcher gave {len(losses)} losses {losses}")
+    if not (np.mean(losses[-5:]) < np.mean(losses[:5])
+            and lines[-1].endswith("(improved)")):
+        fail(f"(18e) the loss did not improve: {lines[-1]}")
+    fwd = step_products(cfg) - 1
+    want = {"linear": REC_TRAIN_STEPS * REC_TRAIN_MICRO * (2 * fwd + 1)}
+    if counts != want:
+        fail(f"(18e) the launcher launched {counts}, expected {want}")
+    manifest = ckpt_dir / f"step_{REC_TRAIN_STEPS:09d}" / "manifest.json"
+    stored = json.loads(manifest.read_text())["leaves"]
+    keys = jax_ckpt_keys(cfg)
+    if set(stored) != keys:
+        fail(f"(18e) checkpoint keys differ from the JAX package's: only "
+             f"stored {sorted(set(stored) - keys)[:6]}, only JAX "
+             f"{sorted(keys - set(stored))[:6]}")
+    n_macro = cfg.n_layers // len(cfg.block_pattern)
+    wq = stored["params/macros/m0_mlstm/mixer/wq"]["shape"]
+    if wq != [n_macro, cfg.d_model, cfg.d_model]:
+        fail(f"(18e) a stacked leaf is stored {wq}")
+    lo, hi = TRAIN_TIMED
+    return dict(cfg=cfg, losses=losses, step_ms=step_ms, counts=counts,
+                peak=peak, last=lines[-1], seconds=seconds, n_keys=len(keys),
+                ms=statistics.median(step_ms[lo:hi]))
+
+
+def grad_readings(got: Dict[str, list], want: Dict[str, list]) -> dict:
+    """Per gradient leaf: (max |got - want| / max |want|, ||got - want|| /
+    ||want||)."""
+    out = {}
+    for key, parts in want.items():
+        a = torch.cat([p.reshape(-1) for p in got[key]])
+        c = torch.cat([p.reshape(-1) for p in parts])
+        d = a - c
+        out[key] = ((d.abs().max() / c.abs().max().clamp_min(1e-30)).item(),
+                    (d.norm() / c.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def check_rec_train_parity(dev, seed: int) -> str:
+    """(e) xlstm-125m cut to REC_PARITY_LAYERS at full width, the
+    launcher's batches: REC_PARITY_STEPS steps, each step's loss and
+    gradients taken through the kernel, through ``linear_ref`` and (at
+    step 0) through a witness (the plain products' sums in the other
+    operand order) from the same masters, then the kernel path's AdamW
+    update.  Phase 15's bounds, held by the kernel path and the witness:
+    the loss within TRAIN_LOSS_RTOL of the plain path's, every gradient
+    leaf within LOGIT_TOL x the plain leaf's largest magnitude (each
+    leaf's norm reading printed too).  Two independent trajectories, as
+    phase 15 (b) compares, part here: AdamW's first steps move each weight
+    by about lr x the sign of its gradient, so at lr 3e-3 the losses of
+    the full model drift apart (1.75e-3 at step 1, 1.2e-2 at step 2 on
+    the H100) with no fault in either path."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.tree import map_leaves
+
+    cfg, tcfg = rec_train_config(REC_PARITY_LAYERS)
+    batches = rec_train_batches(cfg, dev, seed, REC_PARITY_STEPS)
+    params, state = init_train_state(cfg, tcfg, seed, dev)
+    lines, launched, bad = [], [], []
+    for i, b in enumerate(batches):
+        ops.reset_launch_counts()
+        gk, lk = step_grads(cfg, tcfg, params, b, with_loss=True)
+        launched.append(ops.launch_counts()["linear"])
+        paths = {"kernel": (gk, lk)}
+        with plain_products():
+            gp, lp = step_grads(cfg, tcfg, params, b, with_loss=True)
+        if i == 0:
+            with witness_products():
+                paths["witness"] = step_grads(cfg, tcfg, params, b,
+                                              with_loss=True)
+        if ops.launch_counts()["linear"] != launched[-1] or not launched[-1]:
+            fail(f"(18e) linear launched {ops.launch_counts()['linear']} "
+                 f"times, the kernel path {launched[-1]}: the plain paths "
+                 f"must launch none")
+        for name, (g, loss) in paths.items():
+            rel = abs(loss - lp) / abs(lp)
+            r = grad_readings(g, gp)
+            worst = max(r, key=lambda k: r[k][0])
+            worst_l2 = max(r, key=lambda k: r[k][1])
+            lines.append(
+                f"step {i} {name}: loss relative {rel:.3e}; the worst "
+                f"gradient leaf {r[worst][0]:.4f} of its largest magnitude "
+                f"({worst}), in norm {r[worst_l2][1]:.4f} ({worst_l2})")
+            if (not np.isfinite(loss) or rel > TRAIN_LOSS_RTOL
+                    or r[worst][0] > LOGIT_TOL):
+                bad.append(lines[-1])
+        grads = map_leaves(lambda leaf: gk[leaf.key], params)
+        with torch.no_grad():
+            params, state["opt"] = OPT.update(params, grads, state["opt"],
+                                              tcfg.adamw)
+        del gk, gp, grads, paths
+    del params, state
+    torch.cuda.empty_cache()
+    line = (f"{REC_PARITY_LAYERS} layers at full width, from the same "
+            f"masters at each of {REC_PARITY_STEPS} steps (the kernel "
+            f"path's AdamW updates between them; linear launches a step "
+            f"{launched}): {'; '.join(lines)}")
+    if bad:
+        fail(f"(18e) past phase 15's bounds ({TRAIN_LOSS_RTOL} on the loss, "
+             f"{LOGIT_TOL} on the gradients): {bad}; {line}")
+    return line
+
+
+def profile_rec_train(dev, seed: int, wall_ms: float) -> Dict[str, Any]:
+    """(e) device ms a launcher step by class over 1 step after a warm
+    one: ``linear`` forward (the kernel), cuBLAS (the backward's products
+    and the mLSTM's and sLSTM's float32 einsums), the rest (the
+    recurrences' elementwise kernels, the loss, the optimizer); idle = 1 -
+    device / ``wall_ms``; kernels a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg, tcfg = rec_train_config()
+    params, state = init_train_state(cfg, tcfg, seed, dev)
+    step = make_train_step(cfg, tcfg)
+    batches = rec_train_batches(cfg, dev, seed, 2)
+    params, state, loss = step(params, state, batches[0])
+    float(loss)
+    # the device's kernels only: a step launches about 160,000, and the
+    # host ops' records would double what the profiler must sort
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_window(dev)
+        params, state, loss = step(params, state, batches[1])
+        float(loss)
+        torch.cuda.synchronize(dev)
+    by: Dict[str, float] = collections.Counter()
+    kernels = 0
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA or evt.is_user_annotation
+                or "spin_kernel" in evt.key):
+            continue
+        cls = kernel_class(evt.key)
+        cls = {"linear": "linear forward", "matmul": "cuBLAS"}.get(cls, "rest")
+        by[cls] += evt.self_device_time_total / 1e3
+        kernels += evt.count
+    del params, state, step
+    torch.cuda.empty_cache()
+    busy = sum(by.values())
+    return {"by": {k: round(v, 4) for k, v in by.items()}, "busy": busy,
+            "idle": 1 - busy / wall_ms if busy else None,
+            "kernels": kernels}
+
+
+def phase18(dev, seed: int, card: str, gate) -> list:
+    """Phase 18: the recurrent families at full width and depth over the
+    dense state ((a)-(d)) and xlstm-125m's training ((e)); returns the new
+    JSON rows (``paged_attention`` and ``linear`` at recurrentgemma-9b's
+    step)."""
+    t_all = time.perf_counter()
+    hyb = rec_serve(dev, seed, HYBRID_ARCH, gate, card, "a", wrap=True)
+    pa_row = rec_pa_row(dev, hyb["launches"]["paged_attention"])
+    print(f"[18 c paged_attention] shape {pa_row['shape']}: within one bf16 "
+          f"ulp of its plain version (max |err| {pa_row['max_abs_err']}); "
+          f"kernel {pa_row['ms']:.4f} ms (device {pa_row['device_ms']}), "
+          f"plain {pa_row['plain_ms']:.4f} ms, gather + SDPA "
+          f"{pa_row['library_ms']:.4f} ms (device "
+          f"{pa_row['library_device_ms']}), bound {pa_row['bound_ms']:.4f} "
+          f"ms ({pa_row['bound_by']}) ({card})")
+    lin_row = rec_linear_row(dev, hyb["launches"]["linear"])
+    print(f"[18 c linear step] {lin_row['shape']['step']}: device ms a "
+          f"step's products (L2-cold launches summed): kernel "
+          f"{lin_row['device_ms']}, cuBLAS {lin_row['library_device_ms']}, "
+          f"bound {lin_row['bound_ms']:.4f}; events kernel "
+          f"{lin_row['ms']:.4f}, cuBLAS {lin_row['library_ms']} ({card})")
+    print(f"[18] (a)-(c) {time.perf_counter() - t_all:.1f} s ({card})")
+    tf_ok = {"a": hyb["tf_ok"]}
+    del hyb
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf_ok["d"] = rec_serve(dev, seed, XLSTM_ARCH, gate, card, "d",
+                           wrap=False)["tf_ok"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[18] (a)-(d) {time.perf_counter() - t_all:.1f} s ({card})")
+    t0 = time.perf_counter()
+    tr = drive_rec_train(dev, seed, ROOT / "build" / "phase18_ckpt")
+    print(f"[18 e train] repro_torch.launch.train {' '.join(REC_TRAIN_ARGS)}"
+          f" (examples/train_lm.py's settings) at full width and depth, "
+          f"float32 masters from seed {seed}: losses "
+          f"{[round(x, 4) for x in tr['losses']]}, {tr['last']}; wrapper "
+          f"launches {tr['counts']}, no other kernel; the checkpoint's "
+          f"{tr['n_keys']} keys == the JAX package's _flatten keys of the "
+          f"same tree; {tr['seconds']:.1f} s in all ({card})")
+    print(f"[18 e train] {check_rec_train_parity(dev, seed)} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    tprof = profile_rec_train(dev, seed, tr["ms"])
+    tokens = REC_TRAIN_BATCH * REC_TRAIN_SEQ
+    print(f"[18 e train timing] ms a step (median of steps "
+          f"{TRAIN_TIMED[0]}-{TRAIN_TIMED[1] - 1}, host clock): "
+          f"{tr['ms']:.4f} ({tokens / tr['ms'] * 1e3:.1f} tokens/s); device "
+          f"ms a step by class (profiler, 1 step): {tprof['by']}, busy "
+          f"{tprof['busy']:.4f}, idle {tprof['idle']}, "
+          f"{tprof['kernels']:.0f} kernels a step; peak memory "
+          f"{tr['peak'] / 2**30:.2f} GiB ({card})")
+    print(f"[18] phase 18 in {time.perf_counter() - t_all:.1f} s ({card})")
+    bad = [k for k, v in tf_ok.items() if not v]
+    if bad:
+        fail(f"(18{'/'.join(bad)}) teacher-forced: the kernel path or the "
+             f"witness past the gate, or the control within it (printed "
+             f"above)")
+    return [pa_row, lin_row]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=SEED,
@@ -3799,6 +4678,9 @@ def main() -> None:
     ap.add_argument("--phase17", action="store_true",
                     help="build the kernels and run phase 17 alone (a "
                          "quick MoE run); prints no result line")
+    ap.add_argument("--phase18", action="store_true",
+                    help="build the kernels and run phase 18 alone (the "
+                         "recurrent families); prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -3833,6 +4715,11 @@ def main() -> None:
     if args.phase17:
         moe_row, _ = phase17(dev, args.seed, card)
         print(json.dumps({"kernels": [moe_row]}))
+        print(card)
+        return
+    if args.phase18:
+        print(json.dumps({"kernels": phase18(dev, args.seed, card,
+                                             serve_gate(dev))}))
         print(card)
         return
     n = check_kernels(dev)
@@ -4093,11 +4980,15 @@ def main() -> None:
     lin_row["launches"] = serve.launches["linear"]
     rows.append(lin_row)
     # phase 17 runs alone on the card: every earlier model is freed
+    gate = serve.gate
     del serve, d, tbt, eager, one, spec, tr
     gc.collect()
     torch.cuda.empty_cache()
     moe_row, lin_row["moe_products"] = phase17(dev, args.seed, card)
     rows.append(moe_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += phase18(dev, args.seed, card, gate)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

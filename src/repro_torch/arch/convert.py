@@ -12,9 +12,12 @@ parameters compare leaf by leaf (an MoE layer's ``moe`` subtree keeps the
 JAX layout, ``[E, D, F]`` experts, in the masters and in the numpy tree;
 only its compute copy flattens them, ``nn.moe.compute_moe``);
 ``decode_state_from_arrays`` does the same
-for a dense decode state (``init_decode_state``), so both can continue
-from one mid-run cache.  Nothing here imports JAX: the caller hands over
-plain numpy arrays.
+for a decode state (``init_decode_state``), so both can continue from one
+mid-run cache or recurrent state.  A ``block_pattern`` config's ``macros``
+(each entry stacked over the macros) and ``tail`` (a list of layers) cross
+the same way, and its decode state keeps the JAX package's keys and
+layout.  Nothing here imports JAX: the caller hands over plain numpy
+arrays.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ArchConfig
-from .model import Params, check_dense, compute_params
+from .model import Params, check_ported, compute_params, macro_pattern
 
 
 def _tensors(tree, device) -> Any:
@@ -42,35 +45,47 @@ def _unstack(tree: Dict, n: int) -> list:
     return [pick(tree, i) for i in range(n)]
 
 
+def _layers(stacked: Dict, n: int, what: str, device) -> list:
+    got = np.asarray(stacked["ln1"]).shape[0]
+    if got != n:
+        raise ValueError(f"{got} stacked {what} for {n} in the config")
+    return [_tensors(l, device) for l in _unstack(stacked, n)]
+
+
 def master_params_from_arrays(np_tree: Dict, cfg: ArchConfig,
                               device: Union[str, torch.device] = "cuda"
                               ) -> Params:
-    """The JAX package's parameter tree of a dense or MoE config (numpy,
-    float32 masters, layers stacked) -> the port's float32 masters on
-    ``device``."""
-    check_dense(cfg)
+    """The JAX package's parameter tree (numpy, float32 masters, layers or
+    macros stacked) -> the port's float32 masters on ``device``."""
+    check_ported(cfg)
     device = resolve_device(device)
-    layers = np_tree["layers"]
-    n = np.asarray(layers["ln1"]).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer "
-                         f"config")
-    return {"embed": _tensors(np_tree["embed"], device),
-            "head": _tensors(np_tree["head"], device),
-            "ln_f": _tensors(np_tree["ln_f"], device),
-            "layers": [_tensors(l, device) for l in _unstack(layers, n)]}
+    out = {k: _tensors(np_tree[k], device) for k in ("embed", "head", "ln_f")}
+    if not cfg.block_pattern:
+        out["layers"] = _layers(np_tree["layers"], cfg.n_layers, "layers",
+                                device)
+        return out
+    pat, n_macro, n_tail = macro_pattern(cfg)
+    out["macros"] = {k: _layers(np_tree["macros"][k], n_macro, "macros",
+                                device)
+                     for k in (f"m{i}_{kind}" for i, kind in enumerate(pat))}
+    if len(np_tree["tail"]) != n_tail:
+        raise ValueError(f"{len(np_tree['tail'])} tail layers for {n_tail} "
+                         f"in the config")
+    out["tail"] = [_tensors(l, device) for l in np_tree["tail"]]
+    return out
 
 
 def params_from_arrays(np_tree: Dict, cfg: ArchConfig,
                        device: Union[str, torch.device] = "cuda") -> Params:
-    """The JAX package's parameter tree of a dense or MoE config (numpy) ->
-    the port's compute parameters on ``device``."""
+    """The JAX package's parameter tree (numpy) -> the port's compute
+    parameters on ``device``."""
     return compute_params(master_params_from_arrays(np_tree, cfg, device))
 
 
 def arrays_from_master_params(params: Params) -> Dict:
     """The port's masters -> the JAX package's tree of numpy arrays
-    (layers stacked on axis 0), with the JAX leaves' dtypes."""
+    (``layers`` and each ``macros`` entry stacked on axis 0, ``tail`` a
+    list), with the JAX leaves' dtypes."""
     def host(t):
         return t.detach().cpu().numpy()
 
@@ -80,8 +95,21 @@ def arrays_from_master_params(params: Params) -> Dict:
                 else np.stack([host(l[k]) for l in layers])
                 for k, v in first.items()}
 
-    return {k: stack(v) if k == "layers" else host(v)
-            for k, v in params.items()}
+    def one(t):
+        return {k: one(v) for k, v in t.items()} if isinstance(t, dict) \
+            else host(t)
+
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = stack(v)
+        elif k == "macros":
+            out[k] = {m: stack(layers) for m, layers in v.items()}
+        elif k == "tail":
+            out[k] = [one(l) for l in v]
+        else:
+            out[k] = host(v)
+    return out
 
 
 def _cache(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -98,12 +126,27 @@ def _cache(a, dtype: torch.dtype, device) -> torch.Tensor:
 def decode_state_from_arrays(np_state: Dict, cfg: ArchConfig,
                              device: Union[str, torch.device] = "cuda"
                              ) -> Dict:
-    """The JAX package's dense decode state as numpy arrays (``pos``,
-    ``kv = (k, v)`` ``[n_layers, B, S, KV, hd]`` bf16 or int8, and for int8
-    ``kv_scales``) -> the port's ``arch.model.init_decode_state`` layout on
-    ``device``, so that both packages can continue from one mid-run state."""
-    check_dense(cfg)
+    """The JAX package's decode state as numpy arrays (``pos``, ``kv = (k,
+    v)`` ``[n_layers, B, S, KV, hd]`` bf16 or int8, and for int8
+    ``kv_scales``; for a ``block_pattern`` config the ``m{i}_*`` and
+    ``tail{i}_*`` entries: attention rings bf16, recurrent states float32)
+    -> the port's ``arch.model.init_decode_state`` layout on ``device``, so
+    that both packages can continue from one mid-run state."""
+    check_ported(cfg)
     device = resolve_device(device)
+    if cfg.block_pattern:
+        state = {"pos": torch.tensor(int(np.asarray(np_state["pos"])),
+                                     dtype=torch.int32, device=device)}
+        for key, val in np_state.items():
+            if key == "pos":
+                continue
+            if key.endswith("_kv"):
+                state[key] = tuple(_cache(a, torch.bfloat16, device)
+                                   for a in val)
+            else:
+                state[key] = {k: _cache(a, torch.float32, device)
+                              for k, a in val.items()}
+        return state
     k, v = (np.asarray(a) for a in np_state["kv"])
     if k.ndim != 5 or k.shape[0] != cfg.n_layers or v.shape != k.shape:
         raise ValueError(f"kv planes {k.shape} / {v.shape} are not "

@@ -1,29 +1,51 @@
-"""The dense decoder: its training forward and its serve paths (mirrors
+"""The decoder families: the training forward and the serve paths (mirrors
 ``repro.arch.model``).
 
-Ported here, for the dense family: ``layer_windows``, ``init_params``
-(float32 masters with ``masters=True``), ``forward``, ``lm_head``,
-``token_ce_loss`` and ``loss_fn`` (training), ``init_paged_kv`` and
-``paged_decode_step`` (with ``all_positions``), ``init_decode_state`` and
-``decode_step`` (the dense ring cache).  The JAX package scans stacked
-layers with ``lax.scan``; here the layers are a list walked by a Python
-loop (``repro_torch.tree`` gives the JAX package's stacked view where a
-rule needs it), and each layer writes its slice of the ``[n_layers, N,
-page, KV, hd]`` pools, or of the ``[n_layers, B, S, KV, hd]`` ring cache,
-in place.
+Ported here, for the dense, MoE, recurrent (``ssm``: xLSTM) and hybrid
+(RecurrentGemma) families: ``layer_windows``, ``macro_pattern``,
+``init_params`` (float32 masters with ``masters=True``), ``forward``,
+``lm_head``, ``token_ce_loss`` and ``loss_fn`` (training),
+``init_paged_kv`` and ``paged_decode_step`` (with ``all_positions``;
+attention stacks only, as in the JAX package), ``init_decode_state`` and
+``decode_step`` (the dense ring cache, and the recurrent states).  The JAX
+package scans stacked layers with ``lax.scan``; here the layers are a list
+walked by a Python loop (``repro_torch.tree`` gives the JAX package's
+stacked view where a rule needs it), and each layer writes its slice of
+the ``[n_layers, N, page, KV, hd]`` pools, or of the ``[n_layers, B, S,
+KV, hd]`` ring cache, in place.
+
+A config with a ``block_pattern`` keeps the JAX package's layout:
+``params["macros"]["m{i}_{kind}"]`` is a list of ``n_macro`` layer dicts
+(a stack: the JAX leaf is ``[n_macro, ...]``) and ``params["tail"]`` a
+list of the ``n_tail`` remainder layers (indexed: the JAX package keeps it
+an unstacked list).  ``forward`` runs the macros in order, recomputing each
+macro in the backward under ``"full"`` remat (``jax.checkpoint`` around
+the JAX package's scanned macro body), then the tail; every attention
+layer of a macro or the tail uses ``local_window``.  The recurrent mixers
+are ``nn.recurrent``'s.  The decode state holds, beside ``pos``, one entry
+a pattern position (``m{i}_kv``, ``m{i}_rglru``, ``m{i}_mlstm``,
+``m{i}_slstm``, stacked over the macros) and one a tail layer
+(``tail{i}_*``), with the JAX package's keys, shapes and dtypes; its
+attention rings hold ``min(cache_len, local_window)`` cells, and an int8
+request falls back to bf16 there, as in the JAX package.
 
 Parameters: the trainer keeps float32 masters; the forward computes on
 the copies the JAX forward makes at each use (``compute_params``):
 matrices, biases and the LM head in bf16 (its ``astype(bfloat16)``),
-norm scales in float32, and the embedding in bf16 for serving or, for
-training, float32 (JAX gathers rows of the float32 master and then casts,
-so the embedding's gradient is scatter-added in float32).  A serve engine
-holds the compute copies only, made once at load.  Every product is
-``ops.linear``, or ``ops.linear_group`` for q/k/v and gate/up (the
-row-invariant kernel on the card, one launch a group, with a gradient in
-training); the head's is the JAX head's bf16 x bf16 einsum with float32
-accumulation (``preferred_element_type=float32``): the logits are never
-rounded to bf16.
+norm scales and the leaves the JAX code reads as float32 (``FLOAT32_LEAVES``:
+the RG-LRU's ``lam`` and ``conv``, the mLSTM's ``b_f`` and ``conv``, the
+sLSTM's ``b_gates`` and ``r_gates``) in float32, and the embedding in bf16
+for serving or, for training, float32 (JAX gathers rows of the float32
+master and then casts, so the embedding's gradient is scatter-added in
+float32).  The mLSTM's ``w_i`` and ``w_f`` become one padded ``w_if``
+(``nn.recurrent.mlstm_gate_weights``).  A serve engine holds the compute
+copies only, made once at load.  Every product is ``ops.linear``, or
+``ops.linear_group`` for the products of one input (q/k/v, gate/up, the
+RG-LRU's lin/gate and its two gates, the mLSTM's q/k/gates and v/gate;
+the row-invariant kernel on the card, one launch a group, with a gradient
+in training); the head's is the JAX head's bf16 x bf16 einsum with
+float32 accumulation (``preferred_element_type=float32``): the logits are
+never rounded to bf16.
 
 The MoE family (``n_experts``) runs through the same paths: a layer's
 ``moe`` subtree (``nn.moe``; float32 masters in the JAX layout, the serve
@@ -34,9 +56,9 @@ dispatch, in plain torch), and ``forward`` returns the summed aux loss as
 the JAX forward does.  The serve steps discard the aux loss, as the JAX
 package's do, and do not compute it.
 
-Not ported yet (ROADMAP queue A item 9): the recurrent, enc-dec and VLM
-families, and MoE training on the card (``ops.moe_down_combine`` carries
-no gradient there).
+Not ported yet (ROADMAP queue A item 9): the enc-dec and VLM families, and
+MoE training on the card (``ops.moe_down_combine`` carries no gradient
+there).
 """
 from __future__ import annotations
 
@@ -51,6 +73,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels import ops
 from ..nn import attention as A
+from ..nn import recurrent as R
 from ..nn.attn_backend import PagedKV
 from ..nn.common import dense_init, embed_init, rms_norm, rope_cos_sin
 from ..nn.mlp import init_mlp, mlp_block
@@ -62,19 +85,32 @@ COMPUTE_DTYPE = torch.bfloat16
 MOE_AUX_WEIGHT = 0.01
 REMAT_POLICIES = ("full", "none")  # "dots": ROADMAP queue A item 13
 
-__all__ = ["COMPUTE_DTYPE", "layer_windows", "init_params", "compute_params",
-           "forward", "lm_head", "token_ce_loss", "loss_fn", "init_paged_kv",
+__all__ = ["COMPUTE_DTYPE", "FLOAT32_LEAVES", "layer_windows",
+           "macro_pattern", "init_params", "compute_params", "forward",
+           "lm_head", "token_ce_loss", "loss_fn", "init_paged_kv",
            "paged_decode_step", "init_decode_state", "decode_step"]
 
+# leaves the JAX code reads as float32 masters (the blocks cast ``conv``
+# to the activations' type where they use it)
+FLOAT32_LEAVES = ("lam", "conv", "b_f", "b_gates", "r_gates")
 
-def check_dense(cfg: ArchConfig) -> None:
-    """The port runs attention stacks with an MLP or MoE feed-forward: the
-    dense and MoE families (ROADMAP queue A, item 9)."""
-    if cfg.block_pattern or cfg.family == "encdec" or cfg.frontend:
+
+def check_ported(cfg: ArchConfig) -> None:
+    """The port runs decoder stacks: the dense, MoE, recurrent and hybrid
+    families; enc-dec and the VLM frontend are ROADMAP queue A item 9."""
+    if cfg.family == "encdec" or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported: the port runs dense "
-            "and MoE attention stacks; recurrent, enc-dec and VLM families "
-            "are ROADMAP queue A item 9")
+            f"{cfg.name} ({cfg.family}) is not ported: the port runs dense, "
+            "MoE, recurrent and hybrid decoder stacks; enc-dec and VLM "
+            "families are ROADMAP queue A item 9")
+
+
+def check_paged(cfg: ArchConfig) -> None:
+    """The paged cache serves attention stacks only (the JAX package's
+    ``init_paged_kv`` refuses the others with this ``ValueError``)."""
+    if cfg.block_pattern or cfg.family == "encdec":
+        raise ValueError("paged KV cache supports dense attention "
+                         f"stacks only (got family={cfg.family!r})")
 
 
 def layer_windows(cfg: ArchConfig, n: Optional[int] = None) -> np.ndarray:
@@ -87,15 +123,34 @@ def layer_windows(cfg: ArchConfig, n: Optional[int] = None) -> np.ndarray:
     return np.full(n, cfg.local_window, np.int32)
 
 
+def macro_pattern(cfg: ArchConfig) -> Tuple[Tuple[str, ...], int, int]:
+    """(pattern, n_macro, n_tail) for heterogeneous stacks."""
+    pat = cfg.block_pattern or ("attn",)
+    return pat, cfg.n_layers // len(pat), cfg.n_layers % len(pat)
+
+
 # ------------------------------------------------------------------ init
-def _init_layer(gen, cfg: ArchConfig, device) -> Params:
-    mixer = A.init_attention(gen, cfg.d_model, cfg.q_heads, cfg.n_kv_heads,
-                             cfg.head_dim_, cfg.qkv_bias, cfg.qk_norm,
-                             device=device)
-    if cfg.q_heads != cfg.n_heads:  # zero pad heads: exactness
-        cut = cfg.n_heads * cfg.head_dim_
-        mixer["wq"][:, cut:] = 0.0
-        mixer["wo"][cut:, :] = 0.0
+def _init_mixer(gen, cfg: ArchConfig, kind: str, device) -> Params:
+    if kind in ("attn", "attn_local"):
+        mixer = A.init_attention(gen, cfg.d_model, cfg.q_heads,
+                                 cfg.n_kv_heads, cfg.head_dim_, cfg.qkv_bias,
+                                 cfg.qk_norm, device=device)
+        if cfg.q_heads != cfg.n_heads:  # zero pad heads: exactness
+            cut = cfg.n_heads * cfg.head_dim_
+            mixer["wq"][:, cut:] = 0.0
+            mixer["wo"][cut:, :] = 0.0
+        return mixer
+    if kind == "rglru":
+        return R.init_rglru(gen, cfg.d_model, cfg.d_model, device=device)
+    if kind == "mlstm":
+        return R.init_mlstm(gen, cfg.d_model, cfg.n_heads, device=device)
+    if kind == "slstm":
+        return R.init_slstm(gen, cfg.d_model, cfg.n_heads, device=device)
+    raise ValueError(kind)
+
+
+def _init_layer(gen, cfg: ArchConfig, device, kind: str = "attn") -> Params:
+    mixer = _init_mixer(gen, cfg, kind, device)
     zeros = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
     p: Params = {"mixer": mixer, "ln1": zeros.clone()}
     if cfg.d_ff > 0:
@@ -118,7 +173,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     float32 masters existing at a time, or with ``masters=True`` the
     float32 masters themselves (``compute_params`` of them is the same
     compute tree)."""
-    check_dense(cfg)
+    check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -129,15 +184,24 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         "head": dense_init(gen, (D, Vp), device=dev),
         "ln_f": torch.zeros((D,), dtype=torch.float32, device=dev),
     })
-    params["layers"] = [conv(_init_layer(gen, cfg, dev))
-                        for _ in range(cfg.n_layers)]
+    if not cfg.block_pattern:
+        params["layers"] = [conv(_init_layer(gen, cfg, dev))
+                            for _ in range(cfg.n_layers)]
+        return params
+    pat, n_macro, n_tail = macro_pattern(cfg)
+    params["macros"] = {
+        f"m{i}_{kind}": [conv(_init_layer(gen, cfg, dev, kind))
+                         for _ in range(n_macro)]
+        for i, kind in enumerate(pat)}
+    params["tail"] = [conv(_init_layer(gen, cfg, dev, pat[i]))
+                      for i in range(n_tail)]
     return params
 
 
 def _compute(name: str, t: torch.Tensor, train: bool) -> torch.Tensor:
     """One float32 master -> its compute copy (see the module docstring)."""
     if name.startswith("ln") or name.endswith("_norm") or (
-            train and name == "embed"):
+            name in FLOAT32_LEAVES) or (train and name == "embed"):
         return t.float()
     return t.to(COMPUTE_DTYPE)
 
@@ -145,20 +209,36 @@ def _compute(name: str, t: torch.Tensor, train: bool) -> torch.Tensor:
 def compute_params(tree, train: bool = False):
     """A (sub)tree of float32 masters -> the compute copies, by name; with
     ``train`` the embedding stays float32.  The casts carry a gradient, and
-    a tree of compute copies maps to itself."""
+    a tree of compute copies maps to itself.  An mLSTM mixer's ``w_i`` and
+    ``w_f`` become its one ``w_if``."""
     if isinstance(tree, list):
         return [compute_params(x, train) for x in tree]
-    return {k: compute_moe(v) if k == "moe"
-            else compute_params(v, train) if isinstance(v, (dict, list))
-            else _compute(k, v, train) for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        if k == "w_f" and "w_i" in tree:
+            continue
+        if k == "w_i" and "w_f" in tree:
+            out["w_if"] = R.mlstm_gate_weights(_compute(k, v, train),
+                                               _compute("w_f", tree["w_f"],
+                                                        train))
+        elif k == "moe":
+            out[k] = compute_moe(v)
+        elif isinstance(v, (dict, list)):
+            out[k] = compute_params(v, train)
+        else:
+            out[k] = _compute(k, v, train)
+    return out
 
 
 def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
                   kv_dtype: str = "bf16",
                   device: Union[str, torch.device] = "cuda") -> PagedKV:
     """The physical page pool, ``[n_layers, n_pages, page, KV, hd]`` bf16,
-    or int8 with float32 scale planes ``[..., KV, 1]``, zero-filled."""
-    check_dense(cfg)
+    or int8 with float32 scale planes ``[..., KV, 1]``, zero-filled.
+    Attention stacks only: a ``block_pattern`` config raises the JAX
+    package's ``ValueError``."""
+    check_ported(cfg)
+    check_paged(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
     if kv_dtype == "int8":
@@ -173,17 +253,68 @@ def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
                    v=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device))
 
 
+def _recurrent_state(cfg: ArchConfig, kind: str, batch: int,
+                     device) -> Params:
+    hd = cfg.d_model // cfg.n_heads
+    if kind == "rglru":
+        return R.rglru_init_state(batch, cfg.d_model, device=device)
+    if kind == "mlstm":
+        return R.mlstm_init_state(batch, cfg.n_heads, hd, device=device)
+    return R.slstm_init_state(batch, cfg.n_heads, hd, device=device)
+
+
+def _state_key(kind: str, prefix: str) -> str:
+    return f"{prefix}_kv" if kind == "attn" else f"{prefix}_{kind}"
+
+
+def _macro_state(cfg: ArchConfig, batch: int, cache_len: int,
+                 device) -> Params:
+    """The recurrent families' decode state (see the module docstring)."""
+    pat, n_macro, n_tail = macro_pattern(cfg)
+    # windowed attn layers cache only the window
+    attn_len = (min(cache_len, cfg.local_window) if cfg.local_window
+                else cache_len)
+
+    def kv_cache(n):
+        shape = (n, batch, attn_len, cfg.n_kv_heads, cfg.head_dim_)
+        return tuple(torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+                     for _ in range(2))
+
+    state: Params = {}
+    for i, kind in enumerate(pat):
+        if kind == "attn":
+            state[f"m{i}_kv"] = kv_cache(n_macro)
+        else:
+            st = _recurrent_state(cfg, kind, batch, device)
+            state[f"m{i}_{kind}"] = {
+                k: v[None].repeat(n_macro, *[1] * v.dim())
+                for k, v in st.items()}
+    for i in range(n_tail):
+        kind = pat[i]
+        state[_state_key(kind, f"tail{i}")] = (
+            kv_cache(1) if kind == "attn"
+            else _recurrent_state(cfg, kind, batch, device))
+    return state
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       kv_dtype: str = "bf16",
                       device: Union[str, torch.device] = "cuda") -> Params:
     """The dense decode state: ``pos``, one global position (a 0-dim int32
     tensor on the device, advanced in place by ``decode_step``), and the
     ring cache ``kv = (k, v)``, ``[n_layers, batch, cache_len, KV, hd]``
-    bf16, or int8 with ``kv_scales`` float32 ``[..., KV, 1]``, zero-filled."""
-    check_dense(cfg)
+    bf16, or int8 with ``kv_scales`` float32 ``[..., KV, 1]``, zero-filled;
+    for a ``block_pattern`` config the macro and tail states instead (the
+    module docstring), an int8 request kept bf16."""
+    check_ported(cfg)
     device = resolve_device(device)
+    if kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
     state: Params = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.block_pattern:
+        state.update(_macro_state(cfg, batch, cache_len, device))
+        return state
     if kv_dtype == "int8":
         sshape = shape[:-1] + (1,)
         state["kv"] = tuple(torch.zeros(shape, dtype=torch.int8,
@@ -191,8 +322,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
         state["kv_scales"] = tuple(torch.zeros(sshape, dtype=torch.float32,
                                                device=device) for _ in range(2))
         return state
-    if kv_dtype != "bf16":
-        raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
     state["kv"] = tuple(torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
                         for _ in range(2))
     return state
@@ -225,17 +354,49 @@ def lm_head(params: Params, x: torch.Tensor, norm_eps: float) -> torch.Tensor:
     return ops.linear(x, params["head"], out_dtype=torch.float32)
 
 
-def _layer(lp: Params, cfg: ArchConfig, window: int, positions, q_block: int,
-           rope, moe_impl: str, x: torch.Tensor):
-    """One attention layer and its MLP or MoE block over the whole
-    sequence: (x, the layer's aux loss, None for an MLP)."""
+def _mixer_fwd(lp: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
+               window: int, positions, q_block: int, rope,
+               mlstm_chunk: int) -> torch.Tensor:
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + A.attention_block(
-        lp["mixer"], h, n_heads=cfg.q_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
-        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, positions=positions,
-        q_block=q_block, rope=rope)
+    if kind in ("attn", "attn_local"):
+        out = A.attention_block(
+            lp["mixer"], h, n_heads=cfg.q_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, positions=positions,
+            q_block=q_block, rope=rope)
+    elif kind == "rglru":
+        out = R.rglru_block(lp["mixer"], h)
+    elif kind == "mlstm":
+        out = R.mlstm_block(lp["mixer"], h, cfg.n_heads,
+                            chunk=mlstm_chunk or R.MLSTM_CHUNK)
+    elif kind == "slstm":
+        out = R.slstm_block(lp["mixer"], h, cfg.n_heads)
+    else:
+        raise ValueError(kind)
+    return x + out
+
+
+def _layer(lp: Params, cfg: ArchConfig, window: int, positions, q_block: int,
+           rope, moe_impl: str, x: torch.Tensor, kind: str = "attn",
+           mlstm_chunk: int = 0):
+    """One layer (its mixer, then its MLP or MoE block) over the whole
+    sequence: (x, the layer's aux loss, None for an MLP)."""
+    x = _mixer_fwd(lp, cfg, kind, x, window, positions, q_block, rope,
+                   mlstm_chunk)
     return _ffn(lp, cfg, x, moe_impl, with_aux=True)
+
+
+def _macro(lps, pat, cfg: ArchConfig, positions, q_block: int, rope,
+           moe_impl: str, mlstm_chunk: int, x: torch.Tensor):
+    """One macro block: the pattern's layers in order -> (x, aux or
+    None)."""
+    aux = None
+    for lp, kind in zip(lps, pat):
+        x, a = _layer(lp, cfg, cfg.local_window, positions, q_block, rope,
+                      moe_impl, x, kind, mlstm_chunk)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -253,8 +414,11 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     ported (ROADMAP queue A item 13).  ``moe_impl`` picks the MoE block
     (``"dense"``, or ``"sparse"``: the capacity dispatch); the aux loss is
     the MoE layers' summed in layer order (0 for the dense family).
-    ``unroll`` and ``mlstm_chunk`` are accepted and have no effect."""
-    check_dense(cfg)
+    ``mlstm_chunk`` is the mLSTM's chunk width (0: ``MLSTM_CHUNK``);
+    ``unroll`` is accepted and has no effect.  A ``block_pattern`` config
+    runs its macros, each one recomputed under ``"full"``, then its
+    tail."""
+    check_ported(cfg)
     if remat_policy not in REMAT_POLICIES:
         if remat_policy == "dots":
             raise NotImplementedError(
@@ -270,13 +434,30 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         B, S)
     rope = (rope_cos_sin(pos, cfg.head_dim_, cfg.rope_theta)
             if cfg.rope_theta > 0 else None)
-    windows = layer_windows(cfg)
     remat = remat_policy == "full" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, lp in enumerate(p["layers"]):
-        body = functools.partial(_layer, lp, cfg, int(windows[i]), pos,
-                                 q_block, rope, moe_impl)
-        x, a = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    if cfg.block_pattern:
+        pat, n_macro, _ = macro_pattern(cfg)
+        bodies = [functools.partial(
+            _macro, [p["macros"][f"m{i}_{kind}"][j]
+                     for i, kind in enumerate(pat)],
+            pat, cfg, pos, q_block, rope, moe_impl, mlstm_chunk)
+            for j in range(n_macro)]
+        tail = [functools.partial(_layer, lp, cfg, cfg.local_window, pos,
+                                  q_block, rope, moe_impl, kind=pat[i],
+                                  mlstm_chunk=mlstm_chunk)
+                for i, lp in enumerate(p["tail"])]
+    else:
+        windows = layer_windows(cfg)
+        bodies = [functools.partial(_layer, lp, cfg, int(windows[i]), pos,
+                                    q_block, rope, moe_impl)
+                  for i, lp in enumerate(p["layers"])]
+        tail = []
+    for i, body in enumerate(bodies + tail):
+        if remat and i < len(bodies):  # the JAX tail runs outside remat
+            x, a = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
         if a is not None:
             aux = aux + a
     logits = lm_head(p, x, cfg.norm_eps)
@@ -331,7 +512,8 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     if not isinstance(kv, PagedKV):
         raise TypeError(f"paged_decode_step expects the PagedKV from "
                         f"init_paged_kv, got {type(kv)}")
-    check_dense(cfg)
+    check_ported(cfg)
+    check_paged(cfg)
     kv = kv.pool()
     dev = tokens.device
     B, C = tokens.shape
@@ -404,9 +586,17 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     makes the step conditional without a host sync: False drops every
     write and leaves ``pos`` as it was (the JAX device batcher skips the
     step with ``lax.cond`` instead).  Each layer attends through the
-    paged backends over ``nn.attention.dense_view`` of its cache.
+    paged backends over ``nn.attention.dense_view`` of its cache.  A
+    ``block_pattern`` config runs its macros and tail (``_decode_macros``):
+    each recurrent layer writes its new state over its buffers in place,
+    each attention layer its ring cell; ``commit`` False writes every
+    buffer back as it was.
     """
-    check_dense(cfg)
+    check_ported(cfg)
+    if cfg.block_pattern:
+        x = _decode_macros(params, state, tokens, cfg, gqa_impl, attn_impl,
+                           commit)
+        return _decode_out(params, state, x, cfg, sample_greedy, commit)
     pos = state["pos"]
     ck, cv = state["kv"]
     sk, sv = state.get("kv_scales", (None, None))
@@ -425,8 +615,75 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
         x = _decode_mixer(lp_i, cfg, x, int(windows[i]), kv, slot, rope,
                           gqa_impl, attn_impl, commit)
         x = _ffn(lp_i, cfg, x)[0]
+    return _decode_out(params, state, x, cfg, sample_greedy, commit)
+
+
+def _decode_out(params: Params, state: Params, x: torch.Tensor,
+                cfg: ArchConfig, sample_greedy: bool, commit):
+    """The step's head, then ``pos`` advanced (or kept, without commit)."""
     logits = lm_head(params, x, cfg.norm_eps)[:, 0]
-    pos.add_(1 if commit is None else commit.to(torch.int32))
+    state["pos"].add_(1 if commit is None else commit.to(torch.int32))
     if sample_greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32), state
     return logits, state
+
+
+def _store(bufs: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+           commit: Optional[torch.Tensor]) -> None:
+    """Write a recurrent layer's new state over its buffers in place; with
+    ``commit`` False each buffer is written back as it was."""
+    for k, v in new.items():
+        dst = bufs[k]
+        dst.copy_(v if commit is None else torch.where(commit, v, dst))
+
+
+def _decode_macros(params: Params, state: Params, tokens: torch.Tensor,
+                   cfg: ArchConfig, gqa_impl: str, attn_impl: str,
+                   commit) -> torch.Tensor:
+    """One decode step through the macros and the tail (the JAX package's
+    ``decode_step`` for a ``block_pattern``): the hidden state before the
+    head.  Every attention layer uses ``local_window`` over its ring of
+    ``min(cache_len, local_window)`` cells."""
+    pat, n_macro, n_tail = macro_pattern(cfg)
+    pos = state["pos"]
+    dev = tokens.device
+    B = tokens.shape[0]
+    x = params["embed"][tokens.long()]
+    ring = next((state[k] for k in state if k.endswith("_kv")), None)
+    if ring is not None:
+        S = ring[0].shape[2]
+        positions = pos.to(torch.int32).reshape(1, 1).repeat(B, 1)
+        slot = torch.remainder(pos.long(), S).reshape(1)
+        tbl = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+        rope = (rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+                if cfg.rope_theta > 0 else None)
+
+    def layer(lp, kind, cache, x):
+        if kind == "attn":
+            kv = A.dense_view(cache[0], cache[1], None, None, tbl, positions)
+            x = _decode_mixer(lp, cfg, x, cfg.local_window, kv, slot, rope,
+                              gqa_impl, attn_impl, commit)
+        else:
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if kind == "rglru":
+                out, new = R.rglru_decode(lp["mixer"], h, cache)
+            elif kind == "mlstm":
+                out, new = R.mlstm_decode(lp["mixer"], h, cache, cfg.n_heads)
+            else:
+                out, new = R.slstm_decode(lp["mixer"], h, cache, cfg.n_heads)
+            _store(cache, new, commit)
+            x = x + out
+        return _ffn(lp, cfg, x)[0]
+
+    for j in range(n_macro):
+        for i, kind in enumerate(pat):
+            st = state[_state_key(kind, f"m{i}")]
+            cache = (tuple(t[j] for t in st) if kind == "attn"
+                     else {k: v[j] for k, v in st.items()})
+            x = layer(params["macros"][f"m{i}_{kind}"][j], kind, cache, x)
+    for i in range(n_tail):
+        kind = pat[i]
+        st = state[_state_key(kind, f"tail{i}")]
+        cache = tuple(t[0] for t in st) if kind == "attn" else st
+        x = layer(params["tail"][i], kind, cache, x)
+    return x

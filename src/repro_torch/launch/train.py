@@ -12,6 +12,10 @@ retained, async), preemption handler, straggler monitor.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --smoke --device cpu --steps 50 --ckpt-dir /tmp/ckpt --resume auto
 
+    # the recurrent family: xlstm-125m (examples/train_lm_torch.py)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+        --batch 8 --seq 128 --lr 3e-3
+
 The flags are the JAX package's, with ``--device`` (default ``cuda``),
 ``--layers`` (cut the config's depth, keeping its widths) and
 ``--torch-profile DIR`` (a ``torch.profiler`` trace written to DIR, the

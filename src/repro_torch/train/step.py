@@ -43,7 +43,7 @@ class TrainConfig:
     moe_impl: str = "dense"  # no effect on the dense family
     q_block: int = 512
     unroll: bool = False  # no effect: the port's layers are a Python loop
-    mlstm_chunk: int = 0
+    mlstm_chunk: int = 0  # the mLSTM's chunk width (0: MLSTM_CHUNK)
     remat_policy: str = "full"  # 'full' | 'none' ('dots': queue A item 13)
     adamw: opt.AdamWConfig = dataclasses.field(default_factory=opt.AdamWConfig)
 
@@ -102,7 +102,7 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
     loss)``.  ``batch["tokens"]`` is ``[B, S]`` on the masters' device,
     ``B`` a multiple of ``tcfg.microbatches``; ``loss`` is the mean of the
     microbatches' losses, a 0-dim float32 tensor."""
-    M.check_dense(cfg)
+    M.check_ported(cfg)
     copies = _Copies()
 
     def loss_of(mb: Dict[str, torch.Tensor]) -> torch.Tensor:

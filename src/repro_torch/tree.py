@@ -13,17 +13,22 @@ shapes of a checkpoint.
 ``SEP`` (a dict key as itself, a NamedTuple field as ``.name``, a list
 index as its number, the spelling of ``jax.tree_util`` paths), and a
 stacked leaf's ``parts`` are its layers' tensors in order.  A list whose
-items are all dicts is a stack of layers; any other list or tuple is
-indexed.  ``map_leaves(fn, tree)`` rebuilds the tree with ``fn(leaf)``'s
-parts in place of each leaf's.
+items are all dicts is a stack of layers (``layers``, each entry of
+``macros``), except under the key ``tail`` (``UNSTACKED``): the JAX
+package keeps a block pattern's remainder layers an unstacked list, so its
+leaves are ``tail/0/mixer/w_lin``, a tail's norm scale is 1-D and AdamW
+does not decay it.  Any other list or tuple is indexed.
+``map_leaves(fn, tree)`` rebuilds the tree with ``fn(leaf)``'s parts in
+place of each leaf's.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
-__all__ = ["SEP", "Leaf", "leaves", "map_leaves"]
+__all__ = ["SEP", "UNSTACKED", "Leaf", "leaves", "map_leaves"]
 
 SEP = "/"
+UNSTACKED = ("tail",)  # keys whose list of layer dicts is indexed
 
 
 class Leaf(NamedTuple):
@@ -45,9 +50,10 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _is_stack(x) -> bool:
+def _is_stack(x, path: Tuple[str, ...]) -> bool:
     return (isinstance(x, list) and len(x) > 0
-            and all(isinstance(v, dict) for v in x))
+            and all(isinstance(v, dict) for v in x)
+            and not (path and path[-1] in UNSTACKED))
 
 
 def _walk(tree, path: Tuple[str, ...], out: Dict[str, List[Any]],
@@ -58,7 +64,7 @@ def _walk(tree, path: Tuple[str, ...], out: Dict[str, List[Any]],
     elif _is_namedtuple(tree):
         for f, v in zip(tree._fields, tree):
             _walk(v, path + ("." + f,), out, stacked, in_stack)
-    elif _is_stack(tree):
+    elif _is_stack(tree, path):
         if in_stack:
             raise ValueError(f"nested layer stacks at {SEP.join(path)}")
         for layer in tree:
@@ -88,7 +94,7 @@ def _rebuild(tree, path: Tuple[str, ...], new: Dict[str, List[Any]],
     if _is_namedtuple(tree):
         return type(tree)(*[_rebuild(v, path + ("." + f,), new, layer)
                             for f, v in zip(tree._fields, tree)])
-    if _is_stack(tree):
+    if _is_stack(tree, path):
         return [_rebuild(v, path, new, i) for i, v in enumerate(tree)]
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, path + (str(i),), new, layer)

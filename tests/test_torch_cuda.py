@@ -673,12 +673,16 @@ def test_cuda_linear_rows_are_invariant(cuda_device, K, N, f32):
 
 # groups of weights sharing K: qwen2-1.5b's q/k/v and gate/up, one whose
 # members have S = 8, 2 and 8 (a cluster of 8 holding four tiles of the
-# middle member, two of them padding), and qwen2-moe-a2.7b's experts' and
-# shared experts' gate/up
+# middle member, two of them padding), qwen2-moe-a2.7b's experts' and
+# shared experts' gate/up, xlstm-125m's mLSTM q/k and gates (w_if: the
+# 2 x 4 gate columns) and recurrentgemma-9b's RG-LRU lin/gate and q/k/v
 LINEAR_GROUPS = [((1536, 1536), (1536, 256), (1536, 256)),
                  ((1536, 8960), (1536, 8960)),
                  ((2048, 136), (2048, 8960), (2048, 24)),
-                 ((2048, 90112), (2048, 90112)), ((2048, 5632), (2048, 5632))]
+                 ((2048, 90112), (2048, 90112)), ((2048, 5632), (2048, 5632)),
+                 ((768, 768), (768, 768), (768, 8)),
+                 ((4096, 4096), (4096, 4096)),
+                 ((4096, 4096), (4096, 256), (4096, 256))]
 
 
 @pytest.mark.cuda
@@ -714,6 +718,134 @@ def test_cuda_linear_refuses_what_it_does_not_take(cuda_device):
         ops.linear(x[:, :8], torch.ones((16, 8), dtype=torch.bfloat16,
                                         device=cuda_device).T)
     assert ops.launch_counts()["linear"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_gate_products(cuda_device):
+    """xlstm-125m's ``w_i`` and ``w_f`` ([768, 4], N = 4): the kernel
+    refuses N = 4; as ``w_if`` (``mlstm_gate_weights``, [768, 8]) they are
+    one member of the q/k launch, each gate column within ``linear_limit``
+    of its own plain product, in a decode step's and a training
+    microbatch's row counts."""
+    from repro_torch.nn.recurrent import mlstm_gate_weights
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    K = 768
+    x = torch.as_tensor(_linear_case(5, 300, K, 8)[0]).to(
+        cuda_device).to(torch.bfloat16)
+    w_i, w_f = (torch.as_tensor(_linear_case(6 + i, 1, K, 4)[1]).to(
+        cuda_device).to(torch.bfloat16) for i in range(2))
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.linear(x[:16].contiguous(), w_i.contiguous())
+    assert ops.launch_counts()["linear"] == 0
+    w_if = mlstm_gate_weights(w_i, w_f)
+    assert w_if.shape == (K, 8) and torch.equal(w_if, torch.cat([w_i, w_f],
+                                                                1))
+    wq = torch.as_tensor(_linear_case(9, 1, K, K)[1]).to(cuda_device).to(
+        torch.bfloat16)
+    for M in (1, 16, 256):  # a decode step's slots, a training microbatch
+        xm = x[:M].contiguous()
+        _, _, g = ops.linear_group(xm, [wq, wq, w_if])
+        for cols, w in ((slice(0, 4), w_i), (slice(4, 8), w_f)):
+            want = ref.linear_ref(xm, w)
+            err = (g[:, cols].float() - want.float()).abs()
+            assert (err <= linear_limit(xm, w, want, False)).all(), M
+        assert torch.equal(g, ops.linear(xm, w_if))
+
+
+def _recurrent_serve(cuda_device, arch, cls, graph=True, n=10,
+                     max_tokens=6, cache_len=8):
+    """``arch``'s smoke config (rf-S gate) through a dense batcher on the
+    card: ``n`` single-token requests through 4 slots."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import PlanterConfig, plant
+    from repro_torch.data import load_dataset
+    from repro_torch.serve import engine as E
+
+    cfg = get_smoke_config(arch)
+    ds = load_dataset("unsw", n=1500)
+    gate = plant(PlanterConfig(model="rf", size="S"), ds.X_train,
+                 ds.y_train).mapped
+    engine = E.ServeEngine(cfg, M.init_params(cfg, 0, cuda_device),
+                           E.ServeConfig(max_batch=4, cache_len=cache_len),
+                           gate=gate, device=cuda_device)
+    kw = dict(eos_token=-1, max_tokens=max_tokens)
+    cb = (E.ContinuousBatcher(engine, **kw) if cls == "host" else
+          E.DeviceContinuousBatcher(engine, sync_every=3, graph=graph, **kw))
+    for rid in range(n):
+        cb.submit(rid, rid + 7, features=ds.X_test[rid])
+    cb.run(max_steps=200)
+    return cb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "recurrentgemma-9b"])
+def test_cuda_recurrent_dense_step_captured(cuda_device, arch):
+    """The recurrent families' dense step as a CUDA graph: the captured
+    device batcher == the eager one == the host batcher, bitwise (cache 8:
+    recurrentgemma's rings wrap); the step launches ``linear`` (and
+    ``paged_attention`` for the hybrid); a round makes no synchronising
+    call, and a round past the work leaves every recurrent state and ring
+    bitwise as it was."""
+    host = _recurrent_serve(cuda_device, arch, "host")
+    ops.reset_launch_counts()
+    graph = _recurrent_serve(cuda_device, arch, "device")
+    counts = ops.launch_counts()
+    eager = _recurrent_serve(cuda_device, arch, "device", graph=False)
+    assert graph.done == eager.done == host.done and len(host.done) > 0
+    assert graph.dropped == eager.dropped == host.dropped
+    assert graph.steps == eager.steps == host.steps > 8
+    assert counts["linear"] > 0
+    assert (counts["paged_attention"] > 0) == (arch == "recurrentgemma-9b")
+    cb = _recurrent_serve(cuda_device, arch, "device", n=4, max_tokens=40)
+    assert all(cb.submit(10 + i, i + 3) for i in range(4))
+    cb.run(max_steps=3)
+    fs = list(cb._steps.values())[-1]
+    assert not fs.st["free"].all()
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fs.run(3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cb.run(max_steps=400)
+    assert fs.st["free"].all()
+    state = [t.clone() for v in cb._decode.values()
+             for t in (v.values() if isinstance(v, dict) else
+                       v if isinstance(v, tuple) else [v])]
+    fs.run(4)  # every slot free, the queue empty: identity steps
+    after = [t for v in cb._decode.values()
+             for t in (v.values() if isinstance(v, dict) else
+                       v if isinstance(v, tuple) else [v])]
+    assert all(torch.equal(a, b) for a, b in zip(state, after))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 13, 2048])
+def test_cuda_paged_attention_ring_at_recurrentgemma_shape(cuda_device,
+                                                           window):
+    """recurrentgemma-9b's attention: hd 256 (the kernel's limit), 16 query
+    heads on 1 KV head (its limit too), 1,024 ring cells, positions past
+    the wrap (its window of 2,048 longer than the ring): within one bf16
+    ulp of the plain version; below the wrap bitwise the launch without
+    the ring."""
+    S = 1024
+    q, k, v, tbl, _, _ = _ring_case(cuda_device, window + 3, 4, S, False,
+                                    H=16, KV=1, hd=256)
+    for p0 in (S, S + 5, 2 * S + 50, 3 * S + 5):
+        pos = torch.tensor([[p0], [p0 + 1], [p0 + 12], [p0 + 700]],
+                           dtype=torch.int32, device=cuda_device)
+        got = ops.paged_attention(q, k, v, tbl, pos, window, ring=True)
+        want = ref.paged_attention_ref(q, k, v, tbl, pos, window, ring=True)
+        ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= ulp, p0
+    pos = torch.tensor([[0], [7], [500], [S - 1]], dtype=torch.int32,
+                       device=cuda_device)
+    assert torch.equal(ops.paged_attention(q, k, v, tbl, pos, window,
+                                           ring=True),
+                       ops.paged_attention(q, k, v, tbl, pos, window))
 
 
 @pytest.mark.cuda

@@ -54,6 +54,10 @@ def test_imports_every_module_without_jax():
             "train.optimizer", "train.step", "ckpt.manager",
             "launch.train")}
         assert train_slice <= set(names), train_slice - set(names)
+        slice6 = {"repro_torch." + m for m in (
+            "nn.recurrent", "tree", "configs.xlstm_125m",
+            "configs.recurrentgemma_9b")}
+        assert slice6 <= set(names), slice6 - set(names)
         print("CLEAN", len(names))
     """)
     r = _run("-c", code)
@@ -66,6 +70,8 @@ def test_no_jax_or_repro_import_in_source():
     sources = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
                + sorted((ROOT / "examples").glob("*_torch.py")))
     assert ROOT / "examples" / "moe_router_distill_torch.py" in sources
+    assert ROOT / "examples" / "train_lm_torch.py" in sources
+    assert PKG / "nn" / "recurrent.py" in sources
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

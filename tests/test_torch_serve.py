@@ -536,5 +536,5 @@ def test_not_ported_paths_raise(both):
         TE.ServeEngine(CFG, tp, TE.ServeConfig(page_size=8), mesh=object(),
                        device="cpu")
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="dense attention stacks only"):
         TM.init_paged_kv(get_config("xlstm-125m"), 4, 4)
