@@ -83,15 +83,17 @@ Phases, in order; the first failure exits non-zero:
    = submitted; tokens/s and ms per step; a torch.profiler window for the
    device's busy and idle share;
 10. serve parity, on limits fixed before any run: (a) the same workload
-   through the ``"torch"`` backend, capturing the attention inputs of all
-   28 layers at steps 0, 64, 128 and 192: the kernel on each within one
-   bf16 ulp of the plain output's largest magnitude; (b) the served
+   through the ``"torch"`` backend on the model's first 4 layers at full
+   width (``cut_depth``), capturing the attention inputs of all 4 layers
+   at steps 0, 64, 128 and 192: the kernel on each within one bf16 ulp of
+   the plain output's largest magnitude; (b) the served
    streams teacher-forced through the kernel path and the plain path over
    at least 512 generated positions: at each, ``max|logits_kernel -
    logits_plain| <= 0.03 * max|logits_plain|`` (delta), and a greedy flip
    only where the plain top-2 margin is within 2 delta (the flips and the
    greedy agreement rate are printed, not gated); (c) ``share_prefix``
-   streams bitwise equal to unshared ones; (d) one ``kv_int8`` run;
+   streams bitwise equal to unshared ones; (d) one ``kv_int8`` run; (c)
+   and (d) on the model's first 4 layers at full width (``cut_depth``);
 11. the device batcher: phase 9's workload through
    ``DeviceContinuousBatcher`` (the fused step, one CUDA graph per shape
    key, replayed ``sync_every`` times a host round trip): (a) sync_every
@@ -131,14 +133,15 @@ Phases, in order; the first failure exits non-zero:
    each: (a) the host batcher == the device batcher (sync_every 16, graph
    on), bitwise, every stream, drop and reason; served + dropped =
    submitted; the global position = the steps with work; (b) paged ==
-   dense bitwise on the card: ``generate`` on the dense engine against
+   dense bitwise on the card, on the model's first 4 layers at full width
+   (``cut_depth``): ``generate`` on the dense engine against
    ``step_paged`` one token a step on a paged engine (page 16, cache
-   1024), 16 slots x 64 generated positions; (c) the wrap: cache 128, the
-   first 16 requests with 336 tokens each, so the global position passes
-   2.5 x 128; the
-   kernel on the attention inputs of all 28 layers at positions 200 and
-   330 within one bf16 ulp of its plain version, host == device batcher
-   bitwise; (d) a round of the eager and the replayed dense step under
+   1024), 16 slots x 64 generated positions; (c) the wrap, also on the
+   first 4 layers: cache 128, the first 16
+   requests with 336 tokens each, so the global position passes 2.5 x
+   128; the kernel on the attention inputs of all 4 layers at positions
+   200 and 330 within one bf16 ulp of its plain version, host == device
+   batcher bitwise; (d) a round of the eager and the replayed dense step under
    ``set_sync_debug_mode("error")``; (e) launch counts, fixed before the
    first run from the JAX package's step: the host batcher's wrappers
    count ``paged_attention`` = steps x 28, ``linear`` = steps x 113 and
@@ -249,9 +252,10 @@ Phases, in order; the first failure exits non-zero:
    share of the weights' byte bound (18.79 GB, 5.61 ms), and an eager
    step's device time with the recurrences told apart (the RG-LRU's
    decode under a ``record_function`` range set by this script); (b) the
-   ring past its wrap: cache 128 under the window of 2,048, phase 14
-   (c)'s check (the kernel on all 12 attention layers' captured inputs
-   within one bf16 ulp, host == device bitwise); (c) ``paged_attention``
+   ring past its wrap on the model's first macro (rglru, rglru, attn) at
+   full width: cache 128 under the window of 2,048, phase 14 (c)'s check
+   (the kernel on the attention layer's captured inputs within one bf16
+   ulp, host == device bitwise); (c) ``paged_attention``
    at this model's step (16 slots x 1,024 ring cells, C = 1, hd 256,
    16:1 heads, past the wrap) within one bf16 ulp, timed beside gather +
    SDPA and its bound, and the step's 179 ``linear`` launches L2-cold at
@@ -261,9 +265,10 @@ Phases, in order; the first failure exits non-zero:
    ``linear`` launches a step: the mLSTM's q/k/gates and v/gate groups
    and w_out, the sLSTM's w_gates and w_out, the head); (e)
    ``repro_torch.launch.train`` on xlstm-125m at ``examples/
-   train_lm.py``'s settings (8 x 128 tokens, 2 microbatches, lr 3e-3, 20
-   steps, a checkpoint): the loss improves, ``linear`` launched exactly
-   20 x 2 x (2 x 30 + 1) times and nothing else, the checkpoint's keys
+   train_lm.py``'s settings (8 x 128 tokens, 2 microbatches, lr 3e-3, a
+   checkpoint) for 20 steps at full width, its depth cut to 4 layers (two
+   macros): the loss improves, ``linear`` launched exactly
+   20 x 2 x (2 x 10 + 1) times and nothing else, the checkpoint's keys
    the JAX package's ``_flatten`` keys of the same tree (built from the
    JAX init functions' leaf names); at 2 layers (one macro, full width,
    as phase 15 (b) cuts qwen2) kernel vs plain, and a witness, within
@@ -271,15 +276,53 @@ Phases, in order; the first failure exits non-zero:
    (two trajectories drift apart through AdamW at lr 3e-3, and the full
    model's gradient is chaotic, with no fault in either path); ms a step,
    tokens/s, device ms by class, idle, kernels a step.
+19. the VLM and enc-dec families, after every earlier model is freed:
+   internvl2-2b (24 layers, d 2,048, 16 heads on 8 KV heads of hd 128,
+   d_ff 8,192, vocab 92,553 padded to 92,672, a 1,024-wide frontend of
+   256 patches; 1.89 B parameters) and seamless-m4t-large-v2 (24 encoder
+   and 24 decoder layers with cross-attention, d 1,024, 16 heads of 64,
+   d_ff 8,192, vocab 256,206 padded to 256,256, a 160-wide frontend of
+   4,096 frames; 2.64 B parameters) at full width and depth, random
+   weights from ``--seed``: their products through phase 8's ``linear``
+   checks and the frontend product at 2 x the frontend's rows; (a) the
+   forward of 2 x 64 tokens with their patches or frames, the kernel
+   path (exactly the model's ``linear`` launches) against the plain path
+   within one delta (0.03 max|plain|) a position, beside a witness (the
+   plain products' sums in the other operand order) and a control (the
+   patches or frames zeroed, which must lie past it); were the witness
+   itself past one delta, phase 17's 6 / 2 gate instead; (b)
+   ``generate()`` and phase 14's checks on both dense batchers (host ==
+   device, launches exact: 24 ``paged_attention`` + 97 ``linear`` a step
+   for internvl2, 24 + 145 for seamless, its cross-attention's query and
+   wo counted; graph == eager, no sync in a round, the ring's wrap on the
+   model's first 4 layers at full width); the
+   enc-dec ``cross`` planes left zero, as the JAX package leaves them;
+   internvl2 through phase 9's paged host batcher and phase 11's device
+   batcher at C = 8 (bitwise the host batcher), and paged == dense on its
+   first 4 layers; (c)
+   seamless teacher-forced through ``decode_step`` with ``cross`` from
+   ``encode_cross`` against (a)'s forward, (a)'s rule (the witness the
+   plain path's decode against the plain forward, the control the zero
+   planes: ROADMAP C.13); (d) ``make_train_step`` at full width and
+   depth, two steps of 4 x 64 tokens with their patches or frames in 2
+   microbatches (launches exact, every master moved and finite but the
+   enc-dec cross layers' unread ``ln2``), then at 2 layers, full width,
+   kernel vs plain within phase 15's bounds; (e) tokens/s, ms and device
+   ms a step by class and idle of the dense device batchers (and the
+   paged one for internvl2), and three JSON rows: ``paged_attention`` at
+   seamless's step (hd 64, 16:16, 16 x 1,024 ring cells past the wrap)
+   and ``linear`` at both models' steps (97 and 145 launches at M = 16,
+   L2-cold) beside cuBLAS and their byte bounds.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
 printed on the first line beside the card; the float32 lanes are twice
 as many).  ``--phase17`` builds the kernels and runs phase 17 alone, a
-quick MoE run that prints no result line; ``--phase18`` the same for
-phase 18.
+quick MoE run that prints no result line; ``--phase18`` and
+``--phase19`` the same for phases 18 and 19.  Each phase prints how far
+into the run it starts.
 
-Its last three lines are the kernels JSON (phase 18's
+Its last three lines are the kernels JSON (phase 18's and phase 19's
 ``paged_attention`` and ``linear`` rows last, each with its ``cell``), the
 card's ``name, power.limit``
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
@@ -1733,13 +1776,16 @@ def step_products(cfg) -> int:
     """``linear`` launches a serve step: 4 a layer with an MLP (the q/k/v
     group, wo, the gate/up group, w_down), 4 with an MoE block (the q/k/v
     group, wo, the router, the experts' gate/up group) and 2 more with its
-    shared experts (their gate/up group and down), and the head; a
+    shared experts (their gate/up group and down), 6 an enc-dec decoder
+    layer (its cross-attention's query and wo besides), and the head; a
     ``block_pattern`` layer's mixer ``MIXER_PRODUCTS`` and its MLP 2."""
     if cfg.block_pattern:
         mlp = 2 if cfg.d_ff else 0
         return sum(MIXER_PRODUCTS[k] + mlp for k in layer_kinds(cfg)) + 1
     if cfg.n_experts:
         return (4 + 2 * bool(cfg.n_shared_experts)) * cfg.n_layers + 1
+    if cfg.family == "encdec":  # and the cross-attention's query and wo
+        return 6 * cfg.n_layers + 1
     return 4 * cfg.n_layers + 1
 
 
@@ -1838,13 +1884,10 @@ def check_captured_attention(run: ServeRun, dev) -> str:
     if n[0] != want:
         fail(f"captured {n[0]} layer calls, expected {want} (the plain run "
              f"took {cb.steps} steps)")
-    agree = [np.mean(np.array(cb.done[r]) == np.array(run.cb.done[r]))
-             for r in sorted(set(cb.done) & set(run.cb.done))]
     return (f"(a) plain-backend serve run, {cb.steps} steps: the kernel on "
             f"the captured inputs of all {run.cfg.n_layers} layers at steps "
             f"{CAPTURE_STEPS} ({n[0]} calls) within one bf16 ulp of the "
-            f"plain output (worst {worst[0]:.2f} ulp); its served streams "
-            f"agree with the kernel run's on {np.mean(agree):.4f} of tokens")
+            f"plain output (worst {worst[0]:.2f} ulp)")
 
 
 @contextlib.contextmanager
@@ -2010,6 +2053,31 @@ def check_teacher_forced(run: ServeRun, dev) -> str:
             f"have a plain top-2 margin within 2 delta); kernel path greedy "
             f"== served on {(a.argmax(-1) == served).float().mean().item():.4f}"
             f" of positions")
+
+
+# layers of the repeated serve checks that depth does not change (phase 10
+# (a), (c) and (d), phase 14 (b) and (c), 18 (b), 19 (b)'s paged == dense
+# and wraps): the model's first layers at full width, so that the run
+# keeps to its time limit
+SERVE_CUT = 4
+
+
+def cut_depth(run: ServeRun, n: int = SERVE_CUT) -> ServeRun:
+    """``run`` with its model cut to the first ``n`` layers (and cross
+    layers; a ``block_pattern`` model to whole macros, at least one, and
+    no tail), the same weights at full width, traffic and gate."""
+    params = dict(run.params)
+    pat = run.cfg.block_pattern
+    if pat:
+        n = len(pat) * max(1, n // len(pat))
+        params["macros"] = {k: v[:n // len(pat)]
+                            for k, v in params["macros"].items()}
+        params["tail"] = []
+    for key in ("layers", "cross_layers"):
+        if key in params:
+            params[key] = params[key][:n]
+    return dataclasses.replace(
+        run, cfg=dataclasses.replace(run.cfg, n_layers=n), params=params)
 
 
 def serve_variant(run: ServeRun, dev, prompts, waves, **kw) -> Any:
@@ -2852,8 +2920,13 @@ def step_grads(cfg, tcfg, params, batch, with_loss: bool = False):
     for i in range(n):
         mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
         loss = M.loss_fn(masters, mb, cfg, q_block=tcfg.q_block)
-        gs = torch.autograd.grad(loss, [p for _, p in flat])
-        gs = [g.float() for g in gs]
+        gs = torch.autograd.grad(loss, [p for _, p in flat],
+                                 allow_unused=True)
+        for g, (key, _) in zip(gs, flat):
+            if g is None and not M.unread(key):
+                raise RuntimeError(f"{key}: no gradient reaches it")
+        gs = [torch.zeros_like(p) if g is None else g.float()
+              for g, (_, p) in zip(gs, flat)]
         acc = gs if acc is None else [a + g for a, g in zip(acc, gs)]
         total += float(loss.detach())
     out: Dict[str, list] = collections.defaultdict(list)
@@ -3885,12 +3958,17 @@ def phase17(dev, seed: int, card: str) -> tuple:
 HYBRID_ARCH, XLSTM_ARCH = "recurrentgemma-9b", "xlstm-125m"
 REC_ARCHS = (HYBRID_ARCH, XLSTM_ARCH)
 # (e): examples/train_lm.py's settings: 8 x 128 tokens in 2 microbatches,
-# lr 3e-3; 20 steps of the launcher
-REC_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--batch", "8", "--seq", "128",
-                  "--microbatches", "2", "--lr", "3e-3", "--steps", "20",
-                  "--ckpt-every", "50"]
+# lr 3e-3; 20 steps of the launcher at REC_TRAIN_LAYERS (two macros, full
+# width): the full 12 layers took 105 s of the run's limit (5.1-5.3 s a
+# step, the sLSTM's host loop)
+REC_TRAIN_LAYERS = 4
 REC_TRAIN_STEPS, REC_TRAIN_BATCH, REC_TRAIN_SEQ, REC_TRAIN_MICRO = (
     20, 8, 128, 2)
+REC_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--batch", "8", "--seq", "128",
+                  "--microbatches", "2", "--lr", "3e-3", "--steps",
+                  str(REC_TRAIN_STEPS), "--ckpt-every", "50", "--layers",
+                  str(REC_TRAIN_LAYERS)]
+REC_TIMED = (5, REC_TRAIN_STEPS)  # (e): steps whose median is a step's
 REC_PARITY_STEPS = 2  # (e): steps through the kernel and the plain path
 # (e): the parity's depth, one macro (an mLSTM and an sLSTM) at full
 # width, as phase 15 (b) cuts qwen2 to TRAIN_CUT layers.  At the full 12
@@ -4281,49 +4359,58 @@ def rec_serve(dev, seed: int, arch: str, gate, card: str, tag: str,
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB ({card})")
     if wrap:
         t0 = time.perf_counter()
-        print(f"[18 b] {check_wrap(run, dev)} ({time.perf_counter() - t0:.1f}"
-              f" s; {card})")
+        print(f"[18 b] {check_wrap(cut_depth(run), dev)} (the first macro, "
+              f"full width) ({time.perf_counter() - t0:.1f} s; {card})")
     return dict(cfg=cfg, launches=dense["counts"], dprof=dprof, hprof=hprof,
                 bound=bound, tf_ok=tf_ok)
 
 
-def rec_pa_row(dev, launches: int) -> Dict[str, Any]:
-    """(c) ``paged_attention`` at recurrentgemma-9b's dense step: 16 slots
-    x 1,024 ring cells, C = 1, ``ring=True``, hd 256, 16 query heads on 1
-    KV head, every row past the wrap; within one bf16 ulp of its plain
-    version (``pa_timing``), timed beside gather + SDPA and its bound."""
+def dense_pa_row(dev, arch: str, launches: int, seed: int) -> Dict[str, Any]:
+    """``paged_attention`` at ``arch``'s dense step (18 (c): recurrentgemma-
+    9b's hd 256, 16 query heads on 1 KV head; 19 (e): seamless-m4t-large-
+    v2's hd 64, 16 on 16): 16 slots x 1,024 ring cells, C = 1,
+    ``ring=True``, every row past the wrap; within one bf16 ulp of its
+    plain version (``pa_timing``), timed beside gather + SDPA and its
+    bound."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(HYBRID_ARCH)
+    cfg = get_config(arch)
     B, S = DENSE["max_batch"], DENSE["cache_len"]
-    rng = np.random.default_rng(SEED + 18)
+    rng = np.random.default_rng(seed)
     q, k, v, tbl, _, _, _ = pa_case(rng, dev, B, 1, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.head_dim_, S, 1,
                                     False, past=False)
     pos = torch.as_tensor(S + rng.integers(0, S, (B, 1)), dtype=torch.int32,
                           device=dev)
-    row = {"name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
-           "replaces": REPLACES["paged_attention"], "launches": launches,
-           "bitwise": False, "cell": f"{HYBRID_ARCH} dense step",
-           **pa_timing(q, k, v, tbl, pos, dev, ring=True)}
-    return row
+    return {"name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
+            "replaces": REPLACES["paged_attention"], "launches": launches,
+            "bitwise": False, "cell": f"{arch} dense step",
+            **pa_timing(q, k, v, tbl, pos, dev, ring=True)}
+
+
+def attn_linear_units(cfg):
+    """The products of an attention layer, its MLP and the head as
+    ``linear_timings`` units (name, [(K, N, float32 out)]): the q/k/v
+    group, wo, the gate/up group, w_down and the head."""
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    return [("qkv", [(D, cfg.q_heads * hd, False),
+                     (D, cfg.n_kv_heads * hd, False),
+                     (D, cfg.n_kv_heads * hd, False)]),
+            ("wo", [(cfg.q_heads * hd, D, False)]),
+            ("gate_up", [(D, F, False), (D, F, False)]),
+            ("w_down", [(F, D, False)]),
+            ("head", [(D, cfg.vocab_padded, True)])]
 
 
 def rec_linear_units(cfg):
     """recurrentgemma-9b's dense-step products as ``linear_timings`` units
-    (name, [(K, N, float32 out)]) and how many a step launches."""
-    D, R, F, hd = cfg.d_model, cfg.d_model, cfg.d_ff, cfg.head_dim_
+    and how many a step launches: the RG-LRU mixer's, then
+    ``attn_linear_units``."""
+    R = D = cfg.d_model
     kinds = collections.Counter(layer_kinds(cfg))
     units = [("rglru_lin_gate", [(D, R, False), (D, R, False)]),
              ("rglru_rec_in", [(R, R, False), (R, R, False)]),
-             ("rglru_out", [(R, D, False)]),
-             ("qkv", [(D, cfg.q_heads * hd, False),
-                      (D, cfg.n_kv_heads * hd, False),
-                      (D, cfg.n_kv_heads * hd, False)]),
-             ("wo", [(cfg.q_heads * hd, D, False)]),
-             ("gate_up", [(D, F, False), (D, F, False)]),
-             ("w_down", [(F, D, False)]),
-             ("head", [(D, cfg.vocab_padded, True)])]
+             ("rglru_out", [(R, D, False)])] + attn_linear_units(cfg)
     count = {"rglru_lin_gate": kinds["rglru"], "rglru_rec_in": kinds["rglru"],
              "rglru_out": kinds["rglru"], "qkv": kinds["attn"],
              "wo": kinds["attn"], "gate_up": cfg.n_layers,
@@ -4352,23 +4439,25 @@ def rec_linear_weights(cfg):
             ("w_gates", D, 4 * D, False), ("head", D, cfg.vocab_padded, True)]
 
 
-def rec_linear_row(dev, launches: int) -> Dict[str, Any]:
-    """The ``linear`` row of recurrentgemma-9b's dense step: each unit at
+def dense_linear_row(dev, arch: str, step_units, launches: int,
+                     tag: str) -> Dict[str, Any]:
+    """The ``linear`` row of ``arch``'s dense step: each unit of
+    ``step_units(cfg)`` (``rec_linear_units``, ``front_linear_units``) at
     M = 16 (one token of each of 16 slots), L2-cold, summed over the
-    step's launches (179), beside cuBLAS (each product one ``x @ w``) and
-    the byte bound."""
+    step's launches, beside cuBLAS (each product one ``x @ w``) and the
+    byte bound."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(HYBRID_ARCH)
-    units, count = rec_linear_units(cfg)
+    cfg = get_config(arch)
+    units, count = step_units(cfg)
     M = DENSE["max_batch"]
     per = linear_timings(cfg, dev, (M,), units=units)
     if sum(count.values()) != step_products(cfg):
-        fail(f"(18c) the linear units count {sum(count.values())} launches, "
+        fail(f"{tag} the linear units count {sum(count.values())} launches, "
              f"not {step_products(cfg)}")
     row = {"name": "linear", "route": "cuda", "source": LINEAR_SOURCE,
            "replaces": REPLACES["linear"], "launches": launches,
-           "bitwise": False, "cell": f"{HYBRID_ARCH} dense step",
+           "bitwise": False, "cell": f"{arch} dense step",
            "max_abs_err": max(r["max_abs_err"] for r in per),
            "bound_by": "bytes",
            "shape": {"step": f"{sum(count.values())} launches at M = {M}: "
@@ -4435,18 +4524,19 @@ def jax_ckpt_keys(cfg) -> set:
 def drive_rec_train(dev, seed: int, ckpt_dir: Path) -> Dict[str, Any]:
     """(e) ``repro_torch.launch.train.main`` with REC_TRAIN_ARGS and a
     checkpoint directory, the wrapper counts reset just before and read
-    just after: 20 finite losses whose last five's mean is below the first
-    five's, ``linear`` launched exactly 20 x 2 x (2 x 30 + 1) times (each
-    layer's products in the forward and in its recomputation, the head
-    once) and nothing else; the final checkpoint's keys those of
-    ``jax_ckpt_keys``, its stacked leaves ``[6, ...]``."""
+    just after, at REC_TRAIN_LAYERS: 12 finite losses whose last five's
+    mean is below the first five's, ``linear`` launched exactly 12 x 2 x
+    (2 x 10 + 1) times (each layer's products in the forward and in its
+    recomputation, the head once) and nothing else; the final
+    checkpoint's keys those of ``jax_ckpt_keys``, its stacked leaves
+    ``[2, ...]``."""
     import io
     import shutil
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
-    cfg, _ = rec_train_config()
+    cfg, _ = rec_train_config(REC_TRAIN_LAYERS)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     out = io.StringIO()
     torch.cuda.empty_cache()
@@ -4483,7 +4573,7 @@ def drive_rec_train(dev, seed: int, ckpt_dir: Path) -> Dict[str, Any]:
     wq = stored["params/macros/m0_mlstm/mixer/wq"]["shape"]
     if wq != [n_macro, cfg.d_model, cfg.d_model]:
         fail(f"(18e) a stacked leaf is stored {wq}")
-    lo, hi = TRAIN_TIMED
+    lo, hi = REC_TIMED
     return dict(cfg=cfg, losses=losses, step_ms=step_ms, counts=counts,
                 peak=peak, last=lines[-1], seconds=seconds, n_keys=len(keys),
                 ms=statistics.median(step_ms[lo:hi]))
@@ -4570,17 +4660,17 @@ def check_rec_train_parity(dev, seed: int) -> str:
 
 
 def profile_rec_train(dev, seed: int, wall_ms: float) -> Dict[str, Any]:
-    """(e) device ms a launcher step by class over 1 step after a warm
-    one: ``linear`` forward (the kernel), cuBLAS (the backward's products
-    and the mLSTM's and sLSTM's float32 einsums), the rest (the
-    recurrences' elementwise kernels, the loss, the optimizer); idle = 1 -
-    device / ``wall_ms``; kernels a step."""
+    """(e) device ms a launcher step (REC_TRAIN_LAYERS) by class over 1
+    step after a warm one: ``linear`` forward (the kernel), cuBLAS (the
+    backward's products and the mLSTM's and sLSTM's float32 einsums), the
+    rest (the recurrences' elementwise kernels, the loss, the optimizer);
+    idle = 1 - device / ``wall_ms``; kernels a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import init_train_state, make_train_step
 
-    cfg, tcfg = rec_train_config()
+    cfg, tcfg = rec_train_config(REC_TRAIN_LAYERS)
     params, state = init_train_state(cfg, tcfg, seed, dev)
     step = make_train_step(cfg, tcfg)
     batches = rec_train_batches(cfg, dev, seed, 2)
@@ -4618,7 +4708,8 @@ def phase18(dev, seed: int, card: str, gate) -> list:
     step)."""
     t_all = time.perf_counter()
     hyb = rec_serve(dev, seed, HYBRID_ARCH, gate, card, "a", wrap=True)
-    pa_row = rec_pa_row(dev, hyb["launches"]["paged_attention"])
+    pa_row = dense_pa_row(dev, HYBRID_ARCH,
+                          hyb["launches"]["paged_attention"], SEED + 18)
     print(f"[18 c paged_attention] shape {pa_row['shape']}: within one bf16 "
           f"ulp of its plain version (max |err| {pa_row['max_abs_err']}); "
           f"kernel {pa_row['ms']:.4f} ms (device {pa_row['device_ms']}), "
@@ -4626,7 +4717,8 @@ def phase18(dev, seed: int, card: str, gate) -> list:
           f"{pa_row['library_ms']:.4f} ms (device "
           f"{pa_row['library_device_ms']}), bound {pa_row['bound_ms']:.4f} "
           f"ms ({pa_row['bound_by']}) ({card})")
-    lin_row = rec_linear_row(dev, hyb["launches"]["linear"])
+    lin_row = dense_linear_row(dev, HYBRID_ARCH, rec_linear_units,
+                               hyb["launches"]["linear"], "(18c)")
     print(f"[18 c linear step] {lin_row['shape']['step']}: device ms a "
           f"step's products (L2-cold launches summed): kernel "
           f"{lin_row['device_ms']}, cuBLAS {lin_row['library_device_ms']}, "
@@ -4645,7 +4737,8 @@ def phase18(dev, seed: int, card: str, gate) -> list:
     t0 = time.perf_counter()
     tr = drive_rec_train(dev, seed, ROOT / "build" / "phase18_ckpt")
     print(f"[18 e train] repro_torch.launch.train {' '.join(REC_TRAIN_ARGS)}"
-          f" (examples/train_lm.py's settings) at full width and depth, "
+          f" (examples/train_lm.py's settings) at full width, depth cut to "
+          f"{REC_TRAIN_LAYERS} layers, "
           f"float32 masters from seed {seed}: losses "
           f"{[round(x, 4) for x in tr['losses']]}, {tr['last']}; wrapper "
           f"launches {tr['counts']}, no other kernel; the checkpoint's "
@@ -4656,7 +4749,7 @@ def phase18(dev, seed: int, card: str, gate) -> list:
     tprof = profile_rec_train(dev, seed, tr["ms"])
     tokens = REC_TRAIN_BATCH * REC_TRAIN_SEQ
     print(f"[18 e train timing] ms a step (median of steps "
-          f"{TRAIN_TIMED[0]}-{TRAIN_TIMED[1] - 1}, host clock): "
+          f"{REC_TIMED[0]}-{REC_TIMED[1] - 1}, host clock): "
           f"{tr['ms']:.4f} ({tokens / tr['ms'] * 1e3:.1f} tokens/s); device "
           f"ms a step by class (profiler, 1 step): {tprof['by']}, busy "
           f"{tprof['busy']:.4f}, idle {tprof['idle']}, "
@@ -4671,6 +4764,490 @@ def phase18(dev, seed: int, card: str, gate) -> list:
     return [pa_row, lin_row]
 
 
+# ------------------------------------------------------------ phase 19
+VLM_ARCH, ENCDEC_ARCH = "internvl2-2b", "seamless-m4t-large-v2"
+FRONT_ARCHS = (VLM_ARCH, ENCDEC_ARCH)
+FRONT_INPUT = {"vlm": "patches", "encdec": "frames"}
+# (a)/(c): 2 sequences of 64 tokens (the VLM's behind its 256 patches, the
+# enc-dec model's over 4,096 frames each)
+FRONT_B, FRONT_S = 2, 64
+# (d): one train step of 4 sequences of 64 tokens (with their patches or
+# frames) in 2 microbatches, lr 1e-3; its parity at 2 layers, full width
+FRONT_TRAIN_B, FRONT_TRAIN_MICRO = 4, 2
+FRONT_PARITY_LAYERS = 2
+# (a)/(c), fixed before any run: the kernel path within one delta
+# (LOGIT_TOL x max|reference| a position) of its reference, a control past
+# it; unless the witness (the plain path computed otherwise) is itself past
+# one delta, and then phase 17's gate (MOE_LOGIT_LIMIT deltas a position,
+# MOE_LOGIT_MEAN on average) for the kernel path and the witness, the
+# control past it
+
+
+def front_batch(cfg, dev, seed: int, B: int, S: int) -> Dict[str, Any]:
+    """``B`` sequences of ``S`` tokens and their patches or frames ``[B,
+    frontend_seq, frontend_dim]`` (N(0, 1), float32) from ``seed``, on the
+    card."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (B, S))
+    front = rng.normal(0, 1, (B, cfg.frontend_seq, cfg.frontend_dim))
+    return {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev),
+            FRONT_INPUT[cfg.family]: torch.as_tensor(
+                front, dtype=torch.float32, device=dev)}
+
+
+def deltas(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Per position (rows of ``[..., Vp]``): ``max|a - c|`` in deltas of
+    LOGIT_TOL x ``max|c|``."""
+    a, c = a.reshape(-1, a.shape[-1]), c.reshape(-1, c.shape[-1])
+    return (a - c).abs().amax(-1) / (LOGIT_TOL * c.abs().amax(-1))
+
+
+def front_gate(tag: str, kernel: torch.Tensor, witness: torch.Tensor,
+               control: torch.Tensor) -> str:
+    """The rule of (a) and (c) on three distance vectors (``deltas``):
+    fails unless it holds; returns the readings and the gate applied."""
+    def read(r):
+        return (f"max {r.max().item():.3f} mean {r.mean().item():.3f} "
+                f"delta, {int((r > 1).sum())} of {r.numel()} positions past "
+                f"one delta")
+
+    def within(r, limit, mean):
+        return bool(r.max() <= limit and r.mean() <= mean)
+
+    line = (f"kernel {read(kernel)}; witness {read(witness)}; control "
+            f"{read(control)}")
+    if within(witness, 1.0, 1.0):
+        gate = (1.0, 1.0)
+    else:
+        gate = (MOE_LOGIT_LIMIT, MOE_LOGIT_MEAN)
+    ok = (within(kernel, *gate) and within(witness, *gate)
+          and not within(control, *gate))
+    name = ("one delta" if gate == (1.0, 1.0) else
+            f"phase 17's gate ({gate[0]} deltas a position, {gate[1]} on "
+            f"average; the witness is past one delta)")
+    if not ok:
+        fail(f"{tag} past {name}, or the control within it: {line}")
+    return f"{line}: within {name}, the control past it"
+
+
+def front_forward(run: ServeRun, dev, seed: int, tag: str) -> Dict[str, Any]:
+    """(a) ``forward`` of FRONT_B x FRONT_S tokens with their patches or
+    frames at full width and depth, under no_grad: the kernel path (every
+    product the ``linear`` kernel: exactly the model's launches, no other
+    kernel of the repo) against the plain path (``linear_ref``; training's
+    attention is plain torch in both), beside a witness (the plain
+    products' sums in the other operand order) and a control (the plain
+    path with the patches or frames zeroed: a frontend that never reaches
+    the model)."""
+    from repro_torch.arch import model as M
+    from repro_torch.kernels import ops
+
+    cfg = run.cfg
+    batch = front_batch(cfg, dev, seed, FRONT_B, FRONT_S)
+    key = FRONT_INPUT[cfg.family]
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        kern = M.forward(run.params, batch, cfg)[0]
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        with plain_products():
+            plain = M.forward(run.params, batch, cfg)[0]
+            control = M.forward(run.params, {**batch, key: torch.zeros_like(
+                batch[key])}, cfg)[0]
+        with witness_products():
+            witness = M.forward(run.params, batch, cfg)[0]
+    want = {"linear": forward_products(cfg)}
+    if counts != want:
+        fail(f"{tag} the forward launched {counts}, expected {want}")
+    S = FRONT_S + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+    if kern.shape != (FRONT_B, S, cfg.vocab_padded) or not torch.isfinite(
+            kern).all():
+        fail(f"{tag} forward logits {tuple(kern.shape)}, or not finite")
+    line = front_gate(f"{tag} forward", deltas(kern, plain),
+                      deltas(witness, plain), deltas(control, plain))
+    return dict(line=line, counts=counts, seconds=seconds, logits=kern,
+                plain=plain, batch=batch)
+
+
+def forward_products(cfg) -> int:
+    """``linear`` launches of one ``forward``: the frontend product, 4 a
+    decoder layer (q/k/v group, wo, gate/up group, w_down) and 4 an
+    encoder layer, 3 more a decoder layer with cross-attention (the
+    encoder's k/v group, the query, wo), and the head."""
+    n = 4 * cfg.n_layers + 1 + bool(cfg.frontend)
+    if cfg.family == "encdec":
+        n += 4 * cfg.n_encoder_layers + 3 * cfg.n_layers
+    return n
+
+
+def front_linear_weights(cfg):
+    """The distinct product shapes of the model's forward and decode step
+    as ``check_linear``'s (name, K, N, float32 out): a layer's, the
+    frontend's (K = frontend_dim) and the head."""
+    return [(n, K, N, f32) for n, K, N, f32 in linear_weights(cfg)
+            if n not in ("wv", "w_up")] + [
+        ("frontend_proj", cfg.frontend_dim, cfg.d_model, False)]
+
+
+def check_frontend_rows(run: ServeRun, dev, tag: str) -> str:
+    """The frontend product at the forward's M (FRONT_B x frontend_seq
+    rows of K = frontend_dim): within ``linear_limit`` of the plain
+    version, and each of 16 rows spread over the operand bitwise the same
+    row computed in a [16, K] operand."""
+    from test_torch_cuda import linear_limit
+
+    from repro_torch.kernels import ops, ref
+
+    cfg = run.cfg
+    M, K = FRONT_B * cfg.frontend_seq, cfg.frontend_dim
+    x, w = linear_case(dev, M, K, cfg.d_model, SEED + 19)
+    got, want = ops.linear(x, w), ref.linear_ref(x, w)
+    err = (got.float() - want.float()).abs()
+    limit = linear_limit(x, w, want, False)
+    if (err > limit).any():
+        fail(f"{tag} the frontend product at [{M}, {K}]: "
+             f"{int((err > limit).sum())} elements past the limit")
+    rows = torch.arange(0, M, M // 16, device=dev)[:16]
+    if not torch.equal(ops.linear(x[rows].contiguous(), w), got[rows]):
+        fail(f"{tag} frontend rows of a [{M}, {K}] operand differ from the "
+             f"same rows in a [16, {K}] one")
+    return (f"the frontend product [{M}, {K}] x [{K}, {cfg.d_model}] within "
+            f"the plain version's limit (worst "
+            f"{(err / limit.clamp_min(1e-30)).max().item():.4f} of it), 16 "
+            f"rows bitwise in a [16, {K}] operand")
+
+
+def front_paged(run: ServeRun, dev, tag: str) -> Dict[str, Any]:
+    """(b) the VLM over the paged cache, phase 9's ServeConfig and traffic
+    (text prompts of 16-256 tokens): the host batcher (launches exact,
+    ``check_serve``), the device batcher at prefill_chunk DEVICE_CHUNK
+    (graph) bitwise the host batcher, and paged == dense (phase 14 (b))."""
+    cb, seconds, counts = serve_workload(run.cfg, run.params, run.gate,
+                                         run.prompts, run.feats, dev)
+    paged = ServeRun(run.cfg, run.params, run.gate, run.prompts, run.feats,
+                     cb, seconds, counts)
+    host_line = check_serve(paged)
+    d = drive_device(paged, dev)
+    same_run(f"{tag} paged device batcher (chunk {DEVICE_CHUNK}) vs the host "
+             f"batcher", d.cb, cb)
+    return dict(run=paged, d=d, host_line=host_line,
+                device_line=check_device_main(d, paged),
+                dense_line=check_paged_vs_dense(cut_depth(run), dev))
+
+
+def front_decode(run: ServeRun, fwd: Dict[str, Any], dev, tag: str) -> str:
+    """(c) the enc-dec model teacher-forced through ``decode_step`` from a
+    fresh state over (a)'s tokens, its ``cross`` planes filled by
+    ``encode_cross`` over (a)'s frames, against (a)'s forward logits: the
+    kernel path (the ``linear`` and ``paged_attention`` kernels) against
+    the kernel forward, a witness (the plain path's decode against the
+    plain forward) and a control (the zero planes the JAX package's decode
+    keeps, ROADMAP C.13), under (a)'s rule."""
+    from repro_torch.arch import model as M
+
+    cfg, batch = run.cfg, fwd["batch"]
+    toks = batch["tokens"]
+
+    def decode(attn, cross):
+        st = M.init_decode_state(cfg, FRONT_B, FRONT_S, device=dev)
+        if cross:
+            st["cross"] = M.encode_cross(run.params, batch["frames"], cfg)
+        rows = []
+        with torch.no_grad():
+            for t in range(FRONT_S):
+                lg, st = M.decode_step(run.params, st, toks[:, t:t + 1], cfg,
+                                       attn_impl=attn)
+                rows.append(lg)
+        return torch.stack(rows, 1)
+
+    kern = decode("auto", True)
+    with plain_products():
+        witness = decode("torch", True)
+    control = decode("auto", False)
+    if not torch.isfinite(kern).all():
+        fail(f"{tag} decode logits are not finite")
+    return (f"{FRONT_B} x {FRONT_S} tokens teacher-forced with cross = "
+            f"encode_cross(frames), against the forward: " + front_gate(
+                f"{tag} decode", deltas(kern, fwd["logits"]),
+                deltas(witness, fwd["plain"]),
+                deltas(control, fwd["logits"])))
+
+
+def front_serve(dev, seed: int, arch: str, gate, card: str,
+                tag: str) -> Dict[str, Any]:
+    """(a)-(c) for ``arch`` at full width and depth: the forward, the
+    model's products through phase 8's ``linear`` checks, ``generate()``
+    with launches exact, both dense batchers (host == device, graph ==
+    eager, launches exact, no sync, the ring's wrap), for the VLM the paged
+    batchers, for the enc-dec model the teacher-forced decode; the
+    profiler over a dense round (exact) with tokens/s, ms and device ms a
+    step by class and idle."""
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = rec_run(dev, seed, arch, gate)
+    cfg = run.cfg
+    n_params = sum(p.numel() for leaf in leaves(run.params)
+                   for p in leaf.parts)
+    w_bytes = weight_bytes(run.params)
+    enc = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
+           f"layers with cross-attention" if cfg.family == "encdec" else
+           f"{cfg.n_layers} layers")
+    print(f"[19 {tag}] {arch} ({cfg.family}) at full width and depth ({enc},"
+          f" d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, "
+          f"frontend {cfg.frontend_dim} x {cfg.frontend_seq}), "
+          f"{n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, a "
+          f"step reads {w_bytes / 1e9:.3f} GB of weights (all but the "
+          f"embedding), RANDOM weights from seed {seed} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    t0 = time.perf_counter()
+    line = check_linear(cfg, dev, front_linear_weights(cfg), f"19{tag} linear")
+    print(f"[19 {tag} linear] the model's products: {line}; "
+          f"{check_frontend_rows(run, dev, f'(19{tag})')} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    t0 = time.perf_counter()
+    fwd = front_forward(run, dev, seed, f"(19{tag} a)")
+    print(f"[19 {tag} a] forward of {FRONT_B} x {FRONT_S} tokens with their "
+          f"{FRONT_INPUT[cfg.family]}: linear launches {fwd['counts']}, "
+          f"{fwd['seconds'] * 1e3:.1f} ms (no_grad); logits against the "
+          f"plain path: {fwd['line']} ({time.perf_counter() - t0:.1f} s; "
+          f"{card})")
+    if cfg.family == "encdec":
+        t0 = time.perf_counter()
+        print(f"[19 {tag} c] {front_decode(run, fwd, dev, f'(19{tag} c)')} "
+              f"({time.perf_counter() - t0:.1f} s; {card})")
+    del fwd
+    torch.cuda.empty_cache()
+    g = rec_generate(run, dev, f"(19{tag} b)")
+    print(f"[19 {tag} b] generate(), 16 prompts of 4 tokens + "
+          f"{DENSE_GENERATE} generated, gate fused: wrapper launches "
+          f"{g['counts']} == {g['steps']} steps x {step_kernels(cfg)} + the "
+          f"gate's tables; {g['tokens'] / g['seconds']:.1f} tokens/s, "
+          f"{g['seconds'] / g['steps'] * 1e3:.4f} ms a step ({card})")
+    t0 = time.perf_counter()
+    dense = drive_dense(run, dev, f"(19{tag} b)")
+    host, device = dense["host"], dense["device"]
+    print(f"[19 {tag} b] {DENSE}, phase 9's {SERVE_REQUESTS} requests (first "
+          f"prompt token) x {SERVE_TOKENS} tokens: host batcher == device "
+          f"batcher (sync_every {DEVICE_ROUND}, graph) bitwise: "
+          f"{len(wave_streams(host))} served, drops "
+          f"{first_wave_drops(host)[1]}; {host.steps} steps with work, "
+          f"global position {int(host.engine.state['pos'])}; "
+          f"{check_dense_launches(dense, run, f'(19{tag} b)')}")
+    eager_s = rec_graph_eager(run, device, dev, f"(19{tag} b)")
+    print(f"[19 {tag} b] graph == eager bitwise (eager wave {eager_s:.3f} s); "
+          f"{check_dense_no_sync(run, dev, f'(19{tag} b)')}; "
+          f"{check_wrap(cut_depth(run), dev)} ({SERVE_CUT} layers, full "
+          f"width) ({time.perf_counter() - t0:.1f} s; {card})")
+    if cfg.family == "encdec":
+        for st, who in ((host.engine.state, "host"),
+                        (device._decode, "device")):
+            if any(t.any() for t in st["cross"]):
+                fail(f"(19{tag} b) the {who} batcher wrote its cross planes")
+    dprof = profile_device(device, run, dev, dense=True, tag=f"(19{tag} e)")
+    bound = w_bytes / PEAK_BYTES * 1e3
+    host_tok = sum(len(t) for t in host.done.values())
+    print(f"[19 {tag} e] profiler over a dense round of {dprof['rsteps']} "
+          f"steps and its gate call: {dprof['counts']}, exact on try "
+          f"{len(dprof['tries'])} of at most {PROFILE_TRIES} ({card})")
+    print(f"[19 {tag} e timing] dense device batcher, warm wave, graph: "
+          f"{dprof['tokens']} tokens in {dprof['seconds']:.4f} s, "
+          f"{dprof['tokens'] / dprof['seconds']:.1f} tokens/s, "
+          f"{dprof['ms_step']:.4f} ms per step run ({dprof['steps']} "
+          f"steps); device {dprof['busy_ms_step']:.4f} ms a step "
+          f"(profiler, by kernel class: {dprof['by']}), idle "
+          f"{dprof['idle']:.3f}; the weights' byte bound {bound:.4f} ms a "
+          f"step ({w_bytes / 1e9:.3f} GB / 3.35 TB/s); host batcher (eager, "
+          f"first wave): {host_tok / dense['host_s']:.1f} tokens/s, "
+          f"{dense['host_s'] / host.steps * 1e3:.4f} ms a step ({card})")
+    out = dict(cfg=cfg, launches=dense["counts"], dprof=dprof, bound=bound)
+    del dense, host, device
+    if cfg.family == "vlm":
+        t0 = time.perf_counter()
+        p = front_paged(run, dev, f"(19{tag} b)")
+        print(f"[19 {tag} b paged] {SERVE}, phase 9's traffic: host batcher "
+              f"{p['host_line']}; device batcher {p['device_line']}, "
+              f"bitwise the host batcher; {p['dense_line']} "
+              f"({time.perf_counter() - t0:.1f} s; {card})")
+        pprof = profile_device(p["d"].cb, p["run"], dev, tag=f"(19{tag} e)")
+        print(f"[19 {tag} e timing] paged device batcher (chunk "
+              f"{DEVICE_CHUNK}), warm wave, graph: "
+              f"{pprof['tokens'] / pprof['seconds']:.1f} tokens/s, "
+              f"{pprof['ms_step']:.4f} ms per step run; device "
+              f"{pprof['busy_ms_step']:.4f} ms a step ({pprof['by']}), idle "
+              f"{pprof['idle']:.3f}; launches of a round exact on try "
+              f"{len(pprof['tries'])} ({card})")
+        del p
+    print(f"[19 {tag}] peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB ({card})")
+    return out
+
+
+def front_train_config(arch: str, n_layers: int = 0):
+    """``arch`` at full width and depth (or both stacks cut to
+    ``n_layers``) and the step's TrainConfig (FRONT_TRAIN_MICRO
+    microbatches, lr 1e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(
+            cfg, n_layers=n_layers,
+            n_encoder_layers=min(cfg.n_encoder_layers, n_layers))
+    return cfg, TrainConfig(microbatches=FRONT_TRAIN_MICRO,
+                            adamw=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=10))
+
+
+def front_train(dev, seed: int, arch: str, tag: str) -> str:
+    """(d) ``make_train_step`` at full width and depth, two steps of
+    FRONT_TRAIN_B x FRONT_S tokens with their patches or frames: finite
+    losses, every master finite and moved, ``linear`` launched exactly
+    microbatches x 2 x the forward's launches but the frontend's and the
+    head's (each layer recomputed in the backward) and nothing else; ms a
+    step (the second), peak memory.  Then at FRONT_PARITY_LAYERS (full
+    width) the step's loss and gradients through the kernel and through
+    ``linear_ref`` from the same masters: phase 15's bounds."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg, tcfg = front_train_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state = init_train_state(cfg, tcfg, seed, dev)
+    # layer 0 of each leaf; an enc-dec cross layer's ln2 is zero and no
+    # forward reads it, so neither its gradient nor AdamW's decay moves it
+    still = {"cross_layers/ln2"} if cfg.family == "encdec" else set()
+    keys = [leaf.key for leaf in leaves(params)]
+    before = [leaf.parts[0].clone() for leaf in leaves(params)]
+    step = make_train_step(cfg, tcfg)
+    batches = [front_batch(cfg, dev, seed + i, FRONT_TRAIN_B, FRONT_S)
+               for i in range(2)]
+    losses, ms = [], []
+    for b in batches:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, b)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+    # each layer's products again in its recomputation; the frontend's and
+    # the head's once
+    want = {"linear": FRONT_TRAIN_MICRO * (2 * forward_products(cfg) - 2)}
+    if counts != want:
+        fail(f"(19{tag} d) a train step launched {counts}, expected {want}")
+    after = [leaf.parts[0] for leaf in leaves(params)]
+    if not np.isfinite(losses).all() or not all(
+            torch.isfinite(p).all() for p in after):
+        fail(f"(19{tag} d) losses {losses}, or a master not finite")
+    unmoved = {k for k, a, b in zip(keys, after, before) if torch.equal(a, b)}
+    if unmoved != still:
+        fail(f"(19{tag} d) leaves unmoved {sorted(unmoved)}, expected "
+             f"{sorted(still)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, state, step, before, after
+    torch.cuda.empty_cache()
+    line = (f"{arch} at full width and depth, make_train_step, 2 steps of "
+            f"{FRONT_TRAIN_B} x {FRONT_S} tokens with their "
+            f"{FRONT_INPUT[cfg.family]} in {FRONT_TRAIN_MICRO} microbatches: "
+            f"losses {[round(x, 4) for x in losses]}, every leaf finite and "
+            f"moved but {sorted(still) or 'none'}, linear launches {counts} "
+            f"a step, no other kernel; "
+            f"{ms[1]:.1f} ms the second step (the first {ms[0]:.1f}), peak "
+            f"memory {peak / 2**30:.2f} GiB")
+    return line + "; " + front_train_parity(dev, seed, arch, tag)
+
+
+def front_train_parity(dev, seed: int, arch: str, tag: str) -> str:
+    """(d) at FRONT_PARITY_LAYERS, full width: one step's loss and every
+    gradient leaf through the kernel and through ``linear_ref`` from the
+    same masters; phase 15's bounds (TRAIN_LOSS_RTOL, LOGIT_TOL x the
+    plain leaf's largest magnitude)."""
+    from repro_torch.train import init_train_state
+
+    cfg, tcfg = front_train_config(arch, FRONT_PARITY_LAYERS)
+    params, _ = init_train_state(cfg, tcfg, seed, dev)
+    b = front_batch(cfg, dev, seed, FRONT_TRAIN_B, FRONT_S)
+    gk, lk = step_grads(cfg, tcfg, params, b, with_loss=True)
+    with plain_products():
+        gp, lp = step_grads(cfg, tcfg, params, b, with_loss=True)
+    rel = abs(lk - lp) / abs(lp)
+    r = grad_readings(gk, gp)
+    worst = max(r, key=lambda k: r[k][0])
+    line = (f"at {FRONT_PARITY_LAYERS} layers, full width, kernel vs plain "
+            f"from the same masters: loss relative {rel:.3e}, the worst "
+            f"gradient leaf {r[worst][0]:.4f} of its largest magnitude "
+            f"({worst}), {len(r)} leaves")
+    if not np.isfinite(lk) or rel > TRAIN_LOSS_RTOL or r[worst][0] > LOGIT_TOL:
+        fail(f"(19{tag} d) past phase 15's bounds ({TRAIN_LOSS_RTOL} on the "
+             f"loss, {LOGIT_TOL} on the gradients): {line}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return line
+
+
+def front_linear_units(cfg):
+    """A VLM or enc-dec dense step's products as ``linear_timings`` units
+    (``attn_linear_units``) and how many a step launches: the enc-dec
+    cross-attention's query and wo are two more ``wo``-shaped products a
+    layer."""
+    L = cfg.n_layers
+    count = {"qkv": L, "wo": L * (3 if cfg.family == "encdec" else 1),
+             "gate_up": L, "w_down": L, "head": 1}
+    return attn_linear_units(cfg), count
+
+
+def phase19(dev, seed: int, card: str, gate) -> list:
+    """Phase 19: the VLM and enc-dec families at full width and depth
+    ((a)-(c), then (d)'s training); returns the new JSON rows
+    (``paged_attention`` at seamless-m4t-large-v2's step, ``linear`` at
+    both models' steps)."""
+    t_all = time.perf_counter()
+    launches = {}
+    for arch, tag in ((VLM_ARCH, "vlm"), (ENCDEC_ARCH, "encdec")):
+        launches[arch] = front_serve(dev, seed, arch, gate, card,
+                                     tag)["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[19] {arch} served in {time.perf_counter() - t_all:.1f} s "
+              f"from the phase's start ({card})")
+    for arch, tag in ((VLM_ARCH, "vlm"), (ENCDEC_ARCH, "encdec")):
+        t0 = time.perf_counter()
+        print(f"[19 {tag} d train] {front_train(dev, seed, arch, tag)} "
+              f"({time.perf_counter() - t0:.1f} s; {card})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = [dense_pa_row(dev, ENCDEC_ARCH,
+                         launches[ENCDEC_ARCH]["paged_attention"], SEED + 19)]
+    for arch in FRONT_ARCHS:
+        rows.append(dense_linear_row(dev, arch, front_linear_units,
+                                     launches[arch]["linear"], "(19e)"))
+    for r in rows:
+        print(f"[19 e {r['name']}] {r['cell']}, shape {r['shape']}: kernel "
+              f"{r['ms']:.4f} ms (device {r.get('device_ms')}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (device "
+              f"{r.get('library_device_ms')}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), max |err| {r['max_abs_err']} ({card})")
+    print(f"[19] phase 19 in {time.perf_counter() - t_all:.1f} s ({card})")
+    return rows
+
+
+def starts(t_run: float, phase: str) -> None:
+    """Print how far into the run ``phase`` starts (the run's budget)."""
+    print(f"[{phase}] starts {time.perf_counter() - t_run:.1f} s into the "
+          f"run")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=SEED,
@@ -4681,7 +5258,11 @@ def main() -> None:
     ap.add_argument("--phase18", action="store_true",
                     help="build the kernels and run phase 18 alone (the "
                          "recurrent families); prints no result line")
+    ap.add_argument("--phase19", action="store_true",
+                    help="build the kernels and run phase 19 alone (the "
+                         "VLM and enc-dec families); prints no result line")
     args = ap.parse_args()
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     sys.path.insert(0, str(ROOT / "src"))
@@ -4722,9 +5303,16 @@ def main() -> None:
                                              serve_gate(dev))}))
         print(card)
         return
+    if args.phase19:
+        print(json.dumps({"kernels": phase19(dev, args.seed, card,
+                                             serve_gate(dev))}))
+        print(card)
+        return
+    starts(t_run, "2")
     n = check_kernels(dev)
     print(f"[2 kernels] {n} cases bitwise equal to their plain versions")
 
+    starts(t_run, "3")
     staged = drive("L", dev, BATCH)
     fused = drive("M", dev, BATCH)
     for phase, run, size, backend, kernels in (
@@ -4749,6 +5337,7 @@ def main() -> None:
               f"kernel launches {kernel_ms:.4f} ms; plain on the card: "
               f"{flows_per_s(run.plain, run.x[:CHUNK]):.0f} flows/s ({card})")
 
+    starts(t_run, "6")
     lb_runs = drive_lb(dev, BATCH)
     from repro_torch.kernels.lb_lookup import plan as lb_plan
     for model, run in lb_runs.items():
@@ -4793,6 +5382,7 @@ def main() -> None:
               f"{rows[-1]['library_ms']:.4f} ms (device "
               f"{rows[-1]['library_device_ms']}) ({card})")
 
+    starts(t_run, "8")
     print(f"[8 paged_attention] {check_paged_attention(dev)}")
     pa_row = paged_attention_row(dev)
     for t in (pa_row, pa_row["skip"], pa_row["c8"], pa_row["ring"]):
@@ -4820,6 +5410,7 @@ def main() -> None:
               f"(phase 8's L2-cold launches summed): kernel "
               f"{r['device_ms']}, cuBLAS {r['library_device_ms']}, bound "
               f"{r['bound_ms']:.4f} ({card})")
+    starts(t_run, "9")
     serve = drive_serve(dev, args.seed)
     cfg = serve.cfg
     print(f"[9 serve] qwen2-1.5b at full width and depth ({cfg.n_layers} "
@@ -4831,9 +5422,12 @@ def main() -> None:
           f"{PROMPT_LENS[1]} tokens, seed {args.seed}) x {SERVE_TOKENS} "
           f"tokens: {check_serve(serve)} ({card})")
     print(f"[9 serve profile] {profile_serve(serve, dev)} ({card})")
-    print(f"[10 serve parity] {check_captured_attention(serve, dev)}")
+    print(f"[10 serve parity] {check_captured_attention(cut_depth(serve), dev)}"
+          f" ({SERVE_CUT} layers, full width)")
     print(f"[10 serve parity] {check_teacher_forced(serve, dev)}")
-    print(f"[10 serve parity] {check_shared_and_int8(serve, dev)}")
+    print(f"[10 serve parity] {check_shared_and_int8(cut_depth(serve), dev)}"
+          f" ({SERVE_CUT} layers, full width)")
+    starts(t_run, "11")
     d = drive_device(serve, dev)
     d_steps = d.cb.steps  # the first wave's
     print(f"[11 device batcher] {check_device_main(d, serve)} ({card})")
@@ -4877,6 +5471,7 @@ def main() -> None:
           f"{eager_s / eager.steps_executed * 1e3:.4f} ms per step run; "
           f"phase 9's host batcher: {n_tok / serve.seconds:.1f} tokens/s, "
           f"{serve.seconds / serve.cb.steps * 1e3:.4f} ms per step ({card})")
+    starts(t_run, "12")
     spec = drive_spec(serve, d, dev)
     st = spec["stats"]
     print(f"[12 spec] spec_k {SPEC_K}, bigram draft from a pilot wave "
@@ -4897,6 +5492,7 @@ def main() -> None:
           f"{prof['tokens'] / prof['seconds']:.1f} tokens/s ({card})")
     print(f"[13 obs] {check_traced(serve, d, dev)} ({card})")
     print(f"[13 faults] {check_faults(serve, d, dev)}")
+    starts(t_run, "14")
     dense = drive_dense(serve, dev)
     host = dense["host"]
     print(f"[14 dense] (a) {DENSE}, phase 9's {SERVE_REQUESTS} requests "
@@ -4906,8 +5502,10 @@ def main() -> None:
           f"{first_wave_drops(host)[1]}; {host.steps} steps with work, "
           f"global position {int(host.engine.state['pos'])} ({card})")
     print(f"[14 dense] {check_dense_launches(dense, serve)}")
-    print(f"[14 dense] {check_paged_vs_dense(serve, dev)}")
-    print(f"[14 dense] {check_wrap(serve, dev)} ({card})")
+    print(f"[14 dense] {check_paged_vs_dense(cut_depth(serve), dev)} "
+          f"({SERVE_CUT} layers, full width)")
+    print(f"[14 dense] {check_wrap(cut_depth(serve), dev)} ({SERVE_CUT} "
+          f"layers, full width; {card})")
     print(f"[14 dense] {check_dense_no_sync(serve, dev)}")
     dprof = profile_device(dense["device"], serve, dev, dense=True,
                            tag="(14e)")
@@ -4933,6 +5531,7 @@ def main() -> None:
           f"{prof['busy_ms_step']:.4f} ms a step ({prof['by']}) ({card})")
     del dense, host
     torch.cuda.empty_cache()
+    starts(t_run, "15")
     tr = drive_train(dev, args.seed)
     tcfg = tr["cfg"]
     print(f"[15 train] (a) repro_torch.launch.train at its defaults: "
@@ -4974,6 +5573,7 @@ def main() -> None:
           f"{lt['ms']} ms (device {lt['device_ms']}), cuBLAS "
           f"{lt['library_ms']} (device {lt['library_device_ms']}), bound "
           f"{lt['bound_ms']:.4f} (bytes) ({card})")
+    starts(t_run, "16")
     phase16(serve, d, prof, dev, card)
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
@@ -4984,11 +5584,18 @@ def main() -> None:
     del serve, d, tbt, eager, one, spec, tr
     gc.collect()
     torch.cuda.empty_cache()
+    starts(t_run, "17")
     moe_row, lin_row["moe_products"] = phase17(dev, args.seed, card)
     rows.append(moe_row)
     gc.collect()
     torch.cuda.empty_cache()
+    starts(t_run, "18")
     rows += phase18(dev, args.seed, card, gate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    starts(t_run, "19")
+    rows += phase19(dev, args.seed, card, gate)
+    starts(t_run, "the result")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

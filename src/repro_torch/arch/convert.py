@@ -16,8 +16,9 @@ for a decode state (``init_decode_state``), so both can continue from one
 mid-run cache or recurrent state.  A ``block_pattern`` config's ``macros``
 (each entry stacked over the macros) and ``tail`` (a list of layers) cross
 the same way, and its decode state keeps the JAX package's keys and
-layout.  Nothing here imports JAX: the caller hands over plain numpy
-arrays.
+layout; so do the enc-dec family's ``enc_layers`` and ``cross_layers``
+(stacked), ``enc_ln_f`` and ``frontend_proj``, and its ``cross`` planes.
+Nothing here imports JAX: the caller hands over plain numpy arrays.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ArchConfig
-from .model import Params, check_ported, compute_params, macro_pattern
+from .model import Params, compute_params, macro_pattern
 
 
 def _tensors(tree, device) -> Any:
@@ -57,9 +58,18 @@ def master_params_from_arrays(np_tree: Dict, cfg: ArchConfig,
                               ) -> Params:
     """The JAX package's parameter tree (numpy, float32 masters, layers or
     macros stacked) -> the port's float32 masters on ``device``."""
-    check_ported(cfg)
     device = resolve_device(device)
-    out = {k: _tensors(np_tree[k], device) for k in ("embed", "head", "ln_f")}
+    keys = ["embed", "head", "ln_f"]
+    if cfg.n_encoder_layers:
+        keys.append("enc_ln_f")
+    if cfg.frontend:
+        keys.append("frontend_proj")
+    out = {k: _tensors(np_tree[k], device) for k in keys}
+    if cfg.n_encoder_layers:
+        out["enc_layers"] = _layers(np_tree["enc_layers"],
+                                    cfg.n_encoder_layers, "enc_layers", device)
+        out["cross_layers"] = _layers(np_tree["cross_layers"], cfg.n_layers,
+                                      "cross_layers", device)
     if not cfg.block_pattern:
         out["layers"] = _layers(np_tree["layers"], cfg.n_layers, "layers",
                                 device)
@@ -84,8 +94,9 @@ def params_from_arrays(np_tree: Dict, cfg: ArchConfig,
 
 def arrays_from_master_params(params: Params) -> Dict:
     """The port's masters -> the JAX package's tree of numpy arrays
-    (``layers`` and each ``macros`` entry stacked on axis 0, ``tail`` a
-    list), with the JAX leaves' dtypes."""
+    (``layers``, ``enc_layers``, ``cross_layers`` and each ``macros``
+    entry stacked on axis 0, ``tail`` a list), with the JAX leaves'
+    dtypes."""
     def host(t):
         return t.detach().cpu().numpy()
 
@@ -101,7 +112,7 @@ def arrays_from_master_params(params: Params) -> Dict:
 
     out = {}
     for k, v in params.items():
-        if k == "layers":
+        if k in ("layers", "enc_layers", "cross_layers"):
             out[k] = stack(v)
         elif k == "macros":
             out[k] = {m: stack(layers) for m, layers in v.items()}
@@ -131,8 +142,8 @@ def decode_state_from_arrays(np_state: Dict, cfg: ArchConfig,
     ``kv_scales``; for a ``block_pattern`` config the ``m{i}_*`` and
     ``tail{i}_*`` entries: attention rings bf16, recurrent states float32)
     -> the port's ``arch.model.init_decode_state`` layout on ``device``, so
-    that both packages can continue from one mid-run state."""
-    check_ported(cfg)
+    that both packages can continue from one mid-run state; an enc-dec
+    state's ``cross = (k, v)`` planes cross as bf16."""
     device = resolve_device(device)
     if cfg.block_pattern:
         state = {"pos": torch.tensor(int(np.asarray(np_state["pos"])),
@@ -159,4 +170,7 @@ def decode_state_from_arrays(np_state: Dict, cfg: ArchConfig,
     if int8:
         state["kv_scales"] = tuple(_cache(a, torch.float32, device)
                                    for a in np_state["kv_scales"])
+    if "cross" in np_state:
+        state["cross"] = tuple(_cache(a, torch.bfloat16, device)
+                               for a in np_state["cross"])
     return state

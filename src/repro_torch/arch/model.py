@@ -56,9 +56,34 @@ dispatch, in plain torch), and ``forward`` returns the summed aux loss as
 the JAX forward does.  The serve steps discard the aux loss, as the JAX
 package's do, and do not compute it.
 
-Not ported yet (ROADMAP queue A item 9): the enc-dec and VLM families, and
-MoE training on the card (``ops.moe_down_combine`` carries no gradient
-there).
+The VLM family (internvl2-2b) adds ``frontend_proj`` ``[frontend_dim,
+D]``: with ``"patches"`` in the batch the forward puts ``patches @
+frontend_proj`` (``ops.linear``, bf16) ahead of the token embeddings, and
+``loss_fn`` drops the logits of those positions.  Its decode is text-only,
+as the JAX package's (ROADMAP C.14): the dense and paged serve paths run
+it as a dense model.
+
+The enc-dec family (seamless-m4t-large-v2) adds ``enc_layers`` (a list of
+``n_encoder_layers`` attention layers), ``enc_ln_f``, ``cross_layers`` (a
+list of ``n_layers`` attention layers whose ``mixer`` and ``ln1`` the
+decoder's cross-attention reads; their ``ln2`` and ``mlp`` are JAX leaves
+no forward reads, kept for the checkpoint and AdamW's decay) and
+``frontend_proj``.  ``forward`` encodes ``batch["frames"]``
+(``_encode``: the frontend product, then non-causal attention with RoPE
+and the MLP a layer, ``enc_ln_f``), then runs the decoder
+(``_dec_layer``: causal self-attention, cross-attention over
+``nn.attention.cross_kv`` of the encoder's output, the MLP); each encoder
+and decoder layer is recomputed in the backward whatever
+``remat_policy`` says, as the JAX package's ``jax.checkpoint(body)``.  The
+decode state adds ``cross``, ``[n_layers, B, frontend_seq, KV, hd]`` bf16
+planes, zero as the JAX package leaves them (ROADMAP C.13);
+``encode_cross`` computes them from frames, and ``decode_step`` reads them
+through ``nn.attention.cross_decode_attention`` (plain torch, the JAX
+einsums' roundings).  The paged cache refuses enc-dec, as in the JAX
+package.
+
+Not ported yet: MoE training on the card (``ops.moe_down_combine``
+carries no gradient there; ROADMAP queue A item 9).
 """
 from __future__ import annotations
 
@@ -88,21 +113,20 @@ REMAT_POLICIES = ("full", "none")  # "dots": ROADMAP queue A item 13
 __all__ = ["COMPUTE_DTYPE", "FLOAT32_LEAVES", "layer_windows",
            "macro_pattern", "init_params", "compute_params", "forward",
            "lm_head", "token_ce_loss", "loss_fn", "init_paged_kv",
-           "paged_decode_step", "init_decode_state", "decode_step"]
+           "paged_decode_step", "init_decode_state", "decode_step",
+           "encode_cross", "unread"]
 
 # leaves the JAX code reads as float32 masters (the blocks cast ``conv``
 # to the activations' type where they use it)
 FLOAT32_LEAVES = ("lam", "conv", "b_f", "b_gates", "r_gates")
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """The port runs decoder stacks: the dense, MoE, recurrent and hybrid
-    families; enc-dec and the VLM frontend are ROADMAP queue A item 9."""
-    if cfg.family == "encdec" or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported: the port runs dense, "
-            "MoE, recurrent and hybrid decoder stacks; enc-dec and VLM "
-            "families are ROADMAP queue A item 9")
+def unread(key: str) -> bool:
+    """Whether the leaf of ``key`` (a ``tree.leaves`` key) is one no forward
+    reads: an enc-dec cross layer's ``ln2`` and ``mlp``.  Its gradient is
+    zero, as in JAX; any other leaf without one is a fault."""
+    return key.split("/")[:2] in (["cross_layers", "ln2"],
+                                  ["cross_layers", "mlp"])
 
 
 def check_paged(cfg: ArchConfig) -> None:
@@ -173,7 +197,6 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     float32 masters existing at a time, or with ``masters=True`` the
     float32 masters themselves (``compute_params`` of them is the same
     compute tree)."""
-    check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -184,23 +207,33 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         "head": dense_init(gen, (D, Vp), device=dev),
         "ln_f": torch.zeros((D,), dtype=torch.float32, device=dev),
     })
-    if not cfg.block_pattern:
+    if cfg.block_pattern:
+        pat, n_macro, n_tail = macro_pattern(cfg)
+        params["macros"] = {
+            f"m{i}_{kind}": [conv(_init_layer(gen, cfg, dev, kind))
+                             for _ in range(n_macro)]
+            for i, kind in enumerate(pat)}
+        params["tail"] = [conv(_init_layer(gen, cfg, dev, pat[i]))
+                          for i in range(n_tail)]
+    else:
         params["layers"] = [conv(_init_layer(gen, cfg, dev))
                             for _ in range(cfg.n_layers)]
-        return params
-    pat, n_macro, n_tail = macro_pattern(cfg)
-    params["macros"] = {
-        f"m{i}_{kind}": [conv(_init_layer(gen, cfg, dev, kind))
-                         for _ in range(n_macro)]
-        for i, kind in enumerate(pat)}
-    params["tail"] = [conv(_init_layer(gen, cfg, dev, pat[i]))
-                      for i in range(n_tail)]
+    if cfg.n_encoder_layers:
+        params["enc_layers"] = [conv(_init_layer(gen, cfg, dev))
+                                for _ in range(cfg.n_encoder_layers)]
+        params["enc_ln_f"] = torch.zeros((D,), dtype=torch.float32,
+                                         device=dev)
+        params["cross_layers"] = [conv(_init_layer(gen, cfg, dev))
+                                  for _ in range(cfg.n_layers)]
+    if cfg.frontend:
+        params.update(conv({"frontend_proj": dense_init(
+            gen, (cfg.frontend_dim, D), device=dev)}))
     return params
 
 
 def _compute(name: str, t: torch.Tensor, train: bool) -> torch.Tensor:
     """One float32 master -> its compute copy (see the module docstring)."""
-    if name.startswith("ln") or name.endswith("_norm") or (
+    if name.startswith("ln") or name.endswith(("_norm", "ln_f")) or (
             name in FLOAT32_LEAVES) or (train and name == "embed"):
         return t.float()
     return t.to(COMPUTE_DTYPE)
@@ -237,7 +270,6 @@ def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
     or int8 with float32 scale planes ``[..., KV, 1]``, zero-filled.
     Attention stacks only: a ``block_pattern`` config raises the JAX
     package's ``ValueError``."""
-    check_ported(cfg)
     check_paged(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
@@ -305,8 +337,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     ring cache ``kv = (k, v)``, ``[n_layers, batch, cache_len, KV, hd]``
     bf16, or int8 with ``kv_scales`` float32 ``[..., KV, 1]``, zero-filled;
     for a ``block_pattern`` config the macro and tail states instead (the
-    module docstring), an int8 request kept bf16."""
-    check_ported(cfg)
+    module docstring), an int8 request kept bf16; for an enc-dec config
+    also ``cross = (k, v)``, ``[n_layers, batch, frontend_seq, KV, hd]``
+    bf16 zeros (``encode_cross`` computes them), an int8 request kept
+    bf16, as in the JAX package."""
     device = resolve_device(device)
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
@@ -314,6 +348,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     state: Params = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.block_pattern:
         state.update(_macro_state(cfg, batch, cache_len, device))
+        return state
+    if cfg.family == "encdec":
+        cshape = (cfg.n_layers, batch, cfg.frontend_seq or cache_len,
+                  cfg.n_kv_heads, cfg.head_dim_)
+        state["kv"] = tuple(torch.zeros(shape, dtype=COMPUTE_DTYPE,
+                                        device=device) for _ in range(2))
+        state["cross"] = tuple(torch.zeros(cshape, dtype=COMPUTE_DTYPE,
+                                           device=device) for _ in range(2))
         return state
     if kv_dtype == "int8":
         sshape = shape[:-1] + (1,)
@@ -328,6 +370,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
 
 
 # --------------------------------------------------------------- forward
+def _positions(B: int, S: int, dev) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+
+
+def _rope(cfg: ArchConfig, pos: torch.Tensor):
+    return (rope_cos_sin(pos, cfg.head_dim_, cfg.rope_theta)
+            if cfg.rope_theta > 0 else None)
+
+
 def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
          moe_impl: str = "dense", with_aux: bool = False):
     """``(x + the layer's MLP or MoE block, its aux loss)``: the aux loss
@@ -417,8 +468,13 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     ``mlstm_chunk`` is the mLSTM's chunk width (0: ``MLSTM_CHUNK``);
     ``unroll`` is accepted and has no effect.  A ``block_pattern`` config
     runs its macros, each one recomputed under ``"full"``, then its
-    tail."""
-    check_ported(cfg)
+    tail.  A VLM batch may carry ``"patches"`` ``[B, frontend_seq,
+    frontend_dim]``, whose positions lead the logits; an enc-dec batch
+    carries ``"frames"`` ``[B, S_enc, frontend_dim]``, and its forward
+    ignores ``remat_policy`` as the JAX package's does (every layer is
+    recomputed)."""
+    if cfg.family == "encdec":
+        return _encdec_forward(params, batch, cfg, q_block)
     if remat_policy not in REMAT_POLICIES:
         if remat_policy == "dots":
             raise NotImplementedError(
@@ -427,13 +483,10 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES} or "
                          f"'dots', got {remat_policy!r}")
     p = compute_params(params, train=True)
-    tokens = batch["tokens"]
-    x = p["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    x = _embed_inputs(p, cfg, batch)
     B, S, _ = x.shape
-    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
-        B, S)
-    rope = (rope_cos_sin(pos, cfg.head_dim_, cfg.rope_theta)
-            if cfg.rope_theta > 0 else None)
+    pos = _positions(B, S, x.device)
+    rope = _rope(cfg, pos)
     remat = remat_policy == "full" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_pattern:
@@ -464,6 +517,109 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     return logits, aux
 
 
+def _embed_inputs(p: Params, cfg: ArchConfig,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token (+ VLM patch) embedding -> ``[B, S_total, D]`` bf16: with
+    ``"patches"`` in a VLM batch, ``patches @ frontend_proj`` leads the
+    token embeddings."""
+    x = p["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    if cfg.frontend == "vit" and "patches" in batch:
+        pe = ops.linear(batch["patches"].to(COMPUTE_DTYPE),
+                        p["frontend_proj"])
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def _enc_layer(lp: Params, cfg: ArchConfig, pos, q_block: int, rope,
+               x: torch.Tensor) -> torch.Tensor:
+    """One encoder layer: non-causal attention, then the MLP."""
+    hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + A.attention_block(
+        lp["mixer"], hn, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=0,
+        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, positions=pos,
+        causal=False, q_block=q_block, rope=rope)
+    hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_block(lp["mlp"], hn, cfg.act)
+
+
+def _encode(p: Params, cfg: ArchConfig, frames: torch.Tensor,
+            q_block: int) -> torch.Tensor:
+    """The enc-dec encoder over frame embeddings ``[B, S, frontend_dim]``
+    (compute copies ``p``) -> ``[B, S, D]`` bf16; each layer recomputed in
+    the backward, as the JAX package's ``jax.checkpoint(body)``."""
+    h = ops.linear(frames.to(COMPUTE_DTYPE), p["frontend_proj"])
+    B, S, _ = h.shape
+    pos = _positions(B, S, h.device)
+    rope = _rope(cfg, pos)
+    remat = torch.is_grad_enabled()
+    for lp in p["enc_layers"]:
+        body = functools.partial(_enc_layer, lp, cfg, pos, q_block, rope)
+        h = checkpoint(body, h, use_reentrant=False) if remat else body(h)
+    return rms_norm(h, p["enc_ln_f"], cfg.norm_eps)
+
+
+def _dec_layer(lp: Params, cp: Params, cfg: ArchConfig, pos, q_block: int,
+               rope, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    """One decoder layer: causal self-attention, cross-attention over the
+    encoder's output (no RoPE), then the MLP."""
+    hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + A.attention_block(
+        lp["mixer"], hn, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=0,
+        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, positions=pos,
+        q_block=q_block, rope=rope)
+    hn = rms_norm(x, cp["ln1"], cfg.norm_eps)
+    kv = A.cross_kv(cp["mixer"], enc_out, cfg.n_kv_heads, cfg.head_dim_)
+    x = x + A.attention_block(
+        cp["mixer"], hn, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, rope_theta=0.0, window=0,
+        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, positions=pos,
+        kv_override=kv, q_block=q_block)
+    hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_block(lp["mlp"], hn, cfg.act)
+
+
+def _encdec_forward(params: Params, batch: Dict[str, torch.Tensor],
+                    cfg: ArchConfig, q_block: int):
+    """The enc-dec ``forward``: encode the frames, then the decoder stack
+    over the tokens, each layer recomputed in the backward; aux 0."""
+    p = compute_params(params, train=True)
+    enc_out = _encode(p, cfg, batch["frames"], q_block)
+    x = _embed_inputs(p, cfg, batch)
+    B, S, _ = x.shape
+    pos = _positions(B, S, x.device)
+    rope = _rope(cfg, pos)
+    remat = torch.is_grad_enabled()
+    for lp, cp in zip(p["layers"], p["cross_layers"]):
+        body = functools.partial(_dec_layer, lp, cp, cfg, pos, q_block, rope)
+        x = (checkpoint(body, x, enc_out, use_reentrant=False) if remat
+             else body(x, enc_out))
+    logits = lm_head(p, x, cfg.norm_eps)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.no_grad()
+def encode_cross(params: Params, frames: torch.Tensor, cfg: ArchConfig,
+                 q_block: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``cross`` planes of an enc-dec decode state from frame
+    embeddings ``[B, frontend_seq, frontend_dim]``: ``nn.attention.
+    cross_kv`` of each cross layer over ``_encode(frames)``, stacked to
+    ``[n_layers, B, frontend_seq, KV, hd]`` bf16 (masters or compute
+    copies).  Nothing in the JAX package writes ``state["cross"]``
+    (ROADMAP C.13); this is the composition of its ``_encode`` and
+    ``cross_kv``, and the serve engine keeps the zero planes."""
+    if cfg.family != "encdec":
+        raise ValueError(f"encode_cross needs an enc-dec config, got "
+                         f"family={cfg.family!r}")
+    p = compute_params({k: params[k] for k in (
+        "frontend_proj", "enc_layers", "enc_ln_f", "cross_layers")})
+    enc_out = _encode(p, cfg, frames, q_block)
+    kvs = [A.cross_kv(cp["mixer"], enc_out, cfg.n_kv_heads, cfg.head_dim_)
+           for cp in p["cross_layers"]]
+    return (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+
+
 def token_ce_loss(logits: torch.Tensor, tokens: torch.Tensor,
                   aux=0.0) -> torch.Tensor:
     """Next-token CE + z-loss (+ MoE aux) from full-sequence logits, over
@@ -485,10 +641,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             *, moe_impl: str = "dense", q_block: int = 512,
             unroll: bool = False, mlstm_chunk: int = 0,
             remat_policy: str = "full") -> torch.Tensor:
-    """Next-token CE (+ z-loss + MoE aux) of ``forward``."""
+    """Next-token CE (+ z-loss + MoE aux) of ``forward``; a VLM's logits
+    drop the ``batch["patches"]`` positions first (a VLM batch without
+    patches raises ``KeyError``, as the JAX ``loss_fn``)."""
     logits, aux = forward(params, batch, cfg, moe_impl=moe_impl,
                           q_block=q_block, unroll=unroll,
                           mlstm_chunk=mlstm_chunk, remat_policy=remat_policy)
+    if cfg.family == "vlm" and cfg.frontend_seq:
+        logits = logits[:, batch["patches"].shape[1]:]
     return token_ce_loss(logits, batch["tokens"], aux)
 
 
@@ -512,7 +672,6 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     if not isinstance(kv, PagedKV):
         raise TypeError(f"paged_decode_step expects the PagedKV from "
                         f"init_paged_kv, got {type(kv)}")
-    check_ported(cfg)
     check_paged(cfg)
     kv = kv.pool()
     dev = tokens.device
@@ -528,8 +687,7 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     page_ids = torch.where(valid, page_ids, torch.full_like(page_ids, N_pages))
     page_off = positions % page
     rows = A.write_rows(page_ids, page_off, N_pages, page)  # every layer
-    rope = (rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
-            if cfg.rope_theta > 0 else None)
+    rope = _rope(cfg, positions)
     x = params["embed"][tokens.long()]
     windows = layer_windows(cfg)
     layers: List[Params] = params["layers"]
@@ -590,9 +748,11 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     ``block_pattern`` config runs its macros and tail (``_decode_macros``):
     each recurrent layer writes its new state over its buffers in place,
     each attention layer its ring cell; ``commit`` False writes every
-    buffer back as it was.
+    buffer back as it was.  An enc-dec config's layers are global
+    self-attention, then cross-attention over the state's ``cross`` planes
+    (``nn.attention.cross_decode_attention``; read, never written), then
+    the MLP.
     """
-    check_ported(cfg)
     if cfg.block_pattern:
         x = _decode_macros(params, state, tokens, cfg, gqa_impl, attn_impl,
                            commit)
@@ -605,15 +765,22 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     positions = pos.to(torch.int32).reshape(1, 1).repeat(B, 1)  # a copy
     slot = torch.remainder(pos.long(), S).reshape(1)
     tbl = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-    rope = (rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
-            if cfg.rope_theta > 0 else None)
+    rope = _rope(cfg, positions)
     x = params["embed"][tokens.long()]
-    windows = layer_windows(cfg)
+    encdec = cfg.family == "encdec"
+    windows = np.zeros(cfg.n_layers, np.int32) if encdec else \
+        layer_windows(cfg)
     for i, lp_i in enumerate(params["layers"]):
         kv = A.dense_view(ck[i], cv[i], None if sk is None else sk[i],
                           None if sv is None else sv[i], tbl, positions)
         x = _decode_mixer(lp_i, cfg, x, int(windows[i]), kv, slot, rope,
                           gqa_impl, attn_impl, commit)
+        if encdec:
+            cp = params["cross_layers"][i]
+            h = rms_norm(x, cp["ln1"], cfg.norm_eps)
+            x = x + A.cross_decode_attention(
+                cp["mixer"], h, state["cross"][0][i], state["cross"][1][i],
+                n_heads=cfg.n_heads, head_dim=cfg.head_dim_)
         x = _ffn(lp_i, cfg, x)[0]
     return _decode_out(params, state, x, cfg, sample_greedy, commit)
 
@@ -655,8 +822,7 @@ def _decode_macros(params: Params, state: Params, tokens: torch.Tensor,
         positions = pos.to(torch.int32).reshape(1, 1).repeat(B, 1)
         slot = torch.remainder(pos.long(), S).reshape(1)
         tbl = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-        rope = (rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
-                if cfg.rope_theta > 0 else None)
+        rope = _rope(cfg, positions)
 
     def layer(lp, kind, cache, x):
         if kind == "attn":

@@ -32,6 +32,11 @@ decode.
     # an MoE model (qwen2-moe-a2.7b, moonshot-v1-16b-a3b) in any mode
     ... --arch qwen2-moe-a2.7b --smoke --continuous --page-size 16
 
+    # the VLM (text-only decode, as the JAX package's) in any mode; the
+    # enc-dec model over the dense cache (zero cross planes, as there)
+    ... --arch internvl2-2b --smoke --continuous --page-size 16
+    ... --arch seamless-m4t-large-v2 --smoke --continuous
+
 The flags are the JAX package's (``repro.launch.serve``).  Ported: the
 fixed ``generate()`` batch (no ``--continuous``), and both batchers
 (``--batcher device``, the default, taking ``--sync-every``, or
@@ -49,9 +54,13 @@ later run with the same directory restores it first), and ``--router`` /
 ShardedServe``.  The JAX package's ``--mesh auto`` spreads the visible
 devices over one data shard, so on one device (the CPU, or one card)
 ``auto`` and ``1x1`` serve one shard there; a mesh of more than one
-device raises ``NotImplementedError`` (ROADMAP queue A item 10).  Weights
-are random-init from ``--seed`` with a ``torch.Generator`` (other
-numbers than the JAX package's for the same seed).
+device raises ``NotImplementedError`` (ROADMAP queue A item 10).  Every
+``--arch`` of the JAX launcher serves: a VLM decodes text only and an
+enc-dec model's decode keeps its ``cross`` planes zero, as the JAX
+package's do (ROADMAP C.13, C.14); ``--page-size`` with an enc-dec or
+recurrent model raises the JAX package's ``ValueError``.  Weights are
+random-init from ``--seed`` with a ``torch.Generator`` (other numbers
+than the JAX package's for the same seed).
 """
 from __future__ import annotations
 

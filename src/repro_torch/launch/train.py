@@ -25,7 +25,9 @@ supervision loop (``--fault-plan``, ``--snapshot-dir``, ``--workers``,
 ``ElasticTrainer`` is ROADMAP queue A item 10.  Weights are random-init
 from ``--seed`` with a ``torch.Generator`` (other numbers than the JAX
 package's for the same seed); the data stream is the JAX package's, bit
-for bit.
+for bit.  The VLM and enc-dec configs raise ``ValueError``: their loss
+reads ``patches`` or ``frames``, which the token stream does not carry
+(the JAX launcher dies on them too, ROADMAP C.15).
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ from ..dist.stragglers import PreemptionHandler, StragglerMonitor
 from ..train import optimizer as OPT
 from ..train.step import TrainConfig, init_train_state, make_train_step
 
+# the input each frontend family's loss reads beside the tokens
+FRONTEND_INPUTS = {"vlm": "patches", "encdec": "frames"}
 ELASTIC = ("--elastic runs the ElasticTrainer supervision loop, not ported: "
            "ROADMAP queue A item 10")
 
@@ -122,6 +126,13 @@ def main(argv=None):
             False
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in FRONTEND_INPUTS:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) trains on batch["
+            f"{FRONTEND_INPUTS[cfg.family]!r}], which the token pipeline "
+            f"does not make; the JAX launcher dies on it with a KeyError "
+            f"(ROADMAP C.15).  Train it through train.step.make_train_step "
+            f"with that input in the batch")
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     tcfg = TrainConfig(

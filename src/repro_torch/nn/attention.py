@@ -11,7 +11,11 @@ same ``S`` as the paged step, and the two give the same bits.
 Training runs ``attention_block`` over ``attend_blocked``, the JAX
 package's blocked attention in plain torch (JAX runs no Pallas kernel
 there either), with its roundings: the q.k product in bf16, scaled in
-float32, masked and softmaxed in float32, P.V in bf16.
+float32, masked and softmaxed in float32, P.V in bf16.  The enc-dec
+family adds ``cross_kv``, ``attention_block``'s ``kv_override`` (the
+decoder's cross-attention over the encoder) and ``cross_decode_attention``
+(its decode step over the ``cross`` planes, plain torch as in the JAX
+package).
 """
 from __future__ import annotations
 
@@ -107,30 +111,100 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.softmax(s, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bhqs,bhsd->bqhd", p, vT))
     out = torch.cat(outs, dim=1) if nblk > 1 else outs[0]
-    return out[:, :Sq].reshape(B, Sq, H * hd)
+    # a padded block leaves a strided slice: the products take rows at one
+    # stride (ROADMAP C.16)
+    return out[:, :Sq].reshape(B, Sq, H * hd).contiguous()
+
+
+def _project_q(p: Dict, x: torch.Tensor, n_heads: int, head_dim: int,
+               rope, qk_norm: bool, norm_eps: float) -> torch.Tensor:
+    """The query alone, as ``_project_qkv`` makes it: ``ops.linear`` of
+    ``wq`` gives the bits of the group launch's first output."""
+    B, S, _ = x.shape
+    q = ops.linear(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(B, S, n_heads, head_dim)
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+    if rope is not None:
+        q = apply_rope(q, rope)
+    return q
 
 
 def attention_block(p: Dict, x: torch.Tensor, *, n_heads: int,
                     n_kv_heads: int, head_dim: int, rope_theta: float,
                     window, qk_norm: bool, norm_eps: float,
                     positions: Optional[torch.Tensor] = None,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                     causal: bool = True, q_block: int = DEFAULT_Q_BLOCK,
                     rope=None) -> torch.Tensor:
-    """Causal self-attention over the whole sequence (training and
-    prefill): q/k/v in one ``ops.linear_group`` launch, ``attend_blocked``,
-    ``wo`` through ``ops.linear``.  ``rope`` may pass ``rope_cos_sin`` of
-    ``positions`` computed once for every layer."""
+    """Self-attention over the whole sequence (training, prefill and the
+    encoder; ``causal=False`` sees every position): q/k/v in one
+    ``ops.linear_group`` launch, ``attend_blocked``, ``wo`` through
+    ``ops.linear``.  ``rope`` may pass ``rope_cos_sin`` of ``positions``
+    computed once for every layer.
+
+    With ``kv_override = (k, v)`` (``[B, Sk, KV, hd]``, ``cross_kv``) it is
+    cross-attention: the query alone is projected (the JAX package also
+    projects k and v from ``x`` and drops them) and attends to every
+    override position, without a mask; ``rope_theta=0.0`` means no RoPE."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if rope is None and rope_theta > 0:
         rope = rope_cos_sin(positions, head_dim, rope_theta)
+    if kv_override is not None:
+        q = _project_q(p, x, n_heads, head_dim, rope, qk_norm, norm_eps)
+        ko, vo = kv_override
+        Sk = ko.shape[1]
+        k_pos = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
+        out = attend_blocked(q, AB.repeat_kv(ko, n_heads),
+                             AB.repeat_kv(vo, n_heads), positions, k_pos, 0,
+                             causal=False, q_block=q_block)
+        return ops.linear(out, p["wo"])
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rope,
                            qk_norm, norm_eps)
     out = attend_blocked(q, AB.repeat_kv(k, n_heads),
                          AB.repeat_kv(v, n_heads), positions, positions,
                          window, causal=causal, q_block=q_block)
     return ops.linear(out, p["wo"])
+
+
+def cross_kv(p: Dict, enc_out: torch.Tensor, n_kv_heads: int,
+             head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's K/V for a decoder layer's cross-attention, ``[B, S,
+    KV, hd]`` each: ``enc_out @ wk`` and ``enc_out @ wv`` in one
+    ``ops.linear_group`` launch (each output the bits of its own
+    ``ops.linear``)."""
+    B, S, _ = enc_out.shape
+    k, v = ops.linear_group(enc_out, [p["wk"], p["wv"]])
+    return (k.reshape(B, S, n_kv_heads, head_dim),
+            v.reshape(B, S, n_kv_heads, head_dim))
+
+
+def cross_decode_attention(p: Dict, x: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, n_heads: int,
+                           head_dim: int) -> torch.Tensor:
+    """One decode step's cross-attention over a layer's ``cross`` planes
+    ``[B, S, KV, hd]``: the JAX package's ``decode_step`` einsums in plain
+    torch (no Pallas kernel there either) with its roundings: the bf16
+    q.k scores divided by ``sqrt(hd)`` in float32, the float32 softmax cast
+    to bf16, P.V in bf16.  No bias, qk-norm, RoPE or mask, as there;
+    ``wq`` and ``wo`` through ``ops.linear``.  ``x [B, 1, D]`` is the
+    normed hidden state; returns ``[B, 1, D]``."""
+    B = x.shape[0]
+    dt = x.dtype
+    q = ops.linear(x, p["wq"]).reshape(B, 1, n_heads, head_dim)
+    kf = AB.repeat_kv(k.to(dt), n_heads)
+    vf = AB.repeat_kv(v.to(dt), n_heads)
+    s = torch.einsum("bqhd,bshd->bhqs", q, kf).float() / np.float32(
+        np.sqrt(head_dim))
+    probs = torch.softmax(s, dim=-1).to(dt)
+    o = torch.einsum("bhqs,bshd->bqhd", probs, vf).reshape(
+        B, 1, n_heads * head_dim)
+    return ops.linear(o, p["wo"])
 
 
 def quantize_kv_int8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

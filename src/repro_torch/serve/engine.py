@@ -327,7 +327,6 @@ class ServeEngine:
                  device: Union[str, torch.device] = "cuda"):
         if mesh is not None or tp_params:
             raise NotImplementedError(NOT_PORTED["mesh"])
-        M.check_ported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -80,6 +80,7 @@ class _Copies:
     def _build(self, params, parts) -> None:
         self.masters = []  # free the old copies before making new ones
         self.compute = self.grads = self.leaf_list = self.acc_list = None
+        self.keys = None
 
         def copy(leaf):  # a bf16 copy, or the master itself (detached)
             name = leaf.key.split("/")[-1]
@@ -89,6 +90,8 @@ class _Copies:
         self.compute = map_leaves(copy, params)
         self.leaf_list = [p for leaf in leaves(self.compute)
                           for p in leaf.parts]
+        self.keys = [leaf.key for leaf in leaves(self.compute)
+                     for _ in leaf.parts]
         self.grads = map_leaves(
             lambda leaf: [torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device) for p in leaf.parts],
@@ -100,9 +103,10 @@ class _Copies:
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
     """Returns ``train_step(params, state, batch) -> (params, state,
     loss)``.  ``batch["tokens"]`` is ``[B, S]`` on the masters' device,
-    ``B`` a multiple of ``tcfg.microbatches``; ``loss`` is the mean of the
-    microbatches' losses, a 0-dim float32 tensor."""
-    M.check_ported(cfg)
+    ``B`` a multiple of ``tcfg.microbatches``; every other entry (a VLM's
+    ``patches``, an enc-dec model's ``frames``) splits with the tokens;
+    ``loss`` is the mean of the microbatches' losses, a 0-dim float32
+    tensor."""
     copies = _Copies()
 
     def loss_of(mb: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -126,10 +130,14 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
         for i in range(n_micro):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             mb_loss = loss_of(mb)
-            gs = torch.autograd.grad(mb_loss, copies.leaf_list)
+            gs = torch.autograd.grad(mb_loss, copies.leaf_list,
+                                     allow_unused=True)
             with torch.no_grad():
-                for a, g in zip(copies.acc_list, gs):
-                    a.add_(g)
+                for a, g, key in zip(copies.acc_list, gs, copies.keys):
+                    if g is not None:
+                        a.add_(g)
+                    elif not M.unread(key):
+                        raise RuntimeError(f"{key}: no gradient reaches it")
             mb_loss = mb_loss.detach()
             loss = mb_loss if loss is None else loss + mb_loss
         grads = copies.grads

@@ -823,6 +823,76 @@ def test_cuda_recurrent_dense_step_captured(cuda_device, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_cuda_frontend_dense_step_captured(cuda_device, arch):
+    """The VLM and enc-dec families' dense step as a CUDA graph: the
+    captured device batcher == the eager one == the host batcher, bitwise
+    (cache 8: the rings wrap); the step launches ``paged_attention`` and
+    ``linear``; the enc-dec ``cross`` planes stay zero, as the JAX
+    package's serve path leaves them."""
+    host = _recurrent_serve(cuda_device, arch, "host")
+    ops.reset_launch_counts()
+    graph = _recurrent_serve(cuda_device, arch, "device")
+    counts = ops.launch_counts()
+    eager = _recurrent_serve(cuda_device, arch, "device", graph=False)
+    assert graph.done == eager.done == host.done and len(host.done) > 0
+    assert graph.dropped == eager.dropped == host.dropped
+    assert graph.steps == eager.steps == host.steps > 8
+    assert counts["linear"] > 0 and counts["paged_attention"] > 0
+    if arch == "seamless-m4t-large-v2":
+        for st in (graph._decode, eager._decode, host.engine.state):
+            assert all(not t.any() for t in st["cross"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 256, 4096])
+def test_cuda_cross_query_projection_is_the_group_bits(cuda_device, M):
+    """seamless-m4t-large-v2's cross-attention projects its query alone:
+    at its width (K = N = 1,024) ``ops.linear`` of ``wq`` gives the bits of
+    the q/k/v group launch's first output, at M from one decode slot to
+    one utterance's 4,096 frames."""
+    rng = np.random.default_rng(M)
+    x = torch.as_tensor(rng.normal(0, 1, (M, 1024)), dtype=torch.bfloat16,
+                        device=cuda_device)
+    ws = [torch.as_tensor(rng.normal(0, 0.03, (1024, 1024)),
+                          dtype=torch.bfloat16, device=cuda_device)
+          for _ in range(3)]
+    assert torch.equal(ops.linear(x, ws[0]), ops.linear_group(x, ws)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_cross_decode_equals_forward(cuda_device):
+    """The enc-dec smoke config on the card: teacher-forced decode with its
+    ``cross`` planes filled by ``encode_cross`` within the JAX package's
+    0.15 of the forward over the same frames (every product the ``linear``
+    kernel, the self-attention ``paged_attention``)."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("seamless-m4t-large-v2")
+    params = M.init_params(cfg, 0, cuda_device)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 12)),
+                           dtype=torch.int32, device=cuda_device)
+    frames = torch.as_tensor(
+        rng.normal(0, 1, (2, cfg.frontend_seq, cfg.frontend_dim)),
+        dtype=torch.float32, device=cuda_device)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        fwd, _ = M.forward(params, {"tokens": toks, "frames": frames}, cfg,
+                           q_block=12)
+        st = M.init_decode_state(cfg, 2, 12, device=cuda_device)
+        st["cross"] = M.encode_cross(params, frames, cfg)
+        errs = []
+        for t in range(12):
+            lg, st = M.decode_step(params, st, toks[:, t:t + 1], cfg)
+            errs.append((lg - fwd[:, t]).abs().max().item())
+    assert max(errs) < 0.15, errs
+    counts = ops.launch_counts()
+    assert counts["linear"] > 0 and counts["paged_attention"] == 12 * 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("window", [0, 13, 2048])
 def test_cuda_paged_attention_ring_at_recurrentgemma_shape(cuda_device,
                                                            window):

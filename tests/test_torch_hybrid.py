@@ -613,18 +613,18 @@ def test_launch_train_xlstm_on_cpu():
 
 
 def test_train_lm_torch_on_cpu_resumes(tmp_path):
-    """``examples/train_lm_torch.py --smoke --device cpu``: 2 steps of the
+    """``examples/train_lm_torch.py --smoke --device cpu``: 1 step of the
     JAX example's 8 x 128 tokens with a checkpoint, then ``--resume auto``
-    to 3 continues from step 2."""
+    to 2 continues from step 1."""
     ck = str(tmp_path / "ck")
     a = _run("examples/train_lm_torch.py", "--smoke", "--device", "cpu",
-             "--steps", "2", "--ckpt-dir", ck)
+             "--steps", "1", "--ckpt-dir", ck)
     assert a.returncode == 0, a.stderr
-    assert "final loss" in a.stdout and "over 2 steps" in a.stdout
+    assert "final loss" in a.stdout and "over 1 steps" in a.stdout
     b = _run("examples/train_lm_torch.py", "--smoke", "--device", "cpu",
-             "--steps", "3", "--ckpt-dir", ck)
+             "--steps", "2", "--ckpt-dir", ck)
     assert b.returncode == 0, b.stderr
-    assert "resumed from step 2" in b.stdout and "over 1 steps" in b.stdout
+    assert "resumed from step 1" in b.stdout and "over 1 steps" in b.stdout
 
 
 def test_train_lm_torch_defaults_to_cuda():
