@@ -167,7 +167,7 @@ Phases, in order; the first failure exits non-zero:
    0.03 x max|g_plain|; (c) ``linear``'s backward for the eight weight
    shapes at M = 256 and 512: ``dx`` and ``dw`` bitwise autograd's through
    the plain product; (d) in child processes with deterministic
-   algorithms (4 layers at full width): a run stopped by SIGTERM after its
+   algorithms (1 layer at full width): a run stopped by SIGTERM after its
    step-9 line saves and stops, ``--resume auto`` gives the uninterrupted
    run's losses bitwise from the resumed step, both runs' final
    checkpoints equal in every leaf and the preempted one restores onto
@@ -216,7 +216,8 @@ Phases, in order; the first failure exits non-zero:
    (e) the host batcher == the device batcher at prefill_chunk 1,
    bitwise; (c) chunk 8 == chunk 1 bitwise, every product of layer 0
    (and ``moe_down_combine``) row-invariant, and 4 served streams
-   teacher-forced at C = 8 and C = 1 bitwise; (d) the same 4 streams
+   teacher-forced at C = 8 and C = 1 bitwise on the model's first 4
+   layers at full width; (d) the same 4 streams
    teacher-forced: with the plain ``moe_down_combine`` in the kernel
    path, every logit bitwise; with the plain attention too, routed as the
    kernel path (every token routed otherwise a near tie), the attention
@@ -313,16 +314,47 @@ Phases, in order; the first failure exits non-zero:
    seamless's step (hd 64, 16:16, 16 x 1,024 ring cells past the wrap)
    and ``linear`` at both models' steps (97 and 145 launches at M = 16,
    L2-cold) beside cuBLAS and their byte bounds.
+20. MoE training and the dense configs the card had not run, after every
+   earlier model is freed: (a) ``repro_torch.launch.train --arch
+   qwen2-moe-a2.7b --layers 4`` at its defaults (20 steps of 8 x 64
+   tokens, 2 microbatches) at full width: the loss improves, ``linear``
+   launched exactly 20 x 2 x (2 x 6 x 4 + 1) and ``moe_down_combine`` 20 x
+   2 x 2 x 4 times (forward and recomputed; its backward ``torch.bmm``)
+   and nothing else; ms a step, tokens/s, device ms by class, idle, peak
+   memory; (b) at 2 layers one step's loss and every gradient through the
+   kernels and through the plain path held to the kernel path's routing
+   (the would-be flips counted, each a near tie), phase 15's bounds, and
+   ``moe_down_combine``'s backward alone on every layer's captured
+   inputs and cotangent against autograd through its plain version within
+   0.03; (c)-(e) minitron-4b (32 layers, d 3,072, 24 heads on 8 KV heads,
+   vocab 256,000), gemma3-27b (62 layers, d 5,376, 32 on 16, ``qk_norm``,
+   a window of 1,024 on five of every six layers, GELU, vocab 262,144)
+   and qwen3-32b (64 layers, d 5,120, 64 on 8, ``qk_norm``, d_ff 25,600)
+   at full width and depth, random weights, one at a time: their products
+   through phase 8's ``linear`` checks; the dense host batcher == the
+   dense device batcher bitwise with the launches exact; 4 served streams
+   teacher-forced over 16 steps, kernel vs plain within phase 17's 6 / 2 deltas beside
+   a witness and a control (the attention over a window of one position);
+   a profiled round's launches exact and its device ms a step by class;
+   the paged device batcher at C = 8 over phase 9's traffic, its captured
+   step's launches exact; at 4 layers graph == eager, no sync in a round
+   and paged == dense; for gemma3-27b at 6 layers (five local, one global)
+   4 prompts of 1,100-1,400 tokens through the paged device batcher (cache
+   2,048), chunk 8 == token by token, each layer's attention past position
+   1,100 within one bf16 ulp of its plain version and each local layer's
+   output moved by its window; six JSON rows: ``linear`` at each model's
+   dense step and ``paged_attention`` at 8:1 (qwen3-32b), 3:1
+   (minitron-4b) and 2:1 past gemma3-27b's window.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
 printed on the first line beside the card; the float32 lanes are twice
 as many).  ``--phase17`` builds the kernels and runs phase 17 alone, a
-quick MoE run that prints no result line; ``--phase18`` and
-``--phase19`` the same for phases 18 and 19.  Each phase prints how far
-into the run it starts.
+quick MoE run that prints no result line; ``--phase18``, ``--phase19``
+and ``--phase20`` the same for phases 18, 19 and 20.  Each phase prints
+how far into the run it starts.
 
-Its last three lines are the kernels JSON (phase 18's and phase 19's
+Its last three lines are the kernels JSON (phases 18-20's
 ``paged_attention`` and ``linear`` rows last, each with its ``cell``), the
 card's ``name, power.limit``
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
@@ -1028,33 +1060,45 @@ def lb_fused_args(lb, x, dev):
     return (x, *lb.kernel_args(dev))
 
 
-def device_kernels(fn, calls: int = 5, tries: int = 3):
+def device_kernels(fn, calls: int = 5, tries: int = 3, want=None):
     """{kernel name: launches} on the card over ``calls`` calls of ``fn``
-    (torch.profiler), asked up to ``tries`` times while the profiler sees
-    no kernel; empty when it never does."""
+    (torch.profiler), each window opened with uncounted spin kernels
+    (``open_window``: the profiler drops a window's first device
+    records), asked up to ``tries`` times while the profiler sees no
+    kernel, or fewer launches of a kernel than ``want`` ({name part:
+    launches}) asks; a count over ``want`` is returned at once.  Empty
+    when it never sees one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = {}
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            open_window(None)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         seen = {e.key: e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
-                and not e.is_user_annotation}
-        if seen:
+                and not e.is_user_annotation and "spin_kernel" not in e.key}
+        short = want and any(
+            sum(n for k, n in seen.items() if part in k) < n_want
+            for part, n_want in want.items())
+        if seen and not short:
             return seen
-    return {}
+    return seen
 
 
 def check_lb_one_kernel(model: str, run: PathRun, calls: int = 5) -> str:
     """An LB predict on an int32 input on the card runs exactly one device
-    kernel, the lb_lookup kernel (profiler; ``calls`` predicts)."""
-    seen = device_kernels(lambda: run.fn(run.x), calls)
+    kernel, the lb_lookup kernel (profiler; ``calls`` predicts; a short
+    count, the profiler's dropped records, is profiled again, never
+    accepted)."""
+    seen = device_kernels(lambda: run.fn(run.x), calls,
+                          want={"lb_lookup_kernel": calls})
     if not seen:
         return "device kernels not measured (the profiler saw none)"
     if (len(seen) != 1 or "lb_lookup_kernel" not in next(iter(seen))
@@ -1322,12 +1366,14 @@ def paged_attention_row(dev):
     return row
 
 
-def pa_timing(q, k, v, tbl, pos, dev, ring: bool = False) -> Dict[str, Any]:
+def pa_timing(q, k, v, tbl, pos, dev, ring: bool = False,
+              window: int = 0) -> Dict[str, Any]:
     """The kernel, its plain version and gather + SDPA at positions ``pos``
     [B, C], timed; the bound from the rows it must read and the products
     its visible positions need.  ``ring``: the dense cache's ring (window
     0, so a row past the wrap sees all ``n_ps * page`` cells, and the
-    yardstick attends over all of them)."""
+    yardstick attends over all of them).  ``window``: a sliding window (a
+    row sees its last ``window`` positions; the yardstick's mask too)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1337,7 +1383,7 @@ def pa_timing(q, k, v, tbl, pos, dev, ring: bool = False) -> Dict[str, Any]:
     B, C, H, hd = q.shape
     N, page, KV, _ = k.shape
     n_ps = tbl.shape[1]
-    args = (q, k, v, tbl, pos, 0)
+    args = (q, k, v, tbl, pos, window)
     kw = {"ring": True} if ring else {}
     got = ops.paged_attention(*args, **kw)
     want = ref.paged_attention_ref(*args, **kw)
@@ -1352,19 +1398,24 @@ def pa_timing(q, k, v, tbl, pos, dev, ring: bool = False) -> Dict[str, Any]:
     def library():
         kf = repeat_kv(k[gtbl].reshape(B, S_lib, KV, hd), H).transpose(1, 2)
         vf = repeat_kv(v[gtbl].reshape(B, S_lib, KV, hd), H).transpose(1, 2)
-        mask = position_mask(pos, torch.arange(S_lib, device=dev)[None], 0,
-                             True)[:, None].to(q.dtype)
+        mask = position_mask(pos, torch.arange(S_lib, device=dev)[None],
+                             window, True)[:, None].to(q.dtype)
         return F.scaled_dot_product_attention(q.transpose(1, 2), kf, vf,
                                               attn_mask=mask).transpose(1, 2)
 
     n_bytes = paged_attention_hbm_bytes(
         B, C, H, KV, hd, n_ps, page, pool_bytes=k.element_size(),
         quantized=False, act_bytes=q.element_size(),
-        positions=pos.cpu().numpy(), window=0, ring=ring)
+        positions=pos.cpu().numpy(), window=window, ring=ring)
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    # positions the rows weigh (a ring row at most the ring's cells)
+    # positions the rows weigh (a ring row at most the ring's cells, a
+    # windowed row at most its window)
     seen = pos.long() + 1
-    seen = int((torch.clamp(seen, max=S_lib) if ring else seen).sum().item())
+    if ring:
+        seen = torch.clamp(seen, max=S_lib)
+    if window:
+        seen = torch.clamp(seen, max=window)
+    seen = int(seen.sum().item())
     t_ops = 4 * H * hd * seen / PEAK_BF16_FLOPS * 1e3  # q.k and P.V
     return {
         "max_abs_err": err,
@@ -1379,7 +1430,7 @@ def pa_timing(q, k, v, tbl, pos, dev, ring: bool = False) -> Dict[str, Any]:
         .item(),
         "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd, "page": page,
                   "n_ps": n_ps, "positions": [int(pos.min()), hi],
-                  "ring": ring, "bytes": n_bytes},
+                  "ring": ring, "window": window, "bytes": n_bytes},
     }
 
 
@@ -2056,9 +2107,10 @@ def check_teacher_forced(run: ServeRun, dev) -> str:
 
 
 # layers of the repeated serve checks that depth does not change (phase 10
-# (a), (c) and (d), phase 14 (b) and (c), 18 (b), 19 (b)'s paged == dense
-# and wraps): the model's first layers at full width, so that the run
-# keeps to its time limit
+# (a), (c) and (d), phase 14 (b) and (c), 17 (c), 18 (b), 19 (b)'s paged
+# == dense and wraps, 20's graph == eager, no sync and paged == dense): the
+# model's first layers at full width, so that the run keeps to its time
+# limit
 SERVE_CUT = 4
 
 
@@ -2397,7 +2449,8 @@ def profile_round(cb, run: ServeRun, dev, tag: str,
     if steps != DEVICE_ROUND or len(cb._steps) != keys:
         fail(f"(f) the profiled round ran {steps} steps, or captured")
     cb.run(max_steps=20000)
-    return kernel_counts(prof)[0], steps
+    counts, by, _ = kernel_counts(prof)
+    return counts, by, steps
 
 
 # rounds profiled at most before a short count fails: the profiler can drop
@@ -2414,7 +2467,7 @@ def round_counts(cb, run: ServeRun, dev, tag: str,
     expected one fails at once; a short one profiles a fresh round again,
     up to PROFILE_TRIES rounds, and passes only on an exact match (a short
     count is never accepted).  Returns (counts, steps, every try's
-    counts)."""
+    counts, the exact round's device ms by kernel class)."""
     T = gate_tables(run.gate)
     want = {f"{k}_kernel" if k != "linear" else "linear_wgmma_kernel":
             DEVICE_ROUND * n for k, n in step_kernels(run.cfg).items()}
@@ -2432,7 +2485,7 @@ def round_counts(cb, run: ServeRun, dev, tag: str,
     keys = len(cb._steps)
     tries = []
     for t in range(PROFILE_TRIES):
-        counts, rsteps = profile_round(cb, run, dev, f"{tag}{t}", dense)
+        counts, by, rsteps = profile_round(cb, run, dev, f"{tag}{t}", dense)
         if len(cb._steps) != keys:
             fail(f"{tag}: a profiled round's wave captured a new shape key")
         tries.append(counts)
@@ -2442,25 +2495,38 @@ def round_counts(cb, run: ServeRun, dev, tag: str,
                  f"steps, more than the expected {want} (one gate call of "
                  f"{T} tables); tries {tries}")
         if counts == want:
-            return counts, rsteps, tries
+            return counts, rsteps, tries, by
     fail(f"{tag}: the profiler's counts stayed short of {want} in "
          f"{PROFILE_TRIES} rounds: {tries}")
 
 
 def profile_device(cb, run: ServeRun, dev, dense: bool = False,
-                   tag: str = "(f)") -> Dict[str, Any]:
+                   tag: str = "(f)", whole: bool = True) -> Dict[str, Any]:
     """(f) the kernels of one round (``round_counts``; about 37,000 device
     events, a window of a whole run about 220,000).  Then one warm wave
     timed on the host clock and one under the profiler give the device
-    time a step and the idle share."""
+    time a step and the idle share; with ``whole`` False the device time
+    a step is the exactly counted round's (its gate call and
+    DEVICE_ROUND steps), and no wave is profiled (the profiler's
+    reckoning of a whole wave of a 60-layer model takes about 30 s).  The
+    dense steps (phases 14 and 18-20) take the round: every step of a
+    dense wave replays one graph, so a round is a wave's steps; a paged
+    wave's rounds differ (prefill chunks, then decode rows)."""
     from torch.profiler import ProfilerActivity, profile
 
-    counts, rsteps, tries = round_counts(cb, run, dev, tag, dense)
+    counts, rsteps, tries, rby = round_counts(cb, run, dev, tag, dense)
     s0 = cb.steps_executed
     wall = device_wave(cb, run, dev, tag="timed", dense=dense)
     steps = cb.steps_executed - s0
     n_tok = sum(len(t) for r, t in cb.done.items()
                 if isinstance(r, tuple) and r[0] == "timed")
+    if not whole:
+        busy = sum(rby.values()) / rsteps
+        return dict(seconds=wall, steps=steps, tokens=n_tok,
+                    ms_step=wall / steps * 1e3, busy_ms_step=busy,
+                    by={k: round(v / rsteps, 4) for k, v in rby.items()},
+                    idle=1 - busy / (wall / steps * 1e3), counts=counts,
+                    rsteps=rsteps, tries=tries)
     s0 = cb.steps_executed
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2792,7 +2858,11 @@ def check_dense_no_sync(run: ServeRun, dev, tag: str = "(14d)") -> str:
 # batch of 8 sequences of 64 tokens in 2 microbatches, lr 1e-3
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 20, 8, 64, 2
 TRAIN_TIMED = (5, 20)  # (e): steps whose median wall time is a step's
-TRAIN_CUT = 4  # layers of (b) and (d): full width, depth cut
+TRAIN_CUT = 4  # layers of (b): full width, depth cut
+# layers of (d): its checkpoints hold the embedding and head (5.6 GB of
+# float32 masters and moments) and 0.56 GB a layer; at 4 layers (7.85 GB)
+# (d) took 196.5 s of a 905 s run, and phase 20 needs the room
+RESUME_CUT = 1
 TRAIN_PARITY_STEPS = 3  # (b)
 # (b), fixed before any run: each step's loss through the kernel within
 # this relative distance of the plain run's (bf16 products summed in
@@ -3051,14 +3121,15 @@ def _losses(path) -> Dict[int, float]:
 
 def check_resume(dev, seed: int) -> str:
     """(d) three launcher runs in child processes (deterministic
-    algorithms, ``CUBLAS_WORKSPACE_CONFIG``) at full width and TRAIN_CUT
+    algorithms, ``CUBLAS_WORKSPACE_CONFIG``) at full width and RESUME_CUT
     layers: one uninterrupted; one sent SIGTERM once its step-9 line is
     read, which must save through ``PreemptionHandler`` and stop; one with
     ``--resume auto`` on the second's directory.  From the resumed step on
     its losses are bitwise the uninterrupted run's; its final checkpoint
     (step 20) equals the uninterrupted run's in every leaf (masters, m, v,
     count, step), bitwise; the preempted checkpoint restores onto the card
-    bitwise what its archive holds."""
+    bitwise what its archive holds (checked while the resumed run trains,
+    as is the uninterrupted run's final checkpoint read)."""
     import os
     import shutil
     import signal
@@ -3068,11 +3139,11 @@ def check_resume(dev, seed: int) -> str:
     from repro_torch.train import init_train_state
     from repro_torch.tree import leaves
 
-    cfg, tcfg = train_config(TRAIN_CUT)
+    cfg, tcfg = train_config(RESUME_CUT)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    base = ["--arch", "qwen2-1.5b", "--layers", str(TRAIN_CUT), "--seed",
+    base = ["--arch", "qwen2-1.5b", "--layers", str(RESUME_CUT), "--seed",
             str(seed), "--ckpt-every", "1000"]
     try:
         t0 = time.perf_counter()
@@ -3104,25 +3175,8 @@ def check_resume(dev, seed: int) -> str:
         resumed = _child(base + ["--ckpt-dir", str(tmp / "cut"),
                                  "--metrics-out", str(tmp / "res.jsonl"),
                                  "--resume", "auto"], env, tmp / "res.err")
-        out, _ = resumed.communicate(timeout=600)
-        if resumed.returncode != 0 or f"resumed from step {saved}" not in out:
-            fail(f"(15d) the resumed run: rc {resumed.returncode}, "
-                 f"{out[-500:]} {(tmp / 'res.err').read_text()[-2000:]}")
-        seconds = time.perf_counter() - t0
-        full, res = _losses(tmp / "full.jsonl"), _losses(tmp / "res.jsonl")
-        if sorted(res) != list(range(saved, TRAIN_STEPS)) or any(
-                res[s] != full[s] for s in res):
-            fail(f"(15d) resumed losses {res} differ from the uninterrupted "
-                 f"run's {full}")
-        a = CheckpointManager(str(tmp / "full")).restore_flat(TRAIN_STEPS)
-        b = CheckpointManager(str(tmp / "cut")).restore_flat(TRAIN_STEPS)
-        if set(a) != set(b) or any(
-                a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
-                for k in a):
-            fail("(15d) the resumed run's final checkpoint differs from the "
-                 "uninterrupted run's")
-        n_bytes = sum(v.nbytes for v in a.values())
-        del a, b
+        # while the resumed run trains: the step-`saved` checkpoint onto
+        # the card, and the uninterrupted run's final one read
         mgr = CheckpointManager(str(tmp / "cut"))
         flat = mgr.restore_flat(saved)
         params, state = init_train_state(cfg, tcfg, seed + 1, dev)
@@ -3143,16 +3197,35 @@ def check_resume(dev, seed: int) -> str:
                  f"{int(got['state']['opt'].count)} restored for {saved}")
         del got, flat
         torch.cuda.empty_cache()
+        a = CheckpointManager(str(tmp / "full")).restore_flat(TRAIN_STEPS)
+        out, _ = resumed.communicate(timeout=600)
+        if resumed.returncode != 0 or f"resumed from step {saved}" not in out:
+            fail(f"(15d) the resumed run: rc {resumed.returncode}, "
+                 f"{out[-500:]} {(tmp / 'res.err').read_text()[-2000:]}")
+        seconds = time.perf_counter() - t0
+        full, res = _losses(tmp / "full.jsonl"), _losses(tmp / "res.jsonl")
+        if sorted(res) != list(range(saved, TRAIN_STEPS)) or any(
+                res[s] != full[s] for s in res):
+            fail(f"(15d) resumed losses {res} differ from the uninterrupted "
+                 f"run's {full}")
+        b = CheckpointManager(str(tmp / "cut")).restore_flat(TRAIN_STEPS)
+        if set(a) != set(b) or any(
+                a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
+                for k in a):
+            fail("(15d) the resumed run's final checkpoint differs from the "
+                 "uninterrupted run's")
+        n_bytes = sum(v.nbytes for v in a.values())
+        del a, b
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return (f"(d) {TRAIN_CUT} layers at full width: SIGTERM after the "
+    return (f"(d) {RESUME_CUT} layer(s) at full width: SIGTERM after the "
             f"step-{RESUME_SIGTERM_AFTER} line stopped the run at step {at} "
             f"with a checkpoint of step {saved}; --resume auto gave steps "
             f"{saved}-{TRAIN_STEPS - 1} bitwise the uninterrupted run's "
             f"losses; the two runs' step-{TRAIN_STEPS} checkpoints equal in "
             f"every leaf ({n_bytes / 1e9:.2f} GB each); the step-{saved} "
-            f"checkpoint's {n_leaves} leaves restored onto the card bitwise; "
-            f"three runs {seconds:.1f} s")
+            f"checkpoint's {n_leaves} leaves restored onto the card bitwise "
+            f"(while the resumed run trained); three runs {seconds:.1f} s")
 
 
 def model_flops(cfg) -> float:
@@ -3177,6 +3250,8 @@ def train_class(name: str) -> str:
     low = name.lower()
     if "linear" in low and "mma" in low:
         return "linear forward"
+    if "moe_down_combine" in low:
+        return "moe_down_combine"
     if "softmax" in low and "logsoftmax" not in low:
         return "attention"
     if any(w in low for w in ("logsoftmax", "nll", "index", "embedding",
@@ -3185,20 +3260,24 @@ def train_class(name: str) -> str:
     return "rest"
 
 
-def profile_train(dev, seed: int, wall_ms: float) -> Dict[str, Any]:
+def profile_train(dev, seed: int, wall_ms: float,
+                  config=None) -> Dict[str, Any]:
     """(e) device ms a launcher step by class, over 2 steps after 2 warm
-    ones, at full width and depth: ``linear`` forward (the kernel), the
-    backward's matmuls (the device time of ``aten::mm``: the products'
-    ``dx`` and ``dw``), attention (``aten::bmm``: q.k and P.V forward,
-    recomputed and backward; and the softmax), other (the loss and the
-    embedding's gather and scatter) and the optimizer with every other
-    elementwise kernel; idle = 1 - device / ``wall_ms``."""
+    ones, at full width and depth (or ``config``, (cfg, TrainConfig)):
+    ``linear`` forward (the kernel), the backward's matmuls (the device
+    time of ``aten::mm``: the products' ``dx`` and ``dw``), attention
+    (``aten::bmm``: q.k and P.V forward, recomputed and backward; and the
+    softmax; for an MoE config ``aten::bmm`` also holds
+    ``moe_down_combine``'s backward, so it stands alone), the
+    ``moe_down_combine`` kernel, other (the loss and the embedding's
+    gather and scatter) and the optimizer with every other elementwise
+    kernel; idle = 1 - device / ``wall_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.train import init_train_state, make_train_step
 
-    cfg, tcfg = train_config()
+    cfg, tcfg = config or train_config()
     params, state = init_train_state(cfg, tcfg, seed, dev)
     step = make_train_step(cfg, tcfg)
     batches = train_batches(cfg, dev, seed, 4)
@@ -3227,7 +3306,10 @@ def profile_train(dev, seed: int, wall_ms: float) -> Dict[str, Any]:
     busy = sum(by.values())
     rest = by.pop("rest", 0.0)
     by["backward matmuls"] = ops_ms["aten::mm"]
-    by["attention"] += ops_ms["aten::bmm"]
+    if cfg.n_experts:
+        by["bmm (attention, moe_down_combine backward)"] = ops_ms["aten::bmm"]
+    else:
+        by["attention"] += ops_ms["aten::bmm"]
     by["optimizer and elementwise"] = (rest - ops_ms["aten::mm"]
                                        - ops_ms["aten::bmm"])
     return {"by": {k: round(v, 4) for k, v in by.items()}, "busy": busy,
@@ -3929,7 +4011,8 @@ def phase17(dev, seed: int, card: str) -> tuple:
     print(f"[17 moe] {check_chunked(dm.cb, tbt, moe, dev, '(c)')}")
     del tbt
     torch.cuda.empty_cache()
-    for check in (lambda: check_moe_rows(moe, dev),
+    for check in (lambda: check_moe_rows(cut_depth(moe), dev) + (
+                      f" ({SERVE_CUT} layers, full width)"),
                   lambda: check_moe_parity(moe, dev),
                   lambda: check_moe_dense(moe, dev)):
         t0 = time.perf_counter()
@@ -4055,6 +4138,8 @@ def rec_graph_eager(run: ServeRun, device, dev, tag: str) -> float:
                                     sync_every=DEVICE_ROUND, graph=False)
     seconds = device_wave(eager, run, dev, dense=True)
     same_run(f"{tag} graph vs eager", device, eager)
+    del eager
+    gc.collect()  # a batcher is a reference cycle: free its cache now
     return seconds
 
 
@@ -4221,10 +4306,12 @@ def tf_logits(run: ServeRun, seqs: np.ndarray, dev, products: str,
     return torch.stack(rows, 1).reshape(B * (L - 1), -1)
 
 
-def rec_teacher_forced(run: ServeRun, host, dev, tag: str) -> tuple:
-    """The host batcher's served streams (first prompt token + generated,
-    up to 16 of them) teacher-forced through ``decode_step`` from a fresh
-    state along the ``TF_PATHS``: the kernel path (every product the
+def rec_teacher_forced(run: ServeRun, done: Dict[Any, list], dev, tag: str,
+                       paths=None, n: int = 0) -> tuple:
+    """The host batcher's served streams ``done`` (first prompt token +
+    generated, the first ``n`` of them, by default 16) teacher-forced
+    through ``decode_step`` from a fresh state along ``paths`` (by
+    default the ``TF_PATHS``): the kernel path (every product the
     ``linear`` kernel, the attention kernel), the plain path
     (``linear_ref``, the ``"torch"`` backend), each half alone, a witness
     (the plain path with its products' sums in another order) and a
@@ -4236,16 +4323,16 @@ def rec_teacher_forced(run: ServeRun, host, dev, tag: str) -> tuple:
     average, the control past that, or the gate could not see a fault;
     phase 9's one delta and its greedy-flip rule are printed.  Returns
     (line, whether every gate held)."""
-    done = wave_streams(host)
-    rids = sorted(done)[:DENSE["max_batch"]]
+    paths = paths or TF_PATHS
+    rids = sorted(done)[:n or DENSE["max_batch"]]
     seqs = np.array([run.prompts[r][:1] + done[r] for r in rids], np.int32)
     B, L = seqs.shape
-    c = tf_logits(run, seqs, dev, *TF_PATHS["plain"])
+    c = tf_logits(run, seqs, dev, *paths["plain"])
     delta = LOGIT_TOL * c.abs().amax(-1)
     top2 = c.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     dist, held = {}, {}
-    for name, path in TF_PATHS.items():
+    for name, path in paths.items():
         if name == "plain":
             continue
         a = tf_logits(run, seqs, dev, *path)
@@ -4331,9 +4418,11 @@ def rec_serve(dev, seed: int, arch: str, gate, card: str, tag: str,
     print(f"[18 {tag}] graph == eager bitwise (eager wave {eager_s:.3f} s); "
           f"{check_dense_no_sync(run, dev, f'(18{tag})')} "
           f"({time.perf_counter() - t0:.1f} s)")
-    line, tf_ok = rec_teacher_forced(run, host, dev, f"(18{tag})")
+    line, tf_ok = rec_teacher_forced(run, wave_streams(host), dev,
+                                     f"(18{tag})")
     print(f"[18 {tag}] {line} ({card})")
-    dprof = profile_device(device, run, dev, dense=True, tag=f"(18{tag})")
+    dprof = profile_device(device, run, dev, dense=True, tag=f"(18{tag})",
+                           whole=False)
     hprof = rec_profile_host(run, dev)
     bound = w_bytes / PEAK_BYTES * 1e3
     host_tok = sum(len(t) for t in host.done.values())
@@ -4345,7 +4434,7 @@ def rec_serve(dev, seed: int, arch: str, gate, card: str, tag: str,
           f"{dprof['tokens'] / dprof['seconds']:.1f} tokens/s, "
           f"{dprof['ms_step']:.4f} ms per step run ({dprof['steps']} "
           f"steps); device {dprof['busy_ms_step']:.4f} ms a step "
-          f"(profiler, by kernel name: {dprof['by']}), idle "
+          f"(profiler, a round, by kernel name: {dprof['by']}), idle "
           f"{dprof['idle']:.3f}; the weights' byte bound {bound:.4f} ms a "
           f"step ({w_bytes / 1e9:.3f} GB / 3.35 TB/s), "
           f"{bound / max(dprof['busy_ms_step'], 1e-9):.3f} of the device "
@@ -5050,7 +5139,8 @@ def front_serve(dev, seed: int, arch: str, gate, card: str,
                         (device._decode, "device")):
             if any(t.any() for t in st["cross"]):
                 fail(f"(19{tag} b) the {who} batcher wrote its cross planes")
-    dprof = profile_device(device, run, dev, dense=True, tag=f"(19{tag} e)")
+    dprof = profile_device(device, run, dev, dense=True, tag=f"(19{tag} e)",
+                           whole=False)
     bound = w_bytes / PEAK_BYTES * 1e3
     host_tok = sum(len(t) for t in host.done.values())
     print(f"[19 {tag} e] profiler over a dense round of {dprof['rsteps']} "
@@ -5061,7 +5151,7 @@ def front_serve(dev, seed: int, arch: str, gate, card: str,
           f"{dprof['tokens'] / dprof['seconds']:.1f} tokens/s, "
           f"{dprof['ms_step']:.4f} ms per step run ({dprof['steps']} "
           f"steps); device {dprof['busy_ms_step']:.4f} ms a step "
-          f"(profiler, by kernel class: {dprof['by']}), idle "
+          f"(profiler, a round, by kernel class: {dprof['by']}), idle "
           f"{dprof['idle']:.3f}; the weights' byte bound {bound:.4f} ms a "
           f"step ({w_bytes / 1e9:.3f} GB / 3.35 TB/s); host batcher (eager, "
           f"first wave): {host_tok / dense['host_s']:.1f} tokens/s, "
@@ -5197,10 +5287,10 @@ def front_train_parity(dev, seed: int, arch: str, tag: str) -> str:
 
 
 def front_linear_units(cfg):
-    """A VLM or enc-dec dense step's products as ``linear_timings`` units
-    (``attn_linear_units``) and how many a step launches: the enc-dec
-    cross-attention's query and wo are two more ``wo``-shaped products a
-    layer."""
+    """A dense, VLM or enc-dec model's dense step products as
+    ``linear_timings`` units (``attn_linear_units``) and how many a step
+    launches: the enc-dec cross-attention's query and wo are two more
+    ``wo``-shaped products a layer."""
     L = cfg.n_layers
     count = {"qkv": L, "wo": L * (3 if cfg.family == "encdec" else 1),
              "gate_up": L, "w_down": L, "head": 1}
@@ -5242,6 +5332,565 @@ def phase19(dev, seed: int, card: str, gate) -> list:
     return rows
 
 
+# ------------------------------------------------------------ phase 20
+# (a): qwen2-moe-a2.7b trained by the launcher at its defaults (phase 15's
+# TRAIN_STEPS x TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches) at
+# full width, depth cut to MOE_TRAIN_LAYERS: a layer holds about 605 M
+# parameters (64 experts x 3 x 2,048 x 1,408, attention, the shared MLP,
+# the router) and each takes about 18 bytes (a float32 master, two
+# moments, a float32 gradient and a bf16 copy), so 4 layers and the
+# 0.62 B of the embedding and head come to about 55 GB of the card's 80;
+# the full 24 layers (15.15 B) wait for ROADMAP queue A item 10
+MOE_TRAIN_LAYERS = 4
+MOE_PARITY_LAYERS = 2  # (b): kernel vs plain, as phase 15 (b) at TRAIN_CUT
+# (c)-(e): the dense configs the card had not run, at full width and depth,
+# one at a time (each is freed, with its engines and graphs, before the
+# next loads); qwen3-32b's 65.5 GB of bf16 weights last
+DENSE20 = (("minitron-4b", "c"), ("gemma3-27b", "d"), ("qwen3-32b", "e"))
+# teacher-forced streams and their first decode steps: the plain products
+# take a call a row, and a 60-layer model's eager steps are host-bound
+TF20_STREAMS, TF20_STEPS = 4, 16
+# (d): gemma3-27b's window (1,024 on five of every six layers) at full
+# width over positions past it: its first WINDOW_LAYERS layers (five local
+# and the first global one), a paged cache of WINDOW_SERVE, WINDOW_REQUESTS
+# prompts of WINDOW_PROMPTS tokens from the seed, WINDOW_TOKENS generated
+WINDOW_ARCH, WINDOW_LAYERS = "gemma3-27b", 6
+WINDOW_SERVE = dict(max_batch=4, cache_len=2048, page_size=16)
+WINDOW_REQUESTS, WINDOW_TOKENS = 4, 8
+WINDOW_PROMPTS = (1100, 1400)
+
+
+def moe_train_config(n_layers: int):
+    """qwen2-moe-a2.7b at full width, depth cut to ``n_layers``, and the
+    launcher's TrainConfig at its defaults (``moe_impl="dense"``)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=n_layers)
+    return cfg, train_config()[1]
+
+
+def moe_train_launches(cfg) -> Dict[str, int]:
+    """The wrapper launches of the launcher's run, fixed before any run:
+    per microbatch each layer's products (``step_products``: the q/k/v
+    group, wo, the router, the experts' gate/up group, the shared
+    experts' gate/up group and down) and its ``moe_down_combine`` in the
+    forward and again when ``"full"`` remat recomputes the layer (the
+    backward's products are ``torch.bmm`` / ``torch.matmul``), the head
+    once."""
+    per = TRAIN_STEPS * TRAIN_MICRO
+    return {"linear": per * (2 * (step_products(cfg) - 1) + 1),
+            "moe_down_combine": per * 2 * cfg.n_layers}
+
+
+def drive_moe_train(dev, seed: int) -> Dict[str, Any]:
+    """(a) ``repro_torch.launch.train.main`` at its defaults with
+    ``--arch qwen2-moe-a2.7b --layers MOE_TRAIN_LAYERS``, the wrapper
+    counts reset just before and read just after: TRAIN_STEPS finite
+    losses, the last five's mean below the first five's,
+    ``moe_train_launches`` exactly and no other kernel of the repo."""
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cfg, _ = moe_train_config(MOE_TRAIN_LAYERS)
+    out = io.StringIO()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(["--arch", MOE_ARCH, "--layers",
+                             str(MOE_TRAIN_LAYERS), "--seed", str(seed)])
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines = out.getvalue().splitlines()
+    step_ms = [float(ln.split()[4]) for ln in lines if ln.startswith("step ")]
+    if (len(losses) != TRAIN_STEPS or not np.isfinite(losses).all()
+            or len(step_ms) != TRAIN_STEPS):
+        fail(f"(20a) the launcher gave {len(losses)} losses {losses}")
+    if not (np.mean(losses[-5:]) < np.mean(losses[:5])
+            and lines[-1].endswith("(improved)")):
+        fail(f"(20a) the loss did not improve: {lines[-1]}")
+    want = moe_train_launches(cfg)
+    if counts != want:
+        fail(f"(20a) the launcher launched {counts}, expected {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lo, hi = TRAIN_TIMED
+    return dict(cfg=cfg, losses=losses, counts=counts, peak=peak,
+                last=lines[-1], seconds=seconds,
+                ms=statistics.median(step_ms[lo:hi]))
+
+
+def check_moe_train_parity(dev, seed: int) -> str:
+    """(b) qwen2-moe-a2.7b at full width, MOE_PARITY_LAYERS layers, the
+    same masters and the launcher's first batch: one step's loss and
+    every gradient leaf through the kernels (``linear``,
+    ``moe_down_combine`` and its backward) and through the plain path
+    (``linear_ref``, ``ref.moe_down_combine_ref`` and autograd through
+    it), phase 15 (b)'s bounds (TRAIN_LOSS_RTOL on the loss, LOGIT_TOL x
+    the plain leaf's largest magnitude).  The plain path is held to the
+    kernel path's routing (``ForcedRouting``, as phase 17 (d)), so the
+    gradients are compared where no token's routing differs; the tokens
+    it would have routed otherwise are counted, each a near tie.  Then
+    ``moe_down_combine``'s backward alone on every layer's captured ``h,
+    W_down, c`` and cotangent (the first microbatch): ``dh``, ``dW_down``
+    and the routed pairs' ``dc`` against autograd through
+    ``ref.moe_down_combine_ref``, within LOGIT_TOL x the plain gradient's
+    largest magnitude."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train import init_train_state
+
+    cfg, tcfg = moe_train_config(MOE_PARITY_LAYERS)
+    batch = train_batches(cfg, dev, seed, 1)[0]
+    params, _ = init_train_state(cfg, tcfg, seed, dev)
+    kernel, calls = ops.moe_down_combine, []
+
+    def capture(h, w, c):
+        out = kernel(h, w, c)
+        if out.requires_grad:  # the forward's; its recompute fills it in
+            i = len(calls)
+            calls.append([h.detach(), w.detach(), c.detach(), None])
+            out.register_hook(lambda g, i=i: calls[i].__setitem__(
+                3, g.detach()))
+        return out
+
+    forced = ForcedRouting()
+    ops.moe_down_combine = capture
+    try:
+        with forced.record():
+            ops.reset_launch_counts()
+            gk, lk = step_grads(cfg, tcfg, params, batch, with_loss=True)
+            launched = {k: n for k, n in ops.launch_counts().items() if n}
+    finally:
+        ops.moe_down_combine = kernel
+    want = {"linear": TRAIN_MICRO * (2 * (step_products(cfg) - 1) + 1),
+            "moe_down_combine": TRAIN_MICRO * 2 * cfg.n_layers}
+    if launched != want:
+        fail(f"(20b) the kernel path launched {launched}, expected {want}")
+    with plain_products(), plain_moe(), forced.replay():
+        gp, lp = step_grads(cfg, tcfg, params, batch, with_loss=True)
+    rel = abs(lk - lp) / abs(lp)
+    r = grad_readings(gk, gp)
+    worst = max(r, key=lambda k: r[k][0])
+    flips = (f"{forced.flips} of {forced.rows} token-layer routings would "
+             f"have flipped in the plain path, {forced.loose} of them no "
+             f"near tie (worst {forced.worst:.3f} of the near-tie bound)")
+    line = (f"(b) {MOE_PARITY_LAYERS} layers at full width, one step of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, kernel vs plain from the "
+            f"same masters, the plain path on the kernel path's routing "
+            f"({flips}): loss {lk:.6f} vs {lp:.6f}, relative {rel:.3e}; "
+            f"the worst of {len(r)} gradient leaves {r[worst][0]:.4f} of "
+            f"its largest magnitude ({worst})")
+    if forced.loose:
+        fail(f"(20b) the plain path would have routed a token otherwise "
+             f"where its top-k was no near tie: {line}")
+    if not np.isfinite(lk) or rel > TRAIN_LOSS_RTOL or r[worst][0] > LOGIT_TOL:
+        fail(f"(20b) past phase 15's bounds ({TRAIN_LOSS_RTOL} on the loss, "
+             f"{LOGIT_TOL} on the gradients): {line}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    got = [c for c in calls if c[3] is not None]
+    if len(got) != TRAIN_MICRO * cfg.n_layers:
+        fail(f"(20b) captured {len(got)} moe_down_combine cotangents, "
+             f"expected {TRAIN_MICRO * cfg.n_layers}")
+    got = got[:cfg.n_layers]  # every layer of the first microbatch
+    worst_bw = {"dh": 0.0, "dW_down": 0.0, "dc": 0.0}
+    for h, w, c, dy in got:
+        a = [t.clone().requires_grad_(True) for t in (h, w, c)]
+        ops.moe_down_combine(*a).backward(dy)
+        b = [t.clone().requires_grad_(True) for t in (h, w, c)]
+        ref.moe_down_combine_ref(*b).backward(dy)
+        for name, x, y in zip(worst_bw, a, b):
+            gx, gy = x.grad.float(), y.grad.float()
+            if name == "dc":  # the router reads only the routed pairs'
+                gx, gy = gx[c != 0], gy[c != 0]
+            e = ((gx - gy).abs().max() / gy.abs().max().clamp_min(1e-30)
+                 ).item()
+            if not e <= LOGIT_TOL:
+                fail(f"(20b) moe_down_combine's {name} on a captured layer "
+                     f"lies {e:.4f} of its largest magnitude from autograd "
+                     f"through the plain version")
+            worst_bw[name] = max(worst_bw[name], e)
+        del a, b
+    del calls, got
+    torch.cuda.empty_cache()
+    return (f"{line}; moe_down_combine's backward alone on every layer's "
+            f"captured inputs and cotangent (the first microbatch, "
+            f"[{TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ}, 64, {cfg.d_ff}]): "
+            f"worst "
+            f"{ {k: round(v, 5) for k, v in worst_bw.items()} } of the "
+            f"plain gradient's largest magnitude (limit {LOGIT_TOL})")
+
+
+def forgetful_backend() -> str:
+    """The control of phase 20's teacher-forced gate (with the kernel
+    products): the plain attention over a window of one position, so
+    that each step sees its own token's cell alone (a decode that forgot
+    its cache); returns its name."""
+    from repro_torch.nn import attn_backend as AB
+
+    plain = AB.get("torch")
+    AB.register("torch-forgetful", lambda q, kv, *, n_heads, head_dim,
+                window: plain(q, kv, n_heads=n_heads, head_dim=head_dim,
+                              window=1))
+    return "torch-forgetful"
+
+
+def check_window(run: ServeRun, dev, tag: str) -> str:
+    """(d) gemma3-27b's window past position 1,024, at full width and
+    WINDOW_LAYERS layers: WINDOW_REQUESTS prompts of WINDOW_PROMPTS tokens
+    through the paged device batcher (WINDOW_SERVE) at prefill_chunk
+    DEVICE_CHUNK (eager, attention through a capturing backend) and at 1
+    (graph): every stream bitwise.  At the first call of each layer with a
+    row past position 1,100 the kernel is held within one bf16 ulp of the
+    plain version on the captured inputs, and each local
+    layer's output against the plain version with no window: it must
+    differ, or the window hid no cell that a global layer sees."""
+    from repro_torch.arch.model import layer_windows
+    from repro_torch.nn import attn_backend as AB
+    from repro_torch.serve.engine import (DeviceContinuousBatcher,
+                                          ServeConfig, ServeEngine)
+
+    cut = cut_depth(run, WINDOW_LAYERS)
+    cfg = cut.cfg
+    wins = [int(w) for w in layer_windows(cfg)]
+    if not (0 in wins and any(w == 1024 for w in wins)):
+        fail(f"({tag}) layer windows {wins}: no local and global layer")
+    kernel, plain = AB.get("cuda"), AB.get("torch")
+    calls, seen, worst, gap = [0], {}, [0.0], {}
+
+    def capturing(q, kv, *, n_heads, head_dim, window):
+        out = kernel(q, kv, n_heads=n_heads, head_dim=head_dim,
+                     window=window)
+        layer = calls[0] % cfg.n_layers
+        calls[0] += 1
+        if layer not in seen and int(kv.pos.max()) > WINDOW_PROMPTS[0]:
+            want = plain(q, kv, n_heads=n_heads, head_dim=head_dim,
+                         window=window)
+            worst[0] = max(worst[0], pa_err_ulps(
+                f"({tag}) layer {layer} (window {window}) past 1,024", out,
+                want))
+            seen[layer] = (int(window), int(kv.pos.min()), int(kv.pos.max()))
+            if window:
+                glob = plain(q, kv, n_heads=n_heads, head_dim=head_dim,
+                             window=0)
+                gap[layer] = (glob.float() - want.float()).abs().max().item()
+        return out
+
+    AB.register("cuda-window-capture", capturing)
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(WINDOW_PROMPTS[0], WINDOW_PROMPTS[1] + 1,
+                                     WINDOW_REQUESTS)]
+    runs = []
+    for chunk, graph, impl in ((DEVICE_CHUNK, False, "cuda-window-capture"),
+                               (1, True, "auto")):
+        cb = DeviceContinuousBatcher(
+            ServeEngine(cfg, cut.params, ServeConfig(**WINDOW_SERVE,
+                                                     attn_impl=impl),
+                        device=dev),
+            eos_token=-1, max_tokens=WINDOW_TOKENS, sync_every=DEVICE_ROUND,
+            prefill_chunk=chunk, graph=graph)
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            cb.submit(i, p)
+        cb.run(max_steps=20000)
+        torch.cuda.synchronize(dev)
+        runs.append((dict(cb.done), list(cb.dropped),
+                     time.perf_counter() - t0, cb.steps_executed))
+        del cb
+        torch.cuda.empty_cache()
+    (a, da, ta, sa), (b, db, tb, sb) = runs
+    if a != b or da != db:
+        fail(f"({tag}) window: chunk {DEVICE_CHUNK} and token by token "
+             f"differ (drops {da}, {db})")
+    if len(a) != WINDOW_REQUESTS or any(len(t) != WINDOW_TOKENS
+                                        for t in a.values()):
+        fail(f"({tag}) window: {len(a)} streams served, not "
+             f"{WINDOW_REQUESTS} of {WINDOW_TOKENS} tokens")
+    if sorted(seen) != list(range(cfg.n_layers)):
+        fail(f"({tag}) window: captured layers {sorted(seen)} past position "
+             f"{WINDOW_PROMPTS[0]}")
+    hidden = {k: v for k, v in gap.items() if v > 0}
+    if sorted(hidden) != [i for i, w in enumerate(wins) if w]:
+        fail(f"({tag}) window: the local layers' outputs {gap} equal the "
+             f"same attention with no window")
+    return (f"(d) window: {cfg.n_layers} layers at full width (windows "
+            f"{wins}), {WINDOW_SERVE}, {WINDOW_REQUESTS} prompts of "
+            f"{[len(p) for p in prompts]} tokens x {WINDOW_TOKENS}: chunk "
+            f"{DEVICE_CHUNK} ({sa} steps, {ta:.1f} s eager) == token by "
+            f"token ({sb} steps, {tb:.1f} s graph) bitwise; each layer's "
+            f"attention at its first call past position {WINDOW_PROMPTS[0]} "
+            f"(window, first and last position: {seen}) within one bf16 ulp "
+            f"of the plain version (worst {worst[0]:.2f} ulp); every local "
+            f"layer's output moves by "
+            f"{ {k: round(v, 4) for k, v in gap.items()} } against the same "
+            f"inputs with no window: its window hides cells a global layer "
+            f"sees")
+
+
+def paged_wave(run: ServeRun, dev, tag: str) -> str:
+    """(c)-(e) the paged device batcher at C = DEVICE_CHUNK over phase 9's
+    ServeConfig and traffic at full depth: ``check_device_main`` (terminal
+    states, the gate's verdicts, the pool, the path's kernels); the
+    wrapper counts of the first wave, which tick at the eager warm-up and
+    at the capture of each shape key (the graph replays exactly what it
+    captured), exactly 2 x ``step_kernels`` a key; then a warm wave timed
+    on the host clock."""
+    d = drive_device(run, dev)
+    line = check_device_main(d, run)
+    n_keys = len(d.cb._steps)
+    want = {k: 2 * n_keys * n for k, n in step_kernels(run.cfg).items()}
+    got = {k: d.launches[k] for k in want}
+    if got != want:
+        fail(f"({tag} paged) the captured step launched {got} for {n_keys} "
+             f"shape keys, expected 2 x {step_kernels(run.cfg)} a key")
+    s0 = d.cb.steps_executed
+    wall = device_wave(d.cb, run, dev, tag="timed")
+    steps = d.cb.steps_executed - s0
+    n_tok = sum(len(t) for r, t in d.cb.done.items()
+                if isinstance(r, tuple) and r[0] == "timed")
+    del d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{line}; the step's launches {got} == 2 x "
+            f"{step_kernels(run.cfg)} for each of its {n_keys} shape keys "
+            f"(eager warm-up and capture); warm wave, graph: {n_tok} tokens "
+            f"in {wall:.4f} s, {n_tok / wall:.1f} tokens/s, "
+            f"{wall / steps * 1e3:.4f} ms per step run ({steps} steps)")
+
+
+def dense_serve20(dev, seed: int, arch: str, gate, card: str,
+                  tag: str) -> Dict[str, Any]:
+    """(c)-(e) ``arch`` at full width and depth, random weights from
+    ``seed``: the model's product shapes through phase 8's ``linear``
+    checks; the dense host batcher == the dense device batcher (graph)
+    bitwise on phase 9's traffic (first prompt token), the host batcher's
+    launches exact; TF20_STREAMS served streams teacher-forced over their
+    first TF20_STEPS decode steps, kernel vs
+    plain beside a witness and a control (``forgetful_backend``), phase
+    17's gate; the profiler over a dense round (exact; its device ms a
+    step by class) with tokens/s, ms a step and idle from a timed wave;
+    the paged device batcher (``paged_wave``).  The repeated checks at
+    SERVE_CUT layers: graph == eager, a round of the eager and the
+    replayed dense step without a synchronising call, paged == dense.
+    For gemma3-27b ``check_window``.
+    Every batcher is freed (with its graphs and cache) before the next is
+    made: gemma3-27b's 57 GB and qwen3-32b's 65.5 GB leave room for two
+    dense caches."""
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = rec_run(dev, seed, arch, gate)
+    cfg = run.cfg
+    n_params = sum(p.numel() for leaf in leaves(run.params)
+                   for p in leaf.parts)
+    w_bytes = weight_bytes(run.params)
+    T = f"20 {tag}"
+    print(f"[{T}] {arch} at full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
+          f"{cfg.head_dim_}, qk_norm {cfg.qk_norm}, window "
+          f"{cfg.local_window or 'none'}, d_ff {cfg.d_ff} {cfg.act}, vocab "
+          f"{cfg.vocab_padded}), {n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, a "
+          f"step reads {w_bytes / 1e9:.3f} GB of weights (all but the "
+          f"embedding), RANDOM weights from seed {seed}; {DENSE} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    t0 = time.perf_counter()
+    line = check_linear(cfg, dev, linear_weights(cfg), f"20{tag} linear")
+    print(f"[{T} linear] the model's products: {line} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    t0 = time.perf_counter()
+    dense = drive_dense(run, dev, f"(20{tag})")
+    host, device = dense["host"], dense["device"]
+    print(f"[{T}] phase 9's {SERVE_REQUESTS} requests (first prompt token) "
+          f"x {SERVE_TOKENS} tokens: host batcher == device batcher "
+          f"(sync_every {DEVICE_ROUND}, graph) bitwise: "
+          f"{len(wave_streams(host))} served, drops "
+          f"{first_wave_drops(host)[1]}; {host.steps} steps with work, "
+          f"global position {int(host.engine.state['pos'])}; "
+          f"{check_dense_launches(dense, run, f'(20{tag})')} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    streams = wave_streams(host)
+    host_tok = sum(len(t) for t in host.done.values())
+    host_ms = dense["host_s"] / host.steps * 1e3
+    host_tps = host_tok / dense["host_s"]
+    counts = dense["counts"]
+    del dense, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths = {"kernel": TF_PATHS["kernel"], "plain": TF_PATHS["plain"],
+             "witness": TF_PATHS["witness"],
+             "control": ("kernel", forgetful_backend(), None)}
+    heads = {r: t[:TF20_STEPS] for r, t in streams.items()}
+    line, tf_ok = rec_teacher_forced(run, heads, dev, f"(20{tag})", paths,
+                                     TF20_STREAMS)
+    print(f"[{T}] {line} ({time.perf_counter() - t0:.1f} s; {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dprof = profile_device(device, run, dev, dense=True, tag=f"(20{tag})",
+                           whole=False)
+    bound = w_bytes / PEAK_BYTES * 1e3
+    print(f"[{T}] profiler over a dense round of {dprof['rsteps']} steps and "
+          f"its gate call: {dprof['counts']}, exact on try "
+          f"{len(dprof['tries'])} of at most {PROFILE_TRIES} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    print(f"[{T} timing] dense device batcher, warm wave, graph: "
+          f"{dprof['tokens']} tokens in {dprof['seconds']:.4f} s, "
+          f"{dprof['tokens'] / dprof['seconds']:.1f} tokens/s, "
+          f"{dprof['ms_step']:.4f} ms per step run ({dprof['steps']} steps); "
+          f"device {dprof['busy_ms_step']:.4f} ms a step (profiler, a "
+          f"round, by kernel class: {dprof['by']}), idle "
+          f"{dprof['idle']:.3f}; the weights' byte bound {bound:.4f} ms a "
+          f"step ({w_bytes / 1e9:.3f} "
+          f"GB / 3.35 TB/s), "
+          f"{bound / max(dprof['busy_ms_step'], 1e-9):.3f} of the device "
+          f"step; host batcher (eager, first wave): {host_tps:.1f} "
+          f"tokens/s, {host_ms:.4f} ms a step ({card})")
+    del device
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"[{T} paged] {SERVE}, phase 9's traffic (prompts "
+          f"{PROMPT_LENS[0]}-{PROMPT_LENS[1]} tokens), full depth: device "
+          f"batcher {paged_wave(run, dev, f'20{tag}')} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    t0 = time.perf_counter()
+    cut = cut_depth(run)
+    dense = drive_dense(cut, dev, f"(20{tag} cut)")
+    del dense["host"]
+    gc.collect()
+    eager_s = rec_graph_eager(cut, dense["device"], dev, f"(20{tag} cut)")
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{T}] at {SERVE_CUT} layers, full width: the dense device "
+          f"batcher's graph == eager bitwise (eager wave {eager_s:.3f} s); "
+          f"{check_dense_no_sync(cut, dev, f'(20{tag} cut)')}; "
+          f"{check_paged_vs_dense(cut, dev)} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if arch == WINDOW_ARCH:
+        t0 = time.perf_counter()
+        print(f"[{T}] {check_window(run, dev, f'20{tag}')} "
+              f"({time.perf_counter() - t0:.1f} s; {card})")
+    print(f"[{T}] peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB ({card})")
+    return dict(launches=counts, tf_ok=tf_ok)
+
+
+def window_pa_row(dev, launches: int, seed: int) -> Dict[str, Any]:
+    """``paged_attention`` at gemma3-27b's local layers past their window:
+    hd 128, 32 query heads on 16 KV heads, 16 slots of a 2,048-position
+    paged cache (pages of 16), one row a slot at positions drawn in
+    WINDOW_PROMPTS, window 1,024 (a row sees its last 1,024 positions of
+    up to 1,400); within one bf16 ulp of its plain version
+    (``pa_timing``), timed beside gather + SDPA (masked to the window) and
+    its bound."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WINDOW_ARCH)
+    B, page = DENSE["max_batch"], WINDOW_SERVE["page_size"]
+    n_ps = WINDOW_SERVE["cache_len"] // page
+    rng = np.random.default_rng(seed)
+    q, k, v, tbl, _, _, _ = pa_case(rng, dev, B, 1, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim_, page, n_ps,
+                                    False, past=False)
+    pos = torch.as_tensor(rng.integers(WINDOW_PROMPTS[0], WINDOW_PROMPTS[1]
+                                       + 1, (B, 1)), dtype=torch.int32,
+                          device=dev)
+    return {"name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
+            "replaces": REPLACES["paged_attention"], "launches": launches,
+            "bitwise": False, "cell": f"{WINDOW_ARCH} local layer past its "
+            f"window", **pa_timing(q, k, v, tbl, pos, dev,
+                                   window=cfg.local_window)}
+
+
+def phase20(dev, seed: int, card: str, gate) -> tuple:
+    """Phase 20: qwen2-moe-a2.7b trained on the card ((a) the launcher at
+    its defaults, MOE_TRAIN_LAYERS layers; (b) kernel vs plain at
+    MOE_PARITY_LAYERS), then minitron-4b, gemma3-27b and qwen3-32b served
+    at full width and depth ((c)-(e), ``dense_serve20``); returns (the
+    new JSON rows: ``linear`` at each config's dense step,
+    ``paged_attention`` at 3:1, 8:1 and 2:1 with the window; the
+    training run's ``moe_down_combine`` launches)."""
+    t_all = time.perf_counter()
+    tr = drive_moe_train(dev, seed)
+    cfg = tr["cfg"]
+    print(f"[20 a train] repro_torch.launch.train --arch {MOE_ARCH} --layers "
+          f"{MOE_TRAIN_LAYERS} at its defaults: full width ({cfg.d_model}, "
+          f"{cfg.n_experts} experts padded to {cfg.n_experts_padded}, "
+          f"top-{cfg.n_experts_active}, expert d_ff {cfg.d_ff}, shared "
+          f"{cfg.shared_d_ff}, vocab {cfg.vocab_padded}), depth cut to "
+          f"{cfg.n_layers} of 24 layers, float32 masters from seed {seed}, "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{TRAIN_MICRO} microbatches: losses "
+          f"{[round(x, 4) for x in tr['losses']]}, {tr['last']}; wrapper "
+          f"launches {tr['counts']} (moe_down_combine forward and recomputed "
+          f"a layer a microbatch, its backward torch.bmm), no other kernel; "
+          f"{tr['seconds']:.1f} s in all ({card})")
+    t0 = time.perf_counter()
+    tprof = profile_train(dev, seed, tr["ms"],
+                          moe_train_config(MOE_TRAIN_LAYERS))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[20 a train timing] ({time.perf_counter() - t0:.1f} s) ms a step "
+          f"(median of steps {TRAIN_TIMED[0]}-{TRAIN_TIMED[1] - 1}, host "
+          f"clock): {tr['ms']:.4f} ({tokens / tr['ms'] * 1e3:.1f} "
+          f"tokens/s); device ms a step by class (profiler, 2 steps): "
+          f"{tprof['by']}, busy {tprof['busy']:.4f}, idle {tprof['idle']}, "
+          f"{tprof['kernels']:.0f} kernels a step; aten ops' device ms "
+          f"{tprof['mm_ops']}; peak memory {tr['peak'] / 2**30:.2f} GiB "
+          f"(max_memory_allocated) ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"[20 b train] {check_moe_train_parity(dev, seed)} "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[20] (a)-(b) {time.perf_counter() - t_all:.1f} s ({card})")
+    launches, tf_ok = {}, {}
+    for arch, tag in DENSE20:
+        r = dense_serve20(dev, seed, arch, gate, card, tag)
+        launches[arch], tf_ok[tag] = r["launches"], r["tf_ok"]
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[20] {arch} served in {time.perf_counter() - t_all:.1f} s "
+              f"from the phase's start ({card})")
+    rows = [dense_linear_row(dev, arch, front_linear_units,
+                             launches[arch]["linear"], f"(20{tag})")
+            for arch, tag in DENSE20]
+    for arch in ("qwen3-32b", "minitron-4b"):
+        rows.append(dense_pa_row(dev, arch,
+                                 launches[arch]["paged_attention"],
+                                 SEED + 20))
+    rows.append(window_pa_row(dev, launches[WINDOW_ARCH]["paged_attention"],
+                              SEED + 20))
+    for r in rows:
+        print(f"[20 {r['name']}] {r['cell']}, shape {r['shape']}: kernel "
+              f"{r['ms']:.4f} ms (device {r.get('device_ms')}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (device "
+              f"{r.get('library_device_ms')}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), max |err| {r['max_abs_err']} ({card})")
+    print(f"[20] phase 20 in {time.perf_counter() - t_all:.1f} s ({card})")
+    bad = [k for k, v in tf_ok.items() if not v]
+    if bad:
+        fail(f"(20{'/'.join(bad)}) teacher-forced: the kernel path or the "
+             f"witness past the gate, or the control within it (printed "
+             f"above)")
+    return rows, tr["counts"]["moe_down_combine"]
+
+
 def starts(t_run: float, phase: str) -> None:
     """Print how far into the run ``phase`` starts (the run's budget)."""
     print(f"[{phase}] starts {time.perf_counter() - t_run:.1f} s into the "
@@ -5261,6 +5910,10 @@ def main() -> None:
     ap.add_argument("--phase19", action="store_true",
                     help="build the kernels and run phase 19 alone (the "
                          "VLM and enc-dec families); prints no result line")
+    ap.add_argument("--phase20", action="store_true",
+                    help="build the kernels and run phase 20 alone (MoE "
+                         "training, qwen3-32b, gemma3-27b and minitron-4b); "
+                         "prints no result line")
     args = ap.parse_args()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5306,6 +5959,11 @@ def main() -> None:
     if args.phase19:
         print(json.dumps({"kernels": phase19(dev, args.seed, card,
                                              serve_gate(dev))}))
+        print(card)
+        return
+    if args.phase20:
+        print(json.dumps({"kernels": phase20(dev, args.seed, card,
+                                             serve_gate(dev))[0]}))
         print(card)
         return
     starts(t_run, "2")
@@ -5508,7 +6166,7 @@ def main() -> None:
           f"layers, full width; {card})")
     print(f"[14 dense] {check_dense_no_sync(serve, dev)}")
     dprof = profile_device(dense["device"], serve, dev, dense=True,
-                           tag="(14e)")
+                           tag="(14e)", whole=False)
     print(f"[14 dense] (e) profiler over a dense round of "
           f"{dprof['rsteps']} steps and its gate call: {dprof['counts']}, "
           f"exact on try {len(dprof['tries'])} of at most {PROFILE_TRIES} "
@@ -5520,8 +6178,8 @@ def main() -> None:
           f"{dprof['tokens']} tokens in {dprof['seconds']:.4f} s, "
           f"{dprof['tokens'] / dprof['seconds']:.1f} tokens/s, "
           f"{dprof['ms_step']:.4f} ms per step run ({dprof['steps']} steps); "
-          f"device {dprof['busy_ms_step']:.4f} ms a step (profiler: "
-          f"{dprof['by']}), idle {dprof['idle']:.3f}; first wave with the "
+          f"device {dprof['busy_ms_step']:.4f} ms a step (profiler, a "
+          f"round: {dprof['by']}), idle {dprof['idle']:.3f}; first wave with the "
           f"capture {dev_tok / dense['device_s']:.1f} tokens/s; host "
           f"batcher: {host_tok / dense['host_s']:.1f} tokens/s, "
           f"{dense['host_s'] / host.steps * 1e3:.4f} ms per step "
@@ -5595,6 +6253,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     starts(t_run, "19")
     rows += phase19(dev, args.seed, card, gate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    starts(t_run, "20")
+    rows20, moe_row["train_launches"] = phase20(dev, args.seed, card, gate)
+    rows += rows20
     starts(t_run, "the result")
     print(json.dumps({"kernels": rows}))
     print(card)

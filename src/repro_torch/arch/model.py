@@ -82,8 +82,9 @@ through ``nn.attention.cross_decode_attention`` (plain torch, the JAX
 einsums' roundings).  The paged cache refuses enc-dec, as in the JAX
 package.
 
-Not ported yet: MoE training on the card (``ops.moe_down_combine``
-carries no gradient there; ROADMAP queue A item 9).
+MoE training takes the dense dispatch through ``ops.moe_down_combine``
+with a gradient (the kernel's forward, the JAX VJP of its two einsums as
+``torch.bmm`` in the backward).
 """
 from __future__ import annotations
 

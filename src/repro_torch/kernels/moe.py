@@ -28,21 +28,26 @@ card from ``combine`` alone; ``plan`` reckons the same list on the host,
 for tests and reports.  An expert whose combine weight is 0 adds nothing,
 which is the plain version's bits for every finite product (ROADMAP
 C.10).
+
+With a gradient (training) the forward is the same launch and the
+backward is ``moe_down_combine_backward``: the JAX VJP of the two einsums
+as ``torch.bmm`` over the experts, from the launch's scratch ``ys``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 from ._launch import stream_ptr
-from .ref import moe_down_combine_ref
+from .ref import (moe_combine_ref, moe_down_combine_ref,
+                  moe_expert_out_ref)
 
-__all__ = ["moe_down_combine", "moe_down_combine_bytes", "plan",
-           "item_width"]
+__all__ = ["moe_down_combine", "moe_down_combine_backward",
+           "moe_down_combine_bytes", "plan", "item_width"]
 
 launches = 0  # kernel launches; the main-path check reads and resets it
 
@@ -178,26 +183,18 @@ def _weight_maps(lib, w: torch.Tensor) -> ctypes.Array:
     return maps
 
 
-def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
-                     combine: torch.Tensor) -> torch.Tensor:
-    """``h [M, E, F]``, ``w_down [E, F, D]``, ``combine [M, E]`` bf16 ->
-    ``[M, D]`` bf16: the kernel for CUDA tensors (one launch, after the
-    counters' zeroing), the plain version for CPU tensors."""
+def _launch(h: torch.Tensor, w_down: torch.Tensor,
+            combine: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch: ``(out [M, D], ys [M, E, D])`` bf16, ``ys`` the
+    kernel's scratch of each routed pair's ``y`` (the others unwritten)."""
     global launches
-    if h.device.type == "cpu":
-        return moe_down_combine_ref(h, w_down, combine)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (h, w_down, combine)):
-        raise NotImplementedError(
-            "moe_down_combine carries no gradient on the card: MoE training "
-            "on the card is ROADMAP queue A item 9")
     _check(h, w_down, combine)
     M, E, F = h.shape
     D = w_down.shape[2]
     out = torch.empty((M, D), dtype=torch.bfloat16, device=h.device)
-    if M == 0:
-        return out
     ys = torch.empty((M, E, D), dtype=torch.bfloat16, device=h.device)
+    if M == 0:
+        return out, ys
     # the next item, then the columns done in each 128-column tile
     counters = torch.zeros(1 + -(-D // TD), dtype=torch.int32,
                            device=h.device)
@@ -209,4 +206,69 @@ def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
     _build.check(lib, err, f"moe_down_combine (h {tuple(h.shape)}, w_down "
                  f"{tuple(w_down.shape)})")
     launches += 1
-    return out
+    return out, ys
+
+
+def moe_down_combine_backward(h: torch.Tensor, w_down: torch.Tensor,
+                              combine: torch.Tensor, y: torch.Tensor,
+                              dy: torch.Tensor, needs=(True, True, True)
+                              ) -> Tuple[Optional[torch.Tensor], ...]:
+    """``(dh, dw_down, dcombine)`` for the cotangent ``dy [M, D]`` bf16:
+    the JAX VJP of ``src/repro/nn/moe.py:76-78``'s two einsums in their
+    roundings, as ``torch.bmm`` over the experts (XLA's dots, no Pallas
+    kernel, as ``linear.linear_backward``).  ``d_eo[m, e] = bf16(dy[m] *
+    c[m, e])``; ``dh[m, e] = bf16(d_eo[m, e] @ W_down[e]^T)``;
+    ``dW_down[e] = bf16(sum_m h[m, e]^T d_eo[m, e])``; ``dc[m, e] =
+    bf16(<y[m, e], dy[m]>)`` on the routed pairs, 0 where ``c`` is 0 (the
+    forward never formed that ``y``, ROADMAP C.10; the router reads only
+    the routed pairs' ``dc``).  ``y [M, E, D]`` is the forward's bf16
+    expert outputs; ``needs`` picks the gradients computed."""
+    d_eo = (dy[:, None, :] * combine[:, :, None]).transpose(0, 1)  # [E, M, D]
+    dh = dw = dc = None
+    if needs[0]:
+        dh = torch.bmm(d_eo, w_down.transpose(1, 2)).transpose(0, 1)
+    if needs[1]:
+        dw = torch.bmm(h.permute(1, 2, 0), d_eo)
+    if needs[2]:
+        dc = torch.bmm(y, dy[:, :, None])[:, :, 0]
+        dc = torch.where(combine != 0, dc, torch.zeros_like(dc))
+    return dh, dw, dc
+
+
+class _DownCombine(torch.autograd.Function):
+    """``moe_down_combine`` with a gradient: the forward is the kernel's
+    one launch (the plain version on the CPU), bitwise what the call
+    without a gradient gives; it keeps the launch's ``ys`` (the routed
+    pairs' bf16 ``y``, M x E x D x 2 bytes) for the backward, which so
+    recomputes nothing; the backward is ``moe_down_combine_backward``."""
+
+    @staticmethod
+    def forward(ctx, h, w_down, combine):
+        if h.device.type == "cpu":
+            y = moe_expert_out_ref(h, w_down)
+            out = moe_combine_ref(y, combine)
+        else:
+            out, y = _launch(h, w_down, combine)
+        ctx.save_for_backward(h, w_down, combine, y)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w_down, combine, y = ctx.saved_tensors
+        return moe_down_combine_backward(h, w_down, combine, y, dy,
+                                         ctx.needs_input_grad)
+
+
+def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
+                     combine: torch.Tensor) -> torch.Tensor:
+    """``h [M, E, F]``, ``w_down [E, F, D]``, ``combine [M, E]`` bf16 ->
+    ``[M, D]`` bf16: the kernel for CUDA tensors (one launch, after the
+    counters' zeroing), the plain version for CPU tensors.  Where autograd
+    records (grad mode on and an input requiring grad), the call carries
+    a gradient (``_DownCombine``); the forward is the same launch."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h, w_down, combine)):
+        return _DownCombine.apply(h, w_down, combine)
+    if h.device.type == "cpu":
+        return moe_down_combine_ref(h, w_down, combine)
+    return _launch(h, w_down, combine)[0]

@@ -27,7 +27,8 @@ __all__ = ["bucketize_ref", "ternary_match_ref", "pack_codes_ref",
            "fused_eb_ref", "lb_lookup_ref", "LB_EPILOGUES", "popcount32",
            "bnn_popcount_matmul_ref", "bnn_pack_input_ref", "BNN_EPILOGUES",
            "pack_bits_ref", "paged_attention_ref", "linear_ref",
-           "moe_down_combine_ref", "as_i32"]
+           "moe_down_combine_ref", "moe_expert_out_ref", "moe_combine_ref",
+           "as_i32"]
 
 
 def as_i32(x: int) -> int:
@@ -299,15 +300,27 @@ def moe_down_combine_ref(h: torch.Tensor, w_down: torch.Tensor,
     ``out[m]`` is ``out + y[m, e] * combine[m, e]`` for e = 0, 1, ...,
     E-1.  Each product of two bf16 values is exact in float32, so every
     step rounds once.  Each row's result depends on that row alone."""
+    return moe_combine_ref(moe_expert_out_ref(h, w_down), combine)
+
+
+def moe_expert_out_ref(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """``y [M, E, D]`` bf16 of ``moe_down_combine_ref``: each ``y[m, e]``
+    the F-ascending float32 sum rounded once."""
     M, E, F = h.shape
-    D = w_down.shape[2]
     wf = w_down.float()
-    y = torch.zeros((M, E, D), dtype=torch.float32, device=h.device)
+    y = torch.zeros((M, E, w_down.shape[2]), dtype=torch.float32,
+                    device=h.device)
     for f in range(F):  # y + h * w: the product is exact, one rounding
         y.addcmul_(h[:, :, f, None].float(), wf[None, :, f])
-    y = y.to(torch.bfloat16).float()
-    cf = combine.float()
-    out = torch.zeros((M, D), dtype=torch.float32, device=h.device)
+    return y.to(torch.bfloat16)
+
+
+def moe_combine_ref(y: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
+    """``out [M, D]`` bf16 of ``moe_down_combine_ref`` from its ``y``: the
+    experts added in ascending order in float32, rounded once."""
+    M, E, D = y.shape
+    yf, cf = y.float(), combine.float()
+    out = torch.zeros((M, D), dtype=torch.float32, device=y.device)
     for e in range(E):
-        out.add_(y[:, e] * cf[:, e, None])
+        out.add_(yf[:, e] * cf[:, e, None])
     return out.to(torch.bfloat16)

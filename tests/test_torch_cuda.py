@@ -1269,12 +1269,129 @@ def test_cuda_moe_down_combine_refuses_what_it_does_not_take(cuda_device):
     h, w, c = moe_case(0, 4, 4, 32, 16, 4, 2, dev=cuda_device)
     with pytest.raises(TypeError, match="bf16"):
         ops.moe_down_combine(h.float(), w, c)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ops.moe_down_combine(h, w.requires_grad_(True), c)
+    with pytest.raises(TypeError, match="bf16"):  # with a gradient too
+        ops.moe_down_combine(h.float(), w.requires_grad_(True), c)
     h, w, c = moe_case(0, 4, 12, 32, 16, 12, 2, dev=cuda_device)
     with pytest.raises(ValueError, match="E a multiple of 8"):
         ops.moe_down_combine(h, w, c)
     assert ops.launch_counts()["moe_down_combine"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", MOE_ROWS)
+def test_cuda_moe_down_combine_gradient_equals_autograd_of_plain(cuda_device,
+                                                                 M):
+    """With a gradient, at qwen2-moe's widths: the forward one launch,
+    bitwise the plain version; given the same cotangent, ``dh``,
+    ``dW_down`` and the routed pairs' ``dcombine`` (the backward's
+    ``torch.bmm`` products) within 0.03 of the largest magnitude of
+    autograd's through ``ref.moe_down_combine_ref`` (bf16 products summed
+    in other orders; phase 20 (b)'s bound), and ``dcombine`` 0 off the
+    routed pairs."""
+    h, w, c = moe_case(M + 40, M, **MOE_DIMS, dev=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(M)
+    dy = torch.randn((M, MOE_DIMS["D"]), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    a = [t.clone().requires_grad_(True) for t in (h, w, c)]
+    ops.reset_launch_counts()
+    out = ops.moe_down_combine(*a)
+    assert ops.launch_counts()["moe_down_combine"] == 1
+    out.backward(dy)
+    assert ops.launch_counts()["moe_down_combine"] == 1
+    b = [t.clone().requires_grad_(True) for t in (h, w, c)]
+    want = ref.moe_down_combine_ref(*b)
+    want.backward(dy)
+    assert torch.equal(out, want)
+    routed = c != 0
+    for x, y, pick in ((a[0], b[0], None), (a[1], b[1], None),
+                       (a[2], b[2], routed)):
+        assert x.grad.dtype == torch.bfloat16 and x.grad.shape == x.shape
+        gx, gy = x.grad.float(), y.grad.float()
+        if pick is not None:
+            assert (gx[~pick] == 0).all()
+            gx, gy = gx[pick], gy[pick]
+        if gy.numel():  # M = 1: combine_case's last row picks nothing
+            assert (gx - gy).abs().max() <= 0.03 * gy.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"])
+def test_cuda_moe_train_step_launches_its_kernels(cuda_device, arch):
+    """One train step of the MoE smoke config on the card (the dense
+    dispatch): ``linear`` launched exactly microbatches x (2 x products
+    a layer x layers + 1) and ``moe_down_combine`` microbatches x 2 x
+    layers (the forward and ``"full"`` remat's recomputation; its
+    backward is ``torch.bmm``), no other kernel; every updated master
+    finite; the loss within 5e-3 relative of the same step on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, map_leaves
+
+    cfg = get_smoke_config(arch)
+    tcfg = TrainConfig(microbatches=2, q_block=32)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0))
+    batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+    per_layer = 4 + 2 * bool(cfg.n_shared_experts)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        params, state = init_train_state(cfg, tcfg, 0, "cpu")
+        params = map_leaves(lambda l: [p.to(dev) for p in l.parts], params)
+        state = map_leaves(lambda l: [p.to(dev) for p in l.parts], state)
+        ops.reset_launch_counts()
+        params, state, loss = make_train_step(cfg, tcfg)(
+            params, state, {k: v.to(dev) for k, v in batch.items()})
+        losses[str(dev)] = float(loss)
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        if dev != "cpu":
+            assert counts == {
+                "linear": 2 * (2 * per_layer * cfg.n_layers + 1),
+                "moe_down_combine": 2 * 2 * cfg.n_layers}, counts
+            assert all(torch.isfinite(p).all() for leaf in leaves(params)
+                       for p in leaf.parts)
+    cpu, card = losses["cpu"], losses[str(cuda_device)]
+    assert abs(card - cpu) <= 5e-3 * abs(cpu), losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV", [(24, 8), (64, 8), (3, 1)])
+@pytest.mark.parametrize("C", [1, 8])
+def test_cuda_paged_attention_at_three_and_eight_heads_a_kv_head(
+        cuda_device, H, KV, C):
+    """minitron-4b's 3 query heads a KV head (24 on 8, and its smoke
+    config's 3 on 1) and qwen3-32b's 8 (64 on 8), hd 128: within one bf16
+    ulp of the plain version, with and without its window of 13."""
+    q, k, v, tbl, pos, _, _ = _pa_case(cuda_device, H + C, 3, C, H, KV, 128,
+                                       16, 8, False)
+    for window in (0, 13):
+        got = ops.paged_attention(q, k, v, tbl, pos, window)
+        want = ref.paged_attention_ref(q, k, v, tbl, pos, window)
+        ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_window_1024_over_a_ring_of_2048(cuda_device):
+    """gemma3-27b's local layers: a window of 1,024 over a ring of 2,048
+    cells (hd 128, 32 query heads on 16 KV heads), positions below and
+    past the wrap: within one bf16 ulp of the plain version, and, where a
+    row has passed 1,024 positions, other values than the same launch
+    with no window (the window hides cells)."""
+    S = 2048
+    q, k, v, tbl, _, _ = _ring_case(cuda_device, 11, 4, S, False, H=32,
+                                    KV=16, hd=128)
+    for p0 in (1100, 1500, S + 5, 2 * S + 1000):
+        pos = torch.tensor([[p0], [p0 + 1], [p0 + 300], [p0 + 900]],
+                           dtype=torch.int32, device=cuda_device)
+        got = ops.paged_attention(q, k, v, tbl, pos, 1024, ring=True)
+        want = ref.paged_attention_ref(q, k, v, tbl, pos, 1024, ring=True)
+        ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= ulp, p0
+        full = ops.paged_attention(q, k, v, tbl, pos, 0, ring=True)
+        assert not torch.equal(got, full), p0
 
 
 @pytest.mark.cuda

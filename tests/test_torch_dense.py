@@ -2,8 +2,11 @@
 CPU: ``arch.model.decode_step``, ``ServeEngine.step`` / ``generate``, and
 both batchers in dense mode.
 
-Smoke configs ``qwen2-1.5b-smoke`` (global attention) and
-``gemma3-27b-smoke`` (``local_window`` 8 on five of its six layers); the
+Smoke configs ``qwen2-1.5b-smoke`` (global attention),
+``gemma3-27b-smoke`` (``local_window`` 8 on five of its six layers),
+``qwen3-32b-smoke`` (``qk_norm`` with no window, 2 query heads a KV head)
+and ``minitron-4b-smoke`` (3 query heads on one KV head, an odd count);
+the
 JAX package's random-init weights, and where a test starts mid-run its
 decode state, are carried across with ``arch.convert``.
 
@@ -52,6 +55,10 @@ from test_torch_serve import (DS, LOGIT_TOL, _engine,  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 QWEN, GEMMA = "qwen2-1.5b", "gemma3-27b"
+# the dense configs held against the JAX package besides qwen2's, each a
+# case of the decode, generate, batcher and paged == dense tests
+NEW_ARCHS = ("qwen3-32b", "minitron-4b")
+_MODELS = {}
 DEADLINE = 3.0  # seconds of the ticking clock: request 3 expires mid-run
 
 
@@ -63,15 +70,33 @@ def gemma():
                                   get_smoke_config(GEMMA), "cpu")
 
 
-def _dense(both, gate=True, batch=4, cache_len=32, **kw):
+def _arch(both, arch=QWEN):
+    """(JAX params, port params, JAX gate, port gate, arch) of ``arch``'s
+    smoke config: qwen2's are ``both``; another arch's JAX random-init
+    weights (key 0) carried across, beside ``both``'s gates."""
+    if arch == QWEN:
+        return (*both, QWEN)
+    if arch not in _MODELS:
+        jp = JM.init_params(jax_smoke(arch), jax.random.PRNGKey(0))
+        _MODELS[arch] = (jp, params_from_arrays(
+            jax.tree.map(np.asarray, jp), get_smoke_config(arch), "cpu"))
+    return (*_MODELS[arch], both[2], both[3], arch)
+
+
+def _dense(both, gate=True, batch=4, cache_len=32, arch=QWEN, **kw):
     """A port engine over the dense cache (no page_size)."""
-    return _engine(both, gate=gate, batch=batch, cache_len=cache_len,
-                   page_size=0, **kw)
+    if arch == QWEN:
+        return _engine(both, gate=gate, batch=batch, cache_len=cache_len,
+                       page_size=0, **kw)
+    _, tp, _, tg, _ = _arch(both, arch)
+    return TE.ServeEngine(get_smoke_config(arch), tp, TE.ServeConfig(
+        max_batch=batch, cache_len=cache_len, **kw),
+        gate=tg if gate else None, device="cpu")
 
 
-def _jax_dense(both, batch=4, cache_len=32, **kw):
-    jp, _, jg, _ = both
-    return JE.ServeEngine(jax_smoke(QWEN), jp, JE.ServeConfig(
+def _jax_dense(both, batch=4, cache_len=32, arch=QWEN, **kw):
+    jp, _, jg, _, _ = _arch(both, arch)
+    return JE.ServeEngine(jax_smoke(arch), jp, JE.ServeConfig(
         max_batch=batch, cache_len=cache_len, **kw), gate=jg)
 
 
@@ -95,14 +120,17 @@ def _check_logits(lt: np.ndarray, lj: np.ndarray) -> None:
 
 
 # ------------------------------------------------------------ the model
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("gqa_impl", ["repeat", "grouped"])
-def test_decode_step_matches_jax(both, kv_dtype, gqa_impl):
+@pytest.mark.parametrize("arch,gqa_impl,kv_dtype", [
+    pytest.param(QWEN, g, k, id=f"{g}-{k}")
+    for g in ("repeat", "grouped") for k in ("bf16", "int8")] + [
+    pytest.param(a, g, k, id=f"{a}-{g}-{k}") for a in NEW_ARCHS
+    for g, k in (("repeat", "bf16"), ("grouped", "int8"))])
+def test_decode_step_matches_jax(both, arch, kv_dtype, gqa_impl):
     """Teacher-forced steps from pos 0 past the ring's wrap (cache 16, 24
-    steps) on qwen2-1.5b's smoke config: the logits of every step within
+    steps) on ``arch``'s smoke config: the logits of every step within
     the tolerance, greedy equal beyond the near-tie margin."""
-    jp, tp, _, _ = both
-    jcfg, cfg = jax_smoke(QWEN), get_smoke_config(QWEN)
+    jp, tp, _, _, _ = _arch(both, arch)
+    jcfg, cfg = jax_smoke(arch), get_smoke_config(arch)
     toks = np.random.default_rng(5).integers(1, 97, (2, 24)).astype(np.int32)
     js = JM.init_decode_state(jcfg, 2, 16, kv_dtype=kv_dtype)
     ts = TM.init_decode_state(cfg, 2, 16, kv_dtype=kv_dtype, device="cpu")
@@ -312,19 +340,21 @@ def test_generate_shapes_determinism_and_nonblocking(both):
         eng.generate(np.ones((3, 2)), 2)
 
 
-def test_generate_matches_jax(both):
+@pytest.mark.parametrize("arch", [QWEN, *NEW_ARCHS])
+def test_generate_matches_jax(both, arch):
     """JAX ``ServeEngine.generate`` vs the port's on the same prompts (12
     generated tokens from 3-token prompts, cache 8: past the wrap): each
     slot's stream equal up to its first JAX near tie, from the JAX
     model's logits along its own stream (the smoke model's top-2 margins
-    are often within the bound, so 14 of the 48 tokens are compared)."""
-    jp, _, _, _ = both
-    jcfg = jax_smoke(QWEN)
+    are often within the bound: on qwen2's, 14 of the 48 tokens are
+    compared)."""
+    jp, _, _, _, _ = _arch(both, arch)
+    jcfg = jax_smoke(arch)
     prompts = np.random.default_rng(2).integers(1, 97, (4, 3))
-    je = _jax_dense(both, cache_len=8)
+    je = _jax_dense(both, cache_len=8, arch=arch)
     want = np.asarray(je.generate(prompts, 12, features=DS.X_test[:4]))
-    got = _dense(both, cache_len=8).generate(prompts, 12,
-                                             features=DS.X_test[:4])
+    got = _dense(both, cache_len=8, arch=arch).generate(
+        prompts, 12, features=DS.X_test[:4])
     seqs = np.concatenate([prompts, want], 1).astype(np.int32)
     js = JM.init_decode_state(jcfg, 4, 8)
     step = jax.jit(lambda p, s, t: JM.decode_step(p, s, t, jcfg))
@@ -358,34 +388,43 @@ def _record_steps(jcb):
     return log
 
 
-def _comparable(log, done) -> dict:
-    """Per request, its stream's leading tokens that come before the
-    first JAX near tie of its slot (any earlier request of the slot
-    included)."""
-    tie = {}
-    upto = {r: 0 for r in done}
-    for t, (reqs, lg) in enumerate(log):
+def _compared(log, want, got) -> int:
+    """Walk the JAX run's steps: each live slot's token of the step is
+    compared while its slot has not diverged; the first token that
+    differs must come where the JAX top-2 margin is a near tie, and ends
+    the comparison of that slot (its later requests see its cells).
+    Returns the tokens found equal."""
+    diverged, at = set(), {r: 0 for r in want}
+    compared = 0
+    for reqs, lg in log:
         near = _top2_margin(lg) <= _near_tie_bound(lg)
         for b, r in enumerate(reqs):
-            if r is None:
+            if r is None or r not in at:
                 continue
-            if near[b]:
-                tie.setdefault(b, t)
-            if b not in tie and r in upto:
-                upto[r] += 1
-    return upto
+            i = at[r]
+            at[r] += 1
+            if b in diverged:
+                continue
+            if got[r][i] == want[r][i]:
+                compared += 1
+            else:
+                assert near[b], (r, i)
+                diverged.add(b)
+    return compared
 
 
-def test_dense_host_batcher_matches_jax(both):
+@pytest.mark.parametrize("arch", [QWEN, *NEW_ARCHS])
+def test_dense_host_batcher_matches_jax(both, arch):
     """JAX ``ContinuousBatcher`` (dense) vs the port's, 10 single-token
     requests with gate features through 4 slots, cache 8 (the global
-    position wraps): drops, reasons, steps and drains equal; each stream
-    equal to the JAX package's up to the first near tie of its slot."""
-    jcb = JE.ContinuousBatcher(_jax_dense(both, cache_len=8), eos_token=-1,
-                               max_tokens=6)
+    position wraps): drops, reasons, steps and drains equal; each slot's
+    streams equal to the JAX package's until a token that differs where
+    the JAX top-2 margin is a near tie (``_compared``)."""
+    jcb = JE.ContinuousBatcher(_jax_dense(both, cache_len=8, arch=arch),
+                               eos_token=-1, max_tokens=6)
     log = _record_steps(jcb)
-    tcb = TE.ContinuousBatcher(_dense(both, cache_len=8), eos_token=-1,
-                               max_tokens=6)
+    tcb = TE.ContinuousBatcher(_dense(both, cache_len=8, arch=arch),
+                               eos_token=-1, max_tokens=6)
     dj, dt = _workload(jcb), _workload(tcb)
     assert tcb.dropped == jcb.dropped and tcb.drop_reasons == jcb.drop_reasons
     assert sorted(dt) == sorted(dj) and len(dj) >= 4
@@ -393,24 +432,23 @@ def test_dense_host_batcher_matches_jax(both):
                                                   for r, t in dj.items()}
     assert tcb.max_live == jcb.max_live and tcb._drains == jcb._drains
     assert len(log) == jcb._drains > 8
-    compared = 0
-    for rid, n in _comparable(log, dj).items():
-        assert dt[rid][:n] == dj[rid][:n], (rid, n)
-        compared += n
-    assert compared >= 8, compared  # 11 of the 36 on this workload
+    compared = _compared(log, dj, dt)
+    assert compared >= 8, compared  # all 36 on this workload, each arch
 
 
 # --------------------------------------------------- port vs itself
-def _host(both, cfg=None, **kw):
-    return TE.ContinuousBatcher(_dense(both, **kw.pop("engine_kw", {})),
+def _host(both, cfg=None, arch=QWEN, **kw):
+    return TE.ContinuousBatcher(_dense(both, arch=arch,
+                                       **kw.pop("engine_kw", {})),
                                 eos_token=kw.pop("eos", -1),
                                 max_tokens=kw.pop("max_tokens", 4), **kw)
 
 
-def _device(both, sync_every=3, **kw):
+def _device(both, sync_every=3, arch=QWEN, **kw):
     return TE.DeviceContinuousBatcher(
-        _dense(both, **kw.pop("engine_kw", {})), eos_token=kw.pop("eos", -1),
-        max_tokens=kw.pop("max_tokens", 4), sync_every=sync_every, **kw)
+        _dense(both, arch=arch, **kw.pop("engine_kw", {})),
+        eos_token=kw.pop("eos", -1), max_tokens=kw.pop("max_tokens", 4),
+        sync_every=sync_every, **kw)
 
 
 def test_host_batcher_drains_queue(both):
@@ -424,13 +462,15 @@ def test_host_batcher_drains_queue(both):
     assert cb.pool is None and int(cb.engine.state["pos"]) == cb.steps
 
 
-@pytest.mark.parametrize("sampled", [False, True])
-def test_device_equals_host(both, sampled):
+@pytest.mark.parametrize("arch,sampled", [
+    pytest.param(QWEN, False, id="False"), pytest.param(QWEN, True, id="True")]
+    + [pytest.param(a, False, id=f"{a}-False") for a in NEW_ARCHS])
+def test_device_equals_host(both, arch, sampled):
     """Streams, drops, reasons, steps with work and the global position
     bitwise equal, greedy and sampled (temperature 2, top-k 40)."""
     kw = dict(temperature=2.0, top_k=40) if sampled else {}
-    host = _host(both, engine_kw=kw)
-    dev = _device(both, engine_kw=kw)
+    host = _host(both, arch=arch, engine_kw=kw)
+    dev = _device(both, arch=arch, engine_kw=kw)
     done_h, done_d = _workload(host), _workload(dev)
     assert done_d == done_h and len(done_h) >= 4
     assert dev.dropped == host.dropped
@@ -533,14 +573,18 @@ def test_multi_wave_reuses_the_cache(both):
     assert fresh.run(max_steps=100) != second
 
 
-@pytest.mark.parametrize("batcher", ["device", "host"])
-def test_paged_decode_bit_identical_to_dense(both, batcher):
+@pytest.mark.parametrize("arch,batcher", [
+    pytest.param(QWEN, b, id=b) for b in ("device", "host")] + [
+    pytest.param(a, b, id=f"{a}-{b}") for a in NEW_ARCHS
+    for b in ("device", "host")])
+def test_paged_decode_bit_identical_to_dense(both, arch, batcher):
     """One wave, every slot admitted at step 0, single-token prompts:
     paged decode bitwise equal to the dense ring cache
     (``tests/test_serve.py`` ``test_paged_decode_bit_identical_to_dense``)."""
     out = []
     for page_size in (0, 8):
-        eng = _engine(both, page_size=page_size)
+        eng = (_engine(both, page_size=page_size) if arch == QWEN else
+               _dense(both, arch=arch, page_size=page_size))
         cb = (TE.DeviceContinuousBatcher(eng, eos_token=-1, max_tokens=5,
                                          sync_every=3)
               if batcher == "device" else

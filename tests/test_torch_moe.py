@@ -31,6 +31,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.arch import model as JM  # noqa: E402
+from repro.ckpt.manager import _flatten as jax_flatten  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.nn import moe as JMoE  # noqa: E402
 from repro_torch.arch import model as TM  # noqa: E402
@@ -41,12 +42,15 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.nn import moe as TMoE  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 from test_torch_serve import (DS, LOGIT_TOL, _near_tie_bound,  # noqa: E402
                               _top2_margin)
+from test_torch_train import GRAD_TOL, LOSS_RTOL  # noqa: E402
 
 ARCHS = ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"]
 OUT_TOL = 0.03
 AUX_RTOL = 1e-5
+DRAWS = 6  # token draws of the training test, default_rng(0 .. 5), 2 x 16
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -124,7 +128,8 @@ class _Routing:
 
         def route(x, router, n_experts, top_k):
             out = real_route(x, router, n_experts, top_k)
-            logits = ref.linear_ref(x, router.to(x.dtype)).float()
+            with torch.no_grad():
+                logits = ref.linear_ref(x, router.to(x.dtype)).float()
             top = logits[..., :n_experts].sort(-1, descending=True).values
             gap = (top[..., top_k - 1] - top[..., top_k]).numpy()
             bound = 2 * LOGIT_TOL * logits[..., :n_experts].abs().amax(-1)
@@ -134,20 +139,51 @@ class _Routing:
 
         monkeypatch.setattr(TMoE, "route", route)
 
-    def flips(self, shape, valid=None) -> np.ndarray:
+    def flips(self, shape, valid=None, remat=False, taint=None,
+              ties=False) -> np.ndarray:
         """The tokens (``shape``; only the ``valid`` ones) routed otherwise
         than in JAX in some layer of the calls recorded since the last
-        call, each a routing near tie."""
+        call, each a routing near tie.  ``remat``: the calls were a
+        gradient's, each layer recomputed in the backward (the JAX layers
+        in order, the port's last to first); each recomputation must
+        route as its forward did, and the forward's calls are compared.
+        ``taint``: the calls were one forward's layers in order, and a
+        flip changes what later layers see beyond a rounding, so only a
+        token not yet reached by an earlier layer's flip must be a near
+        tie: ``"row"`` (the dense dispatch) a flipped token's causal
+        future in its row, ``"batch"`` (the capacity dispatch, where a
+        token's buffer slot depends on every earlier token) every later
+        token of the batch.  ``ties``: a token whose k-th and (k+1)-th
+        router logits are equal in the port counts as flipped whatever
+        JAX recorded (the JAX block breaks an exact tie otherwise under
+        autodiff or jit than its eager forward, which the recorder
+        runs)."""
         jax.effects_barrier()
         js = [i for _, i in sorted(self.jax, key=lambda e: e[0])]
+        if remat:
+            assert len(js) == len(self.port) and len(js) % 2 == 0
+            n = len(js) // 2
+            assert all(np.array_equal(a, b) for a, b in zip(js[::2],
+                                                            js[1::2]))
+            assert all(np.array_equal(a[0], b[0]) for a, b in zip(
+                self.port[:n], reversed(self.port[n:])))
+            js, self.port[:] = js[::2], self.port[:n]
         assert len(js) == len(self.port) > 0
         valid = np.ones(shape, bool) if valid is None else valid
         flip = np.zeros(shape, bool)
         for ji, (ti, gap, bound) in zip(js, self.port):
             k = ti.shape[-1]
-            diff = ((ji.reshape(-1, k) != ti.reshape(-1, k)).any(-1)
-                    & valid.reshape(-1))
-            assert (gap.reshape(-1)[diff] <= bound.reshape(-1)[diff]).all()
+            diff = (ji.reshape(-1, k) != ti.reshape(-1, k)).any(-1)
+            if ties:
+                diff |= gap.reshape(-1) == 0
+            diff &= valid.reshape(-1)
+            if taint == "row":
+                first = diff & _before_first_flip(flip).reshape(-1)
+            elif taint == "batch":
+                first = diff & (np.cumsum(flip.reshape(-1)) == 0)
+            else:
+                first = diff
+            assert (gap.reshape(-1)[first] <= bound.reshape(-1)[first]).all()
             flip |= diff.reshape(shape)
         self.jax.clear()
         self.port.clear()
@@ -359,6 +395,56 @@ def test_forward_and_aux_match_jax(moe, moe_impl, monkeypatch):
     assert abs(float(ta) - float(ja)) <= 1e-3 * abs(float(ja)) + slack
     if not flip.any():
         assert abs(float(tloss) - float(jloss)) <= 1e-3 * abs(float(jloss))
+
+
+@pytest.mark.parametrize("moe_impl", ["dense", "sparse"])
+def test_loss_and_gradients_match_jax(moe, moe_impl, monkeypatch):
+    """MoE training: ``loss_fn`` and the gradient of every master leaf
+    (the dense dispatch's through ``moe_down_combine``'s backward) against
+    the JAX package's jitted ``value_and_grad``, on DRAWS fixed token
+    draws, the routing of both recorded in the gradient's own forward
+    (an exact tie of the port's router logits counted as a flip).  A
+    draw with no routing flip: the loss within ``LOSS_RTOL`` and each
+    leaf within ``GRAD_TOL`` of the JAX leaf's largest magnitude (as
+    ``test_torch_train.py``).  A draw with a flip (each a near tie): the
+    loss within ``LOSS_RTOL`` plus the aux term's flip slack of
+    ``test_forward_and_aux_match_jax`` (``MOE_AUX_WEIGHT`` x flips x
+    layers x 2 E / N), and no gradient bound (a flipped token's expert
+    and its whole causal future change).  The draws are not picked: at
+    least one must be free of flips, or the test fails."""
+    _, jcfg, cfg, jp, npt, _ = moe
+    routing = _Routing(monkeypatch, npt)
+    jgrad = jax.jit(jax.value_and_grad(lambda p, t: JM.loss_fn(
+        p, {"tokens": t}, jcfg, moe_impl=moe_impl, q_block=16)))
+    E, L = cfg.n_experts_padded, cfg.n_layers
+    clean = 0
+    for seed in range(DRAWS):
+        tokens = np.random.default_rng(seed).integers(0, 256, (2, 16)).astype(
+            np.int32)
+        jl, jg = jgrad(jp, jnp.asarray(tokens))
+        masters = master_params_from_arrays(npt, cfg, "cpu")
+        for leaf in leaves(masters):
+            for p in leaf.parts:
+                p.requires_grad_(True)
+        tl = TM.loss_fn(masters, {"tokens": torch.from_numpy(tokens)}, cfg,
+                        moe_impl=moe_impl, q_block=16)
+        tl.backward()
+        flip = routing.flips(tokens.shape, remat=True, ties=True,
+                             taint="row" if moe_impl == "dense" else "batch")
+        slack = TM.MOE_AUX_WEIGHT * flip.sum() * L * 2 * E / tokens.size
+        err = abs(tl.item() - float(jl))
+        assert err <= LOSS_RTOL * abs(float(jl)) + slack, (seed, err)
+        if flip.any():
+            continue
+        clean += 1
+        tg = {leaf.key: np.stack([p.grad.numpy() for p in leaf.parts])
+              if leaf.stacked else leaf.parts[0].grad.numpy()
+              for leaf in leaves(masters)}
+        for k, want in jax_flatten(jg).items():
+            assert tg[k].shape == want.shape, k
+            gerr = np.abs(tg[k] - want).max()
+            assert gerr <= GRAD_TOL * np.abs(want).max(), (seed, k, gerr)
+    assert clean > 0, f"every one of the {DRAWS} draws has a routing flip"
 
 
 def test_params_round_trip_through_convert(moe):

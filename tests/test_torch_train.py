@@ -251,13 +251,18 @@ def test_compression_error_feedback_unbiased():
 
 
 # -------------------------------------------------------- loss and grads
-@pytest.mark.parametrize("vocab", [256, 250])
-def test_loss_and_gradients_match_jax(vocab):
-    """``loss_fn`` and the gradient of every master leaf.  Vocab 250 pads
-    to 256: the six padded columns of the head enter the log-softmax and
-    the z-loss, as in the JAX package, and get gradients."""
-    jcfg = dataclasses.replace(jax_smoke(ARCH), vocab_size=vocab)
-    tcfg = dataclasses.replace(CFG, vocab_size=vocab)
+@pytest.mark.parametrize("arch,vocab", [
+    pytest.param(ARCH, 256, id="256"), pytest.param(ARCH, 250, id="250"),
+    pytest.param("qwen3-32b", 256, id="qwen3-32b"),
+    pytest.param("minitron-4b", 256, id="minitron-4b")])
+def test_loss_and_gradients_match_jax(arch, vocab):
+    """``loss_fn`` and the gradient of every master leaf, on qwen2-1.5b's
+    smoke config and on qwen3-32b's (``qk_norm``) and minitron-4b's (3
+    query heads on one KV head).  Vocab 250 pads to 256: the six padded
+    columns of the head enter the log-softmax and the z-loss, as in the
+    JAX package, and get gradients."""
+    jcfg = dataclasses.replace(jax_smoke(arch), vocab_size=vocab)
+    tcfg = dataclasses.replace(get_smoke_config(arch), vocab_size=vocab)
     jp, tp = _jax_masters(0, (jcfg, tcfg))
     tokens = np.random.default_rng(3).integers(0, vocab, (4, 32)).astype(
         np.int32)
