@@ -267,9 +267,9 @@ Phases, in order; the first failure exits non-zero:
    and w_out, the sLSTM's w_gates and w_out, the head); (e)
    ``repro_torch.launch.train`` on xlstm-125m at ``examples/
    train_lm.py``'s settings (8 x 128 tokens, 2 microbatches, lr 3e-3, a
-   checkpoint) for 20 steps at full width, its depth cut to 4 layers (two
-   macros): the loss improves, ``linear`` launched exactly
-   20 x 2 x (2 x 10 + 1) times and nothing else, the checkpoint's keys
+   checkpoint) for 20 steps at full width, its depth cut to 2 layers (one
+   macro): the loss improves, ``linear`` launched exactly
+   20 x 2 x (2 x 5 + 1) times and nothing else, the checkpoint's keys
    the JAX package's ``_flatten`` keys of the same tree (built from the
    JAX init functions' leaf names); at 2 layers (one macro, full width,
    as phase 15 (b) cuts qwen2) kernel vs plain, and a witness, within
@@ -345,14 +345,36 @@ Phases, in order; the first failure exits non-zero:
    output moved by its window; six JSON rows: ``linear`` at each model's
    dense step and ``paged_attention`` at 8:1 (qwen3-32b), 3:1
    (minitron-4b) and 2:1 past gemma3-27b's window.
+21. elastic training, after every earlier model is freed: (a)
+   ``remat_policy="dots"`` at qwen2-1.5b's published width and depth and
+   the launcher's defaults (8 x 64 tokens, 2 microbatches): one step's
+   loss and every gradient bitwise ``"full"``'s on the kernel path, 6
+   steps of each bitwise, ``linear`` launched exactly 2 x (2 x 4 x 28 +
+   1) = 450 a step under ``"full"`` and 2 x (4 x 28 + 1) = 226 under
+   ``"dots"`` (the backward launches no product), at 4 layers ``"dots"``
+   kernel vs plain within phase 15's 2e-3 / 0.03; ms a step (median of
+   steps 2-5) and peak memory of both; (b) ``tests/test_elastic.py``'s
+   drill at xlstm-125m's width, 2 of its 12 layers, 8 x 128 tokens in 2
+   microbatches: ``slow:1:9.0:5@1, corrupt:manifest@6, lost:2@7`` over 4
+   workers of 2 logical chips on the card (model parallel 2), 12 steps,
+   checkpoints every 3: segments init / straggler / host-loss, 2 workers
+   left, the fallback counted, ``linear`` launched exactly the executed
+   steps x 22, both recovered segments bitwise their ``replay``; then
+   ``launch.train --elastic --fault-plan preempt@4``: the drained
+   checkpoint, the warm restart, every step; seconds a segment and the
+   bytes of a checkpoint; (c) the GPipe step (``dist.pipeline``) at
+   qwen2-1.5b's width, 4 layers in 2 stages, 4 microbatches: ``linear``
+   exactly 4 x 17, the loss within 1e-6 relative of ``loss_fn``'s over the
+   same microbatches and every gradient within 1e-5 of its largest
+   magnitude; ms a step of both.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
 printed on the first line beside the card; the float32 lanes are twice
 as many).  ``--phase17`` builds the kernels and runs phase 17 alone, a
-quick MoE run that prints no result line; ``--phase18``, ``--phase19``
-and ``--phase20`` the same for phases 18, 19 and 20.  Each phase prints
-how far into the run it starts.
+quick MoE run that prints no result line; ``--phase18``, ``--phase19``,
+``--phase20`` and ``--phase21`` the same for phases 18, 19, 20 and 21.
+Each phase prints how far into the run it starts.
 
 Its last three lines are the kernels JSON (phases 18-20's
 ``paged_attention`` and ``linear`` rows last, each with its ``cell``), the
@@ -2931,6 +2953,7 @@ def drive_train(dev, seed: int) -> Dict[str, Any]:
     out = io.StringIO()
     torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2953,7 +2976,7 @@ def drive_train(dev, seed: int) -> Dict[str, Any]:
     torch.cuda.empty_cache()
     lo, hi = TRAIN_TIMED
     return dict(cfg=cfg, losses=losses, step_ms=step_ms, counts=counts,
-                peak=peak, last=lines[-1], seconds=seconds,
+                peak=peak, before=before, last=lines[-1], seconds=seconds,
                 ms=statistics.median(step_ms[lo:hi]))
 
 
@@ -2989,7 +3012,8 @@ def step_grads(cfg, tcfg, params, batch, with_loss: bool = False):
     acc, total = None, 0.0
     for i in range(n):
         mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-        loss = M.loss_fn(masters, mb, cfg, q_block=tcfg.q_block)
+        loss = M.loss_fn(masters, mb, cfg, q_block=tcfg.q_block,
+                         remat_policy=tcfg.remat_policy)
         gs = torch.autograd.grad(loss, [p for _, p in flat],
                                  allow_unused=True)
         for g, (key, _) in zip(gs, flat):
@@ -4041,10 +4065,11 @@ def phase17(dev, seed: int, card: str) -> tuple:
 HYBRID_ARCH, XLSTM_ARCH = "recurrentgemma-9b", "xlstm-125m"
 REC_ARCHS = (HYBRID_ARCH, XLSTM_ARCH)
 # (e): examples/train_lm.py's settings: 8 x 128 tokens in 2 microbatches,
-# lr 3e-3; 20 steps of the launcher at REC_TRAIN_LAYERS (two macros, full
+# lr 3e-3; 20 steps of the launcher at REC_TRAIN_LAYERS (one macro, full
 # width): the full 12 layers took 105 s of the run's limit (5.1-5.3 s a
-# step, the sLSTM's host loop)
-REC_TRAIN_LAYERS = 4
+# step, the sLSTM's host loop), 4 layers 35.4 s on a slow host, when phase
+# 21's elastic drill trains the same macro again
+REC_TRAIN_LAYERS = 2
 REC_TRAIN_STEPS, REC_TRAIN_BATCH, REC_TRAIN_SEQ, REC_TRAIN_MICRO = (
     20, 8, 128, 2)
 REC_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--batch", "8", "--seq", "128",
@@ -4613,12 +4638,12 @@ def jax_ckpt_keys(cfg) -> set:
 def drive_rec_train(dev, seed: int, ckpt_dir: Path) -> Dict[str, Any]:
     """(e) ``repro_torch.launch.train.main`` with REC_TRAIN_ARGS and a
     checkpoint directory, the wrapper counts reset just before and read
-    just after, at REC_TRAIN_LAYERS: 12 finite losses whose last five's
-    mean is below the first five's, ``linear`` launched exactly 12 x 2 x
-    (2 x 10 + 1) times (each layer's products in the forward and in its
+    just after, at REC_TRAIN_LAYERS: 20 finite losses whose last five's
+    mean is below the first five's, ``linear`` launched exactly 20 x 2 x
+    (2 x 5 + 1) times (each layer's products in the forward and in its
     recomputation, the head once) and nothing else; the final
     checkpoint's keys those of ``jax_ckpt_keys``, its stacked leaves
-    ``[2, ...]``."""
+    ``[1, ...]`` (one macro)."""
     import io
     import shutil
 
@@ -5891,6 +5916,406 @@ def phase20(dev, seed: int, card: str, gate) -> tuple:
     return rows, tr["counts"]["moe_down_combine"]
 
 
+# ------------------------------------------------------------ phase 21
+DOTS_TIMED = (2, 6)  # (a): steps whose median wall time is a step's
+# (a)/(c): kernel vs plain and the pipeline at full width, depth cut, as
+# phase 15 (b) cuts qwen2
+PHASE21_CUT = 4
+# (b): xlstm-125m at full width, one macro (mLSTM + sLSTM) of its 12
+# layers: its checkpoint with the moments is about 1 GB (qwen2-1.5b's about
+# 6 GB at one layer); train_lm's 8 x 128 tokens in 2 microbatches, lr 3e-3
+DRILL_LAYERS = 2
+DRILL_STEPS, DRILL_CKPT_EVERY = 12, 3
+DRILL_PLAN = "slow:1:9.0:5@1, corrupt:manifest@6, lost:2@7"
+DRILL_FLEET = dict(n_workers=4, model_parallel=2, chips_per_host=2)
+PREEMPT_STEPS = 6  # (b): the launcher's --elastic run under "preempt@4"
+# (c): the GPipe step against loss_fn's microbatches, fixed before any run:
+# the same launches on the same rows give each microbatch's loss bitwise,
+# summed in the same order (the loss within PIPE_LOSS_RTOL), and the
+# microbatches' float32 gradient contributions meet at the masters in
+# another order (each leaf within PIPE_GRAD_TOL of its largest magnitude)
+PIPE_STAGES, PIPE_MICRO = 2, 4
+PIPE_LOSS_RTOL = 1e-6
+PIPE_GRAD_TOL = 1e-5
+
+
+def dots_step_launches(cfg, policy: str) -> int:
+    """``linear`` launches of one launcher step, fixed from the code: per
+    microbatch each layer's four products and the head in the forward;
+    ``"full"`` launches the layers' products again when it recomputes
+    them, ``"dots"`` saves their outputs (``arch.model._dots_policy``)."""
+    fwd = 4 * cfg.n_layers + 1
+    return TRAIN_MICRO * (fwd + (4 * cfg.n_layers if policy == "full"
+                                 else 0))
+
+
+def timed_steps(cfg, tcfg, dev, seed: int, n: int) -> Dict[str, Any]:
+    """``n`` launcher steps from ``seed``'s masters (phase 15 (a)'s run
+    without the launcher), the counts reset just before the first step
+    and read just after the last: wall ms a step (host clock, each step
+    ending in its loss's read), the losses, the counts, and the peak
+    memory over what was allocated before the masters were made."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state, make_train_step
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state = init_train_state(cfg, tcfg, seed, dev)
+    batches = train_batches(cfg, dev, seed, n)
+    step = make_train_step(cfg, tcfg)
+    ops.reset_launch_counts()
+    ms, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, b)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, state, step
+    torch.cuda.empty_cache()
+    lo, hi = DOTS_TIMED
+    return dict(step_ms=ms, ms=statistics.median(ms[lo:hi]), counts=counts,
+                peak=peak, before=before, losses=losses)
+
+
+def check_dots(dev, seed: int, full=None) -> Dict[str, Any]:
+    """(a) ``remat_policy="dots"`` at qwen2-1.5b's published width and depth,
+    the launcher's defaults: one step's loss and every gradient bitwise
+    ``"full"``'s on the kernel path; DOTS_TIMED[1] steps of each policy,
+    the losses bitwise and the ``linear`` launches a step exactly
+    ``dots_step_launches``; at PHASE21_CUT layers one step's loss and
+    gradients under ``"dots"`` through the kernel and the plain products
+    within phase 15's TRAIN_LOSS_RTOL and LOGIT_TOL.  ``full`` is phase 15
+    (a)'s launcher run (the same steps from the same masters, its launches
+    counted exactly there), read in place of a ``"full"`` run of its own
+    (the full run's room)."""
+    from repro_torch.train import init_train_state
+
+    cfg, tcfg_full = train_config()
+    batch = train_batches(cfg, dev, seed, 1)[0]
+    params = init_train_state(cfg, tcfg_full, seed, dev)[0]
+    got = {}
+    for policy in ("full", "dots"):
+        tcfg = dataclasses.replace(tcfg_full, remat_policy=policy)
+        got[policy] = step_grads(cfg, tcfg, params, batch, with_loss=True)
+    (gf, lf), (gd, ld) = got["full"], got["dots"]
+    if ld != lf:
+        fail(f"(21a) the dots loss {ld!r} is not the full loss {lf!r}")
+    for key in gf:
+        if not all(torch.equal(a, b) for a, b in zip(gf[key], gd[key])):
+            fail(f"(21a) the dots gradient of {key} is not the full one's")
+    n_leaves = len(gf)
+    del params, got, gf, gd
+    torch.cuda.empty_cache()
+    runs = {}
+    if full is not None:
+        lo, hi = DOTS_TIMED
+        n = len(full["losses"])
+        runs["full"] = dict(
+            full, ms=statistics.median(full["step_ms"][lo:hi]),
+            counts={k: v * DOTS_TIMED[1] // n
+                    for k, v in full["counts"].items()},
+            losses=full["losses"][:DOTS_TIMED[1]])
+    for policy in ("full", "dots"):
+        if policy in runs:
+            continue
+        tcfg = dataclasses.replace(tcfg_full, remat_policy=policy)
+        runs[policy] = timed_steps(cfg, tcfg, dev, seed, DOTS_TIMED[1])
+    for policy in ("full", "dots"):
+        want = {"linear": DOTS_TIMED[1] * dots_step_launches(cfg, policy)}
+        if runs[policy]["counts"] != want:
+            fail(f"(21a) {policy}: launched {runs[policy]['counts']}, "
+                 f"expected {want}")
+    if runs["full"]["losses"] != runs["dots"]["losses"]:
+        fail(f"(21a) the trajectories differ: full {runs['full']['losses']}"
+             f" dots {runs['dots']['losses']}")
+    # kernel vs plain at PHASE21_CUT layers under "dots"
+    cut, tcut = train_config(PHASE21_CUT)
+    tcut = dataclasses.replace(tcut, remat_policy="dots")
+    masters = init_train_state(cut, tcut, seed, dev)[0]
+    kernel = step_grads(cut, tcut, masters, batch, with_loss=True)
+    with plain_products():
+        plain = step_grads(cut, tcut, masters, batch, with_loss=True)
+    rel = abs(kernel[1] - plain[1]) / abs(plain[1])
+    if not rel <= TRAIN_LOSS_RTOL:
+        fail(f"(21a) {PHASE21_CUT} layers: loss kernel {kernel[1]} vs plain "
+             f"{plain[1]}: {rel} past {TRAIN_LOSS_RTOL}")
+    worst = 0.0
+    for key, parts in plain[0].items():
+        ref_max = max(p.abs().max().item() for p in parts)
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(kernel[0][key], parts))
+        if not err <= LOGIT_TOL * ref_max:
+            fail(f"(21a) {PHASE21_CUT} layers: gradient {key} {err} past "
+                 f"{LOGIT_TOL} x {ref_max}")
+        worst = max(worst, err / ref_max if ref_max else 0.0)
+    del masters, kernel, plain
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, runs=runs, n_leaves=n_leaves, loss=lf, rel=rel,
+                worst=worst)
+
+
+def drill_config():
+    """xlstm-125m at full width, depth DRILL_LAYERS, train_lm's settings
+    (phase 18 (e)'s TrainConfig over DRILL_STEPS)."""
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg, _ = rec_train_config(DRILL_LAYERS)
+    return cfg, TrainConfig(
+        microbatches=REC_TRAIN_MICRO, q_block=min(512, REC_TRAIN_SEQ),
+        adamw=AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=DRILL_STEPS))
+
+
+def check_drill(dev, seed: int) -> Dict[str, Any]:
+    """(b) ``tests/test_elastic.py``'s drill on the card at xlstm-125m's
+    width: DRILL_PLAN over DRILL_FLEET (logical chips on the card), the
+    counts reset just before the run and read just after: segments init,
+    straggler, host-loss; DRILL_STEPS steps completed, 2 workers left, the
+    fallback past the corrupted manifest counted; ``linear`` launched
+    exactly the executed steps x 2 x (2 x 5 + 1) and nothing else; every
+    recovered segment's losses bitwise its ``replay``'s."""
+    import shutil
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.dist.elastic import TrainFaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Metrics
+    from repro_torch.train.elastic import ElasticTrainer
+
+    cfg, tcfg = drill_config()
+    ckpt = ROOT / "build" / "phase21_drill"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=REC_TRAIN_SEQ,
+        global_batch=REC_TRAIN_BATCH, seed=seed))
+    metrics, log = Metrics(), []
+    trainer = ElasticTrainer(
+        cfg, tcfg, pipe, CheckpointManager(str(ckpt), keep=0),
+        steps=DRILL_STEPS, plan=TrainFaultPlan.parse(DRILL_PLAN),
+        min_strikes=3, ckpt_every=DRILL_CKPT_EVERY, seed=seed,
+        metrics=metrics, log=log.append, device=dev, **DRILL_FLEET)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = trainer.run()
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    causes = [s.cause for s in res.segments]
+    counters = metrics.snapshot()["counters"]
+    if (causes != ["init", "straggler", "host-loss"] or not res.completed
+            or res.steps_completed != DRILL_STEPS
+            or len(res.workers_final) != 2
+            or counters.get("train.ckpt_fallback") != 1
+            or counters.get("train.straggler_evicted") != 1):
+        fail(f"(21b) the drill gave segments {causes}, "
+             f"{res.steps_completed} steps, workers {res.workers_final}, "
+             f"counters {counters}; log {log}")
+    fwd = step_products(cfg) - 1
+    want = {"linear": res.executed_steps * REC_TRAIN_MICRO * (2 * fwd + 1)}
+    if counts != want:
+        fail(f"(21b) the drill launched {counts}, expected {want}")
+    if not np.isfinite(res.losses).all():
+        fail(f"(21b) losses {res.losses}")
+    replays = []
+    for seg in res.segments[1:]:
+        t1 = time.perf_counter()
+        ref = trainer.replay(seg.ckpt_step, seg.device_ids, seg.mesh_shape,
+                             seg.n_steps)
+        if ref != seg.losses:
+            fail(f"(21b) the {seg.cause} segment's losses {seg.losses} are "
+                 f"not its replay's {ref}")
+        replays.append(time.perf_counter() - t1)
+    step_dir = ckpt / f"step_{DRILL_CKPT_EVERY:09d}"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(cfg=cfg, res=res, counts=counts, counters=counters,
+                seconds=seconds, replays=replays, ckpt_bytes=ckpt_bytes)
+
+
+def check_preempt_launcher(dev, seed: int) -> Dict[str, Any]:
+    """(b) ``repro_torch.launch.train --elastic`` on (b)'s model under
+    ``preempt@4``: a real SIGTERM through the handler at the boundary after
+    step 4, the drained checkpoint, a warm restart on the same mesh, and
+    every step completed."""
+    import io
+    import shutil
+
+    from repro_torch.launch import train
+
+    snap = ROOT / "build" / "phase21_snap"
+    shutil.rmtree(snap, ignore_errors=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main([
+            "--arch", XLSTM_ARCH, "--layers", str(DRILL_LAYERS), "--batch",
+            str(REC_TRAIN_BATCH), "--seq", str(REC_TRAIN_SEQ),
+            "--microbatches", str(REC_TRAIN_MICRO), "--lr", "3e-3",
+            "--steps", str(PREEMPT_STEPS), "--seed", str(seed),
+            "--elastic", "--workers", "4", "--model-parallel", "2",
+            "--chips-per-host", "2", "--ckpt-every", str(PREEMPT_STEPS + 1),
+            "--fault-plan", "preempt@4", "--snapshot-dir", str(snap)])
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    want = ["segment 0 (init): steps 0..5 on mesh 4x2",
+            f"segment 1 (preempt): steps 5..{PREEMPT_STEPS} on mesh 4x2",
+            f"elastic run: {PREEMPT_STEPS}/{PREEMPT_STEPS} steps, "
+            f"{PREEMPT_STEPS} executed, workers 4 -> 4"]
+    if (not all(w in lines for w in want) or len(losses) != PREEMPT_STEPS
+            or not np.isfinite(losses).all()):
+        fail(f"(21b) launch.train --elastic under preempt@4 printed {lines}")
+    shutil.rmtree(snap, ignore_errors=True)
+    return dict(seconds=seconds, lines=[ln for ln in lines
+                                        if ln.startswith(("segment",
+                                                          "elastic"))])
+
+
+def check_pipeline(dev, seed: int) -> Dict[str, Any]:
+    """(c) the GPipe step at qwen2-1.5b's width, PHASE21_CUT layers,
+    PIPE_STAGES stages and PIPE_MICRO microbatches on the launcher's first
+    batch, the counts reset just before and read just after: ``linear``
+    launched exactly PIPE_MICRO x (4 x layers + 1) times; the loss within
+    PIPE_LOSS_RTOL of the mean of ``loss_fn`` over the same microbatches
+    and every gradient within PIPE_GRAD_TOL of its largest magnitude; ms a
+    step of both."""
+    from repro_torch.dist import pipeline as PP
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import init_train_state
+    from repro_torch.tree import leaves
+
+    cfg, tcfg = train_config(PHASE21_CUT)
+    masters = init_train_state(cfg, tcfg, seed, dev)[0]
+    batch = train_batches(cfg, dev, seed, 1)[0]
+    mesh = make_production_mesh(multi_pod=True, chips=512, device=dev)
+    step, _ = PP.make_pipeline_step(
+        cfg, mesh, SH.param_pspecs(masters, mesh), n_stages=PIPE_STAGES,
+        n_micro=PIPE_MICRO, q_block=tcfg.q_block)
+    staged = PP.split_layers_for_stages(masters, PIPE_STAGES)
+    ops.reset_launch_counts()
+    loss, grads = step(staged, batch)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {"linear": PIPE_MICRO * (4 * cfg.n_layers + 1)}
+    if counts != want:
+        fail(f"(21c) the pipeline step launched {counts}, expected {want}")
+    ref_tcfg = dataclasses.replace(tcfg, microbatches=PIPE_MICRO)
+    ref, ref_loss = step_grads(cfg, ref_tcfg, masters, batch, with_loss=True)
+    rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+    if not rel <= PIPE_LOSS_RTOL:
+        fail(f"(21c) pipeline loss {float(loss)} vs loss_fn {ref_loss}: "
+             f"{rel} past {PIPE_LOSS_RTOL}")
+    got: Dict[str, list] = collections.defaultdict(list)
+    for leaf in leaves(grads):  # stage after stage, under the layers' keys
+        key = leaf.key
+        if key.startswith("stages/"):
+            key = "layers/" + key.split("/", 2)[2]
+        got[key].extend(leaf.parts)
+    worst = 0.0
+    for key, parts in ref.items():
+        ref_max = max(p.abs().max().item() for p in parts)
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(got[key], parts))
+        if len(got[key]) != len(parts) or not err <= PIPE_GRAD_TOL * ref_max:
+            fail(f"(21c) pipeline gradient {key}: {err} past "
+                 f"{PIPE_GRAD_TOL} x {ref_max}")
+        worst = max(worst, err / ref_max if ref_max else 0.0)
+    ms = {}
+    for name, fn in (("pipeline", lambda: step(staged, batch)),
+                     ("loss_fn", lambda: step_grads(cfg, ref_tcfg, masters,
+                                                     batch))):
+        fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize(dev)
+        ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+    del masters, staged, grads, ref
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, loss=float(loss), ref_loss=ref_loss, rel=rel,
+                worst=worst, counts=counts, ms=ms)
+
+
+def phase21(dev, seed: int, card: str, full=None) -> None:
+    """Phase 21: ``remat_policy="dots"`` (a), the elastic drill and the
+    launcher's ``--elastic`` (b), the GPipe step (c); every check a hard
+    failure.  ``full``: phase 15 (a)'s run, for (a)'s ``"full"`` side."""
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    a = check_dots(dev, seed, full)
+    cfg, runs = a["cfg"], a["runs"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[21 a dots] qwen2-1.5b at full width and depth ({cfg.n_layers} "
+          f"layers), the launcher's defaults ({TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, {TRAIN_MICRO} microbatches): one step's loss "
+          f"{a['loss']!r} and all {a['n_leaves']} gradient leaves under "
+          f"\"dots\" bitwise \"full\"'s; {DOTS_TIMED[1]} steps each, the "
+          f"trajectories bitwise; linear launches a step: full "
+          f"{runs['full']['counts']['linear'] // DOTS_TIMED[1]}, dots "
+          f"{runs['dots']['counts']['linear'] // DOTS_TIMED[1]} (exact); "
+          f"at {PHASE21_CUT} layers dots kernel vs plain: loss relative "
+          f"{a['rel']:.3e} (limit {TRAIN_LOSS_RTOL}), worst gradient "
+          f"{a['worst']:.4f} of max|g_plain| (limit {LOGIT_TOL}) "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    src = ("phase 15 (a)'s launcher run" if full is not None
+           else "its own run")
+    mem = {k: (r["peak"] - r["before"]) / 2**30 for k, r in runs.items()}
+    print(f"[21 a dots timing] ms a step (median of steps {DOTS_TIMED[0]}-"
+          f"{DOTS_TIMED[1] - 1}, host clock): full {runs['full']['ms']:.4f} "
+          f"({tokens / runs['full']['ms'] * 1e3:.1f} tokens/s; {src}), dots "
+          f"{runs['dots']['ms']:.4f} ({tokens / runs['dots']['ms'] * 1e3:.1f}"
+          f" tokens/s); peak memory over the run's start (masters, moments, "
+          f"copies, activations): full {mem['full']:.2f} GiB, dots "
+          f"{mem['dots']:.2f} GiB (max_memory_allocated) ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b = check_drill(dev, seed)
+    res, dcfg = b["res"], b["cfg"]
+    segs = "; ".join(
+        f"{s.cause} from {s.ckpt_step} at step {s.start}, mesh "
+        f"{s.mesh_shape[0]}x{s.mesh_shape[1]} chips {s.device_ids}, "
+        f"{s.n_steps} steps in {s.seconds:.2f} s" for s in res.segments)
+    print(f"[21 b elastic] xlstm-125m at full width (d {dcfg.d_model}, vocab "
+          f"{dcfg.vocab_padded}), {dcfg.n_layers} of 12 layers, "
+          f"{REC_TRAIN_BATCH} x {REC_TRAIN_SEQ} tokens in {REC_TRAIN_MICRO} "
+          f"microbatches, plan {DRILL_PLAN!r}, {DRILL_FLEET}: {segs}; "
+          f"{res.steps_completed}/{DRILL_STEPS} steps ({res.executed_steps} "
+          f"executed), workers 4 -> {res.workers_final}, counters "
+          f"{b['counters']}; wrapper launches {b['counts']} (exact); both "
+          f"recovered segments bitwise their replays ("
+          f"{', '.join(f'{x:.2f}' for x in b['replays'])} s); a checkpoint "
+          f"{b['ckpt_bytes']} bytes; the run "
+          f"{b['seconds']:.2f} s ({time.perf_counter() - t0:.1f} s; {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre = check_preempt_launcher(dev, seed)
+    print(f"[21 b elastic] launch.train --elastic --fault-plan preempt@4 "
+          f"(4 workers of 2 chips, model parallel 2): {pre['lines']} "
+          f"({pre['seconds']:.1f} s; {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = check_pipeline(dev, seed)
+    print(f"[21 c pipeline] GPipe step, qwen2-1.5b at full width, "
+          f"{c['cfg'].n_layers} layers in {PIPE_STAGES} stages, "
+          f"{PIPE_MICRO} microbatches of the launcher's first batch: loss "
+          f"{c['loss']!r} vs loss_fn {c['ref_loss']!r} (relative "
+          f"{c['rel']:.3e}, limit {PIPE_LOSS_RTOL}), worst gradient "
+          f"{c['worst']:.3e} of max|g| (limit {PIPE_GRAD_TOL}); wrapper "
+          f"launches {c['counts']} (exact); ms a step (host clock, mean of "
+          f"3): pipeline {c['ms']['pipeline']:.4f}, loss_fn's microbatches "
+          f"{c['ms']['loss_fn']:.4f} ({time.perf_counter() - t0:.1f} s; "
+          f"{card})")
+    print(f"[21] phase 21 in {time.perf_counter() - t_all:.1f} s ({card})")
+
+
 def starts(t_run: float, phase: str) -> None:
     """Print how far into the run ``phase`` starts (the run's budget)."""
     print(f"[{phase}] starts {time.perf_counter() - t_run:.1f} s into the "
@@ -5914,6 +6339,10 @@ def main() -> None:
                     help="build the kernels and run phase 20 alone (MoE "
                          "training, qwen3-32b, gemma3-27b and minitron-4b); "
                          "prints no result line")
+    ap.add_argument("--phase21", action="store_true",
+                    help="build the kernels and run phase 21 alone (the "
+                         "dots remat policy, the elastic drill and the "
+                         "GPipe step); prints no result line")
     args = ap.parse_args()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5964,6 +6393,10 @@ def main() -> None:
     if args.phase20:
         print(json.dumps({"kernels": phase20(dev, args.seed, card,
                                              serve_gate(dev))[0]}))
+        print(card)
+        return
+    if args.phase21:
+        phase21(dev, args.seed, card)
         print(card)
         return
     starts(t_run, "2")
@@ -6191,6 +6624,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     starts(t_run, "15")
     tr = drive_train(dev, args.seed)
+    tr_full = {k: tr[k] for k in ("step_ms", "losses", "counts", "peak",
+                                  "before")}  # phase 21 (a)'s "full" side
     tcfg = tr["cfg"]
     print(f"[15 train] (a) repro_torch.launch.train at its defaults: "
           f"qwen2-1.5b at full width and depth ({tcfg.n_layers} layers, d "
@@ -6258,6 +6693,10 @@ def main() -> None:
     starts(t_run, "20")
     rows20, moe_row["train_launches"] = phase20(dev, args.seed, card, gate)
     rows += rows20
+    gc.collect()
+    torch.cuda.empty_cache()
+    starts(t_run, "21")
+    phase21(dev, args.seed, card, tr_full)
     starts(t_run, "the result")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -19,9 +19,10 @@ A config with a ``block_pattern`` keeps the JAX package's layout:
 (a stack: the JAX leaf is ``[n_macro, ...]``) and ``params["tail"]`` a
 list of the ``n_tail`` remainder layers (indexed: the JAX package keeps it
 an unstacked list).  ``forward`` runs the macros in order, recomputing each
-macro in the backward under ``"full"`` remat (``jax.checkpoint`` around
-the JAX package's scanned macro body), then the tail; every attention
-layer of a macro or the tail uses ``local_window``.  The recurrent mixers
+macro in the backward under ``"full"`` or ``"dots"`` remat
+(``jax.checkpoint`` around the JAX package's scanned macro body), then
+the tail; every attention layer of a macro or the tail uses
+``local_window``.  The recurrent mixers
 are ``nn.recurrent``'s.  The decode state holds, beside ``pos``, one entry
 a pattern position (``m{i}_kv``, ``m{i}_rglru``, ``m{i}_mlstm``,
 ``m{i}_slstm``, stacked over the macros) and one a tail layer
@@ -94,10 +95,12 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.linear import DOTS_OP
 from ..nn import attention as A
 from ..nn import recurrent as R
 from ..nn.attn_backend import PagedKV
@@ -109,7 +112,7 @@ from .config import ArchConfig
 Params = Dict[str, Any]
 COMPUTE_DTYPE = torch.bfloat16
 MOE_AUX_WEIGHT = 0.01
-REMAT_POLICIES = ("full", "none")  # "dots": ROADMAP queue A item 13
+REMAT_POLICIES = ("full", "dots", "none")
 
 __all__ = ["COMPUTE_DTYPE", "FLOAT32_LEAVES", "layer_windows",
            "macro_pattern", "init_params", "compute_params", "forward",
@@ -438,6 +441,28 @@ def _layer(lp: Params, cfg: ArchConfig, window: int, positions, q_block: int,
     return _ffn(lp, cfg, x, moe_impl, with_aux=True)
 
 
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``"dots"``: save the products' outputs (``ops.linear`` /
+    ``linear_group``, the operator ``DOTS_OP``: JAX's
+    ``dots_with_no_batch_dims_saveable`` saves exactly these), recompute
+    everything else (attention's and the recurrences' batched einsums,
+    ``moe_down_combine``, the elementwise work)."""
+    return (CheckpointPolicy.MUST_SAVE if op is DOTS_OP
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, remat_policy: str, x: torch.Tensor):
+    """``body(x)`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``): all of it under ``"full"``, all but the
+    products' outputs under ``"dots"`` (a selective-checkpoint policy)."""
+    if remat_policy == "dots":
+        return checkpoint(body, x, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    return checkpoint(body, x, use_reentrant=False)
+
+
 def _macro(lps, pat, cfg: ArchConfig, positions, q_block: int, rope,
            moe_impl: str, mlstm_chunk: int, x: torch.Tensor):
     """One macro block: the pattern's layers in order -> (x, aux or
@@ -461,9 +486,11 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     gradient to them) or compute copies (``compute_params(..., train=
     True)``, used as they are).  ``remat_policy="full"`` recomputes each
     layer in the backward (``torch.utils.checkpoint``, non-reentrant), as
-    ``jax.checkpoint`` around the JAX package's scanned layer; ``"none"``
-    keeps every activation; ``"dots"`` (save the products' outputs) is not
-    ported (ROADMAP queue A item 13).  ``moe_impl`` picks the MoE block
+    ``jax.checkpoint`` around the JAX package's scanned layer; ``"dots"``
+    saves the products' outputs and recomputes the rest (``_remat``: the
+    backward launches no product again, and the loss and every gradient
+    are bitwise ``"full"``'s, the products being row-invariant); ``"none"``
+    keeps every activation.  ``moe_impl`` picks the MoE block
     (``"dense"``, or ``"sparse"``: the capacity dispatch); the aux loss is
     the MoE layers' summed in layer order (0 for the dense family).
     ``mlstm_chunk`` is the mLSTM's chunk width (0: ``MLSTM_CHUNK``);
@@ -477,18 +504,14 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     if cfg.family == "encdec":
         return _encdec_forward(params, batch, cfg, q_block)
     if remat_policy not in REMAT_POLICIES:
-        if remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' (save the products' outputs) is not "
-                "ported: ROADMAP queue A item 13")
-        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES} or "
-                         f"'dots', got {remat_policy!r}")
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {remat_policy!r}")
     p = compute_params(params, train=True)
     x = _embed_inputs(p, cfg, batch)
     B, S, _ = x.shape
     pos = _positions(B, S, x.device)
     rope = _rope(cfg, pos)
-    remat = remat_policy == "full" and torch.is_grad_enabled()
+    remat = remat_policy != "none" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_pattern:
         pat, n_macro, _ = macro_pattern(cfg)
@@ -509,7 +532,7 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         tail = []
     for i, body in enumerate(bodies + tail):
         if remat and i < len(bodies):  # the JAX tail runs outside remat
-            x, a = checkpoint(body, x, use_reentrant=False)
+            x, a = _remat(body, remat_policy, x)
         else:
             x, a = body(x)
         if a is not None:

@@ -32,7 +32,9 @@ Async mode snapshots to host memory and writes on a background thread so
 the training loop never blocks on storage; a failed background write
 surfaces as :class:`CheckpointWriteError` (naming the failing step) on
 the *next* ``save``/``wait`` call and never poisons subsequent saves.
-Restoring onto a mesh (``shardings=``) is ROADMAP queue A item 10.
+``restore(..., shardings=)`` restores onto a mesh (``dist.sharding``),
+which may be another than the one the checkpoint was written under: the
+elastic restart path.
 """
 from __future__ import annotations
 
@@ -91,14 +93,22 @@ def _flatten(tree) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     return flat, dtypes
 
 
-def _restore_like(arr: np.ndarray, dtype_name: str, like):
+def _restore_like(arr: np.ndarray, dtype_name: str, like, sharding=None):
     """A stored array in the form of the target leaf ``like``: a tensor of
-    its dtype on its device, or an array of its dtype."""
+    its dtype on its device, or an array of its dtype.  With ``sharding``
+    (a ``dist.sharding.NamedSharding``) the leaf is validated against it
+    and becomes a tensor on its mesh's device (of the target's dtype, or
+    the stored one for a target that is no tensor)."""
     arr = arr if arr.flags.c_contiguous else arr.copy()
     if dtype_name == BF16 or (arr.dtype.kind == "V" and arr.itemsize == 2):
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = None
+    if sharding is not None:
+        sharding.check(arr.shape)
+        t = torch.from_numpy(arr) if t is None else t
+        dtype = like.dtype if isinstance(like, torch.Tensor) else t.dtype
+        return t.to(device=sharding.device, dtype=dtype)
     if isinstance(like, torch.Tensor):
         if t is None:
             t = torch.from_numpy(arr)
@@ -315,13 +325,17 @@ class CheckpointManager:
                 shardings: Any = None) -> Any:
         """Restore into the structure of ``target_tree``: each leaf in its
         target's dtype and on its device, a stacked leaf split into the
-        target's layers; the shapes must match.  ``shardings`` (restore
-        onto a mesh) is ROADMAP queue A item 10."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto a mesh (shardings=) is not ported: ROADMAP "
-                "queue A item 10")
+        target's layers; the shapes must match.
+
+        ``shardings`` (a tree of ``dist.sharding.NamedSharding`` mirroring
+        the target, e.g. ``param_shardings``) restores onto a mesh: each
+        tensor is validated against its sharding and placed on the
+        sharding's mesh device, which may come from another mesh than the
+        one the checkpoint was written under (the elastic restart path).
+        """
         manifest, data = self._load_verified(step)
+        placed = ({leaf.key: leaf.parts for leaf in leaves(shardings)}
+                  if shardings is not None else None)
 
         def one(leaf):
             if leaf.key not in data:
@@ -333,8 +347,14 @@ class CheckpointManager:
                                  f"{arr.shape} vs {leaf.shape}")
             name = manifest["leaves"][leaf.key]["dtype"]
             parts = list(arr) if leaf.stacked else [arr]
-            return [_restore_like(a, name, like)
-                    for a, like in zip(parts, leaf.parts)]
+            shs = [None] * len(parts)
+            if placed is not None:
+                shs = placed.get(leaf.key)
+                if shs is None or len(shs) != len(parts):
+                    raise ValueError(f"shardings do not mirror the target "
+                                     f"at {leaf.key}")
+            return [_restore_like(a, name, like, sh)
+                    for a, like, sh in zip(parts, leaf.parts, shs)]
 
         with data:
             return map_leaves(one, target_tree)

@@ -12,7 +12,7 @@ from typing import List, Union
 
 import torch
 
-__all__ = ["resolve_device", "card_info"]
+__all__ = ["resolve_device", "device_count", "card_info"]
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -33,6 +33,12 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
                            f"{cap[1]}; the kernels are built for sm_90a "
                            "(Hopper)")
     return dev
+
+
+def device_count(device: torch.device) -> int:
+    """The physical devices of ``device``'s type in this process: the
+    cards on ``cuda``, 1 on the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def card_info() -> List[str]:

@@ -23,7 +23,7 @@ any row's sums.  ``linear_group`` computes up to three products of one
 output is bitwise its lone launch.
 
 The trainer's forward products are the same launches.  Their gradient
-(``linear_backward``, through a ``torch.autograd.Function``) is two
+(``linear_backward``, through the registered operator ``DOTS_OP``) is two
 ``torch.matmul`` calls a product: JAX transposes its dots with XLA, not
 with a Pallas kernel, and nothing needs the backward's rows invariant.
 """
@@ -39,7 +39,7 @@ from ._launch import stream_ptr
 from .ref import linear_ref
 
 __all__ = ["linear", "linear_group", "linear_backward", "plan", "row_tiles",
-           "linear_hbm_bytes"]
+           "linear_hbm_bytes", "DOTS_OP"]
 
 launches = 0  # kernel launches; the main-path check reads and resets it
 
@@ -204,31 +204,44 @@ def linear_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     return dx.reshape(x.shape), dw
 
 
-class _LinearGroup(torch.autograd.Function):
-    """``_forward`` with a gradient: the forward is the kernel (or the
-    plain version on the CPU), the backward ``linear_backward`` of each
-    product, the members' ``dx`` summed last to first (the order in which
-    JAX's transpose meets them)."""
+# The products with a gradient are one registered operator, so that a
+# selective-checkpoint policy (``torch.utils.checkpoint``), which sees
+# operators and not autograd Functions, can save its outputs: the
+# ``"dots"`` remat policy of ``arch.model.forward`` (``DOTS_OP``).
+@torch.library.custom_op("repro_torch::linear_group", mutates_args=())
+def _linear_group_op(x: torch.Tensor, ws: List[torch.Tensor],
+                     out_dtype: Optional[torch.dtype]) -> List[torch.Tensor]:
+    """``_forward`` as an operator: the kernel, or the plain version on
+    the CPU."""
+    return _forward(x, ws, out_dtype)
 
-    @staticmethod
-    def forward(ctx, x, out_dtype, *ws):
-        x = x.contiguous()
-        ctx.out_dtype = out_dtype
-        ctx.save_for_backward(x, *ws)
-        return tuple(_forward(x, ws, out_dtype))
 
-    @staticmethod
-    def backward(ctx, *dys):
-        x, *ws = ctx.saved_tensors
-        pairs = [linear_backward(x, w, dy, ctx.out_dtype)
-                 for w, dy in zip(ws, dys)]
-        dx = None
-        if ctx.needs_input_grad[0]:
-            for dxg, _ in reversed(pairs):
-                dx = dxg if dx is None else dx + dxg
-        dws = [dw if ctx.needs_input_grad[2 + i] else None
-               for i, (_, dw) in enumerate(pairs)]
-        return (dx, None, *dws)
+@_linear_group_op.register_fake
+def _(x, ws, out_dtype):
+    dt = out_dtype or x.dtype
+    return [x.new_empty((*x.shape[:-1], w.shape[1]), dtype=dt) for w in ws]
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    x, ws, out_dtype = inputs
+    ctx.out_dtype = out_dtype
+    ctx.save_for_backward(x, *ws)
+
+
+def _backward(ctx, dys):
+    """``linear_backward`` of each product, the members' ``dx`` summed
+    last to first (the order in which JAX's transpose meets them)."""
+    x, *ws = ctx.saved_tensors
+    pairs = [linear_backward(x, w, dy, ctx.out_dtype)
+             for w, dy in zip(ws, dys)]
+    dx = None
+    for dxg, _ in reversed(pairs):
+        dx = dxg if dx is None else dx + dxg
+    return dx, [dw for _, dw in pairs], None
+
+
+_linear_group_op.register_autograd(_backward, setup_context=_setup_context)
+DOTS_OP = torch.ops.repro_torch.linear_group.default
 
 
 def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -238,11 +251,11 @@ def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
     on the card, each output bitwise what ``linear(x, w)`` gives; on the CPU
     the plain version of each.  In x's type, or float32 with ``out_dtype =
     torch.float32``.  Where autograd records (grad mode on and x or a w
-    requiring grad), the call carries a gradient (``_LinearGroup``); the
-    forward is the same launch."""
+    requiring grad), the call is the operator ``DOTS_OP``, with a gradient;
+    the forward is the same launch."""
     if torch.is_grad_enabled() and (x.requires_grad
                                     or any(w.requires_grad for w in ws)):
-        return list(_LinearGroup.apply(x, out_dtype, *ws))
+        return list(_linear_group_op(x.contiguous(), list(ws), out_dtype))
     return _forward(x, ws, out_dtype)
 
 

@@ -19,15 +19,26 @@ retained, async), preemption handler, straggler monitor.
 The flags are the JAX package's, with ``--device`` (default ``cuda``),
 ``--layers`` (cut the config's depth, keeping its widths) and
 ``--torch-profile DIR`` (a ``torch.profiler`` trace written to DIR, the
-counterpart of ``--jax-profile``).  ``--elastic`` and the flags of its
-supervision loop (``--fault-plan``, ``--snapshot-dir``, ``--workers``,
-``--model-parallel``, ``--chips-per-host``) raise ``NotImplementedError``:
-``ElasticTrainer`` is ROADMAP queue A item 10.  Weights are random-init
-from ``--seed`` with a ``torch.Generator`` (other numbers than the JAX
-package's for the same seed); the data stream is the JAX package's, bit
-for bit.  The VLM and enc-dec configs raise ``ValueError``: their loss
-reads ``patches`` or ``frames``, which the token stream does not carry
-(the JAX launcher dies on them too, ROADMAP C.15).
+counterpart of ``--jax-profile``, which is refused).  ``--elastic`` runs
+the ``train.elastic.ElasticTrainer`` supervision loop: ``--fault-plan``
+(a ``dist.elastic.TrainFaultPlan`` spec), ``--snapshot-dir`` (defaults to
+``--ckpt-dir``; one of them is required), ``--workers`` (simulated hosts,
+each ``--chips-per-host`` logical chips on the one device; default the
+physical devices // chips per host), ``--model-parallel`` (the pinned
+model axis) and ``--chips-per-host`` (default ``--model-parallel``):
+
+    # on the card: 4 hosts of 2 chips, a straggler evicted, a SIGTERM
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+        --layers 2 --batch 8 --seq 128 --elastic --workers 4 \
+        --model-parallel 2 --chips-per-host 2 --ckpt-every 3 \
+        --fault-plan "slow:1:9.0:5@1,preempt@7" --snapshot-dir /tmp/snap
+
+Weights are random-init from ``--seed`` with a ``torch.Generator``
+(other numbers than the JAX package's for the same seed); the data stream
+is the JAX package's, bit for bit.  The VLM and enc-dec configs raise
+``ValueError``: their loss reads ``patches`` or ``frames``, which the
+token stream does not carry (the JAX launcher dies on them too, ROADMAP
+C.15).
 """
 from __future__ import annotations
 
@@ -49,25 +60,6 @@ from ..train.step import TrainConfig, init_train_state, make_train_step
 
 # the input each frontend family's loss reads beside the tokens
 FRONTEND_INPUTS = {"vlm": "patches", "encdec": "frames"}
-ELASTIC = ("--elastic runs the ElasticTrainer supervision loop, not ported: "
-           "ROADMAP queue A item 10")
-
-
-def _not_ported(args) -> str:
-    """What the first mode asked for that is not ported needs."""
-    elastic = {"--elastic": args.elastic, "--fault-plan": args.fault_plan,
-               "--snapshot-dir": args.snapshot_dir,
-               "--workers": args.workers,
-               "--model-parallel": args.model_parallel != 1,
-               "--chips-per-host": args.chips_per_host}
-    for flag, given in elastic.items():
-        if given:
-            return ELASTIC if flag == "--elastic" else (
-                f"{flag} belongs to --elastic; {ELASTIC}")
-    if args.jax_profile:
-        return ("--jax-profile profiles JAX; the port runs no JAX (use "
-                "--torch-profile DIR)")
-    return ""
 
 
 def main(argv=None):
@@ -89,17 +81,26 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", default=None, help="'auto' or step number")
     ap.add_argument("--elastic", action="store_true",
-                    help="ElasticTrainer supervision loop (not ported)")
+                    help="run under the ElasticTrainer supervision loop: "
+                         "straggler eviction -> remesh -> verified "
+                         "checkpoint restore, SIGTERM warm restart")
     ap.add_argument("--fault-plan", default=None, metavar="SPEC",
-                    help="TrainFaultPlan for --elastic (not ported)")
+                    help="TrainFaultPlan spec for --elastic (e.g. "
+                         "'slow:1:1.0@1,lost:2@8' or 'seed:0:4'); see "
+                         "repro_torch.dist.elastic.TrainFaultPlan.parse")
     ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
-                    help="checkpoint directory of --elastic (not ported)")
+                    help="checkpoint directory for the elastic "
+                         "supervision loop (defaults to --ckpt-dir; one "
+                         "of the two is required with --elastic)")
     ap.add_argument("--workers", type=int, default=None,
-                    help="simulated host count for --elastic (not ported)")
+                    help="simulated host count for --elastic, each "
+                         "--chips-per-host logical chips on the one device "
+                         "(default: devices // chips-per-host)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model-parallel degree for --elastic (not ported)")
+                    help="pinned model-parallel degree for --elastic")
     ap.add_argument("--chips-per-host", type=int, default=None,
-                    help="devices per simulated host (not ported)")
+                    help="logical chips per simulated host (default: "
+                         "--model-parallel)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write per-step spans as Chrome trace-event "
                          "JSON (chrome://tracing / Perfetto)")
@@ -117,9 +118,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    why = _not_ported(args)
-    if why:
-        raise NotImplementedError(why)
+    if args.jax_profile:
+        raise NotImplementedError("--jax-profile profiles JAX; the port runs "
+                                  "no JAX (use --torch-profile DIR)")
     if dev.type == "cuda":
         # the backward's bf16 products accumulate in float32, as XLA's
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
@@ -144,6 +145,9 @@ def main(argv=None):
     pipe = TokenPipeline(TokenPipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, seed=args.seed))
+
+    if args.elastic:
+        return _run_elastic(args, cfg, tcfg, pipe, dev)
 
     params, state = init_train_state(cfg, tcfg, args.seed, dev)
 
@@ -244,6 +248,61 @@ def main(argv=None):
         if h.count:
             print(f"step time p50={h.percentile(50):.1f}ms "
                   f"p99={h.percentile(99):.1f}ms over {h.count} steps")
+    if len(losses) >= 10:
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        print(f"loss {first:.4f} -> {last:.4f} "
+              f"({'improved' if last < first else 'NOT improved'})")
+    return losses
+
+
+def _run_elastic(args, cfg, tcfg, pipe, dev):
+    """--elastic: hand the loop to the ElasticTrainer supervision loop."""
+    from ..dist.elastic import TrainFaultPlan, describe
+    from ..train.elastic import ElasticTrainer
+
+    snap = args.snapshot_dir or args.ckpt_dir
+    if not snap:
+        raise SystemExit(
+            "--elastic needs --snapshot-dir (or --ckpt-dir): recovery "
+            "restores from verified checkpoints")
+    plan = (TrainFaultPlan.parse(args.fault_plan)
+            if args.fault_plan else None)
+    if plan is not None:
+        for line in describe(plan):
+            print(f"fault plan: {line}")
+
+    tracer = metrics = None
+    if args.trace or args.metrics_out:
+        from ..obs import Metrics, Tracer
+        metrics = Metrics()
+        tracer = Tracer(metrics=metrics)
+
+    # keep enough retained steps that a fallback past a corrupted latest
+    # checkpoint always has somewhere to land
+    mgr = CheckpointManager(snap, keep=max(8, 2 * args.ckpt_every))
+    trainer = ElasticTrainer(
+        cfg, tcfg, pipe, mgr, steps=args.steps,
+        n_workers=args.workers, model_parallel=args.model_parallel,
+        chips_per_host=args.chips_per_host, plan=plan,
+        ckpt_every=args.ckpt_every, seed=args.seed,
+        metrics=metrics, tracer=tracer, metrics_out=args.metrics_out,
+        device=dev)
+    result = trainer.run()
+
+    for i, seg in enumerate(result.segments):
+        print(f"segment {i} ({seg.cause}): steps {seg.start}.."
+              f"{seg.start + seg.n_steps} on mesh "
+              f"{seg.mesh_shape[0]}x{seg.mesh_shape[1]}")
+    print(f"elastic run: {result.steps_completed}/"
+          f"{result.configured_steps} steps, {result.executed_steps} "
+          f"executed, workers {result.workers_start} -> "
+          f"{len(result.workers_final)}"
+          + (" (externally preempted)" if result.preempted_externally
+             else ""))
+    if tracer is not None and args.trace:
+        tracer.write_chrome_trace(args.trace)
+        print(f"chrome trace -> {args.trace}")
+    losses = result.losses
     if len(losses) >= 10:
         first, last = np.mean(losses[:5]), np.mean(losses[-5:])
         print(f"loss {first:.4f} -> {last:.4f} "

@@ -1,7 +1,5 @@
-"""Training (mirrors ``repro.train``): AdamW and the train step.
-
-``ElasticTrainer`` (``repro.train.elastic``) is ROADMAP queue A item 10.
-"""
+"""Training (mirrors ``repro.train``): AdamW, the train step and the
+``ElasticTrainer`` supervision loop (``train.elastic``)."""
 from . import optimizer
 from .step import TrainConfig, init_train_state, make_train_step
 

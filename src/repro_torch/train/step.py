@@ -44,7 +44,7 @@ class TrainConfig:
     q_block: int = 512
     unroll: bool = False  # no effect: the port's layers are a Python loop
     mlstm_chunk: int = 0  # the mLSTM's chunk width (0: MLSTM_CHUNK)
-    remat_policy: str = "full"  # 'full' | 'none' ('dots': queue A item 13)
+    remat_policy: str = "full"  # 'full' | 'dots' | 'none'
     adamw: opt.AdamWConfig = dataclasses.field(default_factory=opt.AdamWConfig)
 
 

@@ -235,11 +235,41 @@ def test_latest_valid_step_falls_back_past_corruption(tmp_path):
 
 
 def test_restore_with_sharding_names_item_10(tmp_path):
-    """Restoring onto a mesh waits for the distribution substrate."""
+    """Restoring onto a mesh (``shardings=``, ROADMAP queue A item 10a):
+    a train state written on a 1x2 mesh comes back on a 2x2 one bit for
+    bit (``tests/test_pipeline_and_dryrun.py``'s elastic handoff), each
+    leaf validated against its sharding; a sharding its leaf does not
+    divide, or a tree that does not mirror the target, is refused."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    jp = JM.init_params(jax_smoke("qwen2-1.5b"), jax.random.PRNGKey(3))
+    params = master_params_from_arrays(jax.tree.map(np.asarray, jp), cfg,
+                                       "cpu")
+    state = {"opt": TOPT.init(params), "step": torch.tensor(
+        6, dtype=torch.int32)}
+    tree = {"params": params, "state": state}
     mgr = CheckpointManager(str(tmp_path), keep=1)
-    mgr.save(3, _tree())
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        mgr.restore(3, _tree(), shardings={"params": None})
+    mgr.save(6, tree)
+    mesh = make_smoke_mesh(2, 2, chips=4, device="cpu")
+    rep = SH.NamedSharding(mesh, SH.P())
+    sh = {"params": SH.param_shardings(params, mesh),
+          "state": {"opt": TOPT.AdamWState(
+              m=SH.param_shardings(params, mesh),
+              v=SH.param_shardings(params, mesh), count=rep), "step": rep}}
+    target = {"params": master_params_from_arrays(
+        jax.tree.map(lambda a: np.zeros_like(np.asarray(a)), jp), cfg,
+        "cpu"), "state": {"opt": TOPT.init(params), "step": torch.tensor(
+            0, dtype=torch.int32)}}
+    _same(mgr.restore(6, target, shardings=sh), tree)
+    assert sh["params"]["embed"].spec == SH.P("model", None)
+    bad = dict(sh, state={"opt": sh["state"]["opt"],
+                          "step": SH.NamedSharding(mesh, SH.P("data"))})
+    with pytest.raises(ValueError, match="entries"):
+        mgr.restore(6, target, shardings=bad)
+    with pytest.raises(ValueError, match="do not mirror"):
+        mgr.restore(6, target, shardings={"params": sh["params"]})
 
 
 def test_config_hash_equals_jax():

@@ -1452,3 +1452,72 @@ def test_cuda_capture_survives_a_dead_batcher(cuda_device):
     finally:
         gc.set_threshold(*old)
     assert live.graph and len(live.done) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen2-moe-a2.7b"])
+def test_cuda_dots_equals_full(cuda_device, arch):
+    """``remat_policy="dots"`` on the card: the loss and every gradient
+    bitwise ``"full"``'s (both recompute row-invariant launches or none),
+    and ``linear`` launched for the forward alone (``"full"`` launches each
+    layer's products again in the backward)."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.tree import leaves
+
+    cfg = get_smoke_config(arch)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(cuda_device)
+    out = {}
+    for policy in ("full", "dots"):
+        ps = M.init_params(cfg, 0, cuda_device, masters=True)
+        parts = [p.requires_grad_(True) for leaf in leaves(ps)
+                 for p in leaf.parts]
+        ops.reset_launch_counts()
+        loss = M.loss_fn(ps, {"tokens": tokens}, cfg, q_block=32,
+                         remat_policy=policy)
+        fwd = ops.launch_counts()["linear"]
+        loss.backward()
+        out[policy] = (loss.detach(), [p.grad for p in parts], fwd,
+                       ops.launch_counts()["linear"] - fwd)
+    assert torch.equal(out["dots"][0], out["full"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["dots"][1],
+                                                 out["full"][1]))
+    assert out["dots"][2:] == (out["full"][2], 0)
+    assert out["full"][3] == out["full"][2] - 1  # all but the head again
+
+
+@pytest.mark.cuda
+def test_cuda_elastic_drill_replays_bitwise(cuda_device, tmp_path):
+    """``tests/test_elastic.py``'s drill on the card (qwen2-1.5b smoke, 4
+    workers of 2 logical chips, a straggler evicted, the latest manifest
+    corrupted, a host lost): segments init / straggler / host-loss, 12
+    steps, 2 workers left, and every recovered segment's losses its
+    ``replay``'s bit for bit."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.dist.elastic import TrainFaultPlan
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.elastic import ElasticTrainer
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_smoke_config("qwen2-1.5b")
+    tcfg = TrainConfig(microbatches=2, q_block=32, adamw=AdamWConfig(
+        lr=2e-3, warmup_steps=3, total_steps=12))
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0))
+    trainer = ElasticTrainer(
+        cfg, tcfg, pipe, CheckpointManager(str(tmp_path), keep=0), steps=12,
+        n_workers=4, model_parallel=2, chips_per_host=2,
+        plan=TrainFaultPlan.parse(
+            "slow:1:9.0:5@1, corrupt:manifest@6, lost:2@7"),
+        min_strikes=3, ckpt_every=3, log=None, device=cuda_device)
+    res = trainer.run()
+    assert res.completed and res.steps_completed == 12
+    assert [s.cause for s in res.segments] == ["init", "straggler",
+                                               "host-loss"]
+    assert len(res.workers_final) == 2
+    for seg in res.segments[1:]:
+        assert trainer.replay(seg.ckpt_step, seg.device_ids, seg.mesh_shape,
+                              seg.n_steps) == seg.losses, seg.cause

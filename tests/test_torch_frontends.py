@@ -177,8 +177,9 @@ def test_loss_matches_jax(name):
 def test_remat_policy_as_in_jax():
     """The enc-dec forward ignores ``remat_policy`` (the JAX package's
     recomputes every layer whatever it says): ``"dots"``, ``"none"`` and
-    ``"full"`` give the loss and every gradient bitwise; the VLM's
-    ``"dots"`` raises as a dense model's does (queue A item 13)."""
+    ``"full"`` give the loss and every gradient bitwise; the VLM takes
+    ``"dots"`` as a dense model does (queue A item 13): its loss, with the
+    patch prefix, bitwise ``"full"``'s."""
     _, tc = _model("encdec")[:2]
     _, tb = _batches("encdec", 2, 8, 5)
     masters = master_params_from_arrays(
@@ -198,8 +199,9 @@ def test_remat_policy_as_in_jax():
                    for a, b in zip(grads, out[0][1]))
     _, tv, _, tpv = _model("vlm")
     _, tbv = _batches("vlm", 2, 8, 5)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TM.forward(tpv, tbv, tv, remat_policy="dots")
+    vlm = [TM.loss_fn(tpv, tbv, tv, q_block=8, remat_policy=policy)
+           for policy in ("full", "dots")]
+    assert torch.equal(vlm[0], vlm[1])
 
 
 def test_query_only_projection_is_the_group_bits():

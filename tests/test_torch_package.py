@@ -58,6 +58,10 @@ def test_imports_every_module_without_jax():
             "nn.recurrent", "tree", "configs.xlstm_125m",
             "configs.recurrentgemma_9b")}
         assert slice6 <= set(names), slice6 - set(names)
+        slice9 = {"repro_torch." + m for m in (
+            "dist.elastic", "dist.sharding", "dist.pipeline",
+            "train.elastic", "launch.mesh")}
+        assert slice9 <= set(names), slice9 - set(names)
         print("CLEAN", len(names))
     """)
     r = _run("-c", code)

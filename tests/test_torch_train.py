@@ -292,27 +292,45 @@ def test_loss_and_gradients_match_jax(arch, vocab):
 
 
 def test_remat_policies():
-    """``"full"`` (recompute each layer) == ``"none"`` bitwise; ``"dots"``
-    is refused naming its ROADMAP item."""
+    """``"full"`` (recompute each layer), ``"dots"`` (save the products'
+    outputs, recompute the rest) and ``"none"`` give the loss and every
+    gradient bitwise; ``"dots"`` calls no product again in the backward,
+    ``"full"`` each layer's (ROADMAP queue A item 13); an unknown policy
+    is refused."""
     _, tp = _jax_masters()
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (2, 16)).astype(np.int32))
-    out = []
-    for policy in ("full", "none"):
-        ps = master_params_from_arrays(arrays_from_master_params(tp), CFG,
-                                       "cpu")
-        for leaf in leaves(ps):
-            for p in leaf.parts:
-                p.requires_grad_(True)
-        loss = TM.loss_fn(ps, {"tokens": tokens}, CFG, q_block=8,
-                          remat_policy=policy)
-        loss.backward()
-        out.append((loss.detach(), [p.grad for leaf in leaves(ps)
-                                    for p in leaf.parts]))
-    assert torch.equal(out[0][0], out[1][0])
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        TM.loss_fn(tp, {"tokens": tokens}, CFG, remat_policy="dots")
+    mod = sys.modules["repro_torch.kernels.linear"]
+    real, calls = mod._forward, []
+    out = {}
+    try:
+        mod._forward = lambda *a: calls.append(1) or real(*a)
+        for policy in ("full", "dots", "none"):
+            ps = master_params_from_arrays(arrays_from_master_params(tp),
+                                           CFG, "cpu")
+            for leaf in leaves(ps):
+                for p in leaf.parts:
+                    p.requires_grad_(True)
+            calls.clear()
+            loss = TM.loss_fn(ps, {"tokens": tokens}, CFG, q_block=8,
+                              remat_policy=policy)
+            n_forward = len(calls)
+            loss.backward()
+            out[policy] = (loss.detach(), [p.grad for leaf in leaves(ps)
+                                           for p in leaf.parts],
+                           n_forward, len(calls) - n_forward)
+    finally:
+        mod._forward = real
+    for policy in ("dots", "none"):
+        assert torch.equal(out[policy][0], out["full"][0])
+        assert all(torch.equal(a, b)
+                   for a, b in zip(out[policy][1], out["full"][1]))
+    per_layer = 4  # q/k/v, wo, gate/up, w_down
+    assert out["full"][2:] == (per_layer * CFG.n_layers + 1,
+                               per_layer * CFG.n_layers)
+    assert out["dots"][2:] == (per_layer * CFG.n_layers + 1, 0)
+    with pytest.raises(ValueError, match="remat_policy must be one of"):
+        TM.loss_fn(tp, {"tokens": tokens}, CFG, remat_policy="offload")
 
 
 # ---------------------------------------------------------- train curve
@@ -449,11 +467,36 @@ def test_launcher_needs_cuda_by_default(monkeypatch):
                                   ["--snapshot-dir", "x"], ["--workers", "2"],
                                   ["--model-parallel", "2"],
                                   ["--chips-per-host", "4"]])
-def test_launcher_elastic_flags_name_item_10(flag):
+def test_launcher_elastic_flags_name_item_10(flag, tmp_path, capsys):
+    """The elastic flags (ROADMAP queue A item 10a) act as in the JAX
+    launcher: ``--elastic`` alone exits asking for a snapshot directory;
+    with one, each flag runs the supervision loop to its end (a seeded
+    plan on 4 workers, 2 workers, a model axis of 2, hosts of 4 chips);
+    without ``--elastic`` the supervision flags change nothing."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        train.main(["--smoke", "--device", "cpu", *flag])
+    base = ["--smoke", "--device", "cpu", "--steps", "2", "--seq", "16",
+            "--batch", "4", "--ckpt-every", "1"]
+    if flag == ["--elastic"]:
+        with pytest.raises(SystemExit, match="snapshot-dir"):
+            train.main(base + flag)
+        return
+    plain = train.main(base + flag)
+    assert len(plain) == 2
+    extra = {"--fault-plan": ["--workers", "4"],
+             "--snapshot-dir": ["--workers", "1"],
+             "--workers": [], "--model-parallel": ["--workers", "1"],
+             "--chips-per-host": ["--workers", "1"]}[flag[0]]
+    snap = str(tmp_path / "snap")
+    if flag[0] == "--snapshot-dir":
+        flag = ["--snapshot-dir", snap]
+    else:
+        extra = extra + ["--snapshot-dir", snap]
+    capsys.readouterr()
+    losses = train.main(base + ["--elastic", *flag, *extra])
+    out = capsys.readouterr().out
+    assert len(losses) >= 2 and "elastic run: 2/2 steps" in out, out
+    assert losses[:2] == plain  # one device: the same function
 
 
 def test_launcher_trace_metrics_profile_and_compression(tmp_path, capsys):
