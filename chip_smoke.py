@@ -167,8 +167,9 @@ Phases, in order; the first failure exits non-zero:
    0.03 x max|g_plain|; (c) ``linear``'s backward for the eight weight
    shapes at M = 256 and 512: ``dx`` and ``dw`` bitwise autograd's through
    the plain product; (d) in child processes with deterministic
-   algorithms (1 layer at full width): a run stopped by SIGTERM after its
-   step-9 line saves and stops, ``--resume auto`` gives the uninterrupted
+   algorithms (the launcher on xlstm-125m at full width, one macro of its
+   12 layers, 8 steps of 8 x 32 tokens: a checkpoint of about 1 GB): a run
+   stopped by SIGTERM after its step-3 line saves and stops, ``--resume auto`` gives the uninterrupted
    run's losses bitwise from the resumed step, both runs' final
    checkpoints equal in every leaf and the preempted one restores onto
    the card bitwise; (e) printed, not gated: ms a step (median of steps
@@ -192,14 +193,17 @@ Phases, in order; the first failure exits non-zero:
    shards' pregate is off, their in-step gate on), ``paged_attention`` =
    steps x 28, ``linear`` = steps x 113, nothing else; tokens/s and ms a
    step of a warm wave with one and two shards; the launcher's
-   ``--continuous --router --page-size 16`` in a child process;
+   ``--continuous --router --page-size 16`` in a child process beside
+   (c)-(e);
 17. MoE, after every earlier model is freed: qwen2-moe-a2.7b at its
-   published width and depth (24 layers, d 2048, 16/16 heads, hd 128, 60
-   experts padded to 64, top-4, expert d_ff 1408, 4 shared experts as one
-   MLP of 5,632, vocab 151,936), random weights from ``--seed``, phase
+   published width (d 2048, 16/16 heads, hd 128, 60 experts padded to
+   64, top-4, expert d_ff 1408, 4 shared experts as one MLP of 5,632,
+   vocab 151,936), its depth cut to 4 of its 24 layers (phases 17-20 cut
+   each model's depth to ``SERVE_DEPTH``, to keep the run well inside its
+   time limit), random weights from ``--seed``, phase
    9's ServeConfig, gate and traffic: the host batcher's wrapper launches
-   exactly steps x (``paged_attention`` 24, ``linear`` 24 x 6 + 1,
-   ``moe_down_combine`` 24) (f); ``linear`` timed at the MoE products
+   exactly steps x (``paged_attention`` 4, ``linear`` 4 x 6 + 1,
+   ``moe_down_combine`` 4) (f); ``linear`` timed at the MoE products
    (router N = 64, the experts' gate/up group N = 90,112, the shared
    experts' N = 5,632 and their down); (b) ``moe_down_combine`` bitwise
    its plain version on layer 0's ``w_down`` at M = 1, 7, 16, 128, 200
@@ -227,17 +231,18 @@ Phases, in order; the first failure exits non-zero:
    gate does not hold end to end); (e)
    the paged device batcher == the dense one on 16 single-token prompts,
    bitwise; (f) the profiler's kernels over one round, exact (phase 11's
-   rule, with ``moe_down_combine`` 16 x 24); tokens/s, ms a step, device
+   rule, with ``moe_down_combine`` 16 x 4); tokens/s, ms a step, device
    ms a step by class, idle share and peak memory;
 18. the recurrent families, after every earlier model is freed: (a)
-   recurrentgemma-9b at its published width and depth (38 layers,
-   pattern rglru, rglru, attn: 26 RG-LRU and 12 windowed attention
-   layers, d 4,096, 16 heads on 1 KV head of hd 256, window 2,048, d_ff
-   12,288 GELU, vocab 256,000; 10.44 B parameters), random weights from
+   recurrentgemma-9b at its published width (pattern rglru, rglru, attn,
+   d 4,096, 16 heads on 1 KV head of hd 256, window 2,048, d_ff 12,288
+   GELU, vocab 256,000), its depth cut to 14 of its 38 layers (4 macros
+   and the 2-layer tail: 10 RG-LRU and 4 windowed attention layers),
+   random weights from
    ``--seed``, over the dense state (phase 14's ``DENSE`` config): its
    products' shapes through phase 8's ``linear`` checks; ``generate()``
    (16 prompts of 4 tokens, 64 generated, the gate fused) with the
-   wrappers' launches exactly steps x (12 ``paged_attention``, 179
+   wrappers' launches exactly steps x (4 ``paged_attention``, 67
    ``linear``) + the gate's tables; phase 9's 32 requests (first prompt
    token) through the host batcher and the device batcher (CUDA graph):
    bitwise, launches exact (phase 14 (e)'s rule), graph == eager bitwise,
@@ -247,10 +252,10 @@ Phases, in order; the first failure exits non-zero:
    the other operand order) and a control (every recurrent state dropped
    at every step): the kernel path and the witness within phase 17's
    gate of the plain path (6 deltas a position, 2 on average; phase 9's
-   one delta printed: the witness itself breaks it on this random
-   38-layer model), the control past it; the profiler over a round
+   one delta printed: the witness itself broke it on the random 38-layer
+   model), the control past it; the profiler over a round
    (exact), tokens/s, ms and device ms a step by kernel class, idle, the
-   share of the weights' byte bound (18.79 GB, 5.61 ms), and an eager
+   share of the weights' byte bound, and an eager
    step's device time with the recurrences told apart (the RG-LRU's
    decode under a ``record_function`` range set by this script); (b) the
    ring past its wrap on the model's first macro (rglru, rglru, attn) at
@@ -259,8 +264,8 @@ Phases, in order; the first failure exits non-zero:
    ulp, host == device bitwise); (c) ``paged_attention``
    at this model's step (16 slots x 1,024 ring cells, C = 1, hd 256,
    16:1 heads, past the wrap) within one bf16 ulp, timed beside gather +
-   SDPA and its bound, and the step's 179 ``linear`` launches L2-cold at
-   M = 16 beside cuBLAS (two new JSON rows); (d) xlstm-125m (12 layers,
+   SDPA and its bound, and the published 38-layer step's 179 ``linear``
+   launches L2-cold at M = 16 beside cuBLAS (two new JSON rows); (d) xlstm-125m (12 layers,
    mLSTM and sLSTM alternating, d 768, 4 heads of 192, vocab 50,304
    padded to 50,432) through the same checks but the ring's (31
    ``linear`` launches a step: the mLSTM's q/k/gates and v/gate groups
@@ -283,9 +288,9 @@ Phases, in order; the first failure exits non-zero:
    256 patches; 1.89 B parameters) and seamless-m4t-large-v2 (24 encoder
    and 24 decoder layers with cross-attention, d 1,024, 16 heads of 64,
    d_ff 8,192, vocab 256,206 padded to 256,256, a 160-wide frontend of
-   4,096 frames; 2.64 B parameters) at full width and depth, random
-   weights from ``--seed``: their products through phase 8's ``linear``
-   checks and the frontend product at 2 x the frontend's rows; (a) the
+   4,096 frames; 2.64 B parameters) at full width, each stack's depth cut
+   to 4 of its 24 layers, random weights from ``--seed``: their products
+   through phase 8's ``linear`` checks and the frontend product at 2 x the frontend's rows; (a) the
    forward of 2 x 64 tokens with their patches or frames, the kernel
    path (exactly the model's ``linear`` launches) against the plain path
    within one delta (0.03 max|plain|) a position, beside a witness (the
@@ -293,8 +298,8 @@ Phases, in order; the first failure exits non-zero:
    patches or frames zeroed, which must lie past it); were the witness
    itself past one delta, phase 17's 6 / 2 gate instead; (b)
    ``generate()`` and phase 14's checks on both dense batchers (host ==
-   device, launches exact: 24 ``paged_attention`` + 97 ``linear`` a step
-   for internvl2, 24 + 145 for seamless, its cross-attention's query and
+   device, launches exact: 4 ``paged_attention`` + 17 ``linear`` a step
+   for internvl2, 4 + 25 for seamless, its cross-attention's query and
    wo counted; graph == eager, no sync in a round, the ring's wrap on the
    model's first 4 layers at full width); the
    enc-dec ``cross`` planes left zero, as the JAX package leaves them;
@@ -305,15 +310,15 @@ Phases, in order; the first failure exits non-zero:
    ``encode_cross`` against (a)'s forward, (a)'s rule (the witness the
    plain path's decode against the plain forward, the control the zero
    planes: ROADMAP C.13); (d) ``make_train_step`` at full width and
-   depth, two steps of 4 x 64 tokens with their patches or frames in 2
+   (a)'s depth, two steps of 4 x 64 tokens with their patches or frames in 2
    microbatches (launches exact, every master moved and finite but the
    enc-dec cross layers' unread ``ln2``), then at 2 layers, full width,
    kernel vs plain within phase 15's bounds; (e) tokens/s, ms and device
    ms a step by class and idle of the dense device batchers (and the
    paged one for internvl2), and three JSON rows: ``paged_attention`` at
    seamless's step (hd 64, 16:16, 16 x 1,024 ring cells past the wrap)
-   and ``linear`` at both models' steps (97 and 145 launches at M = 16,
-   L2-cold) beside cuBLAS and their byte bounds.
+   and ``linear`` at both models' published steps (97 and 145 launches at
+   M = 16, L2-cold) beside cuBLAS and their byte bounds.
 20. MoE training and the dense configs the card had not run, after every
    earlier model is freed: (a) ``repro_torch.launch.train --arch
    qwen2-moe-a2.7b --layers 4`` at its defaults (20 steps of 8 x 64
@@ -330,7 +335,8 @@ Phases, in order; the first failure exits non-zero:
    vocab 256,000), gemma3-27b (62 layers, d 5,376, 32 on 16, ``qk_norm``,
    a window of 1,024 on five of every six layers, GELU, vocab 262,144)
    and qwen3-32b (64 layers, d 5,120, 64 on 8, ``qk_norm``, d_ff 25,600)
-   at full width and depth, random weights, one at a time: their products
+   at full width, their depth cut to 4, 6 (five local layers and a
+   global one) and 8 layers, random weights, one at a time: their products
    through phase 8's ``linear`` checks; the dense host batcher == the
    dense device batcher bitwise with the launches exact; 4 served streams
    teacher-forced over 16 steps, kernel vs plain within phase 17's 6 / 2 deltas beside
@@ -343,7 +349,7 @@ Phases, in order; the first failure exits non-zero:
    2,048), chunk 8 == token by token, each layer's attention past position
    1,100 within one bf16 ulp of its plain version and each local layer's
    output moved by its window; six JSON rows: ``linear`` at each model's
-   dense step and ``paged_attention`` at 8:1 (qwen3-32b), 3:1
+   published dense step and ``paged_attention`` at 8:1 (qwen3-32b), 3:1
    (minitron-4b) and 2:1 past gemma3-27b's window.
 21. elastic training, after every earlier model is freed: (a)
    ``remat_policy="dots"`` at qwen2-1.5b's published width and depth and
@@ -354,7 +360,7 @@ Phases, in order; the first failure exits non-zero:
    ``"dots"`` (the backward launches no product), at 4 layers ``"dots"``
    kernel vs plain within phase 15's 2e-3 / 0.03; ms a step (median of
    steps 2-5) and peak memory of both; (b) ``tests/test_elastic.py``'s
-   drill at xlstm-125m's width, 2 of its 12 layers, 8 x 128 tokens in 2
+   drill at xlstm-125m's width, 2 of its 12 layers, 8 x 32 tokens in 2
    microbatches: ``slow:1:9.0:5@1, corrupt:manifest@6, lost:2@7`` over 4
    workers of 2 logical chips on the card (model parallel 2), 12 steps,
    checkpoints every 3: segments init / straggler / host-loss, 2 workers
@@ -367,13 +373,31 @@ Phases, in order; the first failure exits non-zero:
    exactly 4 x 17, the loss within 1e-6 relative of ``loss_fn``'s over the
    same microbatches and every gradient within 1e-5 of its largest
    magnitude; ms a step of both.
+22. serving over a mesh of logical chips, right after phase 16 (it reuses
+   phase 9's model, gate, ServeConfig and 32 requests): (a)
+   ``ShardedServe`` on a 2x2 mesh of logical chips on the card (two data
+   slices of 1x2, params replicated), paged: every request served or
+   dropped once, FIFO within each shard, each shard's streams and drops
+   bitwise a lone phase-11 device batcher fed its requests in order and
+   phase 16's two mesh-less shards, and ``fused_eb``, ``paged_attention``
+   and ``linear`` launched in the run (counts reset just before, read
+   just after); (b) the same with ``tp_params=True``: routing, streams and
+   drops bitwise (a)'s (ROADMAP C.19); tokens/s and ms a step of two warm
+   waves of (a), (b) and the two mesh-less shards in turns; (c) ``launch.serve --arch qwen2-1.5b --continuous --router
+   --mesh 2x2 --page-size 16`` with 8 requests in a child process: exit 0,
+   2 shards; (d) ``launch.dryrun`` (in process, on the card) on
+   ``xlstm-125m decode_32k``, ``qwen2-1.5b train_4k`` and
+   ``recurrentgemma-9b long_500k --multi-pod``: each ``OK``, its bytes and
+   FLOPs, and its arguments fit the card.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
 printed on the first line beside the card; the float32 lanes are twice
 as many).  ``--phase17`` builds the kernels and runs phase 17 alone, a
 quick MoE run that prints no result line; ``--phase18``, ``--phase19``,
-``--phase20`` and ``--phase21`` the same for phases 18, 19, 20 and 21.
+``--phase20``, ``--phase21`` and ``--phase22`` the same for phases 18,
+19, 20, 21 and 22 (``--phase22`` builds phase 9's model without its
+host-batcher run).
 Each phase prints how far into the run it starts.
 
 Its last three lines are the kernels JSON (phases 18-20's
@@ -1762,15 +1786,14 @@ def serve_gate(dev):
 
 
 def drive_serve(dev, seed: int, arch: str = "qwen2-1.5b") -> ServeRun:
-    """``arch`` (qwen2-1.5b) at full width through ServeEngine +
-    ContinuousBatcher."""
+    """``arch`` (qwen2-1.5b) at full width (its depth ``served_config``'s)
+    through ServeEngine + ContinuousBatcher."""
     from repro_torch.arch import model as M
-    from repro_torch.configs import get_config
     from repro_torch.data import load_dataset
     from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
                                           ServeEngine)
 
-    cfg = get_config(arch)
+    cfg = served_config(arch)
     params = M.init_params(cfg, seed, dev)
     ds = load_dataset("unsw", n=4000)
     gate = serve_gate(dev)
@@ -2134,6 +2157,42 @@ def check_teacher_forced(run: ServeRun, dev) -> str:
 # model's first layers at full width, so that the run keeps to its time
 # limit
 SERVE_CUT = 4
+# layers of the earlier slices' models in phases 17-20, at full width: a
+# block_pattern model keeps whole macros and its tail (recurrentgemma-9b:
+# 4 macros + 2, so that 18 (a)'s control stays past the gate: dropping
+# the RG-LRU states moved the logits 5.56 deltas on average at 38 layers,
+# 3.50 at 14, against the gate's 2), an enc-dec model cuts its encoder
+# alike, gemma3-27b keeps five local layers and a global one.  Their
+# full-depth numbers are in PERF.md.  At full depth the run
+# took 1,060 s of its 1,200 on one host, and a host a third slower ran
+# past the limit.  qwen2-1.5b (phases 9-16, 21, 22) and xlstm-125m keep
+# their published depth.
+SERVE_DEPTH = {"qwen2-moe-a2.7b": 4, "recurrentgemma-9b": 14,
+               "internvl2-2b": 4, "seamless-m4t-large-v2": 4,
+               "minitron-4b": 4, "gemma3-27b": 6, "qwen3-32b": 8}
+
+
+def served_config(arch: str):
+    """``arch``'s config at full width, its depth cut to SERVE_DEPTH."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    n = SERVE_DEPTH.get(arch)
+    if n is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, n_layers=n, n_encoder_layers=min(cfg.n_encoder_layers, n))
+
+
+def width_depth(cfg) -> str:
+    """"full width and depth", or how far ``cfg``'s depth is cut."""
+    from repro_torch.configs import get_config
+
+    n = get_config(cfg.name).n_layers
+    if cfg.n_layers == n:
+        return "full width and depth"
+    both = " (each stack)" if cfg.family == "encdec" else ""
+    return f"full width, depth cut to {cfg.n_layers} of {n} layers{both}"
 
 
 def cut_depth(run: ServeRun, n: int = SERVE_CUT) -> ServeRun:
@@ -2475,6 +2534,18 @@ def profile_round(cb, run: ServeRun, dev, tag: str,
     return counts, by, steps
 
 
+def state_tensors(tree) -> list:
+    """Every tensor of a decode state (nested dicts, lists and tuples), in
+    order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in state_tensors(v)]
+    return []
+
+
 # rounds profiled at most before a short count fails: the profiler can drop
 # records mid-window (it once lost about one step's, PERF.md §7)
 PROFILE_TRIES = 3
@@ -2499,17 +2570,31 @@ def round_counts(cb, run: ServeRun, dev, tag: str,
     # wave takes is captured before a profiler window: late in a full run
     # a CUDA graph captured just after a window (the dense step's second
     # key) failed as invalidated, where the same sequence in a fresh
-    # process did not (PERF.md §7)
+    # process did not (PERF.md §7).  A dense wave starts at the ring's
+    # global position where the last one stopped, so it decodes other
+    # tokens; a greedy token in the padded vocabulary columns quarantines
+    # its request and moves the later admissions, and so the wave's keys
+    # (qwen3-32b at 16 layers).  Each profiled dense wave therefore starts
+    # from the warm wave's decode state, copied back in place (the graphs'
+    # buffers kept): it replays the warm wave.
+    start = ([t.clone() for t in state_tensors(cb._decode)]
+             if dense else [])
     for i, (p, f) in enumerate(zip(run.prompts, run.feats)):
         cb.submit((f"{tag}warm", i), p[:1] if dense else p, features=f)
     cb.run(max_steps=DEVICE_ROUND)
     cb.run(max_steps=20000)
-    keys = len(cb._steps)
+    keys = set(cb._steps)
     tries = []
     for t in range(PROFILE_TRIES):
+        for now, then in zip(state_tensors(cb._decode) if dense else (),
+                             start):
+            now.copy_(then)
         counts, by, rsteps = profile_round(cb, run, dev, f"{tag}{t}", dense)
-        if len(cb._steps) != keys:
-            fail(f"{tag}: a profiled round's wave captured a new shape key")
+        if set(cb._steps) != keys:
+            fail(f"{tag}: a profiled round's wave captured a new shape key "
+                 f"{sorted(set(cb._steps) - keys)} beside {sorted(keys)} "
+                 f"(try {t}; drops "
+                 f"{dict(collections.Counter(cb.drop_reasons.values()))})")
         tries.append(counts)
         over = {k: n for k, n in counts.items() if n > want.get(k, 0)}
         if over:
@@ -2881,10 +2966,15 @@ def check_dense_no_sync(run: ServeRun, dev, tag: str = "(14d)") -> str:
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 20, 8, 64, 2
 TRAIN_TIMED = (5, 20)  # (e): steps whose median wall time is a step's
 TRAIN_CUT = 4  # layers of (b): full width, depth cut
-# layers of (d): its checkpoints hold the embedding and head (5.6 GB of
-# float32 masters and moments) and 0.56 GB a layer; at 4 layers (7.85 GB)
-# (d) took 196.5 s of a 905 s run, and phase 20 needs the room
-RESUME_CUT = 1
+# (d)'s model: xlstm-125m at full width, one macro (mLSTM + sLSTM), its
+# checkpoint with the moments about 1 GB; RESUME_STEPS steps of the
+# launcher's batch at RESUME_SEQ tokens.  On qwen2-1.5b (d) was bound by
+# its checkpoints' bytes (the embedding and head's float32 masters and
+# moments, 5.6 GB, and 0.56 GB a layer): 115-144 s of the run at one
+# layer; xlstm-125m at the launcher's 20 steps of 64 tokens took 81 s,
+# its sLSTM's steps one a token on the host
+RESUME_ARCH, RESUME_CUT = "xlstm-125m", 2
+RESUME_STEPS, RESUME_SEQ = 8, 32
 TRAIN_PARITY_STEPS = 3  # (b)
 # (b), fixed before any run: each step's loss through the kernel within
 # this relative distance of the plain run's (bf16 products summed in
@@ -2894,12 +2984,19 @@ TRAIN_PARITY_STEPS = 3  # (b)
 # within LOGIT_TOL (the serve parity delta) of the plain leaf's largest
 # magnitude
 TRAIN_LOSS_RTOL = 2e-3
-RESUME_SIGTERM_AFTER = 9  # (d): SIGTERM once the step-9 line is read
+RESUME_SIGTERM_AFTER = 3  # (d): SIGTERM once the step-3 line is read
 # (d): a child runs the launcher with deterministic algorithms, set here
-# and not by the launcher (CUBLAS_WORKSPACE_CONFIG in its environment)
+# and not by the launcher (CUBLAS_WORKSPACE_CONFIG in its environment);
+# with RESUME_GATED first it starts and reaches the card, then waits for a
+# line on its stdin before the launcher reads its arguments
+RESUME_GATED = "--after-stdin"
 RESUME_CHILD = ("import sys, torch\n"
                 "torch.use_deterministic_algorithms(True)\n"
                 "from repro_torch.launch.train import main\n"
+                f"if sys.argv[1:2] == [{RESUME_GATED!r}]:\n"
+                "    torch.zeros(1, device='cuda')\n"
+                "    sys.stdin.readline()\n"
+                "    del sys.argv[1]\n"
                 "main(sys.argv[1:])\n")
 
 
@@ -3124,15 +3221,17 @@ def check_linear_backward(cfg, dev) -> str:
             f"one launch within linear_limit")
 
 
-def _child(args, env, err_path):
+def _child(args, env, err_path, gated: bool = False):
     """A launcher run in a child process, its stdout piped, its stderr to
-    ``err_path``."""
+    ``err_path``; ``gated``: it waits for a line on its (piped) stdin."""
     import subprocess
 
     with open(err_path, "w") as err:
-        return subprocess.Popen([sys.executable, "-c", RESUME_CHILD, *args],
-                                stdout=subprocess.PIPE, stderr=err,
-                                text=True, cwd=ROOT, env=env)
+        return subprocess.Popen(
+            [sys.executable, "-c", RESUME_CHILD,
+             *([RESUME_GATED] if gated else []), *args],
+            stdin=subprocess.PIPE if gated else None, stdout=subprocess.PIPE,
+            stderr=err, text=True, cwd=ROOT, env=env)
 
 
 def _losses(path) -> Dict[int, float]:
@@ -3145,30 +3244,48 @@ def _losses(path) -> Dict[int, float]:
 
 def check_resume(dev, seed: int) -> str:
     """(d) three launcher runs in child processes (deterministic
-    algorithms, ``CUBLAS_WORKSPACE_CONFIG``) at full width and RESUME_CUT
-    layers: one uninterrupted; one sent SIGTERM once its step-9 line is
+    algorithms, ``CUBLAS_WORKSPACE_CONFIG``) on RESUME_ARCH at full width
+    and RESUME_CUT layers, RESUME_STEPS steps at RESUME_SEQ tokens: one
+    uninterrupted; one sent SIGTERM once its RESUME_SIGTERM_AFTER line is
     read, which must save through ``PreemptionHandler`` and stop; one with
     ``--resume auto`` on the second's directory.  From the resumed step on
     its losses are bitwise the uninterrupted run's; its final checkpoint
-    (step 20) equals the uninterrupted run's in every leaf (masters, m, v,
+    (step RESUME_STEPS) equals the uninterrupted run's in every leaf (masters, m, v,
     count, step), bitwise; the preempted checkpoint restores onto the card
     bitwise what its archive holds (checked while the resumed run trains,
-    as is the uninterrupted run's final checkpoint read)."""
+    as is the uninterrupted run's final checkpoint read).  The resumed
+    run's process starts with the other two and waits on its stdin until
+    the preempted one has stopped."""
     import os
     import shutil
     import signal
     import tempfile
 
     from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
     from repro_torch.train import init_train_state
     from repro_torch.tree import leaves
 
-    cfg, tcfg = train_config(RESUME_CUT)
+    cfg = dataclasses.replace(get_config(RESUME_ARCH), n_layers=RESUME_CUT)
+    _, tcfg = train_config()  # the launcher's defaults: the tree's shape
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    base = ["--arch", "qwen2-1.5b", "--layers", str(RESUME_CUT), "--seed",
+    base = ["--arch", RESUME_ARCH, "--layers", str(RESUME_CUT), "--seq",
+            str(RESUME_SEQ), "--steps", str(RESUME_STEPS), "--seed",
             str(seed), "--ckpt-every", "1000"]
+    procs = []
+
+    def wait(name, proc):
+        try:
+            rc = proc.wait(timeout=600)
+        except Exception:
+            proc.kill()
+            raise
+        if rc != 0:
+            fail(f"(15d) the {name} run exited {rc}: "
+                 f"{(tmp / f'{name}.err').read_text()[-2000:]}")
+
     try:
         t0 = time.perf_counter()
         runs = {name: _child(base + ["--ckpt-dir", str(tmp / name),
@@ -3176,29 +3293,25 @@ def check_resume(dev, seed: int) -> str:
                                      str(tmp / f"{name}.jsonl")], env,
                              tmp / f"{name}.err")
                 for name in ("full", "cut")}
+        resumed = _child(base + ["--ckpt-dir", str(tmp / "cut"),
+                                 "--metrics-out", str(tmp / "res.jsonl"),
+                                 "--resume", "auto"], env, tmp / "res.err",
+                         gated=True)
+        procs += [*runs.values(), resumed]
         cut, lines = runs["cut"], []
         for line in cut.stdout:
             lines.append(line)
             if line.startswith(f"step {RESUME_SIGTERM_AFTER:5d} "):
                 cut.send_signal(signal.SIGTERM)
-        for name, proc in runs.items():
-            try:
-                rc = proc.wait(timeout=600)
-            except Exception:
-                proc.kill()
-                raise
-            if rc != 0:
-                fail(f"(15d) the {name} run exited {rc}: "
-                     f"{(tmp / f'{name}.err').read_text()[-2000:]}")
+        wait("cut", cut)
         stop = [ln for ln in lines if ln.startswith("preempted at step")]
         if not stop or "checkpoint saved, stopping" not in stop[0]:
             fail(f"(15d) the SIGTERM run did not stop with a checkpoint: "
                  f"{lines[-3:]}")
         at = int(stop[0].split()[3].rstrip(";"))
         saved = at + 1
-        resumed = _child(base + ["--ckpt-dir", str(tmp / "cut"),
-                                 "--metrics-out", str(tmp / "res.jsonl"),
-                                 "--resume", "auto"], env, tmp / "res.err")
+        resumed.stdin.write("go\n")
+        resumed.stdin.flush()
         # while the resumed run trains: the step-`saved` checkpoint onto
         # the card, and the uninterrupted run's final one read
         mgr = CheckpointManager(str(tmp / "cut"))
@@ -3221,18 +3334,19 @@ def check_resume(dev, seed: int) -> str:
                  f"{int(got['state']['opt'].count)} restored for {saved}")
         del got, flat
         torch.cuda.empty_cache()
-        a = CheckpointManager(str(tmp / "full")).restore_flat(TRAIN_STEPS)
+        wait("full", runs["full"])
+        a = CheckpointManager(str(tmp / "full")).restore_flat(RESUME_STEPS)
         out, _ = resumed.communicate(timeout=600)
         if resumed.returncode != 0 or f"resumed from step {saved}" not in out:
             fail(f"(15d) the resumed run: rc {resumed.returncode}, "
                  f"{out[-500:]} {(tmp / 'res.err').read_text()[-2000:]}")
         seconds = time.perf_counter() - t0
         full, res = _losses(tmp / "full.jsonl"), _losses(tmp / "res.jsonl")
-        if sorted(res) != list(range(saved, TRAIN_STEPS)) or any(
+        if sorted(res) != list(range(saved, RESUME_STEPS)) or any(
                 res[s] != full[s] for s in res):
             fail(f"(15d) resumed losses {res} differ from the uninterrupted "
                  f"run's {full}")
-        b = CheckpointManager(str(tmp / "cut")).restore_flat(TRAIN_STEPS)
+        b = CheckpointManager(str(tmp / "cut")).restore_flat(RESUME_STEPS)
         if set(a) != set(b) or any(
                 a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
                 for k in a):
@@ -3241,12 +3355,18 @@ def check_resume(dev, seed: int) -> str:
         n_bytes = sum(v.nbytes for v in a.values())
         del a, b
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
-    return (f"(d) {RESUME_CUT} layer(s) at full width: SIGTERM after the "
+    return (f"(d) {RESUME_ARCH} at full width, {RESUME_CUT} layers, "
+            f"{RESUME_STEPS} steps of {TRAIN_BATCH} x {RESUME_SEQ} tokens: "
+            f"SIGTERM after the "
             f"step-{RESUME_SIGTERM_AFTER} line stopped the run at step {at} "
             f"with a checkpoint of step {saved}; --resume auto gave steps "
-            f"{saved}-{TRAIN_STEPS - 1} bitwise the uninterrupted run's "
-            f"losses; the two runs' step-{TRAIN_STEPS} checkpoints equal in "
+            f"{saved}-{RESUME_STEPS - 1} bitwise the uninterrupted run's "
+            f"losses; the two runs' step-{RESUME_STEPS} checkpoints equal in "
             f"every leaf ({n_bytes / 1e9:.2f} GB each); the step-{saved} "
             f"checkpoint's {n_leaves} leaves restored onto the card bitwise "
             f"(while the resumed run trained); three runs {seconds:.1f} s")
@@ -3540,25 +3660,256 @@ def check_router_launches(run: ServeRun, dev) -> str:
             f"{steps} x {step_products(run.cfg)}")
 
 
-def launcher_router(dev) -> str:
+def launcher_router_start():
     """``python -m repro_torch.launch.serve --continuous --router
-    --page-size 16`` in a child process on the card: exit 0, one shard."""
+    --page-size 16`` in a child process on the card, started while (c)-(e)
+    run (they time nothing); (its process, the start time)."""
     import os
     import subprocess
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--continuous",
          "--router", "--page-size", "16"], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines()
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def launcher_router_check(proc, t0: float) -> str:
+    """The launcher's --router run: exit 0, one shard."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    lines = [ln for ln in out.splitlines()
              if ln.startswith(("router:", "[router]"))]
     if proc.returncode != 0 or len(lines) != 2 or "1 shard" not in lines[0]:
         fail(f"(16) the launcher's --router run: rc {proc.returncode}, "
-             f"{proc.stdout[-800:]} {proc.stderr[-2000:]}")
+             f"{out[-800:]} {err[-2000:]}")
     return (f"launcher --continuous --router --page-size 16 "
-            f"({time.perf_counter() - t0:.1f} s): {' | '.join(lines)}")
+            f"({time.perf_counter() - t0:.1f} s, beside (c)-(e)): "
+            f"{' | '.join(lines)}")
+
+
+# ------------------------------------------------------------ phase 22
+MESH_SPEC, MESH_CHIPS = "2x2", 4  # (a)-(c): DATA x MODEL logical chips
+MESH_LAUNCH_REQUESTS = 8  # (c)
+DRYRUN_CELLS = (("xlstm-125m", "decode_32k", False),  # (d): the JAX
+                ("qwen2-1.5b", "train_4k", False),  # package's dry-run
+                ("recurrentgemma-9b", "long_500k", True))  # tests' cells
+
+
+def serve_run(dev, seed: int) -> ServeRun:
+    """Phase 9's model, gate and traffic without its host-batcher run
+    (``--phase22`` alone)."""
+    from repro_torch.arch import model as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import load_dataset
+
+    cfg = get_config("qwen2-1.5b")
+    params = M.init_params(cfg, seed, dev)
+    ds = load_dataset("unsw", n=4000)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                                     SERVE_REQUESTS)]
+    feats = ds.X_test[np.arange(SERVE_REQUESTS) % len(ds.X_test)]
+    return ServeRun(cfg, params, serve_gate(dev), prompts, feats, None, 0.0,
+                    {})
+
+
+def meshed(run: ServeRun, dev, tp_params: bool):
+    """Phase 16's router on a MESH_SPEC mesh of logical chips on the card:
+    one shard a data slice, each a device batcher as phase 11's."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.router import ShardedServe
+
+    mesh = make_serve_mesh(MESH_SPEC, chips=MESH_CHIPS, device=dev)
+    return ShardedServe(run.cfg, run.params, ServeConfig(**SERVE), mesh,
+                        gate=run.gate, eos_token=-1, max_tokens=SERVE_TOKENS,
+                        sync_every=DEVICE_ROUND, prefill_chunk=DEVICE_CHUNK,
+                        tp_params=tp_params, device=dev)
+
+
+def drive_mesh(run: ServeRun, dev) -> Dict[str, Any]:
+    """(a) replicated, (b) ``tp_params``: the checks of the module
+    docstring; then warm waves of both and of phase 16's two mesh-less
+    shards, timed in turns."""
+    from repro_torch.kernels import ops
+
+    a = meshed(run, dev, False)
+    if a.n_shards != 2 or [m.device_ids() for m in a.submeshes] != [
+            [0, 1], [2, 3]]:
+        fail(f"(22a) {a.n_shards} shards over {a.submeshes}")
+    ops.reset_launch_counts()
+    route_wave(a, run, dev)
+    launches = ops.launch_counts()
+    for k in ("fused_eb", *step_kernels(run.cfg)):
+        if launches[k] <= 0:
+            fail(f"(22a) the mesh router did not launch {k}: {launches}")
+    check_terminal_once(a, SERVE_REQUESTS, "(22a)")
+    held = [len(rids) for rids in a.assigned]
+    for s, rids in enumerate(a.assigned):
+        if not rids or rids != sorted(rids):
+            fail(f"(22a) shard {s} holds {rids}: empty, or not FIFO")
+        lone = device_batcher(run, dev)
+        for rid in rids:
+            lone.submit(rid, run.prompts[rid], features=run.feats[rid])
+        lone.run(max_steps=20000)
+        for rid in rids:
+            if a.done.get(rid) != lone.done.get(rid) or (
+                    a.drop_reasons.get(rid) != lone.drop_reasons.get(rid)):
+                fail(f"(22a) request {rid} on shard {s} differs from the "
+                     f"lone batcher's")
+        del lone
+    b = meshed(run, dev, True)
+    route_wave(b, run, dev)
+    check_terminal_once(b, SERVE_REQUESTS, "(22b)")
+    if b.assigned != a.assigned:
+        fail(f"(22b) tp_params routed {b.assigned}, (a) {a.assigned}")
+    check_replayed(b, a, "(22b)")
+    plain = sharded(run, dev, ROUTER_SHARDS)  # phase 16's two shards
+    route_wave(plain, run, dev)
+    if plain.assigned != a.assigned:
+        fail(f"(22a) the mesh-less router routed {plain.assigned}, the "
+             f"mesh's {a.assigned}")
+    check_replayed(plain, a, "(22a) mesh-less")
+
+    def timed(r):  # a warm wave, the garbage of earlier ones collected
+        gc.collect()
+        return timed_route(r, run, dev)
+
+    # in turns (n, a, b, b, a, n): a difference must beat the spread
+    t = {"n": [timed(plain)], "a": [timed(a)], "b": [timed(b), timed(b)]}
+    t["a"].append(timed(a))
+    t["n"].append(timed(plain))
+    out = dict(a=a, launches=launches, held=held, t=t)
+    del b, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_mesh_start(dev):
+    """(c) the launcher on the MESH_SPEC mesh in a child process, started
+    while (d) plans."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-1.5b", "--continuous", "--router", "--mesh", MESH_SPEC,
+         "--page-size", "16", "--requests", str(MESH_LAUNCH_REQUESTS)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def launcher_mesh_check(proc) -> str:
+    try:
+        out, err = proc.communicate(timeout=600)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    import re
+
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("router:", "[router]"))]
+    ends = re.search(r"served (\d+) requests \(dropped (\d+)",
+                     lines[-1] if lines else "")
+    if proc.returncode != 0 or len(lines) != 2 or (
+            "2 shard(s)" not in lines[0]) or ends is None or (
+            int(ends[1]) + int(ends[2]) != MESH_LAUNCH_REQUESTS):
+        fail(f"(22c) the launcher's --mesh {MESH_SPEC} run: rc "
+             f"{proc.returncode}, {out[-800:]} {err[-2000:]}")
+    return " | ".join(lines)
+
+
+def check_dryrun() -> list:
+    """(d) ``launch.dryrun``'s CLI on DRYRUN_CELLS, in process, on the
+    card: exit 0 and one ``OK`` line each whose arguments fit."""
+    import io
+
+    from repro_torch.launch import dryrun
+
+    lines = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        buf = io.StringIO()
+        argv = ["--arch", arch, "--shape", shape] + (
+            ["--multi-pod"] if multi_pod else [])
+        with contextlib.redirect_stdout(buf):
+            try:
+                dryrun.main(argv)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        ok = [ln for ln in buf.getvalue().splitlines()
+              if ln.startswith("OK ")]
+        if code != 0 or len(ok) != 1 or "fit=yes" not in ok[0]:
+            fail(f"(22d) launch.dryrun {' '.join(argv)}: exit {code}, "
+                 f"{buf.getvalue()[-1500:]}")
+        lines.append(" ".join(ok[0].split()))
+    return lines
+
+
+def phase22(run: ServeRun, dev, card: str, two=None) -> None:
+    """Phase 22: serving over a mesh of logical chips (a)-(c) and the
+    dry-run planner (d); every check a hard failure.  ``two``: phase 16's
+    two-shard warm wave, printed beside (a) and (b)."""
+    t_all = time.perf_counter()
+    proc = launcher_mesh_start(dev)
+    t0 = time.perf_counter()
+    try:
+        planned = check_dryrun()
+    except BaseException:
+        proc.kill()
+        raise
+    t_d = time.perf_counter() - t0
+    launched = launcher_mesh_check(proc)
+    print(f"[22 c launcher] launch.serve --arch qwen2-1.5b --continuous "
+          f"--router --mesh {MESH_SPEC} --page-size 16 --requests "
+          f"{MESH_LAUNCH_REQUESTS}: {launched} "
+          f"({time.perf_counter() - t_all:.1f} s, beside (d); {card})")
+    for line in planned:
+        print(f"[22 d dryrun] {line} ({card})")
+    print(f"[22 d dryrun] {len(planned)} cells planned on meta tensors in "
+          f"{t_d:.1f} s")
+    t0 = time.perf_counter()
+    m = drive_mesh(run, dev)
+    print(f"[22 a mesh] {SERVE}, phase 9's {SERVE_REQUESTS} requests through "
+          f"ShardedServe on a {MESH_SPEC} mesh of {MESH_CHIPS} logical chips "
+          f"on the card (slices {[s.device_ids() for s in m['a'].submeshes]}"
+          f", params replicated): every request terminal once "
+          f"({len(wave_streams(m['a']))} served, drops "
+          f"{first_wave_drops(m['a'])[1]}), shards hold {m['held']} in FIFO "
+          f"order, each shard's streams and drops bitwise a lone device "
+          f"batcher's and the mesh-less {ROUTER_SHARDS}-shard router's; "
+          f"wrapper launches "
+          f"{dict((k, n) for k, n in m['launches'].items() if n)}; (b) "
+          f"tp_params=True: routing, streams and drops bitwise (a)'s "
+          f"({time.perf_counter() - t0:.1f} s; {card})")
+    for tag, key in (("(a) mesh, replicated", "a"), ("(b) mesh, tp_params",
+                                                     "b"),
+                     (f"{ROUTER_SHARDS} mesh-less shards", "n")):
+        ts = m["t"][key]
+        rates = ", ".join(f"{x['tokens_s']:.1f}" for x in ts)
+        steps = ", ".join(f"{x['ms_step']:.4f}" for x in ts)
+        print(f"[22 mesh timing] {tag}, two warm waves (in turns n, a, b, "
+              f"b, a, n; garbage collected before each), graph: "
+              f"{ts[0]['tokens']} tokens each, {rates} tokens/s, {steps} ms "
+              f"per step run ({ts[0]['steps']} steps a wave; the shards "
+              f"take turns on the card) ({card})")
+    if two is not None:
+        print(f"[22 mesh timing] phase 16's {ROUTER_SHARDS} mesh-less shards "
+              f"(one warm wave, no collection): {two['tokens_s']:.1f} "
+              f"tokens/s, {two['ms_step']:.4f} ms per step run ({card})")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[22] phase 22 in {time.perf_counter() - t_all:.1f} s ({card})")
 
 
 # ------------------------------------------------------------ phase 17
@@ -3929,7 +4280,7 @@ def moe_linear_weights(cfg):
 
 
 def phase16(serve: ServeRun, d: DeviceRun, prof: Dict[str, Any], dev,
-            card: str) -> None:
+            card: str) -> Dict[str, float]:
     """Phase 16: phase 9's model, gate and traffic through the mesh-less
     router (checks (a)-(e), the timings, the launcher's --router run)."""
     t0 = time.perf_counter()
@@ -3953,17 +4304,24 @@ def phase16(serve: ServeRun, d: DeviceRun, prof: Dict[str, Any], dev,
               f"steps; the shards take turns on the card); phase 11's warm "
               f"wave {prof['tokens'] / prof['seconds']:.1f} tokens/s, "
               f"{prof['ms_step']:.4f} ms per step run ({card})")
-    for check in (lambda: check_router_faults(serve, r16["one"], dev),
-                  lambda: check_router_launches(serve, dev),
-                  lambda: launcher_router(dev)):
-        t0 = time.perf_counter()
-        line = check()
-        print(f"[16 router] {line} ({time.perf_counter() - t0:.1f} s; "
-              f"{card})")
+    child = launcher_router_start()
+    try:
+        for check in (lambda: check_router_faults(serve, r16["one"], dev),
+                      lambda: check_router_launches(serve, dev),
+                      lambda: launcher_router_check(*child)):
+            t0 = time.perf_counter()
+            line = check()
+            print(f"[16 router] {line} ({time.perf_counter() - t0:.1f} s; "
+                  f"{card})")
+    finally:
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].communicate()
+    return r16["t_two"]
 
 
 def phase17(dev, seed: int, card: str) -> tuple:
-    """Phase 17: qwen2-moe-a2.7b at full width and depth through the
+    """Phase 17: qwen2-moe-a2.7b at full width (SERVE_DEPTH) through the
     host and device batchers (checks (a)-(f), the timings): (the
     ``moe_down_combine`` JSON row, the MoE step's ``linear`` timings)."""
     from repro_torch.tree import leaves
@@ -3973,7 +4331,7 @@ def phase17(dev, seed: int, card: str) -> tuple:
     mcfg = moe.cfg
     n_params = sum(p.numel() for leaf in leaves(moe.params)
                    for p in leaf.parts)
-    print(f"[17 moe] {MOE_ARCH} at full width and depth ({mcfg.n_layers} "
+    print(f"[17 moe] {MOE_ARCH} at {width_depth(mcfg)} ({mcfg.n_layers} "
           f"layers, d {mcfg.d_model}, {mcfg.n_heads}/{mcfg.n_kv_heads} heads, "
           f"hd {mcfg.head_dim_}, {mcfg.n_experts} experts padded to "
           f"{mcfg.n_experts_padded}, top-{mcfg.n_experts_active}, expert "
@@ -4099,14 +4457,14 @@ JAX_MIXER_LEAVES = {
 
 
 def rec_run(dev, seed: int, arch: str, gate) -> ServeRun:
-    """``arch`` at its published width and depth, random weights from
-    ``seed``, phase 9's gate and traffic (prompts drawn in the model's
-    vocabulary): the ``ServeRun`` the dense checks of phase 14 take."""
+    """``arch`` at its published width (its depth ``served_config``'s),
+    random weights from ``seed``, phase 9's gate and traffic (prompts drawn
+    in the model's vocabulary): the ``ServeRun`` the dense checks of phase
+    14 take."""
     from repro_torch.arch import model as M
-    from repro_torch.configs import get_config
     from repro_torch.data import load_dataset
 
-    cfg = get_config(arch)
+    cfg = served_config(arch)
     params = M.init_params(cfg, seed, dev)
     ds = load_dataset("unsw", n=4000)
     rng = np.random.default_rng(seed)
@@ -4393,7 +4751,7 @@ def weight_bytes(params, skip=("embed",)) -> int:
 
 def rec_serve(dev, seed: int, arch: str, gate, card: str, tag: str,
               wrap: bool) -> Dict[str, Any]:
-    """(a) / (d): ``arch`` at full width and depth through ``generate()``,
+    """(a) / (d): ``arch`` at full width (SERVE_DEPTH) through ``generate()``,
     the dense host batcher and the dense device batcher (CUDA graph):
     host == device and graph == eager bitwise, launches exact, a round
     without a synchronising call, the kernel path within phase 9's delta
@@ -4409,7 +4767,7 @@ def rec_serve(dev, seed: int, arch: str, gate, card: str, tag: str,
     n_params = sum(p.numel() for leaf in leaves(run.params)
                    for p in leaf.parts)
     w_bytes = weight_bytes(run.params)
-    print(f"[18 {tag}] {arch} at full width and depth ({cfg.n_layers} "
+    print(f"[18 {tag}] {arch} at {width_depth(cfg)} ({cfg.n_layers} "
           f"layers, pattern {cfg.block_pattern} "
           f"{dict(collections.Counter(layer_kinds(cfg)))}, d "
           f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
@@ -4816,7 +5174,7 @@ def profile_rec_train(dev, seed: int, wall_ms: float) -> Dict[str, Any]:
 
 
 def phase18(dev, seed: int, card: str, gate) -> list:
-    """Phase 18: the recurrent families at full width and depth over the
+    """Phase 18: the recurrent families at full width (SERVE_DEPTH) over the
     dense state ((a)-(d)) and xlstm-125m's training ((e)); returns the new
     JSON rows (``paged_attention`` and ``linear`` at recurrentgemma-9b's
     step)."""
@@ -4946,7 +5304,7 @@ def front_gate(tag: str, kernel: torch.Tensor, witness: torch.Tensor,
 
 def front_forward(run: ServeRun, dev, seed: int, tag: str) -> Dict[str, Any]:
     """(a) ``forward`` of FRONT_B x FRONT_S tokens with their patches or
-    frames at full width and depth, under no_grad: the kernel path (every
+    frames at full width (SERVE_DEPTH), under no_grad: the kernel path (every
     product the ``linear`` kernel: exactly the model's launches, no other
     kernel of the repo) against the plain path (``linear_ref``; training's
     attention is plain torch in both), beside a witness (the plain
@@ -5092,7 +5450,7 @@ def front_decode(run: ServeRun, fwd: Dict[str, Any], dev, tag: str) -> str:
 
 def front_serve(dev, seed: int, arch: str, gate, card: str,
                 tag: str) -> Dict[str, Any]:
-    """(a)-(c) for ``arch`` at full width and depth: the forward, the
+    """(a)-(c) for ``arch`` at full width (SERVE_DEPTH): the forward, the
     model's products through phase 8's ``linear`` checks, ``generate()``
     with launches exact, both dense batchers (host == device, graph ==
     eager, launches exact, no sync, the ring's wrap), for the VLM the paged
@@ -5111,7 +5469,7 @@ def front_serve(dev, seed: int, arch: str, gate, card: str,
     enc = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
            f"layers with cross-attention" if cfg.family == "encdec" else
            f"{cfg.n_layers} layers")
-    print(f"[19 {tag}] {arch} ({cfg.family}) at full width and depth ({enc},"
+    print(f"[19 {tag}] {arch} ({cfg.family}) at {width_depth(cfg)} ({enc},"
           f" d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
           f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, "
           f"frontend {cfg.frontend_dim} x {cfg.frontend_seq}), "
@@ -5205,14 +5563,13 @@ def front_serve(dev, seed: int, arch: str, gate, card: str,
 
 
 def front_train_config(arch: str, n_layers: int = 0):
-    """``arch`` at full width and depth (or both stacks cut to
-    ``n_layers``) and the step's TrainConfig (FRONT_TRAIN_MICRO
-    microbatches, lr 1e-3)."""
-    from repro_torch.configs import get_config
+    """``arch`` at full width, its depth ``served_config``'s (or both
+    stacks cut to ``n_layers``), and the step's TrainConfig
+    (FRONT_TRAIN_MICRO microbatches, lr 1e-3)."""
     from repro_torch.train import TrainConfig
     from repro_torch.train.optimizer import AdamWConfig
 
-    cfg = get_config(arch)
+    cfg = served_config(arch)
     if n_layers:
         cfg = dataclasses.replace(
             cfg, n_layers=n_layers,
@@ -5223,7 +5580,7 @@ def front_train_config(arch: str, n_layers: int = 0):
 
 
 def front_train(dev, seed: int, arch: str, tag: str) -> str:
-    """(d) ``make_train_step`` at full width and depth, two steps of
+    """(d) ``make_train_step`` at full width (SERVE_DEPTH), two steps of
     FRONT_TRAIN_B x FRONT_S tokens with their patches or frames: finite
     losses, every master finite and moved, ``linear`` launched exactly
     microbatches x 2 x the forward's launches but the frontend's and the
@@ -5272,7 +5629,7 @@ def front_train(dev, seed: int, arch: str, tag: str) -> str:
     peak = torch.cuda.max_memory_allocated(dev)
     del params, state, step, before, after
     torch.cuda.empty_cache()
-    line = (f"{arch} at full width and depth, make_train_step, 2 steps of "
+    line = (f"{arch} at {width_depth(cfg)}, make_train_step, 2 steps of "
             f"{FRONT_TRAIN_B} x {FRONT_S} tokens with their "
             f"{FRONT_INPUT[cfg.family]} in {FRONT_TRAIN_MICRO} microbatches: "
             f"losses {[round(x, 4) for x in losses]}, every leaf finite and "
@@ -5323,7 +5680,7 @@ def front_linear_units(cfg):
 
 
 def phase19(dev, seed: int, card: str, gate) -> list:
-    """Phase 19: the VLM and enc-dec families at full width and depth
+    """Phase 19: the VLM and enc-dec families at full width (SERVE_DEPTH)
     ((a)-(c), then (d)'s training); returns the new JSON rows
     (``paged_attention`` at seamless-m4t-large-v2's step, ``linear`` at
     both models' steps)."""
@@ -5365,12 +5722,13 @@ def phase19(dev, seed: int, card: str, gate) -> list:
 # the router) and each takes about 18 bytes (a float32 master, two
 # moments, a float32 gradient and a bf16 copy), so 4 layers and the
 # 0.62 B of the embedding and head come to about 55 GB of the card's 80;
-# the full 24 layers (15.15 B) wait for ROADMAP queue A item 10
+# the full 24 layers (15.15 B) wait for ROADMAP queue A item 16
 MOE_TRAIN_LAYERS = 4
 MOE_PARITY_LAYERS = 2  # (b): kernel vs plain, as phase 15 (b) at TRAIN_CUT
-# (c)-(e): the dense configs the card had not run, at full width and depth,
-# one at a time (each is freed, with its engines and graphs, before the
-# next loads); qwen3-32b's 65.5 GB of bf16 weights last
+# (c)-(e): the dense configs the card had not run, at full width and
+# SERVE_DEPTH, one at a time (each is freed, with its engines and graphs,
+# before the next loads); at full depth qwen3-32b's 65.5 GB of bf16
+# weights fit beside its caches (PERF.md)
 DENSE20 = (("minitron-4b", "c"), ("gemma3-27b", "d"), ("qwen3-32b", "e"))
 # teacher-forced streams and their first decode steps: the plain products
 # take a call a row, and a 60-layer model's eager steps are host-bound
@@ -5661,7 +6019,7 @@ def check_window(run: ServeRun, dev, tag: str) -> str:
 
 def paged_wave(run: ServeRun, dev, tag: str) -> str:
     """(c)-(e) the paged device batcher at C = DEVICE_CHUNK over phase 9's
-    ServeConfig and traffic at full depth: ``check_device_main`` (terminal
+    ServeConfig and traffic at (c)-(e)'s depth: ``check_device_main`` (terminal
     states, the gate's verdicts, the pool, the path's kernels); the
     wrapper counts of the first wave, which tick at the eager warm-up and
     at the capture of each shape key (the graph replays exactly what it
@@ -5692,7 +6050,7 @@ def paged_wave(run: ServeRun, dev, tag: str) -> str:
 
 def dense_serve20(dev, seed: int, arch: str, gate, card: str,
                   tag: str) -> Dict[str, Any]:
-    """(c)-(e) ``arch`` at full width and depth, random weights from
+    """(c)-(e) ``arch`` at full width (SERVE_DEPTH), random weights from
     ``seed``: the model's product shapes through phase 8's ``linear``
     checks; the dense host batcher == the dense device batcher (graph)
     bitwise on phase 9's traffic (first prompt token), the host batcher's
@@ -5706,8 +6064,8 @@ def dense_serve20(dev, seed: int, arch: str, gate, card: str,
     replayed dense step without a synchronising call, paged == dense.
     For gemma3-27b ``check_window``.
     Every batcher is freed (with its graphs and cache) before the next is
-    made: gemma3-27b's 57 GB and qwen3-32b's 65.5 GB leave room for two
-    dense caches."""
+    made (at full depth gemma3-27b's 57 GB and qwen3-32b's 65.5 GB left
+    room for two dense caches)."""
     from repro_torch.tree import leaves
 
     t0 = time.perf_counter()
@@ -5718,7 +6076,7 @@ def dense_serve20(dev, seed: int, arch: str, gate, card: str,
                    for p in leaf.parts)
     w_bytes = weight_bytes(run.params)
     T = f"20 {tag}"
-    print(f"[{T}] {arch} at full width and depth ({cfg.n_layers} layers, d "
+    print(f"[{T}] {arch} at {width_depth(cfg)} ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
           f"{cfg.head_dim_}, qk_norm {cfg.qk_norm}, window "
           f"{cfg.local_window or 'none'}, d_ff {cfg.d_ff} {cfg.act}, vocab "
@@ -5785,7 +6143,8 @@ def dense_serve20(dev, seed: int, arch: str, gate, card: str,
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     print(f"[{T} paged] {SERVE}, phase 9's traffic (prompts "
-          f"{PROMPT_LENS[0]}-{PROMPT_LENS[1]} tokens), full depth: device "
+          f"{PROMPT_LENS[0]}-{PROMPT_LENS[1]} tokens), {cfg.n_layers} "
+          f"layers: device "
           f"batcher {paged_wave(run, dev, f'20{tag}')} "
           f"({time.perf_counter() - t0:.1f} s; {card})")
     t0 = time.perf_counter()
@@ -5844,7 +6203,7 @@ def phase20(dev, seed: int, card: str, gate) -> tuple:
     """Phase 20: qwen2-moe-a2.7b trained on the card ((a) the launcher at
     its defaults, MOE_TRAIN_LAYERS layers; (b) kernel vs plain at
     MOE_PARITY_LAYERS), then minitron-4b, gemma3-27b and qwen3-32b served
-    at full width and depth ((c)-(e), ``dense_serve20``); returns (the
+    at full width, SERVE_DEPTH ((c)-(e), ``dense_serve20``); returns (the
     new JSON rows: ``linear`` at each config's dense step,
     ``paged_attention`` at 3:1, 8:1 and 2:1 with the window; the
     training run's ``moe_down_combine`` launches)."""
@@ -5923,8 +6282,10 @@ DOTS_TIMED = (2, 6)  # (a): steps whose median wall time is a step's
 PHASE21_CUT = 4
 # (b): xlstm-125m at full width, one macro (mLSTM + sLSTM) of its 12
 # layers: its checkpoint with the moments is about 1 GB (qwen2-1.5b's about
-# 6 GB at one layer); train_lm's 8 x 128 tokens in 2 microbatches, lr 3e-3
-DRILL_LAYERS = 2
+# 6 GB at one layer); train_lm's batch of 8 in 2 microbatches, lr 3e-3, at
+# DRILL_SEQ tokens: the sLSTM's steps run one a token on the host, and at
+# train_lm's 128 the drill took 51 s of the run
+DRILL_LAYERS, DRILL_SEQ = 2, 32
 DRILL_STEPS, DRILL_CKPT_EVERY = 12, 3
 DRILL_PLAN = "slow:1:9.0:5@1, corrupt:manifest@6, lost:2@7"
 DRILL_FLEET = dict(n_workers=4, model_parallel=2, chips_per_host=2)
@@ -6065,7 +6426,7 @@ def drill_config():
 
     cfg, _ = rec_train_config(DRILL_LAYERS)
     return cfg, TrainConfig(
-        microbatches=REC_TRAIN_MICRO, q_block=min(512, REC_TRAIN_SEQ),
+        microbatches=REC_TRAIN_MICRO, q_block=min(512, DRILL_SEQ),
         adamw=AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=DRILL_STEPS))
 
 
@@ -6090,7 +6451,7 @@ def check_drill(dev, seed: int) -> Dict[str, Any]:
     ckpt = ROOT / "build" / "phase21_drill"
     shutil.rmtree(ckpt, ignore_errors=True)
     pipe = TokenPipeline(TokenPipelineConfig(
-        vocab_size=cfg.vocab_size, seq_len=REC_TRAIN_SEQ,
+        vocab_size=cfg.vocab_size, seq_len=DRILL_SEQ,
         global_batch=REC_TRAIN_BATCH, seed=seed))
     metrics, log = Metrics(), []
     trainer = ElasticTrainer(
@@ -6153,7 +6514,7 @@ def check_preempt_launcher(dev, seed: int) -> Dict[str, Any]:
     with contextlib.redirect_stdout(out):
         losses = train.main([
             "--arch", XLSTM_ARCH, "--layers", str(DRILL_LAYERS), "--batch",
-            str(REC_TRAIN_BATCH), "--seq", str(REC_TRAIN_SEQ),
+            str(REC_TRAIN_BATCH), "--seq", str(DRILL_SEQ),
             "--microbatches", str(REC_TRAIN_MICRO), "--lr", "3e-3",
             "--steps", str(PREEMPT_STEPS), "--seed", str(seed),
             "--elastic", "--workers", "4", "--model-parallel", "2",
@@ -6283,7 +6644,7 @@ def phase21(dev, seed: int, card: str, full=None) -> None:
         f"{s.n_steps} steps in {s.seconds:.2f} s" for s in res.segments)
     print(f"[21 b elastic] xlstm-125m at full width (d {dcfg.d_model}, vocab "
           f"{dcfg.vocab_padded}), {dcfg.n_layers} of 12 layers, "
-          f"{REC_TRAIN_BATCH} x {REC_TRAIN_SEQ} tokens in {REC_TRAIN_MICRO} "
+          f"{REC_TRAIN_BATCH} x {DRILL_SEQ} tokens in {REC_TRAIN_MICRO} "
           f"microbatches, plan {DRILL_PLAN!r}, {DRILL_FLEET}: {segs}; "
           f"{res.steps_completed}/{DRILL_STEPS} steps ({res.executed_steps} "
           f"executed), workers 4 -> {res.workers_final}, counters "
@@ -6343,6 +6704,10 @@ def main() -> None:
                     help="build the kernels and run phase 21 alone (the "
                          "dots remat policy, the elastic drill and the "
                          "GPipe step); prints no result line")
+    ap.add_argument("--phase22", action="store_true",
+                    help="build the kernels and run phase 22 alone "
+                         "(serving over a mesh of logical chips, the "
+                         "dry-run planner); prints no result line")
     args = ap.parse_args()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6397,6 +6762,10 @@ def main() -> None:
         return
     if args.phase21:
         phase21(dev, args.seed, card)
+        print(card)
+        return
+    if args.phase22:
+        phase22(serve_run(dev, args.seed), dev, card)
         print(card)
         return
     starts(t_run, "2")
@@ -6667,7 +7036,9 @@ def main() -> None:
           f"{lt['library_ms']} (device {lt['library_device_ms']}), bound "
           f"{lt['bound_ms']:.4f} (bytes) ({card})")
     starts(t_run, "16")
-    phase16(serve, d, prof, dev, card)
+    two = phase16(serve, d, prof, dev, card)
+    starts(t_run, "22")
+    phase22(serve, dev, card, two)
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
     lin_row["launches"] = serve.launches["linear"]

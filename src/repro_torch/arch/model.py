@@ -98,7 +98,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..device import resolve_device
+from ..device import tensor_device
 from ..kernels import ops
 from ..kernels.linear import DOTS_OP
 from ..nn import attention as A
@@ -201,9 +201,11 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     float32 masters existing at a time, or with ``masters=True`` the
     float32 masters themselves (``compute_params`` of them is the same
     compute tree)."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    dev = tensor_device(device)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
     conv = (lambda t: t) if masters else compute_params
     Vp, D = cfg.vocab_padded, cfg.d_model
     params: Params = conv({
@@ -275,7 +277,7 @@ def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
     Attention stacks only: a ``block_pattern`` config raises the JAX
     package's ``ValueError``."""
     check_paged(cfg)
-    device = resolve_device(device)
+    device = tensor_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
     if kv_dtype == "int8":
         sshape = shape[:-1] + (1,)
@@ -345,7 +347,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     also ``cross = (k, v)``, ``[n_layers, batch, frontend_seq, KV, hd]``
     bf16 zeros (``encode_cross`` computes them), an int8 request kept
     bf16, as in the JAX package."""
-    device = resolve_device(device)
+    device = tensor_device(device)
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)

@@ -12,7 +12,7 @@ from typing import List, Union
 
 import torch
 
-__all__ = ["resolve_device", "device_count", "card_info"]
+__all__ = ["resolve_device", "tensor_device", "device_count", "card_info"]
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -33,6 +33,14 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
                            f"{cap[1]}; the kernels are built for sm_90a "
                            "(Hopper)")
     return dev
+
+
+def tensor_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+    """The device to allocate a model's tensors on: ``meta`` as itself
+    (shapes without data, for the dry-run planner ``launch.dryrun``), any
+    other through ``resolve_device``."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
 
 
 def device_count(device: torch.device) -> int:

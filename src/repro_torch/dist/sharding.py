@@ -50,8 +50,8 @@ import torch
 from ..tree import SEP, leaves, map_leaves
 
 __all__ = ["MODEL_AXIS", "Mesh", "PartitionSpec", "P", "NamedSharding",
-           "data_axis", "param_spec", "param_pspecs", "param_shardings",
-           "batch_pspec", "cache_pspec", "cache_shardings",
+           "place", "data_axis", "param_spec", "param_pspecs",
+           "param_shardings", "batch_pspec", "cache_pspec", "cache_shardings",
            "paged_cache_pspec", "paged_kv_shardings", "serve_pspec",
            "serve_state_shardings", "queue_pspec"]
 
@@ -193,8 +193,46 @@ class NamedSharding:
         self.check(t.shape)
         return t.to(self.mesh.device)
 
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """One chip's shard of a leaf of ``shape``, as JAX's
+        ``NamedSharding.shard_shape``: each dim over its axes' size."""
+        self.check(shape)
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        return tuple(int(d) // _axis_size(self.mesh, ax)
+                     for d, ax in zip(shape, spec))
+
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def place(tree, shardings):
+    """``jax.device_put``'s counterpart: ``tree`` placed by a tree of
+    NamedShardings that mirrors it (None where the tree holds no tensor),
+    or by one NamedSharding for every tensor.  Each tensor is validated
+    and held whole on the mesh's device; one already there is the same
+    tensor, so nothing is copied and no kernel runs."""
+    if isinstance(tree, torch.Tensor):
+        return shardings.place(tree)
+
+    def at(key):  # a child's shardings
+        if isinstance(shardings, NamedSharding):
+            return shardings
+        if dataclasses.is_dataclass(shardings):
+            return getattr(shardings, key)
+        return shardings[key]
+
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: place(getattr(tree, f.name), at(f.name))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    if isinstance(tree, dict):
+        return {k: place(v, at(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [place(v, at(i)) for i, v in enumerate(tree)]
+        return (type(tree)(*items) if hasattr(tree, "_fields")
+                else type(tree)(items))
+    return tree
 
 
 def _path_names(path) -> Tuple[str, ...]:

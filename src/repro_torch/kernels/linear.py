@@ -30,9 +30,11 @@ with a Pallas kernel, and nothing needs the backward's rows invariant.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ._launch import stream_ptr
@@ -159,6 +161,8 @@ def _forward(x: torch.Tensor, ws: Sequence[torch.Tensor],
     global launches
     if x.device.type == "cpu":
         return [linear_ref(x, w, out_dtype) for w in ws]
+    if x.device.type == "meta":  # shapes only: the operator's fake version
+        return list(_linear_group_op(x, list(ws), out_dtype))
     _check(x, ws, out_dtype)
     K = x.shape[-1]
     x2 = x.reshape(-1, K)
@@ -242,6 +246,16 @@ def _backward(ctx, dys):
 
 _linear_group_op.register_autograd(_backward, setup_context=_setup_context)
 DOTS_OP = torch.ops.repro_torch.linear_group.default
+
+
+@register_flop_formula(torch.ops.repro_torch.linear_group)
+def _linear_group_flops(x_shape, w_shapes, out_dtype=None, *args,
+                        **kwargs) -> int:
+    """``2 M K N`` a product, for ``torch.utils.flop_counter``'s
+    ``FlopCounterMode``, which cannot see into the operator (the dry-run
+    planner counts a step's FLOPs on meta tensors)."""
+    M = math.prod(x_shape[:-1])
+    return sum(2 * M * K * N for K, N in w_shapes)
 
 
 def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],

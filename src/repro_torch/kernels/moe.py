@@ -40,11 +40,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ._launch import stream_ptr
-from .ref import (moe_combine_ref, moe_down_combine_ref,
-                  moe_expert_out_ref)
+from .ref import moe_combine_ref, moe_expert_out_ref
 
 __all__ = ["moe_down_combine", "moe_down_combine_backward",
            "moe_down_combine_bytes", "plan", "item_width"]
@@ -235,6 +235,37 @@ def moe_down_combine_backward(h: torch.Tensor, w_down: torch.Tensor,
     return dh, dw, dc
 
 
+# The plain expert products are one registered operator on the CPU and on
+# meta tensors, so that ``torch.utils.flop_counter`` counts their FLOPs
+# (its F-ordered loop is elementwise, which it does not count); the
+# dry-run planner counts a step's FLOPs on meta tensors.
+@torch.library.custom_op("repro_torch::moe_expert_out", mutates_args=())
+def _expert_out(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """``ref.moe_expert_out_ref`` as an operator."""
+    return moe_expert_out_ref(h, w_down)
+
+
+@_expert_out.register_fake
+def _(h, w_down):
+    return h.new_empty((h.shape[0], h.shape[1], w_down.shape[2]),
+                       dtype=torch.bfloat16)
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_expert_out)
+def _expert_out_flops(h_shape, w_shape, *args, **kwargs) -> int:
+    """``2 M E F D``: every expert's down product, as the JAX dense
+    einsum (the kernel skips the experts a row does not pick)."""
+    M, E, F = h_shape
+    return 2 * M * E * F * w_shape[2]
+
+
+def _plain(h: torch.Tensor, w_down: torch.Tensor, combine: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, y)`` of the plain version (``ref.moe_down_combine_ref``)."""
+    y = _expert_out(h, w_down)
+    return moe_combine_ref(y, combine), y
+
+
 class _DownCombine(torch.autograd.Function):
     """``moe_down_combine`` with a gradient: the forward is the kernel's
     one launch (the plain version on the CPU), bitwise what the call
@@ -244,9 +275,8 @@ class _DownCombine(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w_down, combine):
-        if h.device.type == "cpu":
-            y = moe_expert_out_ref(h, w_down)
-            out = moe_combine_ref(y, combine)
+        if h.device.type in ("cpu", "meta"):
+            out, y = _plain(h, w_down, combine)
         else:
             out, y = _launch(h, w_down, combine)
         ctx.save_for_backward(h, w_down, combine, y)
@@ -269,6 +299,6 @@ def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (h, w_down, combine)):
         return _DownCombine.apply(h, w_down, combine)
-    if h.device.type == "cpu":
-        return moe_down_combine_ref(h, w_down, combine)
+    if h.device.type in ("cpu", "meta"):
+        return _plain(h, w_down, combine)[0]
     return _launch(h, w_down, combine)[0]

@@ -26,8 +26,10 @@ decode.
     ... --trace t.json --metrics-out m.jsonl
     ... --fault-plan "nan:1@2,exhaust:0:2@3"
 
-    # the request router (one shard on the one device: --mesh auto or 1x1)
+    # the request router: one shard (--router, --mesh auto or 1x1), or
+    # one shard a data slice of a DATAxMODEL mesh of logical chips
     ... --continuous --page-size 16 --router [--rebalance-margin 4]
+    ... --continuous --page-size 16 --mesh 2x2
 
     # an MoE model (qwen2-moe-a2.7b, moonshot-v1-16b-a3b) in any mode
     ... --arch qwen2-moe-a2.7b --smoke --continuous --page-size 16
@@ -50,11 +52,15 @@ with ``--temperature`` / ``--top-k`` / ``--top-p``, ``--gate`` /
 (SIGTERM stops admission at the next wave boundary, drains in-flight work
 and snapshots the un-served queue through ``ckpt.CheckpointManager``; a
 later run with the same directory restores it first), and ``--router`` /
-``--mesh`` / ``--rebalance-margin``: the mesh-less ``serve.router.
-ShardedServe``.  The JAX package's ``--mesh auto`` spreads the visible
-devices over one data shard, so on one device (the CPU, or one card)
-``auto`` and ``1x1`` serve one shard there; a mesh of more than one
-device raises ``NotImplementedError`` (ROADMAP queue A item 10).  Every
+``--mesh`` / ``--rebalance-margin``: ``serve.router.ShardedServe``.
+``--mesh DATAxMODEL`` is that many logical chips on the one device
+(``launch.mesh.make_serve_mesh(spec, chips=DATA*MODEL)``, the port's
+counterpart of the fake devices the JAX tests serve the same spec on):
+``DATA`` shards, each placed on its ``1xMODEL`` slice, replicated as the
+JAX launcher places them.  ``--mesh auto`` (the default of ``--router``)
+is one data shard over every visible card: one shard on one card or on
+the CPU; more than one card raises ``NotImplementedError`` (placement
+over several cards, ROADMAP queue A item 16).  Every
 ``--arch`` of the JAX launcher serves: a VLM decodes text only and an
 enc-dec model's decode keeps its ``cross`` planes zero, as the JAX
 package's do (ROADMAP C.13, C.14); ``--page-size`` with an enc-dec or
@@ -76,7 +82,8 @@ from ..ckpt import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..core import PlanterConfig, plant
 from ..data import load_dataset
-from ..device import resolve_device
+from ..device import device_count, resolve_device
+from ..dist.sharding import Mesh
 from ..dist.stragglers import PreemptionHandler
 from ..nn import attn_backend as AB
 from ..obs import Metrics, Tracer
@@ -85,6 +92,7 @@ from ..serve.engine import (NOT_PORTED, ContinuousBatcher,
 from ..serve.faults import FaultPlan, preempt_snapshot, warm_restart
 from ..serve.router import ShardedServe
 from ..serve.spec import train_draft
+from .mesh import make_serve_mesh
 
 
 def _not_ported(args) -> str:
@@ -94,29 +102,24 @@ def _not_ported(args) -> str:
     return ""
 
 
-def serve_shards(spec: str, device: torch.device) -> int:
-    """Data shards of a ``DATAxMODEL`` serve-mesh spec (or ``auto``) on
-    the one device the port serves on: ``auto`` (every visible device in
-    one data shard, the JAX ``make_serve_mesh``) and ``1x1`` are one
-    shard; a spec that needs more than one device raises
-    ``NotImplementedError`` (ROADMAP queue A item 10)."""
+def serve_mesh(spec: str, device: torch.device) -> Mesh:
+    """The serve mesh of a ``DATAxMODEL`` spec, or ``auto``, on the one
+    device the port serves on: a spec is ``DATA * MODEL`` logical chips
+    there; ``auto`` is one data shard over every visible card, which on
+    more than one card raises ``NotImplementedError`` (ROADMAP queue A
+    item 16).  A malformed spec is a ``ValueError``."""
     if spec == "auto":
-        data = 1
-        model = (torch.cuda.device_count() if device.type == "cuda" else 1)
-    else:
-        try:
-            d, _, m = spec.lower().partition("x")
-            data, model = int(d), int(m)
-            if data < 1 or model < 1:
-                raise ValueError
-        except ValueError:
-            raise ValueError(f"mesh spec {spec!r} is not DATAxMODEL "
-                             f"(e.g. 1x8)") from None
-    if data * model > 1:
-        raise NotImplementedError(
-            f"--mesh {spec} needs {data * model} devices: "
-            + NOT_PORTED["mesh"])
-    return data
+        cards = device_count(device)
+        if cards > 1:
+            raise NotImplementedError(f"--mesh auto spreads {cards} cards: "
+                                      + NOT_PORTED["cards"])
+        return make_serve_mesh("auto", device=device)
+    d, _, m = spec.lower().partition("x")
+    try:
+        chips = max(1, int(d) * int(m))
+    except ValueError:
+        chips = 1  # make_serve_mesh names the malformed spec
+    return make_serve_mesh(spec, chips=chips, device=device)
 
 
 def main(argv=None):
@@ -181,8 +184,9 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="sampling: nucleus filter (1.0 = off)")
     ap.add_argument("--mesh", default=None,
-                    help="DATAxMODEL serve mesh or 'auto'; implies "
-                         "--continuous --router (one device: auto or 1x1)")
+                    help="DATAxMODEL serve mesh (that many logical chips on "
+                         "the one device) or 'auto' (every visible card in "
+                         "one data shard); implies --continuous --router")
     ap.add_argument("--router", action="store_true",
                     help="route requests across data-parallel shards "
                          "(ShardedServe; --mesh picks the mesh, default "
@@ -221,7 +225,7 @@ def main(argv=None):
     why = _not_ported(args)
     if why:
         raise NotImplementedError(why)
-    n_shards = serve_shards(args.mesh or "auto", dev) if args.router else 0
+    mesh = serve_mesh(args.mesh or "auto", dev) if args.router else None
     if args.prompt_len > 1 and not args.page_size:
         ap.error("--prompt-len > 1 needs --page-size (paged KV cache)")
     if (args.share_prefix or args.kv_int8) and not args.page_size:
@@ -311,7 +315,7 @@ def main(argv=None):
               f"coverage {draft.meta.get('coverage', 0.0):.2f}, "
               f"{draft.accounting()}")
     if args.router:
-        cb = ShardedServe(cfg, params, scfg, None, n_shards=n_shards,
+        cb = ShardedServe(cfg, params, scfg, mesh,
                           gate=gate, gate_backend=args.gate_backend,
                           eos_token=-1, max_tokens=args.tokens,
                           sync_every=args.sync_every,
@@ -319,7 +323,7 @@ def main(argv=None):
                           prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
                           draft=draft, device=dev, **ft)
         print(f"router: {cb.n_shards} shard(s) over mesh "
-              f"{{'data': {n_shards}, 'model': 1}} on {dev}")
+              f"{dict(mesh.shape)} on {dev}")
     elif args.batcher == "device":
         cb = DeviceContinuousBatcher(
             engine, eos_token=-1, max_tokens=args.tokens,

@@ -142,7 +142,8 @@ def available() -> Tuple[str, ...]:
 
 def resolve(impl: str, device: Union[str, torch.device, None] = None) -> str:
     """An ``attn_impl`` name -> a registered backend.  ``"auto"`` is the
-    kernel on a CUDA device and the plain version on the CPU; explicit
+    kernel on a CUDA device and the plain version on the CPU and on meta
+    tensors (shapes only, the dry-run planner's); explicit
     names pass through (``"torch"`` on the card is the plain version there,
     which the parity checks use)."""
     if impl == "auto":
@@ -151,7 +152,7 @@ def resolve(impl: str, device: Union[str, torch.device, None] = None) -> str:
         dev = torch.device(device)
         if dev.type == "cuda":
             return "cuda"
-        if dev.type == "cpu":
+        if dev.type in ("cpu", "meta"):
             return "torch"
         raise ValueError(f"no attention backend for device {dev}")
     if impl not in _BACKENDS:

@@ -45,11 +45,17 @@ boundaries only: the device batcher's traced run replays the fill
 schedule on the host from the drained state, so its captured step is the
 untraced one.
 
-The mesh-less request router over several such batchers is
-``serve.router.ShardedServe``.  Not ported yet, and raising
-``NotImplementedError`` that names the ROADMAP item rather than taking
-another path: ``mesh`` / ``tp_params`` placement over several devices
-(queue A item 10).
+The request router over several such batchers is
+``serve.router.ShardedServe``.  An engine and a device batcher take a
+``dist.sharding.Mesh`` of logical chips on their device (``mesh``, and
+``tp_params`` for the engine): the params are placed replicated, or with
+``tp_params`` by ``param_shardings``; the caches, the page pools, the
+device batcher's slot state and queue by the JAX package's serve rules.
+On one card a placement validates each tensor's spec and holds it whole
+there, so a mesh moves no tensor, adds no capture and no sync, and a
+tensor-parallel engine serves bitwise what a replicated one does (ROADMAP
+C.19).  Placement over several physical cards is not ported
+(``NOT_PORTED["cards"]``, queue A item 16).
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ from ..arch import sampling as S
 from ..arch.config import ArchConfig
 from ..core.pipeline import MappedModel
 from ..device import resolve_device
+from ..dist import sharding as SH
 from ..nn import attention as A
 from ..nn import attn_backend as AB
 from .faults import PoolExhaust
@@ -76,9 +83,23 @@ from .pages import PagePool
 from .pages import page_demand as _page_demand
 
 NOT_PORTED = {
-    "mesh": "serving over a device mesh (mesh / tp_params: shards placed on "
-            "several devices) is not ported yet: ROADMAP queue A item 10",
+    "cards": "placement over several physical cards (torch.distributed, "
+             "collectives in the step) is not ported yet: ROADMAP queue A "
+             "item 16 (placement over several cards); a mesh of logical "
+             "chips on one card serves",
 }
+
+
+def _check_mesh(mesh, device: torch.device) -> None:
+    """A mesh's chips must live on the device that serves: a placement
+    moves no tensor to another device."""
+    md = torch.device(mesh.device)
+    if md.type == "cuda" and md.index is None:
+        md = torch.device("cuda", torch.cuda.current_device())
+    if md != device:
+        raise ValueError(f"the mesh's chips live on {mesh.device}, the "
+                         f"engine serves on {device}: build the mesh on "
+                         f"the engine's device")
 
 
 @dataclasses.dataclass
@@ -318,17 +339,26 @@ def _submit_traced(b, request_id, prompt_tokens, dense_ok: bool) -> list:
 
 class ServeEngine:
     """The model, its decode cache (the dense ring or the page pool) and the
-    admission gate on one device."""
+    admission gate on one device, optionally placed on a mesh of logical
+    chips there (``mesh``, ``tp_params``; the module docstring)."""
 
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig,
                  gate: Optional[MappedModel] = None,
                  gate_backend: str = "auto", mesh=None,
                  tp_params: bool = False,
                  device: Union[str, torch.device] = "cuda"):
-        if mesh is not None or tp_params:
-            raise NotImplementedError(NOT_PORTED["mesh"])
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp_params = bool(tp_params)
+        if mesh is not None:
+            # placed once: replicated over the shard's chips, or with
+            # tp_params each leaf by the JAX rules; on logical chips a leaf
+            # is validated and held whole either way, so the TP streams are
+            # the replicated streams bitwise (ROADMAP C.19)
+            _check_mesh(mesh, self.device)
+            params = SH.place(params, SH.param_shardings(params, mesh)
+                              if tp_params else SH.NamedSharding(mesh, SH.P()))
         self.params = params
         self.scfg = scfg
         self.gate = gate
@@ -345,9 +375,12 @@ class ServeEngine:
         """The dense decode state (``arch.model.init_decode_state``),
         allocated on first use."""
         if self._state is None:
-            self._state = M.init_decode_state(
-                self.cfg, self.scfg.max_batch, self.scfg.cache_len,
-                device=self.device)
+            st = M.init_decode_state(self.cfg, self.scfg.max_batch,
+                                     self.scfg.cache_len, device=self.device)
+            if self.mesh is not None:
+                st = SH.place(st, SH.cache_shardings(st, self.mesh,
+                                                     self.scfg.max_batch))
+            self._state = st
         return self._state
 
     @state.setter
@@ -417,9 +450,13 @@ class ServeEngine:
         """The physical page pool, allocated on first use."""
         self._require_paged()
         if self._paged_kv is None:
-            self._paged_kv = M.init_paged_kv(
-                self.cfg, self.scfg.n_pages, self.scfg.page_size,
-                kv_dtype=self.scfg.kv_dtype, device=self.device)
+            kv = M.init_paged_kv(self.cfg, self.scfg.n_pages,
+                                 self.scfg.page_size,
+                                 kv_dtype=self.scfg.kv_dtype,
+                                 device=self.device)
+            if self.mesh is not None:
+                kv = SH.place(kv, SH.paged_kv_shardings(kv, self.mesh))
+            self._paged_kv = kv
         return self._paged_kv
 
     def copy_page(self, src: int, dst: int) -> None:
@@ -529,11 +566,32 @@ class _FusedStep:
         self.graph = None
 
     # ------------------------------------------------------------ host
+    def place(self, mesh) -> None:
+        """The JAX batcher's ``device_put`` of its slot pytree and queue:
+        the slot state by ``serve_state_shardings``, the queue rows by
+        ``queue_pspec``.  On logical chips each buffer is validated and
+        stays where it is, at its address (a captured step reads it)."""
+        self.st = SH.place(self.st, SH.serve_state_shardings(
+            self.st, mesh, self.b._B))
+        self.q = {k: v if k == "n" else SH.NamedSharding(
+            mesh, SH.queue_pspec(mesh, self.Nq, v.dim())).place(v)
+            for k, v in self.q.items()}
+
     def write(self, queue: Dict[str, np.ndarray],
               state: Dict[str, np.ndarray]) -> None:
         """Copy host arrays into the leading rows of the buffers (between
         rounds only: a wave's queue and slot state, or a drain's
-        evictions)."""
+        evictions); on a mesh each array is validated first, as the JAX
+        batcher places its queue and slot updates."""
+        mesh = self.b.mesh
+        if mesh is not None:
+            for name, a in queue.items():
+                if name != "n":
+                    SH.NamedSharding(mesh, SH.queue_pspec(
+                        mesh, len(a), np.ndim(a))).check(np.shape(a))
+            for name, a in state.items():
+                SH.NamedSharding(mesh, SH.serve_pspec(
+                    name, a, mesh, self.b._B)).check(np.shape(a))
         for bufs, arrays in ((self.q, queue), (self.st, state)):
             for name, a in arrays.items():
                 buf = bufs[name]
@@ -972,8 +1030,10 @@ class DeviceContinuousBatcher:
     state (its timestamps interpolated between the boundaries), so the
     captured step is the untraced one, and without a tracer, an injector,
     a deadline or a held page the drive loop is unchanged.  ``mesh``
-    (ROADMAP queue A item 10) raises ``NotImplementedError``; the
-    mesh-less router (``serve.router``) drives several batchers.
+    (default: the engine's) places the page pool or the decode cache, the
+    slot state and the queue on its logical chips (the module docstring):
+    the same buffers and graphs, the same streams.  The router
+    (``serve.router``) drives several batchers.
 
     Over an engine without ``page_size`` (the dense mode) the batcher owns
     a dense decode state and runs ``_DenseStep``: one global position, one
@@ -992,9 +1052,11 @@ class DeviceContinuousBatcher:
                  fault_injector=None,
                  clock: Callable[[], float] = time.perf_counter,
                  spec_k: int = 0, draft=None, graph: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED["mesh"])
         self.engine = engine
+        # the engine's mesh unless the caller gives another
+        self.mesh = engine.mesh if mesh is None else mesh
+        if self.mesh is not None:
+            _check_mesh(self.mesh, engine.device)
         self.eos = int(eos_token)
         self.max_tokens = int(max_tokens)
         self.sync_every = max(1, int(sync_every))
@@ -1045,6 +1107,9 @@ class DeviceContinuousBatcher:
                                           scfg.page_size,
                                           kv_dtype=scfg.kv_dtype,
                                           device=engine.device)
+            if self.mesh is not None:
+                self._pages = SH.place(self._pages, SH.paged_kv_shardings(
+                    self._pages, self.mesh))
             self.pool = scfg.make_pool()
         else:
             # the batcher's own dense decode state, ``pos`` included, at
@@ -1052,6 +1117,9 @@ class DeviceContinuousBatcher:
             self._decode = M.init_decode_state(engine.cfg, scfg.max_batch,
                                                scfg.cache_len,
                                                device=engine.device)
+            if self.mesh is not None:
+                self._decode = SH.place(self._decode, SH.cache_shardings(
+                    self._decode, self.mesh, scfg.max_batch))
         self.seeds: dict = {}
         self.queue: collections.deque = collections.deque()
         self.done: dict = {}
@@ -1136,6 +1204,8 @@ class DeviceContinuousBatcher:
         if fs is None:
             step = _FusedStep if self.paged else _DenseStep
             fs = self._steps[key] = step(self, *key)
+            if self.mesh is not None:
+                fs.place(self.mesh)
             if self.graph:
                 fs.capture()
         return fs

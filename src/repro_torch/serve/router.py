@@ -1,13 +1,18 @@
 """Request router over data-parallel serve shards (mirrors
-``repro.serve.router``, mesh-less).
+``repro.serve.router``).
 
-``ShardedServe`` puts ``n_shards`` serve shards behind one submit/run
-interface.  Each shard is a ``ServeEngine`` + ``DeviceContinuousBatcher``
-on the one device, and every shard uses the same params tree.  The JAX
-package's router can also split a ``("data", "model")`` mesh into one
-submesh a shard; that mode (``mesh``, ``tp_params=True``) waits for
-placement over ``torch.distributed`` (ROADMAP queue A item 10) and raises
-``NotImplementedError``.
+``ShardedServe`` puts serve shards behind one submit/run interface.  Each
+shard is a ``ServeEngine`` + ``DeviceContinuousBatcher`` on the one
+device, and every shard uses the same params tensors.  With a ``("data",
+"model")`` mesh of logical chips (``launch.mesh.make_serve_mesh``) the
+router makes one shard a data slice (``data_submeshes``), its engine and
+batcher placed on that submesh, replicated or with ``tp_params=True`` by
+the JAX rules; the wave's one gate call places its features on the whole
+mesh (``queue_pspec``).  On one card a placement holds each tensor whole,
+so a mesh of ``DATA`` slices serves bitwise what the mesh-less router
+with ``n_shards=DATA`` serves, with or without ``tp_params`` (ROADMAP
+C.19).  Without a mesh, ``n_shards`` shards run unplaced (the JAX
+package's mesh-less mode).
 
 Routing and drain semantics:
 
@@ -57,9 +62,11 @@ from typing import Any, Callable, Iterable, List, Optional, Union
 import numpy as np
 import torch
 
+from ..dist import sharding as SH
 from ..dist.stragglers import StragglerMonitor
-from .engine import (NOT_PORTED, DeviceContinuousBatcher, ServeConfig,
-                     ServeEngine, _default_seed, validate_prompt_or_drop)
+from ..launch.mesh import data_submeshes
+from .engine import (DeviceContinuousBatcher, ServeConfig, ServeEngine,
+                     _default_seed, validate_prompt_or_drop)
 
 
 def _hrw_weight(key: bytes, s: int) -> int:
@@ -111,10 +118,11 @@ class ShardedServe:
     Engine-level knobs ride in on ``scfg``, notably
     ``ServeConfig(attn_impl=...)`` (the paged-attention backend of
     ``repro_torch.nn.attn_backend``), which every shard's engine picks up.
-    ``mesh`` must be None (``n_shards`` shards on ``device``); a mesh or
-    ``tp_params=True`` raises ``NotImplementedError`` (ROADMAP queue A
-    item 10).  ``device`` and ``graph`` (the shards' CUDA graphs) are the
-    port's: the JAX package places shards by mesh and compiles with jit.
+    ``mesh`` (its chips on ``device``) gives one shard a data slice, each
+    placed on its submesh (``tp_params`` as the engine's); None serves
+    ``n_shards`` unplaced shards.  ``device`` and ``graph`` (the shards'
+    CUDA graphs) are the port's: the JAX package places shards by mesh
+    and compiles with jit.
     """
 
     def __init__(self, cfg, params, scfg: ServeConfig, mesh, *,
@@ -131,11 +139,13 @@ class ShardedServe:
                  spec_k: int = 0, draft=None, tp_params: bool = False,
                  device: Union[str, torch.device] = "cuda",
                  graph: bool = True):
-        if mesh is not None or tp_params:
-            raise NotImplementedError(NOT_PORTED["mesh"])
-        # mesh-less mode: N shards on the one device, placement-free
-        # (streams stay schedule-exact)
-        self.n_shards = max(1, int(n_shards or 1))
+        self.mesh = mesh
+        if mesh is not None:
+            self.submeshes = data_submeshes(mesh)
+        else:
+            # mesh-less mode: N unplaced shards on the one device
+            self.submeshes = [None] * max(1, int(n_shards or 1))
+        self.n_shards = len(self.submeshes)
         # depth slack before a request spills off its home shard; one
         # full slot wave by default
         self.rebalance_margin = (scfg.max_batch if rebalance_margin is None
@@ -143,8 +153,9 @@ class ShardedServe:
         self._clock = clock
         self.engines = [
             ServeEngine(cfg, params, scfg, gate=gate,
-                        gate_backend=gate_backend, device=device)
-            for _ in range(self.n_shards)]
+                        gate_backend=gate_backend, mesh=sm,
+                        tp_params=tp_params, device=device)
+            for sm in self.submeshes]
         # pregate=False: the router already gated the wave (one call in
         # _route), so a per-shard pre-admission call would re-derive
         # all-keep verdicts; the in-step gate is a no-op for admitted
@@ -213,11 +224,15 @@ class ShardedServe:
     # ------------------------------------------------------------ admission
     def admit(self, features: np.ndarray) -> np.ndarray:
         """Batched gate call over a request wave, on the engines' device
-        (keep mask, True = admit)."""
+        (keep mask, True = admit); on a mesh the feature matrix is placed
+        by ``queue_pspec`` over the whole mesh (data-parallel rows)."""
         if self._gate_fn is None:
             return np.ones(len(features), bool)
         x = torch.as_tensor(np.asarray(features).astype(np.int32),
                             device=self.engines[0].device)
+        if self.mesh is not None:
+            x = SH.NamedSharding(self.mesh, SH.queue_pspec(
+                self.mesh, len(x), x.dim())).place(x)
         return self._gate_fn(x).cpu().numpy() != self._drop
 
     # -------------------------------------------------------------- routing

@@ -28,7 +28,7 @@ import torch
 
 from ..arch import model as M
 from ..arch.config import ArchConfig
-from ..device import resolve_device
+from ..device import tensor_device
 from ..dist import compress as C
 from ..tree import leaves, map_leaves
 from . import optimizer as opt
@@ -51,7 +51,7 @@ class TrainConfig:
 def init_train_state(cfg: ArchConfig, tcfg: TrainConfig, seed: int = 0,
                      device="cuda"):
     """(float32 masters from ``seed``, {"opt", "step"[, "err"]})."""
-    device = resolve_device(device)
+    device = tensor_device(device)
     params = M.init_params(cfg, seed, device, masters=True)
     state = {"opt": opt.init(params, tcfg.adamw),
              "step": torch.zeros((), dtype=torch.int32, device=device)}

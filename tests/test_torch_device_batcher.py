@@ -382,10 +382,3 @@ def test_sync_free_pool_write_equals_the_filtered_write(case, quantized):
         assert torch.equal(got, exp)
     if case == "none_kept":
         assert all(torch.equal(a, b) for a, b in zip(kv.pools(), init))
-
-
-# ------------------------------------------------------- not ported
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 10")])
-def test_device_batcher_modes_not_ported_raise(both, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TE.DeviceContinuousBatcher(_engine(both), **kw)

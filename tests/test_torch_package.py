@@ -62,11 +62,21 @@ def test_imports_every_module_without_jax():
             "dist.elastic", "dist.sharding", "dist.pipeline",
             "train.elastic", "launch.mesh")}
         assert slice9 <= set(names), slice9 - set(names)
+        assert "repro_torch.launch.dryrun" in names  # slice 10
         print("CLEAN", len(names))
     """)
     r = _run("-c", code)
     assert r.returncode == 0, r.stderr
     assert "CLEAN" in r.stdout
+
+
+def test_every_jax_module_has_a_port_file():
+    """Each module file of the JAX package has its counterpart at the same
+    path in the port."""
+    jax_pkg = ROOT / "src" / "repro"
+    missing = [str(f.relative_to(jax_pkg)) for f in jax_pkg.rglob("*.py")
+               if not (PKG / f.relative_to(jax_pkg)).exists()]
+    assert not missing, missing
 
 
 def test_no_jax_or_repro_import_in_source():

@@ -345,11 +345,3 @@ def test_router_empty_prompt_rejected(both):
         r.run(max_steps=10)
         assert r.drop_reasons["e"] == "empty-prompt"
         assert "e" in r.dropped and not r.pending
-
-
-def test_router_mesh_and_tp_params_raise_item_10(both):
-    _, tp, _, _ = both
-    for kw in (dict(mesh=object()), dict(mesh=None, tp_params=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TR.ShardedServe(CFG, tp, TE.ServeConfig(**DENSE), device="cpu",
-                            **kw)

@@ -450,12 +450,15 @@ def test_launcher_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "2x4"], "item 10"), (["--mesh", "1x2"], "item 10")])
-def test_launcher_modes_not_ported_raise(argv, item):
-    """A serve mesh of more than one device waits for ROADMAP queue A
-    item 10 (the router's shards placed over ``torch.distributed``)."""
+    (["--mesh", "auto"], "item 16"), (["--router"], "item 16")])
+def test_launcher_modes_not_ported_raise(argv, item, monkeypatch):
+    """A serve mesh over more than one physical card (``--mesh auto``, the
+    default of ``--router``, with four cards visible) waits for ROADMAP
+    queue A item 16 (placement over several cards), before anything is
+    built."""
     from repro_torch.launch import serve
 
+    monkeypatch.setattr(serve, "device_count", lambda dev: 4)
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--smoke", "--device", "cpu", *argv])
 
@@ -463,20 +466,22 @@ def test_launcher_modes_not_ported_raise(argv, item):
 @pytest.mark.parametrize("cards,want", [(1, 1), (4, None)])
 def test_auto_mesh_spreads_every_visible_card(monkeypatch, cards, want):
     """``--mesh auto`` is one data shard over every visible device, as
-    the JAX ``make_serve_mesh``: one shard on one card, and more than one
-    card needs a mesh (item 10); a malformed spec is a ValueError."""
-    from repro_torch.launch.serve import serve_shards
+    the JAX ``make_serve_mesh``: one shard of one chip on one device, and
+    more than one card needs placement over several cards (item 16); a
+    malformed spec is a ValueError."""
+    from repro_torch.launch import serve
 
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    cuda = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(serve, "device_count", lambda dev: cards)
     if want is None:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            serve_shards("auto", cuda)
+        with pytest.raises(NotImplementedError, match="item 16"):
+            serve.serve_mesh("auto", cpu)
     else:
-        assert serve_shards("auto", cuda) == want
-    assert serve_shards("auto", torch.device("cpu")) == 1
-    with pytest.raises(ValueError, match="DATAxMODEL"):
-        serve_shards("two-by-four", cuda)
+        mesh = serve.serve_mesh("auto", cpu)
+        assert dict(mesh.shape) == {"data": want, "model": 1}
+    for bad in ("two-by-four", "0x2", "2x"):
+        with pytest.raises(ValueError, match="DATAxMODEL"):
+            serve.serve_mesh(bad, cpu)
 
 
 @pytest.mark.parametrize("argv", [
@@ -532,9 +537,6 @@ def test_not_ported_paths_raise(both):
                                           np.zeros(2), np.ones(2))):
         with pytest.raises(ValueError, match="page_size"):
             call()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TE.ServeEngine(CFG, tp, TE.ServeConfig(page_size=8), mesh=object(),
-                       device="cpu")
     from repro_torch.configs import get_config
     with pytest.raises(ValueError, match="dense attention stacks only"):
         TM.init_paged_kv(get_config("xlstm-125m"), 4, 4)
