@@ -194,7 +194,7 @@ Phases, in order; the first failure exits non-zero:
    steps x 28, ``linear`` = steps x 113, nothing else; tokens/s and ms a
    step of a warm wave with one and two shards; the launcher's
    ``--continuous --router --page-size 16`` in a child process beside
-   (c)-(e);
+   (c)-(e): ``--mesh auto`` on one card, a world of one over NCCL;
 17. MoE, after every earlier model is freed: qwen2-moe-a2.7b at its
    published width (d 2048, 16/16 heads, hd 128, 60 experts padded to
    64, top-4, expert d_ff 1408, 4 shared experts as one MLP of 5,632,
@@ -389,15 +389,35 @@ Phases, in order; the first failure exits non-zero:
    ``xlstm-125m decode_32k``, ``qwen2-1.5b train_4k`` and
    ``recurrentgemma-9b long_500k --multi-pod``: each ``OK``, its bytes and
    FLOPs, and its arguments fit the card.
+23. one data shard over ranks, right after phase 22 (phase 9's model,
+   gate, ServeConfig and requests): (a) a world of one rank over NCCL in
+   this process, phase 11's device batcher over the 1x1 mesh of ranks
+   (``dist.sharding.RankMesh``) with its cache split over ``model`` into
+   one part (a world of one otherwise holds it whole and gathers nothing):
+   its streams and drops bitwise phase 11's mesh-less batcher's, the KV
+   gathers (``dist.comm.gather``, 2 a layer) issued by the host only at
+   each key's warm-up and capture and replayed inside its CUDA graph (a
+   replayed wave serves the same streams with no gather from the host), a
+   profiled round's ``paged_attention``, ``linear`` and ``fused_eb``
+   launches exact and its device events a step beyond a mesh-less round's
+   printed (the gathers' copies); the same batcher unsplit (the
+   launcher's world of one) bitwise with no gather; ms a step of the
+   three in turns; (b) two ranks spawned after phase 1 built the kernels,
+   sharing the card over gloo (eager steps), phase 9's 8 requests with
+   the shortest prompts: streams and drops bitwise phase 11's on both
+   ranks, each rank half the pool's bytes, ms a step.  Phase 16's
+   launcher child (``--router``, so ``--mesh auto``) serves as a world of
+   one over NCCL.
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
 printed on the first line beside the card; the float32 lanes are twice
 as many).  ``--phase17`` builds the kernels and runs phase 17 alone, a
 quick MoE run that prints no result line; ``--phase18``, ``--phase19``,
-``--phase20``, ``--phase21`` and ``--phase22`` the same for phases 18,
-19, 20, 21 and 22 (``--phase22`` builds phase 9's model without its
-host-batcher run).
+``--phase20``, ``--phase21``, ``--phase22`` and ``--phase23`` the same
+for phases 18, 19, 20, 21, 22 and 23 (``--phase22`` and ``--phase23``
+build phase 9's model without its host-batcher run; ``--phase23`` runs
+phase 11's first wave itself).
 Each phase prints how far into the run it starts.
 
 Its last three lines are the kernels JSON (phases 18-20's
@@ -3676,7 +3696,8 @@ def launcher_router_start():
 
 
 def launcher_router_check(proc, t0: float) -> str:
-    """The launcher's --router run: exit 0, one shard."""
+    """The launcher's --router run (``--mesh auto``): a world of one over
+    NCCL on the one card, one shard of a 1x1 mesh of ranks, exit 0."""
     try:
         out, err = proc.communicate(timeout=600)
     except BaseException:
@@ -3684,8 +3705,10 @@ def launcher_router_check(proc, t0: float) -> str:
         proc.communicate()
         raise
     lines = [ln for ln in out.splitlines()
-             if ln.startswith(("router:", "[router]"))]
-    if proc.returncode != 0 or len(lines) != 2 or "1 shard" not in lines[0]:
+             if ln.startswith(("ranks:", "router:", "[router]"))]
+    if (proc.returncode != 0 or len(lines) != 3
+            or "a world of 1 over nccl" not in lines[0]
+            or "1 shard(s) over mesh {'data': 1, 'model': 1}" not in lines[1]):
         fail(f"(16) the launcher's --router run: rc {proc.returncode}, "
              f"{out[-800:]} {err[-2000:]}")
     return (f"launcher --continuous --router --page-size 16 "
@@ -3910,6 +3933,315 @@ def phase22(run: ServeRun, dev, card: str, two=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[22] phase 22 in {time.perf_counter() - t_all:.1f} s ({card})")
+
+
+# ------------------------------------------------------------ phase 23
+RANK_REQUESTS = 8  # (b): phase 9's requests with the shortest prompts
+RANK_TIMEOUT = 300  # seconds (b)'s ranks may take
+
+
+def one_part_mesh():
+    """(a)'s mesh: the 1x1 mesh of ranks of this process's world of one,
+    its cache split over ``model`` into one part.  ``RankMesh.seq_split``
+    leaves a world of one whole (it gathers nothing); the split makes the
+    step gather, so that one card runs the NCCL gathers in its graph."""
+    from repro_torch.dist.sharding import RankMesh, SeqSplit
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    class OnePart(RankMesh):
+        def seq_split(self, full):
+            return SeqSplit(0, 1, self.group)
+
+    mesh = make_serve_mesh("auto")
+    if mesh.seq_split(SERVE["page_size"]) is not None:
+        fail(f"(23a) a world of one splits its cache: "
+             f"{mesh.seq_split(SERVE['page_size'])}")
+    return OnePart(mesh.devices, mesh.axis_names, mesh.device, mesh.group)
+
+
+def rank_batcher(run: ServeRun, dev, mesh):
+    """Phase 11's device batcher (its ServeConfig, chunk and round) over
+    an engine on ``mesh``, a mesh of ranks."""
+    from repro_torch.serve.engine import (DeviceContinuousBatcher,
+                                          ServeConfig, ServeEngine)
+
+    engine = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE),
+                         gate=run.gate, mesh=mesh, device=dev)
+    return DeviceContinuousBatcher(engine, eos_token=-1,
+                                   max_tokens=SERVE_TOKENS,
+                                   sync_every=DEVICE_ROUND,
+                                   prefill_chunk=DEVICE_CHUNK)
+
+
+def pool_bytes(cb) -> int:
+    return sum(t.nbytes for t in cb._pages.pools())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shortest(run: ServeRun, n: int) -> list:
+    """The ids of the ``n`` requests with the shortest prompts."""
+    return sorted(range(len(run.prompts)),
+                  key=lambda i: (len(run.prompts[i]), i))[:n]
+
+
+def gloo_rank(rank: int, world: int, port: int, seed: int, out: str) -> None:
+    """(b): one of ``world`` ranks sharing the card over gloo, spawned
+    after phase 1 built the kernels: phase 9's model and gate from the
+    seed, phase 11's device batcher over the ``1 x world`` mesh of ranks
+    (eager: gloo does not capture) on the RANK_REQUESTS requests; its
+    streams, drops, pool bytes and ms a step pickled to ``out``."""
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    here = comm.init("cuda", rank=rank, world_size=world, local_rank=rank,
+                     local_world_size=world,
+                     init_method=f"tcp://localhost:{port}")
+    dev = here.device
+    run = serve_run(dev, seed)
+    mesh = make_serve_mesh("auto")
+    cb = rank_batcher(run, dev, mesh)
+    rids = shortest(run, RANK_REQUESTS)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for rid in rids:
+        cb.submit(rid, run.prompts[rid], features=run.feats[rid])
+    cb.run(max_steps=20000)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    with open(out, "wb") as f:
+        pickle.dump(dict(
+            backend=here.backend, device=str(dev), graph=cb.graph,
+            mesh=dict(mesh.shape), done=dict(cb.done),
+            dropped=list(cb.dropped), reasons=dict(cb.drop_reasons),
+            pool=pool_bytes(cb), steps=cb.steps_executed,
+            ms_step=seconds / cb.steps_executed * 1e3), f)
+    comm.shutdown()
+
+
+def gloo_ranks(seed: int, world: int = 2):
+    """Spawn (b)'s ranks (``torch.multiprocessing``, spawn); returns what
+    ``gloo_results`` waits on."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="phase23-")
+    outs = [str(Path(tmp) / f"rank{r}.pkl") for r in range(world)]
+    ctx = mp.start_processes(
+        gloo_rank_entry, args=(world, free_port(), seed, tmp), nprocs=world,
+        start_method="spawn", join=False)
+    return ctx, outs
+
+
+def gloo_rank_entry(rank: int, world: int, port: int, seed: int,
+                    tmp: str) -> None:
+    gloo_rank(rank, world, port, seed, str(Path(tmp) / f"rank{rank}.pkl"))
+
+
+def gloo_results(started) -> list:
+    import pickle
+
+    ctx, outs = started
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > RANK_TIMEOUT:
+                fail(f"(23b) the gloo ranks ran past {RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    res = []
+    for out in outs:
+        with open(out, "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def round_events(cb, run: ServeRun, dev, tag: str) -> Dict[str, tuple]:
+    """Every device event of a fresh wave's first round (its gate call
+    and DEVICE_ROUND replays) by name: (launches, device ms) a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i, (p, f) in enumerate(zip(run.prompts, run.feats)):
+        cb.submit((tag, i), p, features=f)
+    s0 = cb.steps_executed
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        open_window(dev)
+        cb.run(max_steps=DEVICE_ROUND)
+        torch.cuda.synchronize(dev)
+    steps = cb.steps_executed - s0
+    cb.run(max_steps=20000)
+    out: Dict[str, list] = collections.defaultdict(lambda: [0, 0.0])
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA or evt.is_user_annotation
+                or "spin_kernel" in evt.key):
+            continue
+        out[evt.key][0] += evt.count / steps
+        out[evt.key][1] += evt.self_device_time_total / 1e3 / steps
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def extra_events(rank: Dict[str, tuple], plain: Dict[str, tuple]) -> dict:
+    """The device events a step the rank's round runs beyond the
+    mesh-less round's: {name: (launches, device ms) a step}."""
+    out = {}
+    for k, (n, ms) in rank.items():
+        n0, ms0 = plain.get(k, (0, 0.0))
+        if round(n - n0, 3):
+            out[k[:60]] = (round(n - n0, 3), round(ms - ms0, 4))
+    return out
+
+
+def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
+    """Phase 23: one data shard over ranks.  (a) a world of one rank over
+    NCCL in this process: phase 11's device batcher over the 1x1 mesh of
+    ranks split into one part (``one_part_mesh``), its gathers captured in
+    each step's CUDA graph, streams and drops bitwise phase 11's mesh-less
+    device batcher's (``d``; built here when None), a replayed wave
+    issuing no gather from the host, a round's launches exact; the same
+    batcher unsplit (the launcher's world of one) bitwise with no gather;
+    ms a step of the three in turns; (b) two ranks sharing the card over gloo (spawned, eager), the
+    RANK_REQUESTS shortest requests bitwise, each rank half the pool's
+    bytes.  Every check a hard failure."""
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    t_all = time.perf_counter()
+    if d is None:
+        d = drive_device(run, dev)
+    comm.init("cuda", rank=0, world_size=1, local_rank=0, local_world_size=1,
+              init_method=f"tcp://localhost:{free_port()}")
+    cb = whole = None
+    try:
+        mesh = one_part_mesh()
+        cb = rank_batcher(run, dev, mesh)
+        comm.reset_counts()
+        seconds = device_wave(cb, run, dev)
+        same_run("(23a) a world of one over NCCL vs phase 11", d.cb, cb)
+        keys = len(cb._steps)
+        per_step = 2 * run.cfg.n_layers  # k and v a layer
+        if not cb.graph or any(fs.graph is None for fs in cb._steps.values()):
+            fail("(23a) the NCCL rank's steps were not captured")
+        if comm.launches != 2 * per_step * keys:
+            fail(f"(23a) {comm.launches} gathers issued for {keys} captured "
+                 f"keys (an eager warm-up and a capture of {per_step} each)")
+        comm.reset_counts()
+        device_wave(cb, run, dev, tag="replayed")
+        replay = {r[1]: t for r, t in cb.done.items()
+                  if isinstance(r, tuple) and r[0] == "replayed"}
+        if comm.launches or len(cb._steps) != keys or replay != {
+                r: t for r, t in wave_streams(cb).items()}:
+            fail(f"(23a) a replayed wave issued {comm.launches} gathers from "
+                 f"the host, captured {len(cb._steps) - keys} keys, or "
+                 f"served other streams")
+        counts, rsteps, tries, _ = round_counts(cb, run, dev, "(23a)")
+        extra = extra_events(round_events(cb, run, dev, "(23a) events"),
+                             round_events(d.cb, run, dev, "(23a) plain"))
+        full = pool_bytes(d.cb)
+        if pool_bytes(cb) != full:
+            fail(f"(23a) a world of one holds {pool_bytes(cb)} pool bytes, "
+                 f"not the whole {full}")
+        # the launcher's world of one: unsplit, it gathers nothing
+        whole = rank_batcher(run, dev, make_serve_mesh("auto"))
+        comm.reset_counts()
+        device_wave(whole, run, dev)
+        same_run("(23a) an unsplit world of one vs phase 11", d.cb, whole)
+        if comm.launches or pool_bytes(whole) != full:
+            fail(f"(23a) an unsplit world of one issued {comm.launches} "
+                 f"gathers, holds {pool_bytes(whole)} pool bytes")
+        gc.collect()
+        t = {"n": [], "r": [], "u": []}
+        for key, b in (("n", d.cb), ("r", cb), ("u", whole), ("u", whole),
+                       ("r", cb), ("n", d.cb)):
+            t[key].append(timed_wave(b, run, dev))
+        print(f"[23 a ranks] a world of 1 over {comm.placement().backend} in "
+              f"this process, mesh {dict(mesh.shape)} of ranks on {dev}, "
+              f"its cache split into one part (unsplit, a world of one "
+              f"gathers nothing): "
+              f"phase 11's device batcher ({SERVE}, sync_every "
+              f"{DEVICE_ROUND}, prefill_chunk {DEVICE_CHUNK}) over phase 9's "
+              f"{SERVE_REQUESTS} requests, streams and drops bitwise phase "
+              f"11's mesh-less batcher ({len(wave_streams(cb))} served, "
+              f"drops {first_wave_drops(cb)[1]}); {keys} shape keys "
+              f"captured with {per_step} gathers a step inside each graph "
+              f"(the host issued {2 * per_step * keys}: each key's eager "
+              f"warm-up and capture, none in a replayed wave, which served "
+              f"the same streams); a profiled round's launches {counts} "
+              f"over {rsteps} steps, exact on try {len(tries)}; device "
+              f"events a step beyond the mesh-less round's (launches, ms): "
+              f"{extra}; first wave {seconds:.3f} s with the captures "
+              f"({card})")
+        print(f"[23 a timing] warm waves in turns (mesh-less, split, "
+              f"unsplit, unsplit, split, mesh-less), graph: ms per step run "
+              f"{[round(x['ms_step'], 4) for x in t['n']]} mesh-less vs "
+              f"{[round(x['ms_step'], 4) for x in t['r']]} over a world of "
+              f"one split into one part vs "
+              f"{[round(x['ms_step'], 4) for x in t['u']]} unsplit (the "
+              f"launcher's: streams bitwise, no gather), tokens/s "
+              f"{[round(x['tokens_s'], 1) for x in t['n']]} vs "
+              f"{[round(x['tokens_s'], 1) for x in t['r']]} vs "
+              f"{[round(x['tokens_s'], 1) for x in t['u']]} ({card})")
+    finally:
+        cb = whole = None  # their graphs hold the communicator's collectives
+        gc.collect()
+        comm.shutdown()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = gloo_results(gloo_ranks(seed))
+    rids = shortest(run, RANK_REQUESTS)
+    want = {r: d.cb.done[r] for r in rids if r in d.cb.done}
+    want_drops = {r: d.cb.drop_reasons[r] for r in rids
+                  if r in d.cb.drop_reasons}
+    for rank, r in enumerate(res):
+        if (r["backend"] != "gloo" or r["graph"] or r["mesh"] != {
+                "data": 1, "model": 2}):
+            fail(f"(23b) rank {rank}: {r['backend']}, graph {r['graph']}, "
+                 f"mesh {r['mesh']}")
+        if r["done"] != want or r["reasons"] != want_drops:
+            fail(f"(23b) rank {rank}'s streams or drops differ from phase "
+                 f"11's mesh-less batcher's on the same requests")
+        if r["pool"] * 2 != full:
+            fail(f"(23b) rank {rank} holds {r['pool']} pool bytes of {full}")
+    t_b = time.perf_counter() - t0
+    print(f"[23 b ranks] 2 ranks sharing the card over gloo (spawned, eager "
+          f"steps), mesh {res[0]['mesh']}: phase 9's {RANK_REQUESTS} "
+          f"requests with the shortest prompts (ids {rids}) through phase "
+          f"11's device batcher, streams and drops bitwise phase 11's "
+          f"mesh-less batcher's on both ranks ({len(want)} served, drops "
+          f"{want_drops}); each rank {res[0]['pool']} of the pool's {full} "
+          f"bytes; ms per step run {[round(r['ms_step'], 2) for r in res]} "
+          f"over {res[0]['steps']} steps (the gathers stage through the "
+          f"host: a check, not a speed); {t_b:.1f} s with the spawn "
+          f"({card})")
+    print(f"[23] phase 23 in {time.perf_counter() - t_all:.1f} s ({card})")
+
+
+def timed_wave(cb, run: ServeRun, dev) -> Dict[str, float]:
+    """A warm wave through a device batcher: tokens/s and ms per step
+    run."""
+    s0 = cb.steps_executed
+    tag = ("timed", s0)
+    seconds = device_wave(cb, run, dev, tag=tag)
+    steps = cb.steps_executed - s0
+    n_tok = sum(len(t) for k, t in cb.done.items()
+                if isinstance(k, tuple) and k[0] == tag)
+    return {"tokens": n_tok, "seconds": seconds, "steps": steps,
+            "tokens_s": n_tok / seconds, "ms_step": seconds / steps * 1e3}
 
 
 # ------------------------------------------------------------ phase 17
@@ -6708,6 +7040,10 @@ def main() -> None:
                     help="build the kernels and run phase 22 alone "
                          "(serving over a mesh of logical chips, the "
                          "dry-run planner); prints no result line")
+    ap.add_argument("--phase23", action="store_true",
+                    help="build the kernels and run phase 23 alone "
+                         "(one data shard over ranks); prints no result "
+                         "line")
     args = ap.parse_args()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6766,6 +7102,10 @@ def main() -> None:
         return
     if args.phase22:
         phase22(serve_run(dev, args.seed), dev, card)
+        print(card)
+        return
+    if args.phase23:
+        phase23(serve_run(dev, args.seed), None, dev, card, args.seed)
         print(card)
         return
     starts(t_run, "2")
@@ -7039,6 +7379,8 @@ def main() -> None:
     two = phase16(serve, d, prof, dev, card)
     starts(t_run, "22")
     phase22(serve, dev, card, two)
+    starts(t_run, "23")
+    phase23(serve, d, dev, card, args.seed)
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
     lin_row["launches"] = serve.launches["linear"]

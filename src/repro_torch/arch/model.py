@@ -86,6 +86,16 @@ package.
 MoE training takes the dense dispatch through ``ops.moe_down_combine``
 with a gradient (the kernel's forward, the JAX VJP of its two einsums as
 ``torch.bmm`` in the backward).
+
+Over a mesh of ranks (``dist.sharding.RankMesh``; the dense and MoE
+families) ``init_paged_kv`` and ``init_decode_state`` build this rank's
+slice of the pool and of the ring, whose sequence the JAX rules split
+over ``model`` (``paged_cache_pspec``, ``cache_pspec``), and mark it with
+its ``SeqSplit`` (the pool's ``split``, the state's ``"split"``); the
+steps then find each row's cell in the whole cache, write the rows this
+rank owns and gather the parts before each layer's attention
+(``nn.attention``).  The params are replicated and every rank runs the
+same launches on the same inputs.
 """
 from __future__ import annotations
 
@@ -99,6 +109,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import tensor_device
+from ..dist import sharding as SH
 from ..kernels import ops
 from ..kernels.linear import DOTS_OP
 from ..nn import attention as A
@@ -119,6 +130,11 @@ __all__ = ["COMPUTE_DTYPE", "FLOAT32_LEAVES", "layer_windows",
            "lm_head", "token_ce_loss", "loss_fn", "init_paged_kv",
            "paged_decode_step", "init_decode_state", "decode_step",
            "encode_cross", "unread"]
+
+# the families whose serve paths run over ranks: their decode caches are
+# the attention stack's alone (a recurrent state, an enc-dec cross plane
+# or a VLM's path would need more than the gather)
+RANK_FAMILIES = ("dense", "moe")
 
 # leaves the JAX code reads as float32 masters (the blocks cast ``conv``
 # to the activations' type where they use it)
@@ -269,26 +285,57 @@ def compute_params(tree, train: bool = False):
     return out
 
 
+def check_ranks(cfg: ArchConfig, mesh) -> bool:
+    """Whether ``mesh`` is a mesh of ranks, for a family that serves over
+    them; any other family raises ``NotImplementedError``."""
+    if not isinstance(mesh, SH.RankMesh):
+        return False
+    if cfg.family not in RANK_FAMILIES or cfg.block_pattern:
+        raise NotImplementedError(
+            f"serving the {cfg.family} family over ranks is not ported: "
+            f"ROADMAP queue A item 16 (the families over ranks); "
+            f"{'/'.join(RANK_FAMILIES)} serve")
+    return True
+
+
+def _zeros(shape, dtype, device, mesh, spec):
+    """A zero cache leaf of ``shape`` on ``mesh`` by ``spec``: this rank's
+    slice on a mesh of ranks, else the whole leaf, placed (validated) on
+    a mesh of logical chips."""
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    sh = SH.NamedSharding(mesh, spec)
+    if isinstance(mesh, SH.RankMesh):
+        return torch.zeros(sh.shard_shape(shape), dtype=dtype, device=device)
+    return sh.place(torch.zeros(shape, dtype=dtype, device=device))
+
+
 def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
                   kv_dtype: str = "bf16",
-                  device: Union[str, torch.device] = "cuda") -> PagedKV:
+                  device: Union[str, torch.device] = "cuda",
+                  mesh=None) -> PagedKV:
     """The physical page pool, ``[n_layers, n_pages, page, KV, hd]`` bf16,
     or int8 with float32 scale planes ``[..., KV, 1]``, zero-filled.
     Attention stacks only: a ``block_pattern`` config raises the JAX
-    package's ``ValueError``."""
+    package's ``ValueError``.  On ``mesh`` it is placed by
+    ``paged_cache_pspec``: on a mesh of ranks this rank's slice, marked
+    with its ``split``."""
     check_paged(cfg)
     device = tensor_device(device)
+    ranks = check_ranks(cfg, mesh)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
+    planes = [(shape, COMPUTE_DTYPE)] * 2
     if kv_dtype == "int8":
         sshape = shape[:-1] + (1,)
-        return PagedKV(
-            *(torch.zeros(s, dtype=dt, device=device)
-              for s, dt in ((shape, torch.int8), (shape, torch.int8),
-                            (sshape, torch.float32), (sshape, torch.float32))))
-    if kv_dtype != "bf16":
+        planes = [(shape, torch.int8)] * 2 + [(sshape, torch.float32)] * 2
+    elif kv_dtype != "bf16":
         raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
-    return PagedKV(k=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-                   v=torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device))
+    spec = None if mesh is None else SH.paged_cache_pspec(
+        torch.empty(shape, device="meta"), mesh)
+    kv = PagedKV(*(_zeros(s, dt, device, mesh, spec) for s, dt in planes))
+    if ranks and spec[2] is not None:
+        kv.split = mesh.seq_split(page_size)
+    return kv
 
 
 def _recurrent_state(cfg: ArchConfig, kind: str, batch: int,
@@ -337,7 +384,8 @@ def _macro_state(cfg: ArchConfig, batch: int, cache_len: int,
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       kv_dtype: str = "bf16",
-                      device: Union[str, torch.device] = "cuda") -> Params:
+                      device: Union[str, torch.device] = "cuda",
+                      mesh=None) -> Params:
     """The dense decode state: ``pos``, one global position (a 0-dim int32
     tensor on the device, advanced in place by ``decode_step``), and the
     ring cache ``kv = (k, v)``, ``[n_layers, batch, cache_len, KV, hd]``
@@ -346,8 +394,26 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     module docstring), an int8 request kept bf16; for an enc-dec config
     also ``cross = (k, v)``, ``[n_layers, batch, frontend_seq, KV, hd]``
     bf16 zeros (``encode_cross`` computes them), an int8 request kept
-    bf16, as in the JAX package."""
+    bf16, as in the JAX package.  On ``mesh`` it is placed by
+    ``cache_shardings``: on a mesh of ranks the ring is this rank's slice of
+    the cells, and ``state["split"]`` its ``SeqSplit``."""
     device = tensor_device(device)
+    if mesh is not None:
+        if not check_ranks(cfg, mesh):
+            state = init_decode_state(cfg, batch, cache_len, kv_dtype, device)
+            return SH.place(state, SH.cache_shardings(state, mesh, batch))
+        meta = init_decode_state(cfg, batch, cache_len, kv_dtype, "meta")
+        shardings = SH.cache_shardings(meta, mesh, batch)
+
+        def local(t, sh):
+            return _zeros(t.shape, t.dtype, device, mesh, sh.spec)
+
+        state = {k: (tuple(map(local, v, shardings[k]))
+                     if isinstance(v, tuple) else local(v, shardings[k]))
+                 for k, v in meta.items()}
+        if shardings["kv"][0].spec[2] is not None:
+            state["split"] = mesh.seq_split(cache_len)
+        return state
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
@@ -693,7 +759,9 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     position, ``[B, C(, Vp)]``, with ``all_positions``).  ``kv`` is the
     pool-level :class:`PagedKV` of ``init_paged_kv``; it is written in
     place and returned.  ``n_new[b] = 0`` marks an idle slot: its writes
-    drop and its row is garbage, never read.
+    drop and its row is garbage, never read.  A pool split over ranks
+    (``kv.split``) holds this rank's offsets of every page: each layer
+    writes the rows this rank owns and gathers the pool before attending.
     """
     if not isinstance(kv, PagedKV):
         raise TypeError(f"paged_decode_step expects the PagedKV from "
@@ -703,6 +771,8 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     dev = tokens.device
     B, C = tokens.shape
     N_pages, page = kv.k.shape[1], kv.k.shape[2]
+    if kv.split is not None:  # this rank's part of every page
+        page = kv.split.full(page)
     n_ps = block_tbl.shape[1]
     block_tbl = block_tbl.to(torch.int32).contiguous()
     steps = torch.arange(C, dtype=torch.int32, device=dev)
@@ -712,7 +782,8 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     page_ids = torch.gather(block_tbl, 1, lp.long())
     page_ids = torch.where(valid, page_ids, torch.full_like(page_ids, N_pages))
     page_off = positions % page
-    rows = A.write_rows(page_ids, page_off, N_pages, page)  # every layer
+    rows = A.write_rows(page_ids, page_off, N_pages, page,
+                        kv.split)  # every layer
     rope = _rope(cfg, positions)
     x = params["embed"][tokens.long()]
     windows = layer_windows(cfg)
@@ -777,7 +848,9 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     buffer back as it was.  An enc-dec config's layers are global
     self-attention, then cross-attention over the state's ``cross`` planes
     (``nn.attention.cross_decode_attention``; read, never written), then
-    the MLP.
+    the MLP.  A ring split over ranks (``state["split"]``) holds this
+    rank's part of the cells: the rank owning cell ``pos % S`` writes it,
+    and each layer gathers the ring before attending.
     """
     if cfg.block_pattern:
         x = _decode_macros(params, state, tokens, cfg, gqa_impl, attn_impl,
@@ -786,8 +859,11 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     pos = state["pos"]
     ck, cv = state["kv"]
     sk, sv = state.get("kv_scales", (None, None))
+    split = state.get("split")  # this rank's part of the ring's cells
     dev = tokens.device
     B, S = tokens.shape[0], ck.shape[2]
+    if split is not None:
+        S = split.full(S)
     positions = pos.to(torch.int32).reshape(1, 1).repeat(B, 1)  # a copy
     slot = torch.remainder(pos.long(), S).reshape(1)
     tbl = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
@@ -798,7 +874,8 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
         layer_windows(cfg)
     for i, lp_i in enumerate(params["layers"]):
         kv = A.dense_view(ck[i], cv[i], None if sk is None else sk[i],
-                          None if sv is None else sv[i], tbl, positions)
+                          None if sv is None else sv[i], tbl, positions,
+                          split)
         x = _decode_mixer(lp_i, cfg, x, int(windows[i]), kv, slot, rope,
                           gqa_impl, attn_impl, commit)
         if encdec:

@@ -4,6 +4,11 @@ Entry points default to ``cuda``.  Without CUDA they raise unless the
 caller passed ``device="cpu"``, and on a card other than sm_90 (Hopper)
 they raise too, because the kernels are built for ``sm_90a``.  Nothing
 carries on quietly on the CPU.
+
+In a world of ranks (``dist.comm.init``) a rank's device is its own:
+``cuda`` means ``cuda:LOCAL_RANK`` (the card the ranks share when there
+are fewer cards than ranks), and ``device_count`` counts the world's
+ranks, the devices the program spans.
 """
 from __future__ import annotations
 
@@ -26,7 +31,11 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the plain PyTorch versions on the CPU")
     if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+        from .dist import comm
+
+        dev = (comm.placement().device if comm.active()
+               and comm.placement().device.type == "cuda"
+               else torch.device("cuda", torch.cuda.current_device()))
     cap = torch.cuda.get_device_capability(dev)
     if cap != (9, 0):
         raise RuntimeError(f"{torch.cuda.get_device_name(dev)} is sm_{cap[0]}"
@@ -45,7 +54,11 @@ def tensor_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 def device_count(device: torch.device) -> int:
     """The physical devices of ``device``'s type in this process: the
-    cards on ``cuda``, 1 on the CPU."""
+    cards on ``cuda``, 1 on the CPU; in a world of ranks, its ranks."""
+    from .dist import comm
+
+    if comm.active():
+        return comm.placement().world_size
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 

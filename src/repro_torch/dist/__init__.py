@@ -3,6 +3,9 @@
 * :mod:`~repro_torch.dist.sharding` — the JAX package's partition-spec
   rules for params, batches and caches, over the port's ``Mesh`` of
   logical chips on one device, ``PartitionSpec`` and ``NamedSharding``;
+* :mod:`~repro_torch.dist.comm` — a ``torch.distributed`` world of ranks
+  for serving over several devices: its backend (NCCL, or gloo on the CPU
+  or a shared card) and the one fixed-order gather of a step;
 * :mod:`~repro_torch.dist.compress` — error-feedback int8 gradient
   compression, run inside the train step;
 * :mod:`~repro_torch.dist.stragglers` — straggler detection, mesh
@@ -14,6 +17,7 @@
   injection, consumed by :class:`repro_torch.train.elastic.ElasticTrainer`
   at step boundaries (copied; it imports neither JAX nor torch).
 """
-from . import compress, elastic, pipeline, sharding, stragglers
+from . import comm, compress, elastic, pipeline, sharding, stragglers
 
-__all__ = ["compress", "elastic", "pipeline", "sharding", "stragglers"]
+__all__ = ["comm", "compress", "elastic", "pipeline", "sharding",
+           "stragglers"]

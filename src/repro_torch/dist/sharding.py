@@ -30,6 +30,15 @@ computes the same function as on any other mesh, in the single-device
 reduction order (ROADMAP C.18: the port's losses do not depend on the
 mesh shape; the JAX package's GSPMD reductions may).
 
+**Ranks.**  A :class:`RankMesh`'s chips are the ranks of a
+``torch.distributed`` world (``dist.comm``), each on its own device: its
+``device`` is this rank's, and ``NamedSharding.place`` keeps this rank's
+contiguous shard of a leaf (``shard_shape``), not the whole leaf.  The
+rule table is the same for both meshes.  ``seq_split`` tells a cache
+whose sequence the rules split over ``model`` which part this rank holds
+(:class:`SeqSplit`), so a step writes its own rows and gathers the rest
+before the attention.
+
 The port keeps a model's layers as a list of per-layer dicts, where the
 JAX package stacks them.  ``param_spec`` takes a leaf's JAX key and its
 stacked shape (``repro_torch.tree``'s view), so it is the JAX rule
@@ -49,7 +58,8 @@ import torch
 
 from ..tree import SEP, leaves, map_leaves
 
-__all__ = ["MODEL_AXIS", "Mesh", "PartitionSpec", "P", "NamedSharding",
+__all__ = ["MODEL_AXIS", "Mesh", "RankMesh", "SeqSplit", "PartitionSpec",
+           "P", "NamedSharding",
            "place", "data_axis", "param_spec", "param_pspecs",
            "param_shardings", "batch_pspec", "cache_pspec", "cache_shardings",
            "paged_cache_pspec", "paged_kv_shardings", "serve_pspec",
@@ -147,9 +157,99 @@ class Mesh:
     def __exit__(self, *exc) -> None:
         return None
 
+    def submesh(self, devices) -> "Mesh":
+        """The mesh of a block of this one's chips, on the same axes."""
+        return Mesh(devices, self.axis_names, self.device)
+
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, chips {self.device_ids()}, on "
                 f"{self.device})")
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A cache's sequence split over the ``model`` axis of a rank mesh:
+    this rank holds part ``index`` of ``parts`` equal, contiguous parts,
+    and ``dist.comm.gather`` over ``group`` rebuilds the whole."""
+
+    index: int
+    parts: int
+    group: Any = None
+
+    def full(self, local: int) -> int:
+        return local * self.parts
+
+
+class RankMesh(Mesh):
+    """A mesh whose chips are the ranks of a ``torch.distributed`` world
+    (``dist.comm.init``), one rank a chip: ``devices`` holds rank numbers,
+    ``device`` is this rank's device, and ``coords`` this rank's index on
+    each axis.  A mesh naming another device than this rank's raises
+    ``ValueError``; a mesh without this rank, too."""
+
+    def __init__(self, devices, axis_names: Sequence[str],
+                 device: Union[str, torch.device, None] = None, group=None):
+        from . import comm
+
+        here = comm.placement()
+        device = here.device if device is None else torch.device(device)
+        if device.type == "cuda" and device.index is None \
+                and here.device.type == "cuda":
+            device = torch.device("cuda", here.device.index)
+        if device != here.device:
+            raise ValueError(f"rank {here.rank} serves on {here.device}; a "
+                             f"rank mesh on {device} names another rank's "
+                             f"device")
+        super().__init__(devices, axis_names, device)
+        import torch.distributed as dist
+
+        self.group = group
+        self.rank = dist.get_rank(group)
+        world = dist.get_world_size(group)
+        if sorted(self.device_ids()) != list(range(world)):
+            raise ValueError(f"a rank mesh holds every rank of its world "
+                             f"once (0..{world - 1}), got "
+                             f"{self.device_ids()}")
+        at = np.argwhere(self.devices == self.rank)
+        self.coords = {a: int(i) for a, i in zip(self.axis_names, at[0])}
+
+    def submesh(self, devices) -> "Mesh":
+        devices = np.asarray(devices)
+        if devices.size != self.size:
+            raise NotImplementedError(
+                "a block of a rank mesh serves its own group of ranks, "
+                "which is not ported: ROADMAP queue A item 16 (data shards "
+                "over rank groups)")
+        return RankMesh(devices, self.axis_names, self.device, self.group)
+
+    def axis_index(self, axis) -> int:
+        """This rank's index along ``axis`` (a name or a tuple of names,
+        row-major over them)."""
+        names = axis if isinstance(axis, tuple) else (axis,)
+        idx = 0
+        for a in names:
+            idx = idx * int(self.shape[a]) + self.coords[a]
+        return idx
+
+    def seq_split(self, full: int) -> Optional[SeqSplit]:
+        """The split of a cache sequence of ``full`` cells over ``model``
+        (the rules' ``cache_pspec`` / ``paged_cache_pspec``: only where
+        ``model`` divides it), or None where each rank holds it whole, as
+        on a ``model`` axis of one rank: a world of one gathers nothing."""
+        m = int(self.shape.get(MODEL_AXIS, 1))
+        if m == 1 or full <= 1 or full % m:
+            return None
+        if int(np.prod([n for a, n in self.shape.items()
+                        if a != MODEL_AXIS])) != 1:
+            raise NotImplementedError(
+                "a cache split over model on a rank mesh with data shards "
+                "is not ported: ROADMAP queue A item 16 (data shards over "
+                "rank groups)")
+        return SeqSplit(self.axis_index(MODEL_AXIS), m, self.group)
+
+    def __repr__(self) -> str:
+        return (f"RankMesh({dict(self.shape)}, ranks {self.device_ids()}, "
+                f"rank {self.rank} on {self.device})")
 
 
 class NamedSharding:
@@ -157,7 +257,8 @@ class NamedSharding:
     counterpart.  ``check(shape)`` validates the spec against a leaf (at
     most one entry a dim, every axis on the mesh, each dim divisible by
     its axes' size) and ``place(t)`` puts the validated leaf on the mesh's
-    device, whole (the logical chips share it)."""
+    device: whole on logical chips (they share it), this rank's shard on a
+    :class:`RankMesh`."""
 
     def __init__(self, mesh: Mesh, spec: Union[PartitionSpec, Iterable]):
         self.mesh = mesh
@@ -191,7 +292,18 @@ class NamedSharding:
 
     def place(self, t: torch.Tensor) -> torch.Tensor:
         self.check(t.shape)
-        return t.to(self.mesh.device)
+        if not isinstance(self.mesh, RankMesh):
+            return t.to(self.mesh.device)
+        out = t
+        for dim, ax in enumerate(self.spec):
+            n = _axis_size(self.mesh, ax)
+            if n > 1:
+                size = t.shape[dim] // n
+                out = out.narrow(dim, self.mesh.axis_index(ax) * size, size)
+        if out is t:
+            return t.to(self.mesh.device)
+        # a copy of the shard alone: the whole leaf is not kept alive
+        return out.to(self.mesh.device, copy=True).contiguous()
 
     def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
         """One chip's shard of a leaf of ``shape``, as JAX's

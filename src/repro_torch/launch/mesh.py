@@ -7,6 +7,10 @@ logical chips the one physical device offers (default: the physical
 devices, ``torch.cuda.device_count()`` on the card, 1 on the CPU).  A mesh
 takes the first chips in order, as the JAX functions take the first
 devices, and every chip lives on ``device`` (``dist.sharding.Mesh``).
+
+In a world of ranks (``dist.comm.init``) ``make_serve_mesh`` builds a
+``dist.sharding.RankMesh`` over them instead: a chip is a rank on its own
+device, and ``auto`` over ``N`` ranks is ``1 x N``.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ import numpy as np
 import torch
 
 from ..device import device_count, resolve_device
-from ..dist.sharding import Mesh
+from ..dist import comm
+from ..dist.sharding import Mesh, RankMesh
 
 __all__ = ["make_production_mesh", "make_smoke_mesh", "make_serve_mesh",
            "data_submeshes"]
@@ -63,9 +68,19 @@ def make_serve_mesh(spec: str = "auto", chips: Optional[int] = None,
 
     ``auto`` spreads every chip over the model axis of a single data
     shard — the layout whose token streams are bit-identical to the
-    single-host batcher (one shard = one schedule).
+    single-host batcher (one shard = one schedule).  In a world of ranks
+    the chips are its ranks (``chips`` and ``device`` are the world's):
+    the spec must cover every rank.
     """
-    dev, have = _chips(device, chips)
+    ranks = comm.active()
+    if ranks:
+        here = comm.placement()
+        dev, have = here.device, here.world_size
+        if chips is not None and int(chips) != have:
+            raise ValueError(f"a rank mesh spans the world's {have} ranks, "
+                             f"not {chips} chips")
+    else:
+        dev, have = _chips(device, chips)
     if spec == "auto":
         data, model = 1, have
     else:
@@ -78,22 +93,29 @@ def make_serve_mesh(spec: str = "auto", chips: Optional[int] = None,
             raise ValueError(
                 f"mesh spec {spec!r} is not DATAxMODEL (e.g. 1x8)") from None
     n = data * model
+    if ranks and n != have:
+        raise ValueError(f"serve mesh {spec!r} has {n} chips, the world "
+                         f"{have} ranks: a rank mesh spans every rank")
     if have < n:
         raise RuntimeError(
             f"serve mesh {spec!r} needs {n} devices, found {have} — pass "
             f"chips={n} or shrink the mesh")
-    return Mesh(np.arange(n).reshape(data, model), ("data", "model"), dev)
+    devices = np.arange(n).reshape(data, model)
+    if ranks:
+        return RankMesh(devices, ("data", "model"), dev)
+    return Mesh(devices, ("data", "model"), dev)
 
 
 def data_submeshes(mesh: Mesh) -> List[Mesh]:
     """One ``("data", "model")`` mesh per data-parallel slice ("host").
 
     Each slice keeps its model axis and a size-1 data axis, so every
-    sharding rule that names ``data`` degrades to replication.
+    sharding rule that names ``data`` degrades to replication.  A rank
+    mesh of one data slice is its own slice; more than one raises
+    ``NotImplementedError`` (data shards over rank groups).
     """
     devs = np.asarray(mesh.devices)
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(
             f"serve meshes are (data, model); got {mesh.axis_names}")
-    return [Mesh(devs[i: i + 1], ("data", "model"), mesh.device)
-            for i in range(devs.shape[0])]
+    return [mesh.submesh(devs[i: i + 1]) for i in range(devs.shape[0])]

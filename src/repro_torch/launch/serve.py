@@ -31,6 +31,13 @@ decode.
     ... --continuous --page-size 16 --router [--rebalance-margin 4]
     ... --continuous --page-size 16 --mesh 2x2
 
+    # one shard over ranks: every visible card (--mesh auto, a world of
+    # one over NCCL on one card), N ranks on the CPU, or one rank of a
+    # world torchrun started
+    ... --continuous --page-size 16 --router --mesh auto
+    ... --device cpu --router --ranks 2 --page-size 8
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --router ...
+
     # an MoE model (qwen2-moe-a2.7b, moonshot-v1-16b-a3b) in any mode
     ... --arch qwen2-moe-a2.7b --smoke --continuous --page-size 16
 
@@ -53,14 +60,20 @@ with ``--temperature`` / ``--top-k`` / ``--top-p``, ``--gate`` /
 and snapshots the un-served queue through ``ckpt.CheckpointManager``; a
 later run with the same directory restores it first), and ``--router`` /
 ``--mesh`` / ``--rebalance-margin``: ``serve.router.ShardedServe``.
-``--mesh DATAxMODEL`` is that many logical chips on the one device
+On one device ``--mesh DATAxMODEL`` is that many logical chips there
 (``launch.mesh.make_serve_mesh(spec, chips=DATA*MODEL)``, the port's
 counterpart of the fake devices the JAX tests serve the same spec on):
 ``DATA`` shards, each placed on its ``1xMODEL`` slice, replicated as the
 JAX launcher places them.  ``--mesh auto`` (the default of ``--router``)
-is one data shard over every visible card: one shard on one card or on
-the CPU; more than one card raises ``NotImplementedError`` (placement
-over several cards, ROADMAP queue A item 16).  Every
+is one data shard over every visible card: a world of one rank per card
+(``dist.comm``: NCCL, the launcher spawns the ranks, or runs as one of
+them under torchrun's environment; one card is a world of one), the KV
+cache split over ``model``, the params replicated; on the CPU one
+logical chip.  ``--mesh 1xN`` over N cards does the same;
+``--ranks N`` runs N ranks on this host (gloo on the CPU, or on a card
+they share).  Rank 0 prints.  Over ranks, ``DATA > 1`` and
+``--deadline-s`` raise ``NotImplementedError`` (ROADMAP queue A item
+16).  Every
 ``--arch`` of the JAX launcher serves: a VLM decodes text only and an
 enc-dec model's decode keeps its ``cross`` planes zero, as the JAX
 package's do (ROADMAP C.13, C.14); ``--page-size`` with an enc-dec or
@@ -72,7 +85,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import os
+import socket
+import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -83,6 +100,7 @@ from ..configs import get_config, get_smoke_config
 from ..core import PlanterConfig, plant
 from ..data import load_dataset
 from ..device import device_count, resolve_device
+from ..dist import comm
 from ..dist.sharding import Mesh
 from ..dist.stragglers import PreemptionHandler
 from ..nn import attn_backend as AB
@@ -102,24 +120,98 @@ def _not_ported(args) -> str:
     return ""
 
 
-def serve_mesh(spec: str, device: torch.device) -> Mesh:
-    """The serve mesh of a ``DATAxMODEL`` spec, or ``auto``, on the one
-    device the port serves on: a spec is ``DATA * MODEL`` logical chips
-    there; ``auto`` is one data shard over every visible card, which on
-    more than one card raises ``NotImplementedError`` (ROADMAP queue A
-    item 16).  A malformed spec is a ``ValueError``."""
-    if spec == "auto":
-        cards = device_count(device)
-        if cards > 1:
-            raise NotImplementedError(f"--mesh auto spreads {cards} cards: "
-                                      + NOT_PORTED["cards"])
-        return make_serve_mesh("auto", device=device)
+def _spec_chips(spec: str) -> tuple:
+    """``(DATA, MODEL)`` of a spec, or ``(1, 1)`` for a malformed one
+    (``make_serve_mesh`` names it)."""
     d, _, m = spec.lower().partition("x")
     try:
-        chips = max(1, int(d) * int(m))
+        return max(1, int(d)), max(1, int(m))
     except ValueError:
-        chips = 1  # make_serve_mesh names the malformed spec
-    return make_serve_mesh(spec, chips=chips, device=device)
+        return 1, 1
+
+
+def serve_mesh(spec: str, device: torch.device) -> Mesh:
+    """The serve mesh of a ``DATAxMODEL`` spec, or ``auto``: in a world of
+    ranks a mesh of its ranks (``auto`` is ``1 x N``); else on the one
+    device the port serves on, ``DATA * MODEL`` logical chips there, and
+    ``auto`` one chip.  A malformed spec is a ``ValueError``."""
+    if comm.active():
+        return make_serve_mesh(spec, device=device)
+    if spec == "auto":
+        return make_serve_mesh("auto", chips=1, device=device)
+    data, model = _spec_chips(spec)
+    return make_serve_mesh(spec, chips=data * model, device=device)
+
+
+def serve_ranks(spec: str, device: torch.device, ranks: int = 0) -> int:
+    """How many ranks a router on ``spec`` spans (0: none; the mesh is
+    logical chips on the one device).  A world started by torchrun
+    (``WORLD_SIZE``) is that world; ``ranks`` asks for that many on this
+    host; else ``auto`` takes every visible card (one card: a world of
+    one; the CPU: none), and a spec over more than one card takes
+    ``DATA * MODEL`` of them.  Data shards over ranks raise
+    ``NotImplementedError`` before anything starts."""
+    if "WORLD_SIZE" in os.environ:
+        n = int(os.environ["WORLD_SIZE"])
+    elif ranks:
+        n = int(ranks)
+    else:
+        cards = device_count(device)
+        if spec == "auto":
+            n = cards if device.type == "cuda" or cards > 1 else 0
+        else:
+            n = int(np.prod(_spec_chips(spec))) if cards > 1 else 0
+    if n and spec != "auto" and _spec_chips(spec)[0] > 1:
+        raise NotImplementedError(f"--mesh {spec} over {n} ranks: "
+                                  + NOT_PORTED["rank_data"])
+    return n
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, argv, world: int, port: int) -> None:
+    """A spawned rank: torchrun's environment for ``comm.init``, then the
+    launcher; only rank 0 prints."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    # the host's cores shared between the ranks
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    main(argv)
+
+
+def _serve_over_ranks(argv, args, dev, n: int):
+    """Start (or join) the world of ``n`` ranks the router spans: under
+    torchrun this process is one rank; a world of one runs in this
+    process; else the ranks are spawned (``torch.multiprocessing``) after
+    this process built the kernels, each running the launcher.  Returns
+    this process's streams (None where it spawned the ranks)."""
+    if args.deadline_s is not None:
+        raise NotImplementedError(NOT_PORTED["rank_deadline"])
+    if "WORLD_SIZE" in os.environ or n == 1:
+        port = None if "WORLD_SIZE" in os.environ else _free_port()
+        comm.init(dev.type, **({} if port is None else dict(
+            rank=0, world_size=1, init_method=f"tcp://localhost:{port}")))
+        try:
+            return main(argv)
+        finally:
+            comm.shutdown()
+    import torch.multiprocessing as mp
+
+    if dev.type == "cuda":
+        # built once here, so that no two ranks build one kernel at once
+        from ..kernels import _build
+
+        _build.build_all()
+    mp.start_processes(_rank_main, args=(argv, n, _free_port()), nprocs=n,
+                       start_method="spawn")
+    return None
 
 
 def main(argv=None):
@@ -185,8 +277,13 @@ def main(argv=None):
                     help="sampling: nucleus filter (1.0 = off)")
     ap.add_argument("--mesh", default=None,
                     help="DATAxMODEL serve mesh (that many logical chips on "
-                         "the one device) or 'auto' (every visible card in "
-                         "one data shard); implies --continuous --router")
+                         "one device, or ranks over as many cards) or "
+                         "'auto' (every visible card in one data shard, one "
+                         "rank a card); implies --continuous --router")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="serve the router's one data shard over this many "
+                         "ranks on this host (gloo on the CPU or on a "
+                         "shared card); implies --router")
     ap.add_argument("--router", action="store_true",
                     help="route requests across data-parallel shards "
                          "(ShardedServe; --mesh picks the mesh, default "
@@ -216,8 +313,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--seed", type=int, default=0)
+    argv = sys.argv[1:] if argv is None else list(argv)  # for the ranks
     args = ap.parse_args(argv)
-    if args.mesh and not args.router:
+    if (args.mesh or args.ranks) and not args.router:
         args.router = True
     if args.router:
         args.continuous = True
@@ -225,6 +323,10 @@ def main(argv=None):
     why = _not_ported(args)
     if why:
         raise NotImplementedError(why)
+    if args.router and not comm.active():
+        n = serve_ranks(args.mesh or "auto", dev, args.ranks)
+        if n:
+            return _serve_over_ranks(argv, args, dev, n)
     mesh = serve_mesh(args.mesh or "auto", dev) if args.router else None
     if args.prompt_len > 1 and not args.page_size:
         ap.error("--prompt-len > 1 needs --page-size (paged KV cache)")
@@ -378,6 +480,10 @@ def main(argv=None):
           f"{steps}, on {dev})")
     if args.router:
         print(f"  per-shard served: {[len(a) for a in cb.assigned]}")
+    # one digest of every stream, to hold one run against another
+    digest = zlib.crc32(repr(sorted((repr(r), [int(t) for t in v])
+                                    for r, v in done.items())).encode())
+    print(f"  streams: crc32 {digest:08x}")
     if args.spec_k:
         drafted = sum(b._spec_prop for b in shards)
         accepted = sum(b._spec_acc for b in shards)

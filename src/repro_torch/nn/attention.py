@@ -16,9 +16,17 @@ family adds ``cross_kv``, ``attention_block``'s ``kv_override`` (the
 decoder's cross-attention over the encoder) and ``cross_decode_attention``
 (its decode step over the ``cross`` planes, plain torch as in the JAX
 package).
+
+Over ranks (a cache whose ``split`` is set, ``dist.sharding.SeqSplit``)
+each rank holds a contiguous part of every page's positions (of the
+ring's cells): the write keeps the rows this rank owns, and before the
+attention ``gathered`` puts the parts back together in rank order
+(``dist.comm.gather``), so the unchanged backend reads the bits the
+mesh-less step reads.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -250,14 +258,40 @@ def put_rows(dst: torch.Tensor, dim: int, plan, val: torch.Tensor) -> None:
 
 
 def write_rows(page_ids: torch.Tensor, page_off: torch.Tensor,
-               n_pages: int, page: int):
+               n_pages: int, page: int, split=None):
     """The ``drop_plan`` of a chunk's ``[B, C]`` rows into the flat cells
     (``page_id * page + page_off``) of a pool of ``n_pages`` pages: a row
     whose page id lies outside the pool drops (a padded chunk slot).
-    Found once per step for every layer's write."""
+    With ``split`` the pool holds this rank's ``page / parts`` offsets of
+    every page, and a row at another rank's offset drops too.  Found once
+    per step for every layer's write."""
+    if split is not None:
+        part = page // split.parts
+        own = torch.div(page_off, part, rounding_mode="floor") == split.index
+        page_ids = torch.where(own, page_ids, n_pages)
+        page_off = page_off - split.index * part
+        page = part
     cell = (page_ids.reshape(-1).long() * page
             + page_off.reshape(-1).long())
     return drop_plan(page_ids.reshape(-1), n_pages, at=cell)
+
+
+def gathered(kv: PagedKV) -> PagedKV:
+    """One layer's cache whole, as the mesh-less step holds it: every
+    rank's part of the positions gathered along dim 1 in rank order
+    (``dist.comm.gather``, one a plane); ``kv`` itself when it is not
+    split."""
+    sp = kv.split
+    if sp is None:
+        return kv
+    from ..dist import comm
+
+    def whole(t):
+        return None if t is None else comm.gather(t, 1, sp.group)
+
+    return dataclasses.replace(kv, k=whole(kv.k), v=whole(kv.v),
+                               k_scale=whole(kv.k_scale),
+                               v_scale=whole(kv.v_scale), split=None)
 
 
 def _paged_write(kv: PagedKV, k: torch.Tensor, v: torch.Tensor) -> PagedKV:
@@ -319,7 +353,8 @@ def paged_decode_attention_block(
                            qk_norm, norm_eps)
     kv = _paged_write(kv, k, v)
     attend = AB.get(AB.resolve(impl, x.device))
-    out = attend(q, kv, n_heads=n_heads, head_dim=head_dim, window=window)
+    out = attend(q, gathered(kv), n_heads=n_heads, head_dim=head_dim,
+                 window=window)
     out = ops.linear(out.reshape(B, C, n_heads * head_dim), p["wo"])
     return out, kv
 
@@ -331,14 +366,16 @@ GQA_IMPLS = ("repeat", "grouped")
 def dense_view(k: torch.Tensor, v: torch.Tensor,
                k_scale: Optional[torch.Tensor],
                v_scale: Optional[torch.Tensor], block_tbl: torch.Tensor,
-               positions: torch.Tensor) -> PagedKV:
+               positions: torch.Tensor, split=None) -> PagedKV:
     """One layer of the dense cache (``[B, S, KV, hd]`` views into the
     stacked ``[n_layers, ...]`` cache, int8 with float32 scale planes
     ``[B, S, KV, 1]``) as the paged backends' pool: ``B`` pages of ``S``
     positions, ``block_tbl [B, 1]`` the identity table, ``positions [B, 1]``
-    the step's position, the ring flag set."""
+    the step's position, the ring flag set; ``split`` this rank's part of
+    the cells over ranks."""
     return PagedKV(k=k, v=v, k_scale=k_scale, v_scale=v_scale,
-                   block_tbl=block_tbl, pos=positions, ring=True)
+                   block_tbl=block_tbl, pos=positions, ring=True,
+                   split=split)
 
 
 def _ring_write(kv: PagedKV, k: torch.Tensor, v: torch.Tensor,
@@ -349,7 +386,16 @@ def _ring_write(kv: PagedKV, k: torch.Tensor, v: torch.Tensor,
     quantizes per token vector and writes the scales beside it.  With
     ``commit`` (a 0-dim bool on the device) False the cell is written back
     as it was, so a step that has no work leaves the cache unchanged
-    without the host looking at the flag."""
+    without the host looking at the flag.  With ``kv.split`` the ring holds
+    this rank's ``S / parts`` cells, and only the rank owning the cell
+    writes it."""
+    sp = kv.split
+    if sp is not None:
+        n = kv.k.shape[1]
+        local = slot - sp.index * n
+        own = ((local >= 0) & (local < n)).reshape(())
+        slot = local.clamp(0, n - 1)
+        commit = own if commit is None else commit & own
     planes = [(kv.k, k), (kv.v, v)]
     if kv.quantized:
         kq, ks = quantize_kv_int8(k)
@@ -401,6 +447,7 @@ def decode_attention_block(
                            qk_norm, norm_eps)
     _ring_write(kv, k, v, slot, commit)
     attend = AB.get(AB.resolve(impl, x.device))
-    out = attend(q, kv, n_heads=n_heads, head_dim=head_dim, window=window)
+    out = attend(q, gathered(kv), n_heads=n_heads, head_dim=head_dim,
+                 window=window)
     out = ops.linear(out.reshape(B, 1, n_heads * head_dim), p["wo"])
     return out, kv

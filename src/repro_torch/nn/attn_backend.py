@@ -21,7 +21,7 @@ page write runs once, outside the backend, in
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -74,6 +74,10 @@ class PagedKV:
       layer of the dense decode cache ``[B, S, KV, hd]`` read as a pool of
       ``B`` pages of ``S`` positions with the identity table, its positions
       a ring of ``S`` cells (``kernels.paged_attention``).
+    * **over ranks** (``split``, a ``dist.sharding.SeqSplit``): the pool
+      holds this rank's part of every page's positions (of the ring's
+      cells), ``[..., page / parts, KV, hd]``; ``nn.attention`` writes the
+      rows it owns and gathers the parts before attending.
     """
 
     k: torch.Tensor
@@ -86,6 +90,7 @@ class PagedKV:
     page_off: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None
     ring: bool = False
+    split: Any = None
 
     @property
     def quantized(self) -> bool:

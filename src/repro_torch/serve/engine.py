@@ -54,8 +54,21 @@ device batcher's slot state and queue by the JAX package's serve rules.
 On one card a placement validates each tensor's spec and holds it whole
 there, so a mesh moves no tensor, adds no capture and no sync, and a
 tensor-parallel engine serves bitwise what a replicated one does (ROADMAP
-C.19).  Placement over several physical cards is not ported
-(``NOT_PORTED["cards"]``, queue A item 16).
+C.19).
+
+Over a ``1 x N`` mesh of ranks (``dist.sharding.RankMesh``, one rank a
+card, or ranks on the CPU or sharing a card) every rank runs the engine,
+its batcher and the router on the same requests: the params replicated,
+the page pool and the ring split over ``model`` by the JAX rules (each
+rank writes its rows and gathers each layer's cache before the
+attention, ``nn.attention``), the slot state and the queue replicated.
+Every host decision (admission, drain, eviction, the fault injector's
+plan, the gate's verdict) comes from state that every rank holds
+bitwise, so the ranks stay in lockstep and serve the mesh-less engine's
+streams bitwise.  Over NCCL the device batcher captures each step with
+its gathers in the CUDA graph; over gloo it runs the step eagerly.  What
+is still refused over ranks raises ``NotImplementedError`` from
+``NOT_PORTED`` (queue A item 16).
 """
 from __future__ import annotations
 
@@ -75,6 +88,7 @@ from ..arch import sampling as S
 from ..arch.config import ArchConfig
 from ..core.pipeline import MappedModel
 from ..device import resolve_device
+from ..dist import comm
 from ..dist import sharding as SH
 from ..nn import attention as A
 from ..nn import attn_backend as AB
@@ -83,16 +97,23 @@ from .pages import PagePool
 from .pages import page_demand as _page_demand
 
 NOT_PORTED = {
-    "cards": "placement over several physical cards (torch.distributed, "
-             "collectives in the step) is not ported yet: ROADMAP queue A "
-             "item 16 (placement over several cards); a mesh of logical "
-             "chips on one card serves",
+    "rank_data": "data shards over rank groups (a mesh of ranks with "
+                 "DATA > 1) are not ported: ROADMAP queue A item 16 (data "
+                 "shards over rank groups); a 1xN mesh of ranks serves",
+    "rank_tp": "tp_params over ranks (row-parallel reductions, a "
+               "vocab-parallel head) is not ported: ROADMAP queue A item 16 "
+               "(tp_params over ranks); the params replicate over ranks",
+    "rank_deadline": "deadlines over ranks are not ported: each rank's "
+                     "clock would decide its own evictions and break the "
+                     "lockstep of the collectives: ROADMAP queue A item 16 "
+                     "(deadlines over ranks)",
 }
 
 
-def _check_mesh(mesh, device: torch.device) -> None:
+def _check_mesh(mesh, device: torch.device, tp_params: bool = False) -> None:
     """A mesh's chips must live on the device that serves: a placement
-    moves no tensor to another device."""
+    moves no tensor to another device.  A mesh of ranks serves one data
+    shard with its params replicated."""
     md = torch.device(mesh.device)
     if md.type == "cuda" and md.index is None:
         md = torch.device("cuda", torch.cuda.current_device())
@@ -100,6 +121,18 @@ def _check_mesh(mesh, device: torch.device) -> None:
         raise ValueError(f"the mesh's chips live on {mesh.device}, the "
                          f"engine serves on {device}: build the mesh on "
                          f"the engine's device")
+    if isinstance(mesh, SH.RankMesh):
+        if int(np.prod([n for a, n in mesh.shape.items()
+                        if a != SH.MODEL_AXIS])) != 1:
+            raise NotImplementedError(NOT_PORTED["rank_data"])
+        if tp_params:
+            raise NotImplementedError(NOT_PORTED["rank_tp"])
+
+
+def _check_deadline(b, deadline_s) -> None:
+    """A deadline over ranks raises (``NOT_PORTED["rank_deadline"]``)."""
+    if deadline_s is not None and isinstance(b.mesh, SH.RankMesh):
+        raise NotImplementedError(NOT_PORTED["rank_deadline"])
 
 
 @dataclasses.dataclass
@@ -356,7 +389,8 @@ class ServeEngine:
             # tp_params each leaf by the JAX rules; on logical chips a leaf
             # is validated and held whole either way, so the TP streams are
             # the replicated streams bitwise (ROADMAP C.19)
-            _check_mesh(mesh, self.device)
+            _check_mesh(mesh, self.device, self.tp_params)
+            M.check_ranks(cfg, mesh)
             params = SH.place(params, SH.param_shardings(params, mesh)
                               if tp_params else SH.NamedSharding(mesh, SH.P()))
         self.params = params
@@ -375,12 +409,9 @@ class ServeEngine:
         """The dense decode state (``arch.model.init_decode_state``),
         allocated on first use."""
         if self._state is None:
-            st = M.init_decode_state(self.cfg, self.scfg.max_batch,
-                                     self.scfg.cache_len, device=self.device)
-            if self.mesh is not None:
-                st = SH.place(st, SH.cache_shardings(st, self.mesh,
-                                                     self.scfg.max_batch))
-            self._state = st
+            self._state = M.init_decode_state(
+                self.cfg, self.scfg.max_batch, self.scfg.cache_len,
+                device=self.device, mesh=self.mesh)
         return self._state
 
     @state.setter
@@ -450,13 +481,10 @@ class ServeEngine:
         """The physical page pool, allocated on first use."""
         self._require_paged()
         if self._paged_kv is None:
-            kv = M.init_paged_kv(self.cfg, self.scfg.n_pages,
-                                 self.scfg.page_size,
-                                 kv_dtype=self.scfg.kv_dtype,
-                                 device=self.device)
-            if self.mesh is not None:
-                kv = SH.place(kv, SH.paged_kv_shardings(kv, self.mesh))
-            self._paged_kv = kv
+            self._paged_kv = M.init_paged_kv(
+                self.cfg, self.scfg.n_pages, self.scfg.page_size,
+                kv_dtype=self.scfg.kv_dtype, device=self.device,
+                mesh=self.mesh)
         return self._paged_kv
 
     def copy_page(self, src: int, dst: int) -> None:
@@ -625,7 +653,10 @@ class _FusedStep:
         """Capture one step as a CUDA graph.  A warm-up step runs eagerly
         first, on a side stream, from the idle state (every slot free, an
         empty queue), where it is the identity: it loads the kernels and
-        settles the allocator before capture.  Python's garbage collector
+        settles the allocator before capture.  Over NCCL ranks one
+        collective runs first, so that the communicator exists before the
+        capture, and the step's gathers are captured with it; every rank
+        captures the same step at the same point of its run.  Python's garbage collector
         runs just before the capture and is off during it: a dead batcher
         is a reference cycle (its steps hold it), and collecting one
         mid-capture destroys its graphs, a call that invalidates the
@@ -634,6 +665,10 @@ class _FusedStep:
         st = self.st
         st["free"].fill_(True)
         self.q["n"].zero_()
+        mesh = self.b.mesh
+        if isinstance(mesh, SH.RankMesh):
+            # the communicator is built before the capture, by every rank
+            comm.warm_up(st["free"].device, mesh.group)
         side = torch.cuda.Stream(device=st["free"].device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -1057,6 +1092,7 @@ class DeviceContinuousBatcher:
         self.mesh = engine.mesh if mesh is None else mesh
         if self.mesh is not None:
             _check_mesh(self.mesh, engine.device)
+        _check_deadline(self, deadline_s)
         self.eos = int(eos_token)
         self.max_tokens = int(max_tokens)
         self.sync_every = max(1, int(sync_every))
@@ -1094,7 +1130,11 @@ class DeviceContinuousBatcher:
         self._exh_holds: List[list] = []  # [due drain, held page ids]
         self._host_drops: Dict[int, Tuple[int, str, float]] = {}
         self._vocab = engine.cfg.vocab_size
-        self.graph = bool(graph) and engine.device.type == "cuda"
+        # gloo's collectives do not capture: over gloo ranks the step runs
+        # eagerly
+        self.graph = (bool(graph) and engine.device.type == "cuda"
+                      and not (isinstance(self.mesh, SH.RankMesh)
+                               and comm.placement().backend != "nccl"))
         scfg = engine.scfg
         self._B = scfg.max_batch
         self.paged = scfg.paged
@@ -1106,20 +1146,16 @@ class DeviceContinuousBatcher:
             self._pages = M.init_paged_kv(engine.cfg, scfg.n_pages,
                                           scfg.page_size,
                                           kv_dtype=scfg.kv_dtype,
-                                          device=engine.device)
-            if self.mesh is not None:
-                self._pages = SH.place(self._pages, SH.paged_kv_shardings(
-                    self._pages, self.mesh))
+                                          device=engine.device,
+                                          mesh=self.mesh)
             self.pool = scfg.make_pool()
         else:
             # the batcher's own dense decode state, ``pos`` included, at
             # fixed addresses
             self._decode = M.init_decode_state(engine.cfg, scfg.max_batch,
                                                scfg.cache_len,
-                                               device=engine.device)
-            if self.mesh is not None:
-                self._decode = SH.place(self._decode, SH.cache_shardings(
-                    self._decode, self.mesh, scfg.max_batch))
+                                               device=engine.device,
+                                               mesh=self.mesh)
         self.seeds: dict = {}
         self.queue: collections.deque = collections.deque()
         self.done: dict = {}
@@ -1165,6 +1201,7 @@ class DeviceContinuousBatcher:
                seed: Optional[int] = None):
         """Enqueue; admission happens batched in ``run()``.  ``deadline_s``
         bounds queue + serve time; ``seed`` keys the sampling noise."""
+        _check_deadline(self, deadline_s)
         self.seeds[request_id] = (int(seed) if seed is not None
                                   else _default_seed(request_id))
         prompt = _submit_traced(self, request_id, prompt_tokens, False)
@@ -1876,6 +1913,8 @@ class ContinuousBatcher:
                  fault_injector=None,
                  clock: Callable[[], float] = time.perf_counter):
         self.engine = engine
+        self.mesh = engine.mesh
+        _check_deadline(self, deadline_s)
         self.eos = eos_token
         self.max_tokens = max_tokens
         self.max_queue = max_queue
@@ -1938,6 +1977,7 @@ class ContinuousBatcher:
         """Enqueue a request (a token sequence, or a bare int as a length-1
         prompt).  ``features`` go through the admission gate; ``deadline_s``
         bounds queue + serve time; ``seed`` keys its sampling noise."""
+        _check_deadline(self, deadline_s)
         self.seeds[request_id] = (int(seed) if seed is not None
                                   else _default_seed(request_id))
         prompt = _submit_traced(self, request_id, prompt_tokens, True)

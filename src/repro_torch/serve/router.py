@@ -12,7 +12,12 @@ mesh (``queue_pspec``).  On one card a placement holds each tensor whole,
 so a mesh of ``DATA`` slices serves bitwise what the mesh-less router
 with ``n_shards=DATA`` serves, with or without ``tp_params`` (ROADMAP
 C.19).  Without a mesh, ``n_shards`` shards run unplaced (the JAX
-package's mesh-less mode).
+package's mesh-less mode).  Over a ``1 x N`` mesh of ranks
+(``dist.sharding.RankMesh``) the router is one shard, and every rank runs
+its host logic on the same requests in lockstep (no clock decides a
+step: straggler eviction never drops the last shard, and deadlines over
+ranks raise ``NotImplementedError``); the caller prints rank 0's
+results.
 
 Routing and drain semantics:
 
@@ -66,7 +71,7 @@ from ..dist import sharding as SH
 from ..dist.stragglers import StragglerMonitor
 from ..launch.mesh import data_submeshes
 from .engine import (DeviceContinuousBatcher, ServeConfig, ServeEngine,
-                     _default_seed, validate_prompt_or_drop)
+                     _check_deadline, _default_seed, validate_prompt_or_drop)
 
 
 def _hrw_weight(key: bytes, s: int) -> int:
@@ -140,6 +145,7 @@ class ShardedServe:
                  device: Union[str, torch.device] = "cuda",
                  graph: bool = True):
         self.mesh = mesh
+        _check_deadline(self, deadline_s)
         if mesh is not None:
             self.submeshes = data_submeshes(mesh)
         else:
@@ -251,6 +257,7 @@ class ShardedServe:
         here (default: hash of the request id) and rides the replay
         registry, so a failover replay re-samples the identical
         stream on the surviving shard."""
+        _check_deadline(self, deadline_s)
         # same validation the shard batchers apply, surfaced at submit
         # instead of mid-route (where a failed request would vanish
         # from done/dropped accounting); empty prompts record their

@@ -450,12 +450,12 @@ def test_launcher_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "auto"], "item 16"), (["--router"], "item 16")])
+    (["--mesh", "2x2"], "item 16"),
+    (["--router", "--deadline-s", "1"], "item 16")])
 def test_launcher_modes_not_ported_raise(argv, item, monkeypatch):
-    """A serve mesh over more than one physical card (``--mesh auto``, the
-    default of ``--router``, with four cards visible) waits for ROADMAP
-    queue A item 16 (placement over several cards), before anything is
-    built."""
+    """Over the ranks of four visible cards, data shards (``--mesh 2x2``)
+    and deadlines (``--router``, whose mesh is ``auto``) wait for ROADMAP
+    queue A item 16, and raise before any rank starts."""
     from repro_torch.launch import serve
 
     monkeypatch.setattr(serve, "device_count", lambda dev: 4)
@@ -467,16 +467,19 @@ def test_launcher_modes_not_ported_raise(argv, item, monkeypatch):
 def test_auto_mesh_spreads_every_visible_card(monkeypatch, cards, want):
     """``--mesh auto`` is one data shard over every visible device, as
     the JAX ``make_serve_mesh``: one shard of one chip on one device, and
-    more than one card needs placement over several cards (item 16); a
-    malformed spec is a ValueError."""
+    over four cards one rank a card (``serve_ranks``); a malformed spec is
+    a ValueError."""
     from repro_torch.launch import serve
 
     cpu = torch.device("cpu")
     monkeypatch.setattr(serve, "device_count", lambda dev: cards)
     if want is None:
+        assert serve.serve_ranks("auto", cpu) == cards
+        assert serve.serve_ranks("1x2", cpu) == 2
         with pytest.raises(NotImplementedError, match="item 16"):
-            serve.serve_mesh("auto", cpu)
+            serve.serve_ranks("2x2", cpu)
     else:
+        assert serve.serve_ranks("auto", cpu) == 0
         mesh = serve.serve_mesh("auto", cpu)
         assert dict(mesh.shape) == {"data": want, "model": 1}
     for bad in ("two-by-four", "0x2", "2x"):
