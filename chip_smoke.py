@@ -405,7 +405,14 @@ Phases, in order; the first failure exits non-zero:
    three in turns; (b) two ranks spawned after phase 1 built the kernels,
    sharing the card over gloo (eager steps), phase 9's 8 requests with
    the shortest prompts: streams and drops bitwise phase 11's on both
-   ranks, each rank half the pool's bytes, ms a step.  Phase 16's
+   ranks, each rank half the pool's bytes, ms a step; then in the same
+   ranks the router over the ``2x1`` mesh of ranks (two data slices of
+   one rank each, a host exchange a round) bitwise the mesh-less 2-shard
+   router on the same requests (streams, routing, drops), and the
+   ``1x2`` batcher with a deadline and a clock per rank (rank r's
+   running 1 + r / 2 times as fast), its drops and streams bitwise the
+   mesh-less batcher's under rank 0's clock; ms a step and the
+   exchange's ms a round.  Phase 16's
    launcher child (``--router``, so ``--mesh auto``) serves as a world of
    one over NCCL.
 
@@ -3937,6 +3944,9 @@ def phase22(run: ServeRun, dev, card: str, two=None) -> None:
 
 # ------------------------------------------------------------ phase 23
 RANK_REQUESTS = 8  # (b): phase 9's requests with the shortest prompts
+# (b)'s deadline leg: tokens a request and steps a round, so that its
+# about 20 eager steps over the gathers (0.6-0.8 s each) pass a few drains
+DEADLINE_TOKENS, DEADLINE_ROUND = 8, 4
 RANK_TIMEOUT = 300  # seconds (b)'s ranks may take
 
 
@@ -3959,18 +3969,79 @@ def one_part_mesh():
     return OnePart(mesh.devices, mesh.axis_names, mesh.device, mesh.group)
 
 
-def rank_batcher(run: ServeRun, dev, mesh):
-    """Phase 11's device batcher (its ServeConfig, chunk and round) over
-    an engine on ``mesh``, a mesh of ranks."""
+def rank_batcher(run: ServeRun, dev, mesh, max_tokens: int = SERVE_TOKENS,
+                 sync_every: int = DEVICE_ROUND, **kw):
+    """Phase 11's device batcher (its ServeConfig and chunk; its tokens
+    and round unless given) over an engine on ``mesh``, a mesh of ranks
+    (None: mesh-less); ``kw`` (a deadline, a clock, graph) go to it."""
     from repro_torch.serve.engine import (DeviceContinuousBatcher,
                                           ServeConfig, ServeEngine)
 
     engine = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE),
                          gate=run.gate, mesh=mesh, device=dev)
     return DeviceContinuousBatcher(engine, eos_token=-1,
-                                   max_tokens=SERVE_TOKENS,
-                                   sync_every=DEVICE_ROUND,
-                                   prefill_chunk=DEVICE_CHUNK)
+                                   max_tokens=max_tokens,
+                                   sync_every=sync_every,
+                                   prefill_chunk=DEVICE_CHUNK, **kw)
+
+
+def deadline_batcher(run: ServeRun, dev, mesh, deadline: float,
+                     clock) -> Any:
+    """(b)'s deadline leg: ``rank_batcher`` at DEADLINE_TOKENS and
+    DEADLINE_ROUND with ``deadline`` ticks of ``clock``, eager (as over
+    gloo; graph == eager bitwise, phase 11)."""
+    return rank_batcher(run, dev, mesh, max_tokens=DEADLINE_TOKENS,
+                        sync_every=DEADLINE_ROUND, deadline_s=deadline,
+                        clock=clock, graph=False)
+
+
+class Ticks:
+    """(b)'s deadline clock: one tick a read, rank ``r``'s running
+    ``1 + r / 2`` times as fast as rank 0's, so that a rank deciding by
+    its own clock would evict other requests than rank 0."""
+
+    def __init__(self, rank: int = 0):
+        self.rate, self.n = 1.0 + 0.5 * rank, 0
+
+    def __call__(self) -> float:
+        self.n += 1
+        return self.n * self.rate
+
+
+def serve_rids(cb, run: ServeRun, dev, rids) -> Dict[str, Any]:
+    """Requests ``rids`` of phase 9 through ``cb`` (a batcher or a router)
+    to the end: streams, drops, reasons and the host seconds."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for rid in rids:
+        cb.submit(rid, run.prompts[rid], features=run.feats[rid])
+    cb.run(max_steps=20000)
+    torch.cuda.synchronize(dev)
+    return dict(done=dict(cb.done), dropped=list(cb.dropped),
+                reasons=dict(cb.drop_reasons),
+                seconds=time.perf_counter() - t0)
+
+
+def deadline_reference(run: ServeRun, dev, rids) -> tuple:
+    """(b)'s deadline and what the mesh-less ``deadline_batcher`` serves
+    under it on rank 0's clock (``Ticks(0)``): half way between the fewest
+    and the most ticks a request of ``rids`` waits from its submit to its
+    drain with no deadline in reach, so that some expire and some are
+    served (checked)."""
+    free = deadline_batcher(run, dev, None, 1e9, Ticks())
+    serve_rids(free, run, dev, rids)
+    # the k-th submit reads tick k
+    waits = [free.done_at[r] - (k + 1) for k, r in enumerate(rids)
+             if r in free.done_at]
+    if not waits:
+        fail(f"(23b) none of requests {rids} was served")
+    deadline = (min(waits) + max(waits)) / 2
+    ref = serve_rids(deadline_batcher(run, dev, None, deadline, Ticks()),
+                     run, dev, rids)
+    if not ref["done"] or "deadline" not in ref["reasons"].values():
+        fail(f"(23b) a deadline of {deadline} ticks (waits {waits}) "
+             f"served {sorted(ref['done'])}, dropped {ref['reasons']}")
+    return deadline, ref
 
 
 def pool_bytes(cb) -> int:
@@ -3991,17 +4062,23 @@ def shortest(run: ServeRun, n: int) -> list:
                   key=lambda i: (len(run.prompts[i]), i))[:n]
 
 
-def gloo_rank(rank: int, world: int, port: int, seed: int, out: str) -> None:
+def gloo_rank(rank: int, world: int, port: int, seed: int, deadline: float,
+              out: str) -> None:
     """(b): one of ``world`` ranks sharing the card over gloo, spawned
     after phase 1 built the kernels: phase 9's model and gate from the
     seed, phase 11's device batcher over the ``1 x world`` mesh of ranks
-    (eager: gloo does not capture) on the RANK_REQUESTS requests; its
-    streams, drops, pool bytes and ms a step pickled to ``out``."""
+    (eager: gloo does not capture) on the RANK_REQUESTS requests; the
+    router over the ``world x 1`` mesh of ranks (a data slice a rank) on
+    them; the ``1 x world`` batcher with ``deadline`` ticks of this rank's
+    ``Ticks``; their streams, drops, pool bytes, ms a step and the
+    router's exchange seconds pickled to ``out``."""
     import pickle
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.dist import comm
     from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.router import ShardedServe
 
     here = comm.init("cuda", rank=rank, world_size=world, local_rank=rank,
                      local_world_size=world,
@@ -4018,17 +4095,32 @@ def gloo_rank(rank: int, world: int, port: int, seed: int, out: str) -> None:
     cb.run(max_steps=20000)
     torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
+    data = make_serve_mesh(f"{world}x1")
+    r = ShardedServe(run.cfg, run.params, ServeConfig(**SERVE), data,
+                     gate=run.gate, eos_token=-1, max_tokens=SERVE_TOKENS,
+                     sync_every=DEVICE_ROUND, prefill_chunk=DEVICE_CHUNK,
+                     device=dev)
+    routed = serve_rids(r, run, dev, rids)
+    mine = r.batchers[data.coords["data"]]
+    routed.update(assigned=r.assigned, steps=mine.steps_executed,
+                  ms_step=routed["seconds"] / mine.steps_executed * 1e3,
+                  exchange_s=list(r.exchange_s), graph=mine.graph)
+    timed = serve_rids(deadline_batcher(run, dev, mesh, deadline,
+                                        Ticks(rank)), run, dev, rids)
     with open(out, "wb") as f:
         pickle.dump(dict(
             backend=here.backend, device=str(dev), graph=cb.graph,
             mesh=dict(mesh.shape), done=dict(cb.done),
             dropped=list(cb.dropped), reasons=dict(cb.drop_reasons),
             pool=pool_bytes(cb), steps=cb.steps_executed,
-            ms_step=seconds / cb.steps_executed * 1e3), f)
+            ms_step=seconds / cb.steps_executed * 1e3,
+            data_mesh=dict(data.shape), router=routed,
+            deadline={k: timed[k] for k in ("done", "dropped", "reasons")}),
+            f)
     comm.shutdown()
 
 
-def gloo_ranks(seed: int, world: int = 2):
+def gloo_ranks(seed: int, deadline: float, world: int = 2):
     """Spawn (b)'s ranks (``torch.multiprocessing``, spawn); returns what
     ``gloo_results`` waits on."""
     import tempfile
@@ -4038,14 +4130,15 @@ def gloo_ranks(seed: int, world: int = 2):
     tmp = tempfile.mkdtemp(prefix="phase23-")
     outs = [str(Path(tmp) / f"rank{r}.pkl") for r in range(world)]
     ctx = mp.start_processes(
-        gloo_rank_entry, args=(world, free_port(), seed, tmp), nprocs=world,
-        start_method="spawn", join=False)
+        gloo_rank_entry, args=(world, free_port(), seed, deadline, tmp),
+        nprocs=world, start_method="spawn", join=False)
     return ctx, outs
 
 
 def gloo_rank_entry(rank: int, world: int, port: int, seed: int,
-                    tmp: str) -> None:
-    gloo_rank(rank, world, port, seed, str(Path(tmp) / f"rank{rank}.pkl"))
+                    deadline: float, tmp: str) -> None:
+    gloo_rank(rank, world, port, seed, deadline,
+              str(Path(tmp) / f"rank{rank}.pkl"))
 
 
 def gloo_results(started) -> list:
@@ -4202,8 +4295,19 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    res = gloo_results(gloo_ranks(seed))
     rids = shortest(run, RANK_REQUESTS)
+    # (b)'s references on this card: the deadline batcher under rank 0's
+    # clock (the deadline is the ranks' argument), then, while the ranks
+    # start, the mesh-less 2-shard router
+    deadline, timed = deadline_reference(run, dev, rids)
+    started = gloo_ranks(seed, deadline)
+    two = sharded(run, dev, 2)
+    ref = serve_rids(two, run, dev, rids)
+    ref["assigned"] = two.assigned
+    two = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = gloo_results(started)
     want = {r: d.cb.done[r] for r in rids if r in d.cb.done}
     want_drops = {r: d.cb.drop_reasons[r] for r in rids
                   if r in d.cb.drop_reasons}
@@ -4217,7 +4321,41 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
                  f"11's mesh-less batcher's on the same requests")
         if r["pool"] * 2 != full:
             fail(f"(23b) rank {rank} holds {r['pool']} pool bytes of {full}")
+        got = r["router"]
+        if r["data_mesh"] != {"data": 2, "model": 1} or got["graph"] or any(
+                got[k] != ref[k] for k in ("done", "assigned", "dropped",
+                                           "reasons")):
+            fail(f"(23b) rank {rank}'s router over {r['data_mesh']} ranks "
+                 f"(graph {got['graph']}) differs from the mesh-less "
+                 f"2-shard router: assigned {got['assigned']} vs "
+                 f"{ref['assigned']}, drops {got['reasons']} vs "
+                 f"{ref['reasons']}, streams equal "
+                 f"{got['done'] == ref['done']}")
+        if r["deadline"] != {k: timed[k] for k in ("done", "dropped",
+                                                    "reasons")}:
+            fail(f"(23b) rank {rank}'s deadline batcher dropped "
+                 f"{r['deadline']['reasons']}, the mesh-less batcher under "
+                 f"rank 0's clock {timed['reasons']} (streams equal "
+                 f"{r['deadline']['done'] == timed['done']})")
     t_b = time.perf_counter() - t0
+    routed = [r["router"] for r in res]
+    exch = [1e3 * float(np.median(g["exchange_s"])) for g in routed]
+    print(f"[23 b data slices] the router over the 2x1 mesh of ranks (a "
+          f"data slice a rank, gloo, eager steps, one host exchange a "
+          f"round) on the same {RANK_REQUESTS} requests: streams, routing "
+          f"{ref['assigned']} and drops {ref['reasons']} bitwise the "
+          f"mesh-less 2-shard router on this card on both ranks; ms per "
+          f"step run {[round(g['ms_step'], 2) for g in routed]} over "
+          f"{[g['steps'] for g in routed]} steps (each slice on its own "
+          f"rank, at once); the exchange's ms a round (median) "
+          f"{[round(x, 3) for x in exch]} over "
+          f"{[len(g['exchange_s']) for g in routed]} rounds (rank 0's "
+          f"first holds its wait for rank 1's turn); the 1x2 batcher at "
+          f"{DEADLINE_TOKENS} tokens and {DEADLINE_ROUND} steps a round "
+          f"with a deadline of {deadline} ticks, rank r's clock "
+          f"running 1 + r / 2 times as fast: drops {timed['reasons']} and "
+          f"{len(timed['done'])} streams bitwise the mesh-less batcher's "
+          f"under rank 0's clock on both ranks ({card})")
     print(f"[23 b ranks] 2 ranks sharing the card over gloo (spawned, eager "
           f"steps), mesh {res[0]['mesh']}: phase 9's {RANK_REQUESTS} "
           f"requests with the shortest prompts (ids {rids}) through phase "

@@ -285,16 +285,22 @@ def compute_params(tree, train: bool = False):
     return out
 
 
-def check_ranks(cfg: ArchConfig, mesh) -> bool:
-    """Whether ``mesh`` is a mesh of ranks, for a family that serves over
-    them; any other family raises ``NotImplementedError``."""
-    if not isinstance(mesh, SH.RankMesh):
-        return False
+def check_rank_family(cfg: ArchConfig) -> None:
+    """A family that does not serve over ranks raises
+    ``NotImplementedError``."""
     if cfg.family not in RANK_FAMILIES or cfg.block_pattern:
         raise NotImplementedError(
             f"serving the {cfg.family} family over ranks is not ported: "
             f"ROADMAP queue A item 16 (the families over ranks); "
             f"{'/'.join(RANK_FAMILIES)} serve")
+
+
+def check_ranks(cfg: ArchConfig, mesh) -> bool:
+    """Whether ``mesh`` is a mesh of ranks, for a family that serves over
+    them; any other family raises ``NotImplementedError``."""
+    if not isinstance(mesh, SH.RankMesh):
+        return False
+    check_rank_family(cfg)
     return True
 
 

@@ -19,7 +19,14 @@ shardings need.  The port places a leaf on a mesh of ranks
   in rank order, bitwise the same on every rank (a gather copies, it
   never adds).  NCCL gathers into one buffer (``all_gather_into_tensor``,
   which a CUDA graph captures); gloo gathers with ``all_gather``, which
-  takes a card's tensors too (gloo stages them through the host itself).
+  takes a card's tensors too (gloo stages them through the host itself);
+* :func:`new_groups` makes the groups of a mesh of ranks (one a data
+  slice), every rank making every group in the same order;
+* :class:`SharedClock` is one clock for the ranks of a group: one rank
+  reads it and broadcasts the value, so that a decision taken from the
+  time (a deadline, an eviction) is the same on every rank;
+* :func:`exchange` gives every rank each rank's host object
+  (``all_gather_object``), outside any CUDA graph capture.
 
 ``launches`` counts the gathers issued since ``reset_counts``, as the
 kernels' wrappers count their launches.
@@ -30,14 +37,14 @@ import dataclasses
 import datetime
 import gc
 import os
-from typing import Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["TIMEOUT_S", "Placement", "choose_backend", "init", "shutdown",
            "active", "placement", "gather", "warm_up", "reset_counts",
-           "launches"]
+           "launches", "new_groups", "SharedClock", "exchange"]
 
 # every world waits this long at most for a peer, so a rank out of
 # lockstep fails instead of hanging
@@ -55,6 +62,7 @@ class Placement:
     world_size: int
     device: torch.device
     backend: str
+    timeout_s: float = TIMEOUT_S
 
 
 _PLACEMENT: Optional[Placement] = None
@@ -118,7 +126,7 @@ def init(device: Union[str, torch.device] = "cuda", *,
         backend, init_method=init_method or "env://", rank=rank,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
-    _PLACEMENT = Placement(rank, world_size, dev, backend)
+    _PLACEMENT = Placement(rank, world_size, dev, backend, float(timeout_s))
     if verbose and rank == 0:
         why = ("each rank has a card of its own" if own else
                "the ranks share one card" if dtype == "cuda" else
@@ -180,3 +188,53 @@ def gather(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
         parts_ = [torch.empty_like(t) for _ in range(m)]
         dist.all_gather(parts_, t, group=group)
     return torch.cat(parts_, dim=dim)
+
+
+def new_groups(rows: Sequence[Sequence[int]]) -> List[Any]:
+    """One process group for each list of world ranks in ``rows``, in
+    order.  ``new_group`` is collective over the world, so every rank makes
+    every group, those it is not in too; a rank gets None for a group it is
+    not in.  The groups keep the world's backend and timeout."""
+    here = placement()
+    timeout = datetime.timedelta(seconds=here.timeout_s)
+    out = []
+    for ranks in rows:
+        ranks = [int(r) for r in ranks]
+        g = dist.new_group(ranks=ranks, timeout=timeout)
+        out.append(g if here.rank in ranks else None)
+    return out
+
+
+class SharedClock:
+    """One clock for the ranks of ``group`` (None: the world): each call
+    reads ``clock`` on world rank ``src`` alone and broadcasts the value
+    (float64) over the group, so every rank takes a decision from the same
+    time.  Every rank of the group calls it at the same points, the same
+    number of times; a broadcast that fails raises."""
+
+    def __init__(self, clock: Callable[[], float], group=None,
+                 src: int = 0):
+        here = placement()
+        self.clock = clock
+        self.group = group
+        self.src = int(src)
+        self._reads = here.rank == self.src
+        # NCCL broadcasts a card's tensor; gloo the host's
+        self._device = (here.device if dist.get_backend(group) == "nccl"
+                        else torch.device("cpu"))
+
+    def __call__(self) -> float:
+        t = torch.empty(1, dtype=torch.float64, device=self._device)
+        if self._reads:
+            t.fill_(float(self.clock()))
+        dist.broadcast(t, self.src, group=self.group)
+        return float(t.item())
+
+
+def exchange(obj: Any, group=None) -> list:
+    """Every rank's ``obj`` in rank order (of ``group``), on every rank:
+    ``all_gather_object``, a host-side exchange that syncs, so never inside
+    a CUDA graph capture."""
+    out: list = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out

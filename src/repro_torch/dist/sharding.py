@@ -37,7 +37,9 @@ contiguous shard of a leaf (``shard_shape``), not the whole leaf.  The
 rule table is the same for both meshes.  ``seq_split`` tells a cache
 whose sequence the rules split over ``model`` which part this rank holds
 (:class:`SeqSplit`), so a step writes its own rows and gathers the rest
-before the attention.
+from its ``model`` row before the attention.  A mesh of several data
+slices makes a process group a slice; a slice this rank is not in is a
+:class:`ForeignSlice`.
 
 The port keeps a model's layers as a list of per-layer dicts, where the
 JAX package stacks them.  ``param_spec`` takes a leaf's JAX key and its
@@ -58,7 +60,8 @@ import torch
 
 from ..tree import SEP, leaves, map_leaves
 
-__all__ = ["MODEL_AXIS", "Mesh", "RankMesh", "SeqSplit", "PartitionSpec",
+__all__ = ["MODEL_AXIS", "Mesh", "RankMesh", "ForeignSlice", "SeqSplit",
+           "PartitionSpec",
            "P", "NamedSharding",
            "place", "data_axis", "param_spec", "param_pspecs",
            "param_shardings", "batch_pspec", "cache_pspec", "cache_shardings",
@@ -182,10 +185,16 @@ class SeqSplit:
 
 class RankMesh(Mesh):
     """A mesh whose chips are the ranks of a ``torch.distributed`` world
-    (``dist.comm.init``), one rank a chip: ``devices`` holds rank numbers,
-    ``device`` is this rank's device, and ``coords`` this rank's index on
-    each axis.  A mesh naming another device than this rank's raises
-    ``ValueError``; a mesh without this rank, too."""
+    (``dist.comm.init``), one rank a chip: ``devices`` holds world rank
+    numbers, ``device`` is this rank's device, ``rank`` its world rank,
+    ``coords`` its index on each axis and ``lead`` the mesh's first rank.
+    ``group`` is the process group of the mesh's ranks (None: the world).
+    A mesh of several ``model`` rows (``DATA > 1``) is made over the world
+    and makes one group a row when it is made (``dist.comm.new_groups``,
+    every rank in the same order); ``model_group`` is the row of this
+    rank, over which a cache split over ``model`` gathers.  A mesh naming
+    another device than this rank's raises ``ValueError``; a mesh without
+    this rank, too."""
 
     def __init__(self, devices, axis_names: Sequence[str],
                  device: Union[str, torch.device, None] = None, group=None):
@@ -204,23 +213,49 @@ class RankMesh(Mesh):
         import torch.distributed as dist
 
         self.group = group
-        self.rank = dist.get_rank(group)
-        world = dist.get_world_size(group)
-        if sorted(self.device_ids()) != list(range(world)):
-            raise ValueError(f"a rank mesh holds every rank of its world "
-                             f"once (0..{world - 1}), got "
+        self.rank = here.rank
+        members = (list(range(here.world_size)) if group is None
+                   else dist.get_process_group_ranks(group))
+        if sorted(self.device_ids()) != sorted(members):
+            raise ValueError(f"a rank mesh holds every rank of its group "
+                             f"once ({sorted(members)}), got "
                              f"{self.device_ids()}")
         at = np.argwhere(self.devices == self.rank)
         self.coords = {a: int(i) for a, i in zip(self.axis_names, at[0])}
+        self.lead = self.device_ids()[0]
+        self._rows = _model_rows(self)
+        for row in self._rows:
+            if row != sorted(row):
+                raise ValueError(f"a model row of a rank mesh lists its "
+                                 f"ranks in ascending order (the order a "
+                                 f"gather concatenates in), got {row}")
+        if len(self._rows) == 1:
+            self._groups = [group]
+        elif group is not None:
+            raise ValueError("a rank mesh of several model rows is made "
+                             "over the world (group None)")
+        else:
+            self._groups = comm.new_groups(self._rows)
+        self.model_group = next(g for row, g in zip(self._rows, self._groups)
+                                if self.rank in row)
 
-    def submesh(self, devices) -> "Mesh":
+    def submesh(self, devices) -> "RankMesh":
+        """The mesh of a block of this one's ranks, on the same axes: the
+        whole mesh, or one model row (a data slice) that holds this rank,
+        over the group made with this mesh."""
         devices = np.asarray(devices)
-        if devices.size != self.size:
-            raise NotImplementedError(
-                "a block of a rank mesh serves its own group of ranks, "
-                "which is not ported: ROADMAP queue A item 16 (data shards "
-                "over rank groups)")
-        return RankMesh(devices, self.axis_names, self.device, self.group)
+        ids = [int(i) for i in devices.ravel()]
+        if ids == self.device_ids():
+            return RankMesh(devices, self.axis_names, self.device,
+                            self.group)
+        for row, g in zip(self._rows, self._groups):
+            if ids == row:
+                if g is None:
+                    raise ValueError(f"rank {self.rank} is not in the slice "
+                                     f"of ranks {row}")
+                return RankMesh(devices, self.axis_names, self.device, g)
+        raise ValueError(f"a block of a rank mesh is the whole mesh or one "
+                         f"model row {self._rows}, got {ids}")
 
     def axis_index(self, axis) -> int:
         """This rank's index along ``axis`` (a name or a tuple of names,
@@ -234,22 +269,43 @@ class RankMesh(Mesh):
     def seq_split(self, full: int) -> Optional[SeqSplit]:
         """The split of a cache sequence of ``full`` cells over ``model``
         (the rules' ``cache_pspec`` / ``paged_cache_pspec``: only where
-        ``model`` divides it), or None where each rank holds it whole, as
-        on a ``model`` axis of one rank: a world of one gathers nothing."""
+        ``model`` divides it), over this rank's ``model`` row, or None
+        where each rank holds it whole, as on a ``model`` axis of one rank:
+        a world of one gathers nothing."""
         m = int(self.shape.get(MODEL_AXIS, 1))
         if m == 1 or full <= 1 or full % m:
             return None
-        if int(np.prod([n for a, n in self.shape.items()
-                        if a != MODEL_AXIS])) != 1:
-            raise NotImplementedError(
-                "a cache split over model on a rank mesh with data shards "
-                "is not ported: ROADMAP queue A item 16 (data shards over "
-                "rank groups)")
-        return SeqSplit(self.axis_index(MODEL_AXIS), m, self.group)
+        return SeqSplit(self.axis_index(MODEL_AXIS), m, self.model_group)
 
     def __repr__(self) -> str:
         return (f"RankMesh({dict(self.shape)}, ranks {self.device_ids()}, "
                 f"rank {self.rank} on {self.device})")
+
+
+def _model_rows(mesh: Mesh) -> list:
+    """The mesh's ranks grouped by every coordinate but ``model``'s, each
+    row in ``model`` order: the data slices of a ``(data, model)`` mesh."""
+    devs = np.asarray(mesh.devices)
+    if MODEL_AXIS in mesh.axis_names:
+        devs = np.moveaxis(devs, mesh.axis_names.index(MODEL_AXIS), -1)
+    else:
+        devs = devs[..., None]
+    return [[int(i) for i in row]
+            for row in devs.reshape(-1, devs.shape[-1])]
+
+
+@dataclasses.dataclass(frozen=True)
+class ForeignSlice:
+    """A data slice of a rank mesh that this rank is not in: its world
+    ranks (a ``(1, model)`` block).  This rank gets no mesh of it, since it
+    is in none of its groups; the router serves it through a stand-in
+    that the slice's lead rank reports for."""
+
+    devices: Any
+
+    @property
+    def lead(self) -> int:
+        return int(np.asarray(self.devices).ravel()[0])
 
 
 class NamedSharding:

@@ -10,7 +10,8 @@ devices, and every chip lives on ``device`` (``dist.sharding.Mesh``).
 
 In a world of ranks (``dist.comm.init``) ``make_serve_mesh`` builds a
 ``dist.sharding.RankMesh`` over them instead: a chip is a rank on its own
-device, and ``auto`` over ``N`` ranks is ``1 x N``.
+device, and ``auto`` over ``N`` ranks is ``1 x N``; ``DATA > 1`` makes a
+group of ranks a data slice.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 from ..device import device_count, resolve_device
 from ..dist import comm
-from ..dist.sharding import Mesh, RankMesh
+from ..dist.sharding import ForeignSlice, Mesh, RankMesh
 
 __all__ = ["make_production_mesh", "make_smoke_mesh", "make_serve_mesh",
            "data_submeshes"]
@@ -106,16 +107,23 @@ def make_serve_mesh(spec: str = "auto", chips: Optional[int] = None,
     return Mesh(devices, ("data", "model"), dev)
 
 
-def data_submeshes(mesh: Mesh) -> List[Mesh]:
+def data_submeshes(mesh: Mesh) -> List[Union[Mesh, ForeignSlice]]:
     """One ``("data", "model")`` mesh per data-parallel slice ("host").
 
     Each slice keeps its model axis and a size-1 data axis, so every
-    sharding rule that names ``data`` degrades to replication.  A rank
-    mesh of one data slice is its own slice; more than one raises
-    ``NotImplementedError`` (data shards over rank groups).
+    sharding rule that names ``data`` degrades to replication.  Of a rank
+    mesh, the slice that holds this rank is a ``RankMesh`` over its group
+    of ranks, and every other slice a ``ForeignSlice``.
     """
     devs = np.asarray(mesh.devices)
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(
             f"serve meshes are (data, model); got {mesh.axis_names}")
-    return [mesh.submesh(devs[i: i + 1]) for i in range(devs.shape[0])]
+    out: List[Union[Mesh, ForeignSlice]] = []
+    for i in range(devs.shape[0]):
+        block = devs[i: i + 1]
+        if isinstance(mesh, RankMesh) and mesh.rank not in block:
+            out.append(ForeignSlice(block))
+        else:
+            out.append(mesh.submesh(block))
+    return out

@@ -31,11 +31,13 @@ decode.
     ... --continuous --page-size 16 --router [--rebalance-margin 4]
     ... --continuous --page-size 16 --mesh 2x2
 
-    # one shard over ranks: every visible card (--mesh auto, a world of
-    # one over NCCL on one card), N ranks on the CPU, or one rank of a
-    # world torchrun started
+    # over ranks: one shard over every visible card (--mesh auto, a world
+    # of one over NCCL on one card), DATA shards of MODEL cards each
+    # (--mesh 2x2 or 4x1 over four cards), N ranks on the CPU, or one rank
+    # of a world torchrun started
     ... --continuous --page-size 16 --router --mesh auto
-    ... --device cpu --router --ranks 2 --page-size 8
+    ... --continuous --page-size 16 --mesh 2x2
+    ... --device cpu --router --ranks 2 --page-size 8 [--mesh 2x1]
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --router ...
 
     # an MoE model (qwen2-moe-a2.7b, moonshot-v1-16b-a3b) in any mode
@@ -64,15 +66,19 @@ On one device ``--mesh DATAxMODEL`` is that many logical chips there
 (``launch.mesh.make_serve_mesh(spec, chips=DATA*MODEL)``, the port's
 counterpart of the fake devices the JAX tests serve the same spec on):
 ``DATA`` shards, each placed on its ``1xMODEL`` slice, replicated as the
-JAX launcher places them.  ``--mesh auto`` (the default of ``--router``)
-is one data shard over every visible card: a world of one rank per card
-(``dist.comm``: NCCL, the launcher spawns the ranks, or runs as one of
-them under torchrun's environment; one card is a world of one), the KV
-cache split over ``model``, the params replicated; on the CPU one
-logical chip.  ``--mesh 1xN`` over N cards does the same;
-``--ranks N`` runs N ranks on this host (gloo on the CPU, or on a card
-they share).  Rank 0 prints.  Over ranks, ``DATA > 1`` and
-``--deadline-s`` raise ``NotImplementedError`` (ROADMAP queue A item
+JAX launcher places them, or by the JAX rules with ``--tp-params``.
+``--mesh auto`` (the default of ``--router``) is one data shard over
+every visible card: a world of one rank per card (``dist.comm``: NCCL,
+the launcher spawns the ranks, or runs as one of them under torchrun's
+environment; one card is a world of one), the KV cache split over
+``model``, the params replicated; on the CPU one logical chip.
+``--mesh DATAxMODEL`` over ``DATA * MODEL`` cards is ``DATA`` shards,
+each a group of ``MODEL`` ranks that splits its cache over ``model``,
+with one clock for the world's deadlines and evictions
+(``serve.router``); ``--ranks N`` runs N ranks on this host (gloo on the
+CPU, or on a card they share).  Rank 0 prints.  Over ranks,
+``--tp-params`` and the recurrent, VLM and enc-dec families raise
+``NotImplementedError`` before any rank starts (ROADMAP queue A item
 16).  Every
 ``--arch`` of the JAX launcher serves: a VLM decodes text only and an
 enc-dec model's decode keeps its ``cross`` planes zero, as the JAX
@@ -149,22 +155,15 @@ def serve_ranks(spec: str, device: torch.device, ranks: int = 0) -> int:
     (``WORLD_SIZE``) is that world; ``ranks`` asks for that many on this
     host; else ``auto`` takes every visible card (one card: a world of
     one; the CPU: none), and a spec over more than one card takes
-    ``DATA * MODEL`` of them.  Data shards over ranks raise
-    ``NotImplementedError`` before anything starts."""
+    ``DATA * MODEL`` of them."""
     if "WORLD_SIZE" in os.environ:
-        n = int(os.environ["WORLD_SIZE"])
-    elif ranks:
-        n = int(ranks)
-    else:
-        cards = device_count(device)
-        if spec == "auto":
-            n = cards if device.type == "cuda" or cards > 1 else 0
-        else:
-            n = int(np.prod(_spec_chips(spec))) if cards > 1 else 0
-    if n and spec != "auto" and _spec_chips(spec)[0] > 1:
-        raise NotImplementedError(f"--mesh {spec} over {n} ranks: "
-                                  + NOT_PORTED["rank_data"])
-    return n
+        return int(os.environ["WORLD_SIZE"])
+    if ranks:
+        return int(ranks)
+    cards = device_count(device)
+    if spec == "auto":
+        return cards if device.type == "cuda" or cards > 1 else 0
+    return int(np.prod(_spec_chips(spec))) if cards > 1 else 0
 
 
 def _free_port() -> int:
@@ -191,9 +190,13 @@ def _serve_over_ranks(argv, args, dev, n: int):
     torchrun this process is one rank; a world of one runs in this
     process; else the ranks are spawned (``torch.multiprocessing``) after
     this process built the kernels, each running the launcher.  Returns
-    this process's streams (None where it spawned the ranks)."""
-    if args.deadline_s is not None:
-        raise NotImplementedError(NOT_PORTED["rank_deadline"])
+    this process's streams (None where it spawned the ranks).  What does
+    not serve over ranks raises before any rank starts."""
+    if args.tp_params:
+        raise NotImplementedError(f"--tp-params over {n} ranks: "
+                                  + NOT_PORTED["rank_tp"])
+    M.check_rank_family(get_smoke_config(args.arch) if args.smoke
+                        else get_config(args.arch))
     if "WORLD_SIZE" in os.environ or n == 1:
         port = None if "WORLD_SIZE" in os.environ else _free_port()
         comm.init(dev.type, **({} if port is None else dict(
@@ -280,10 +283,15 @@ def main(argv=None):
                          "one device, or ranks over as many cards) or "
                          "'auto' (every visible card in one data shard, one "
                          "rank a card); implies --continuous --router")
+    ap.add_argument("--tp-params", action="store_true",
+                    help="router on a mesh: place each shard's params by "
+                         "the JAX rules (tensor-parallel) instead of "
+                         "replicated")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="serve the router's one data shard over this many "
-                         "ranks on this host (gloo on the CPU or on a "
-                         "shared card); implies --router")
+                    help="serve the router over this many ranks on this "
+                         "host (gloo on the CPU or on a shared card), one "
+                         "data shard or --mesh DATAxMODEL; implies "
+                         "--router")
     ap.add_argument("--router", action="store_true",
                     help="route requests across data-parallel shards "
                          "(ShardedServe; --mesh picks the mesh, default "
@@ -423,7 +431,8 @@ def main(argv=None):
                           sync_every=args.sync_every,
                           rebalance_margin=args.rebalance_margin,
                           prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
-                          draft=draft, device=dev, **ft)
+                          draft=draft, tp_params=args.tp_params, device=dev,
+                          **ft)
         print(f"router: {cb.n_shards} shard(s) over mesh "
               f"{dict(mesh.shape)} on {dev}")
     elif args.batcher == "device":
@@ -480,6 +489,15 @@ def main(argv=None):
           f"{steps}, on {dev})")
     if args.router:
         print(f"  per-shard served: {[len(a) for a in cb.assigned]}")
+        if cb.exchange_s:
+            # the slices step at once: this rank's slice's steps
+            mine = cb.batchers[mesh.coords["data"]]
+            ex = np.asarray(cb.exchange_s) * 1e3
+            print(f"  data slices over {comm.placement().world_size} ranks: "
+                  f"{dt * 1e3 / mine.steps_executed:.3f} ms a step run of "
+                  f"rank 0's slice; the host exchange {len(ex)} rounds, ms "
+                  f"a round median {np.median(ex):.3f} (min "
+                  f"{ex.min():.3f}, max {ex.max():.3f})")
     # one digest of every stream, to hold one run against another
     digest = zlib.crc32(repr(sorted((repr(r), [int(t) for t in v])
                                     for r, v in done.items())).encode())

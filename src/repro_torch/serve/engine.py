@@ -56,18 +56,21 @@ there, so a mesh moves no tensor, adds no capture and no sync, and a
 tensor-parallel engine serves bitwise what a replicated one does (ROADMAP
 C.19).
 
-Over a ``1 x N`` mesh of ranks (``dist.sharding.RankMesh``, one rank a
-card, or ranks on the CPU or sharing a card) every rank runs the engine,
-its batcher and the router on the same requests: the params replicated,
-the page pool and the ring split over ``model`` by the JAX rules (each
-rank writes its rows and gathers each layer's cache before the
-attention, ``nn.attention``), the slot state and the queue replicated.
-Every host decision (admission, drain, eviction, the fault injector's
-plan, the gate's verdict) comes from state that every rank holds
-bitwise, so the ranks stay in lockstep and serve the mesh-less engine's
-streams bitwise.  Over NCCL the device batcher captures each step with
-its gathers in the CUDA graph; over gloo it runs the step eagerly.  What
-is still refused over ranks raises ``NotImplementedError`` from
+Over a mesh of ranks of one data slice (``dist.sharding.RankMesh``, one
+rank a card, or ranks on the CPU or sharing a card) every rank of the
+slice runs the engine and its batcher on the same requests: the params
+replicated, the page pool and the ring split over ``model`` by the JAX
+rules (each rank writes its rows and gathers each layer's cache from its
+``model`` row before the attention, ``nn.attention``), the slot state and
+the queue replicated.  Every host decision (admission, drain, eviction,
+the fault injector's plan, the gate's verdict) comes from state that
+every rank holds bitwise, and a decision that reads the time reads the
+slice's one clock (``_decision_clock``: its lead rank's, broadcast), so
+the ranks stay in lockstep and serve the mesh-less engine's streams
+bitwise.  Over NCCL the device batcher captures each step with its
+gathers in the CUDA graph; over gloo it runs the step eagerly.  Several
+data slices over ranks serve through the router (``serve.router``);
+``tp_params`` over ranks raises ``NotImplementedError`` from
 ``NOT_PORTED`` (queue A item 16).
 """
 from __future__ import annotations
@@ -97,23 +100,17 @@ from .pages import PagePool
 from .pages import page_demand as _page_demand
 
 NOT_PORTED = {
-    "rank_data": "data shards over rank groups (a mesh of ranks with "
-                 "DATA > 1) are not ported: ROADMAP queue A item 16 (data "
-                 "shards over rank groups); a 1xN mesh of ranks serves",
     "rank_tp": "tp_params over ranks (row-parallel reductions, a "
                "vocab-parallel head) is not ported: ROADMAP queue A item 16 "
                "(tp_params over ranks); the params replicate over ranks",
-    "rank_deadline": "deadlines over ranks are not ported: each rank's "
-                     "clock would decide its own evictions and break the "
-                     "lockstep of the collectives: ROADMAP queue A item 16 "
-                     "(deadlines over ranks)",
 }
 
 
 def _check_mesh(mesh, device: torch.device, tp_params: bool = False) -> None:
     """A mesh's chips must live on the device that serves: a placement
-    moves no tensor to another device.  A mesh of ranks serves one data
-    shard with its params replicated."""
+    moves no tensor to another device.  An engine or a batcher on a mesh
+    of ranks serves one data slice with its params replicated; several
+    slices serve through the router."""
     md = torch.device(mesh.device)
     if md.type == "cuda" and md.index is None:
         md = torch.device("cuda", torch.cuda.current_device())
@@ -124,15 +121,24 @@ def _check_mesh(mesh, device: torch.device, tp_params: bool = False) -> None:
     if isinstance(mesh, SH.RankMesh):
         if int(np.prod([n for a, n in mesh.shape.items()
                         if a != SH.MODEL_AXIS])) != 1:
-            raise NotImplementedError(NOT_PORTED["rank_data"])
+            raise ValueError(
+                f"a lone engine or batcher serves one data slice, not the "
+                f"rank mesh {dict(mesh.shape)}: serve its slices through "
+                f"the router (serve.router.ShardedServe)")
         if tp_params:
             raise NotImplementedError(NOT_PORTED["rank_tp"])
 
 
-def _check_deadline(b, deadline_s) -> None:
-    """A deadline over ranks raises (``NOT_PORTED["rank_deadline"]``)."""
-    if deadline_s is not None and isinstance(b.mesh, SH.RankMesh):
-        raise NotImplementedError(NOT_PORTED["rank_deadline"])
+def _decision_clock(mesh, clock: Callable[[], float]) -> Callable[[], float]:
+    """The clock a batcher on ``mesh`` takes its decisions by (deadline
+    stamps, expiry, evictions, retries): over a mesh of several ranks, the
+    lead rank's ``clock`` broadcast over the mesh's group
+    (``dist.comm.SharedClock``), so that every rank of the slice evicts
+    alike; else ``clock``.  A stamp only this rank reads (``done_at``,
+    ``dropped_at``, a tracer's times) stays on ``clock``."""
+    if isinstance(mesh, SH.RankMesh) and mesh.size > 1:
+        return comm.SharedClock(clock, mesh.group, mesh.lead)
+    return clock
 
 
 @dataclasses.dataclass
@@ -311,7 +317,7 @@ def _service_retries(b) -> None:
     drops ``queue-full``; an expired deadline drops ``deadline``."""
     if not b._retry_q:
         return
-    now = b._clock()
+    now = b._now()
     rest: collections.deque = collections.deque()
     while b._retry_q:
         ent = b._retry_q.popleft()
@@ -1092,7 +1098,6 @@ class DeviceContinuousBatcher:
         self.mesh = engine.mesh if mesh is None else mesh
         if self.mesh is not None:
             _check_mesh(self.mesh, engine.device)
-        _check_deadline(self, deadline_s)
         self.eos = int(eos_token)
         self.max_tokens = int(max_tokens)
         self.sync_every = max(1, int(sync_every))
@@ -1125,6 +1130,7 @@ class DeviceContinuousBatcher:
         self.default_deadline_s = deadline_s
         self.injector = fault_injector
         self._clock = clock
+        self._now = _decision_clock(self.mesh, clock)
         self._drains = 0
         self._retry_q: collections.deque = collections.deque()
         self._exh_holds: List[list] = []  # [due drain, held page ids]
@@ -1201,7 +1207,6 @@ class DeviceContinuousBatcher:
                seed: Optional[int] = None):
         """Enqueue; admission happens batched in ``run()``.  ``deadline_s``
         bounds queue + serve time; ``seed`` keys the sampling noise."""
-        _check_deadline(self, deadline_s)
         self.seeds[request_id] = (int(seed) if seed is not None
                                   else _default_seed(request_id))
         prompt = _submit_traced(self, request_id, prompt_tokens, False)
@@ -1211,7 +1216,7 @@ class DeviceContinuousBatcher:
             if ddl <= 0:
                 _drop_request(self, request_id, "deadline")
                 return False
-            dabs = self._clock() + float(ddl)
+            dabs = self._now() + float(ddl)
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             feat_n = None if features is None else np.asarray(features)
             if self.max_retries > 0:
@@ -1230,6 +1235,14 @@ class DeviceContinuousBatcher:
         carryover slots."""
         return (len(self.queue) + len(self._retry_q)
                 + sum(c is not None for c in self._carry))
+
+    def abandon(self) -> None:
+        """Stop reporting work (the router's failover of a dead shard):
+        the queue, the retry queue and the carried slots are dropped on the
+        host; the slot state on the device is never read again."""
+        self.queue.clear()
+        self._retry_q.clear()
+        self._carry = [None] * self._B
 
     @property
     def _pfree(self) -> np.ndarray:
@@ -1364,7 +1377,7 @@ class DeviceContinuousBatcher:
             keep[gated] = eng.admit(np.stack([pending[i][2] for i in gated]))
         req_ids: List = [c["rid"] for _, c in carry]
         kept: List[Tuple] = []
-        now0 = self._clock() if self.deadline else 0.0
+        now0 = self._now() if self.deadline else 0.0
         for k, (rid, prompt, feat) in enumerate(pending):
             dabs = self.deadline.get(rid)
             if dabs is not None and now0 > dabs:
@@ -1517,7 +1530,8 @@ class DeviceContinuousBatcher:
             flags = torch.cat([fs.st["out_done"][:R], fs.st["alive"].view(1),
                                fs.st["more"].view(1)]).cpu().numpy()
             done_mask, alive, more = flags[:R], bool(flags[R]), flags[R + 1]
-            now = self._clock()
+            # a deadline decides by the slice's clock; else a stamp
+            now = self._now() if self.deadline else self._clock()
             steps_run += k
             if traced:
                 boundaries.append((steps_run, now))
@@ -1540,7 +1554,7 @@ class DeviceContinuousBatcher:
                 # the next round could only find no work: count its drain
                 # boundary as the JAX loop does, without running it
                 k = min(self.sync_every, remaining)
-                now = self._clock()
+                now = self._now() if self.deadline else self._clock()
                 steps_run += k
                 if traced:
                     boundaries.append((steps_run, now))
@@ -1914,7 +1928,6 @@ class ContinuousBatcher:
                  clock: Callable[[], float] = time.perf_counter):
         self.engine = engine
         self.mesh = engine.mesh
-        _check_deadline(self, deadline_s)
         self.eos = eos_token
         self.max_tokens = max_tokens
         self.max_queue = max_queue
@@ -1926,6 +1939,7 @@ class ContinuousBatcher:
         self.default_deadline_s = deadline_s
         self.injector = fault_injector
         self._clock = clock
+        self._now = _decision_clock(self.mesh, clock)
         self._drains = 0
         self._retry_q: collections.deque = collections.deque()
         self._exh_holds: List[list] = []  # [due drain, held page ids]
@@ -1977,7 +1991,6 @@ class ContinuousBatcher:
         """Enqueue a request (a token sequence, or a bare int as a length-1
         prompt).  ``features`` go through the admission gate; ``deadline_s``
         bounds queue + serve time; ``seed`` keys its sampling noise."""
-        _check_deadline(self, deadline_s)
         self.seeds[request_id] = (int(seed) if seed is not None
                                   else _default_seed(request_id))
         prompt = _submit_traced(self, request_id, prompt_tokens, True)
@@ -1987,7 +2000,7 @@ class ContinuousBatcher:
             if ddl <= 0:
                 _drop_request(self, request_id, "deadline")
                 return False
-            dabs = self._clock() + float(ddl)
+            dabs = self._now() + float(ddl)
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             if self.max_retries > 0:
                 _defer_full(self, request_id, prompt, features, dabs)
@@ -2008,8 +2021,9 @@ class ContinuousBatcher:
         scfg = self.engine.scfg
         if scfg.paged:
             self.pool.begin_wave()
-        track = self.tracer is not None or bool(self.deadline)
-        now = self._clock() if track else 0.0
+        # a deadline decides by the slice's clock; a tracer only stamps
+        now = (self._now() if self.deadline else
+               self._clock() if self.tracer is not None else 0.0)
         free_idx = list(np.where(self.slot_free)[0])
         fi = 0
         while fi < len(free_idx) and self.queue:
@@ -2132,7 +2146,7 @@ class ContinuousBatcher:
                     tok[:, None], self.slot_tbl, self.slot_pos, n_new)
                 nxt = self._sampler(logits, self.slot_seed, gi).cpu().numpy()
             self.steps += 1
-            now = self._clock()
+            now = self._now() if self.deadline else self._clock()
             if inj is not None:
                 # faults apply here, at the host drain boundary (every
                 # step for this batcher), never inside the step

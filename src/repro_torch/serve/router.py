@@ -12,12 +12,25 @@ mesh (``queue_pspec``).  On one card a placement holds each tensor whole,
 so a mesh of ``DATA`` slices serves bitwise what the mesh-less router
 with ``n_shards=DATA`` serves, with or without ``tp_params`` (ROADMAP
 C.19).  Without a mesh, ``n_shards`` shards run unplaced (the JAX
-package's mesh-less mode).  Over a ``1 x N`` mesh of ranks
-(``dist.sharding.RankMesh``) the router is one shard, and every rank runs
-its host logic on the same requests in lockstep (no clock decides a
-step: straggler eviction never drops the last shard, and deadlines over
-ranks raise ``NotImplementedError``); the caller prints rank 0's
-results.
+package's mesh-less mode).
+
+Over a mesh of ranks (``dist.sharding.RankMesh``) one shard is a data
+slice, a group of ranks.  Every rank runs the router's host logic on the
+same requests (HRW homes, spill, the one gate call a wave, failover and
+replay), and only its own slice's engine and batcher, on the slice's
+mesh; every other slice is a stand-in (``_SliceStandIn``) that holds what
+the host logic reads of it.  The slices take their turns at once; after
+each round one host exchange over the world (``dist.comm.exchange``)
+gives every rank each slice's report, taken from the slice's lead rank,
+and the straggler monitor records each turn's time as its lead measured
+it, so every rank evicts alike.  A crash due at a round applies where the
+mesh-less loop applies it: before the turn of a slice after the crashed
+shard, after the turn of one before it, so the moved work reaches the
+same queues at the same rounds.  A decision that reads the time reads
+world rank 0's clock, broadcast (``dist.comm.SharedClock``); a batcher
+reads its slice's lead rank's.  So the router serves the mesh-less
+router's streams with ``n_shards`` = DATA bitwise, on every rank; the
+caller prints rank 0's results.
 
 Routing and drain semantics:
 
@@ -62,16 +75,17 @@ from __future__ import annotations
 
 import time
 import zlib
-from typing import Any, Callable, Iterable, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
 
+from ..dist import comm
 from ..dist import sharding as SH
 from ..dist.stragglers import StragglerMonitor
 from ..launch.mesh import data_submeshes
 from .engine import (DeviceContinuousBatcher, ServeConfig, ServeEngine,
-                     _check_deadline, _default_seed, validate_prompt_or_drop)
+                     _decision_clock, _default_seed, validate_prompt_or_drop)
 
 
 def _hrw_weight(key: bytes, s: int) -> int:
@@ -117,6 +131,88 @@ def stable_shard(request_id: Any, n_shards: int) -> int:
     return rendezvous_shard(request_id, range(n_shards))
 
 
+class _SliceStandIn:
+    """A data slice that other ranks serve, as the router's host logic on
+    this rank sees it: its results, drops and step counts as its lead rank
+    last reported them (``absorb``), and its pending work and queue length
+    then, plus what was routed to it since.  ``submit`` takes the slice's
+    batcher's own admission decisions (an expired budget, a full queue),
+    so every rank routes alike."""
+
+    pool = None
+
+    def __init__(self, max_queue: Optional[int], max_retries: int):
+        self.max_queue = max_queue
+        self.max_retries = int(max_retries)
+        self.done: dict = {}
+        self.done_at: dict = {}
+        self.dropped: list = []
+        self.drop_reasons: dict = {}
+        self.dropped_at: dict = {}
+        self.steps = self.steps_executed = 0
+        self._spec_prop = self._spec_acc = 0
+        self.prefix = (0, 0)  # the pool's prefix_page_counts()
+        self._pending = 0  # the batcher's pending_work()
+        self._queued = 0  # the length of its queue
+
+    @property
+    def steps_wasted(self) -> int:
+        return self.steps_executed - self.steps
+
+    def pending_work(self) -> int:
+        return self._pending
+
+    def submit(self, request_id, prompt_tokens, features=None,
+               deadline_s: Optional[float] = None, seed=None) -> bool:
+        if deadline_s is not None and deadline_s <= 0:
+            return False
+        if self.max_queue is not None and self._queued >= self.max_queue:
+            if self.max_retries <= 0:
+                return False
+        else:
+            self._queued += 1
+        self._pending += 1
+        return True
+
+    def abandon(self) -> None:
+        self._pending = self._queued = 0
+
+    def absorb(self, rep: Dict[str, Any]) -> None:
+        for rid, toks, at in rep["done"]:
+            self.done[rid] = toks
+            self.done_at[rid] = at
+        for rid, reason, at in rep["dropped"]:
+            self.dropped.append(rid)
+            self.drop_reasons[rid] = reason
+            self.dropped_at[rid] = at
+        self._pending, self._queued = rep["pending"], rep["queued"]
+        self.steps, self.steps_executed = rep["steps"]
+        self._spec_prop, self._spec_acc = rep["spec"]
+        self.prefix = rep["prefix"]
+
+
+def _report(b: DeviceContinuousBatcher, sent: List[int],
+            dt: Optional[float]) -> Dict[str, Any]:
+    """A slice's report after a round, from its lead rank's batcher: the
+    requests it finished and dropped since the last report (``sent``
+    counts those reported, and is advanced), its pending work, queue
+    length, step counts and prefix pages, and ``dt``, its turn's time
+    (None: it took no turn)."""
+    done = list(b.done)[sent[0]:]
+    dropped = b.dropped[sent[1]:]
+    sent[0] += len(done)
+    sent[1] += len(dropped)
+    return dict(
+        dt=dt, done=[(r, b.done[r], b.done_at.get(r)) for r in done],
+        dropped=[(r, b.drop_reasons.get(r), b.dropped_at.get(r))
+                 for r in dropped],
+        pending=b.pending_work(), queued=len(b.queue),
+        steps=(b.steps, b.steps_executed),
+        spec=(int(b._spec_prop), int(b._spec_acc)),
+        prefix=(b.pool.prefix_page_counts() if b.pool is not None
+                else (0, 0)))
+
+
 class ShardedServe:
     """Data-parallel serve shards behind one submit/run interface.
 
@@ -125,7 +221,10 @@ class ShardedServe:
     ``repro_torch.nn.attn_backend``), which every shard's engine picks up.
     ``mesh`` (its chips on ``device``) gives one shard a data slice, each
     placed on its submesh (``tp_params`` as the engine's); None serves
-    ``n_shards`` unplaced shards.  ``device`` and ``graph`` (the shards'
+    ``n_shards`` unplaced shards.  Over a mesh of ranks ``engines`` holds
+    this rank's slice's engine alone, ``batchers`` its batcher beside the
+    other slices' stand-ins, and ``exchange_s`` the host exchange's
+    seconds, one entry a round.  ``device`` and ``graph`` (the shards'
     CUDA graphs) are the port's: the JAX package places shards by mesh
     and compiles with jit.
     """
@@ -145,7 +244,6 @@ class ShardedServe:
                  device: Union[str, torch.device] = "cuda",
                  graph: bool = True):
         self.mesh = mesh
-        _check_deadline(self, deadline_s)
         if mesh is not None:
             self.submeshes = data_submeshes(mesh)
         else:
@@ -157,28 +255,38 @@ class ShardedServe:
         self.rebalance_margin = (scfg.max_batch if rebalance_margin is None
                                  else int(rebalance_margin))
         self._clock = clock
-        self.engines = [
-            ServeEngine(cfg, params, scfg, gate=gate,
-                        gate_backend=gate_backend, mesh=sm,
-                        tp_params=tp_params, device=device)
-            for sm in self.submeshes]
-        # pregate=False: the router already gated the wave (one call in
-        # _route), so a per-shard pre-admission call would re-derive
-        # all-keep verdicts; the in-step gate is a no-op for admitted
-        # requests, leaving the schedule identical to a single-host
-        # batcher fed the same (kept) queue
-        self.batchers = [
-            DeviceContinuousBatcher(eng, eos_token=eos_token,
-                                    max_tokens=max_tokens,
-                                    sync_every=sync_every, pregate=False,
-                                    prefill_chunk=prefill_chunk,
-                                    max_queue=max_queue,
-                                    max_retries=max_retries,
-                                    retry_backoff=retry_backoff,
-                                    fault_injector=fault_injector,
-                                    clock=clock,
-                                    spec_k=spec_k, draft=draft, graph=graph)
-            for eng in self.engines]
+        # over ranks, world rank 0's clock (the slices' router decisions
+        # are taken at the same points on every rank)
+        self._now = _decision_clock(mesh, clock)
+        # over several slices of ranks: the slice this rank serves, and
+        # the slices' leads (one slice of ranks runs as the mesh-less one)
+        ranks = isinstance(mesh, SH.RankMesh) and self.n_shards > 1
+        self._own = mesh.coords["data"] if ranks else None
+        self._leads = [sm.lead for sm in self.submeshes] if ranks else None
+        self._sent = [0, 0]  # finished and dropped requests reported
+        self.exchange_s: List[float] = []
+        self.engines = []
+        self.batchers = []
+        for sm in self.submeshes:
+            if isinstance(sm, SH.ForeignSlice):
+                self.batchers.append(_SliceStandIn(max_queue, max_retries))
+                continue
+            eng = ServeEngine(cfg, params, scfg, gate=gate,
+                              gate_backend=gate_backend, mesh=sm,
+                              tp_params=tp_params, device=device)
+            self.engines.append(eng)
+            # pregate=False: the router already gated the wave (one call
+            # in _route), so a per-shard pre-admission call would
+            # re-derive all-keep verdicts; the in-step gate is a no-op for
+            # admitted requests, leaving the schedule identical to a
+            # single-host batcher fed the same (kept) queue
+            self.batchers.append(DeviceContinuousBatcher(
+                eng, eos_token=eos_token, max_tokens=max_tokens,
+                sync_every=sync_every, pregate=False,
+                prefill_chunk=prefill_chunk, max_queue=max_queue,
+                max_retries=max_retries, retry_backoff=retry_backoff,
+                fault_injector=fault_injector, clock=clock, spec_k=spec_k,
+                draft=draft, graph=graph))
         self._gate_fn = self.engines[0].gate_fn
         self._drop = scfg.gate_action_drop
         self._scfg = scfg
@@ -222,6 +330,8 @@ class ShardedServe:
                 and tracer.metrics is None:
             tracer.metrics = metrics
         for s, b in enumerate(self.batchers):
+            if isinstance(b, _SliceStandIn):
+                continue
             b.attach_obs(tracer, metrics)
             b.trace_shard = s
             if metrics is not None and self._scfg.paged:
@@ -231,14 +341,18 @@ class ShardedServe:
     def admit(self, features: np.ndarray) -> np.ndarray:
         """Batched gate call over a request wave, on the engines' device
         (keep mask, True = admit); on a mesh the feature matrix is placed
-        by ``queue_pspec`` over the whole mesh (data-parallel rows)."""
+        by ``queue_pspec`` over the whole mesh (data-parallel rows), and
+        over ranks over this rank's slice, which holds it whole: every
+        rank gates the whole wave."""
         if self._gate_fn is None:
             return np.ones(len(features), bool)
         x = torch.as_tensor(np.asarray(features).astype(np.int32),
                             device=self.engines[0].device)
-        if self.mesh is not None:
-            x = SH.NamedSharding(self.mesh, SH.queue_pspec(
-                self.mesh, len(x), x.dim())).place(x)
+        mesh = (self.submeshes[self._own] if self._own is not None
+                else self.mesh)
+        if mesh is not None:
+            x = SH.NamedSharding(mesh, SH.queue_pspec(
+                mesh, len(x), x.dim())).place(x)
         return self._gate_fn(x).cpu().numpy() != self._drop
 
     # -------------------------------------------------------------- routing
@@ -257,7 +371,6 @@ class ShardedServe:
         here (default: hash of the request id) and rides the replay
         registry, so a failover replay re-samples the identical
         stream on the surviving shard."""
-        _check_deadline(self, deadline_s)
         # same validation the shard batchers apply, surfaced at submit
         # instead of mid-route (where a failed request would vanish
         # from done/dropped accounting); empty prompts record their
@@ -283,7 +396,7 @@ class ShardedServe:
             if ddl <= 0:
                 self._drop_admission(request_id, "deadline")
                 return False
-            dabs = self._clock() + float(ddl)
+            dabs = self._now() + float(ddl)
         feat = None if features is None else np.asarray(features)
         sd = int(seed) if seed is not None else _default_seed(request_id)
         # replay registry: failover re-submits lost requests from here
@@ -318,7 +431,8 @@ class ShardedServe:
             return 1.0
         tokens = pages = 0
         for b in self.batchers:
-            t, p = b.pool.prefix_page_counts()
+            t, p = (b.prefix if isinstance(b, _SliceStandIn)
+                    else b.pool.prefix_page_counts())
             tokens += t
             pages += p
         if pages == 0:
@@ -360,7 +474,7 @@ class ShardedServe:
                                         rid=repr(rid), home=home, to=s)
             _, _, dabs, sd = self.requests.get(
                 rid, (None, None, None, None))
-            ddl = None if dabs is None else dabs - self._clock()
+            ddl = None if dabs is None else dabs - self._now()
             if not self.batchers[s].submit(rid, prompt, features=feat,
                                            deadline_s=ddl, seed=sd):
                 continue  # shard rejected (queue-full/expired): merged
@@ -388,15 +502,13 @@ class ShardedServe:
             return
         self.alive[s] = False
         b = self.batchers[s]
-        now = self._clock()
+        now = self._now()
         # dead shard's terminal bookkeeping merges as usual (_merge
         # iterates dead batchers too); only the un-served set moves
         served = set(b.done) | set(b.dropped)
         lost = [rid for rid in self.assigned[s] if rid not in served]
         # the dead batcher must stop reporting pending work
-        b.queue.clear()
-        b._retry_q.clear()
-        b._carry = [None] * b._B
+        b.abandon()
         survivors = self._alive_shards()
         moved = 0
         for rid in lost:
@@ -460,38 +572,18 @@ class ShardedServe:
         per-turn wall times feed the ``StragglerMonitor`` (plus any
         injected ``SlowShard`` virtual delay), and a shard flagged
         ``straggler_strikes`` consecutive rounds is evicted the same
-        way — unless it is the last shard standing.
+        way — unless it is the last shard standing.  Over ranks the
+        slices take each round's turns at once (the module docstring).
         """
         self._route()
         if drain_chunk is not None:
             drain_chunk = max(1, int(drain_chunk))  # 0 would never progress
         budgets = [max_steps] * self.n_shards
-        inj = self.injector
         while True:
-            ran = False
-            for s, b in enumerate(self.batchers):
-                if not self.alive[s]:
-                    continue
-                if inj is not None and inj.crash_due(
-                        s, self._shard_drains[s]):
-                    self._fail_shard(s, "crash-injected")
-                    ran = True  # survivors must absorb the moved work
-                    continue
-                if budgets[s] <= 0 or not b.pending_work():
-                    continue
-                chunk = (budgets[s] if drain_chunk is None
-                         else min(drain_chunk, budgets[s]))
-                t0 = self._clock()
-                b.run(max_steps=chunk)
-                dt = self._clock() - t0
-                if inj is not None:
-                    # a SlowShard fault delays *virtually*: the monitor
-                    # sees the injected latency, the schedule doesn't
-                    dt += inj.slow_delay(s, self._shard_drains[s])
-                self.monitor.record(s, dt)
-                self._shard_drains[s] += 1
-                budgets[s] -= chunk
-                ran = True
+            if self._own is None:
+                ran = self._round(budgets, drain_chunk)
+            else:
+                ran = self._round_over_ranks(budgets, drain_chunk)
             if self.straggler_strikes is not None:
                 self.monitor.note_round()
                 for s in self.monitor.persistent(self.straggler_strikes):
@@ -501,3 +593,83 @@ class ShardedServe:
             self._merge()
             if not ran:
                 return self.done
+
+    def _crash_due(self, s: int) -> bool:
+        inj = self.injector
+        return inj is not None and inj.crash_due(s, self._shard_drains[s])
+
+    def _turn(self, s: int, budgets: List[int],
+              drain_chunk: Optional[int]) -> Optional[float]:
+        """Shard ``s``'s turn in a round, if it has work and budget left:
+        its wall time (None: no turn)."""
+        b = self.batchers[s]
+        if budgets[s] <= 0 or not b.pending_work():
+            return None
+        chunk = (budgets[s] if drain_chunk is None
+                 else min(drain_chunk, budgets[s]))
+        t0 = self._clock()
+        b.run(max_steps=chunk)
+        return self._clock() - t0
+
+    def _record_turn(self, s: int, dt: float, budgets: List[int],
+                     drain_chunk: Optional[int]) -> None:
+        """Count shard ``s``'s turn: the monitor's time (plus a SlowShard's
+        virtual delay: the monitor sees it, the schedule doesn't), its
+        drain and its budget."""
+        if self.injector is not None:
+            dt += self.injector.slow_delay(s, self._shard_drains[s])
+        self.monitor.record(s, dt)
+        self._shard_drains[s] += 1
+        budgets[s] -= (budgets[s] if drain_chunk is None
+                       else min(drain_chunk, budgets[s]))
+
+    def _round(self, budgets: List[int],
+               drain_chunk: Optional[int]) -> bool:
+        """One drain round over the shards in turn; whether any ran or
+        crashed."""
+        ran = False
+        for s in range(self.n_shards):
+            if not self.alive[s]:
+                continue
+            if self._crash_due(s):
+                self._fail_shard(s, "crash-injected")
+                ran = True  # survivors must absorb the moved work
+                continue
+            dt = self._turn(s, budgets, drain_chunk)
+            if dt is not None:
+                self._record_turn(s, dt, budgets, drain_chunk)
+                ran = True
+        return ran
+
+    def _round_over_ranks(self, budgets: List[int],
+                          drain_chunk: Optional[int]) -> bool:
+        """One drain round with the slices' turns at once: the crashes due
+        (a pure function of the drain counts, the same on every rank) up
+        to this rank's slice, its turn, the crashes after it, then the
+        exchange of the slices' reports and their turns counted in shard
+        order."""
+        me = self._own
+        due = [s for s in range(self.n_shards)
+               if self.alive[s] and self._crash_due(s)]
+        for s in due:
+            if s <= me:
+                self._fail_shard(s, "crash-injected")
+        dt = (self._turn(me, budgets, drain_chunk) if self.alive[me]
+              else None)
+        for s in due:
+            if s > me:
+                self._fail_shard(s, "crash-injected")
+        lead = self.mesh.rank == self._leads[me]
+        t0 = time.perf_counter()
+        reports = comm.exchange(
+            _report(self.batchers[me], self._sent, dt) if lead else None)
+        self.exchange_s.append(time.perf_counter() - t0)
+        ran = bool(due)
+        for s in range(self.n_shards):
+            rep = reports[self._leads[s]]
+            if s != me:
+                self.batchers[s].absorb(rep)
+            if rep["dt"] is not None:
+                self._record_turn(s, rep["dt"], budgets, drain_chunk)
+                ran = True
+        return ran

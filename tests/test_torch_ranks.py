@@ -6,19 +6,26 @@ The port against itself, bitwise: over a ``1 x m`` mesh of ranks
 split over ``model`` (each rank writes its rows, then gathers each
 layer's cache in rank order), ``generate()``, the host batcher, the
 device batcher (eager on the CPU, chunk 4 and chunk 1), the paged cache
-(bf16 and int8) and the dense ring past its wrap, and a one-shard
-``ShardedServe`` serve the mesh-less port's streams, drops and reasons,
+(bf16 and int8) and the dense ring past its wrap, a one-shard
+``ShardedServe`` and, for the dense config, speculative decoding, a
+shared prefix, a fault plan and a traced run serve the mesh-less port's
+streams, drops and reasons,
 for the qwen2-1.5b and qwen2-moe-a2.7b smoke configs with pages of 8 (so
-that 4 ranks divide them); every rank serves the same.  Each rank holds the ``shard_shape``
-of the logical-chip mesh's ``NamedSharding`` of every pool, ring and
-param leaf, 1/m of the pool's bytes.  The refusals (``tp_params``, data
-shards, deadlines and the recurrent families over ranks, a malformed
-spec, a mesh on another device) run in the 2-rank world.
+that 4 ranks divide them); every rank serves the same.  Each rank holds
+the ``shard_shape`` of the logical-chip mesh's ``NamedSharding`` of
+every pool, ring and param leaf, 1/m of the pool's bytes.  Two data
+slices of ranks (``2x1`` in the 2-rank world, ``2x2`` in the 4-rank one)
+behind the router serve the mesh-less router's with two shards, also
+under a crash and a straggler; deadlines over the ``1x2`` mesh follow
+rank 0's clock whatever the other rank's reads.  The refusals
+(``tp_params`` and the recurrent families over ranks, a malformed spec,
+a mesh on another device) and what now builds run in the 2-rank world.
 
-Against the JAX package: its router on a ``1x2`` mesh of fake XLA
-devices (a subprocess) against the 2-rank router, under the near-tie rule
-of ``test_torch_serve.py``.  Then the launcher: ``--ranks 2`` prints the
-1x2 mesh and the mesh-less run's streams.
+Against the JAX package: its router on ``1x2`` and ``2x2`` meshes of
+fake XLA devices (a subprocess) against the 2-rank router and the 2x2
+rank router, under the near-tie rule of ``test_torch_serve.py``.  Then
+the launcher: ``--ranks 2`` prints the 1x2 mesh and the mesh-less run's
+streams.
 
 Both worlds and the JAX subprocess start together; every world and
 subprocess has a timeout, so a rank out of lockstep fails the test.
@@ -48,15 +55,18 @@ WORLD_TIMEOUT = 300  # seconds a world may take in all
 # ``python -c`` process that imports the port alone) and, mesh-less, by
 # the test itself.
 WORKER = textwrap.dedent("""
-    import os, pickle, sys, traceback
+    import collections, os, pickle, sys, traceback
     import numpy as np
     import torch
     from repro_torch.arch import model as TM
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import load_dataset
     from repro_torch.dist import sharding as SH
+    from repro_torch.obs import Metrics, Tracer
     from repro_torch.serve import engine as TE
     from repro_torch.serve import router as TR
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.spec import train_draft
     from repro_torch.tree import leaves
 
     DS = load_dataset("unsw", n=2000)
@@ -68,6 +78,8 @@ WORKER = textwrap.dedent("""
     DENSE = dict(max_batch=4, cache_len=16)
     GEN_TOKENS = 16  # generate(): 4 prompt + 16 tokens past a ring of 16
     RANK_TIMEOUT = 120  # seconds a rank waits in a collective
+    DEVICE_DEADLINE = 12.0  # ticks of the Ticks clock
+    HOST_DEADLINE = 25.0
 
 
     def paged_prompts(n=10, seed=2):
@@ -81,16 +93,46 @@ WORKER = textwrap.dedent("""
         return {rid: [int(rng.integers(1, 100))] for rid in range(n)}
 
 
-    def serve(cb, prompts, max_steps=400):
+    def prefixed_prompts(n=8, seed=3):
+        \"\"\"``paged_prompts`` behind one 16-token prefix (two full pages).\"\"\"
+        prefix = [int(t) for t in np.random.default_rng(seed).integers(
+            1, 97, 16)]
+        return {rid: prefix + p for rid, p in paged_prompts(n).items()}
+
+
+    class Ticks:
+        \"\"\"A clock that ticks once a read: rank r's runs 1 + r / 2 times
+        as fast as rank 0's, so a rank that decides by its own clock
+        evicts other requests than rank 0.\"\"\"
+
+        def __init__(self, rank=0):
+            self.rate, self.n = 1.0 + 0.5 * rank, 0
+
+        def __call__(self):
+            self.n += 1
+            return self.n * self.rate
+
+
+    def serve(cb, prompts, max_steps=400, **run):
         for rid, p in prompts.items():
             cb.submit(rid, p, features=DS.X_test[rid])
-        done = cb.run(max_steps=max_steps)
+        done = cb.run(max_steps=max_steps, **run)
         return dict(done=dict(done), dropped=list(cb.dropped),
                     reasons=dict(cb.drop_reasons))
 
 
-    def streams(cfg, params, gate, mesh):
-        \"\"\"Every serve path of the slice on ``mesh`` (None: mesh-less).\"\"\"
+    def routed(r, prompts, **run):
+        \"\"\"A router's streams, drops, routing, hops and failovers.\"\"\"
+        out = serve(r, prompts, **run)
+        out.update(assigned=r.assigned, retries=dict(r.retries),
+                   failover_log=list(r.failover_log))
+        return out
+
+
+    def streams(cfg, params, gate, mesh, modes=True):
+        \"\"\"Every serve path of the slice on ``mesh`` (None: mesh-less);
+        ``modes``: speculative decoding, a shared prefix, a fault plan and a
+        traced run too.\"\"\"
         out = {}
         eng = TE.ServeEngine(cfg, params, TE.ServeConfig(**DENSE), gate=gate,
                              mesh=mesh, device="cpu")
@@ -122,7 +164,85 @@ WORKER = textwrap.dedent("""
                             sync_every=2, prefill_chunk=4, device="cpu")
         out["router"] = serve(r, paged_prompts())
         out["router"]["assigned"] = r.assigned
+        if not modes:
+            return out
+
+        def device(scfg=PAGED, **kw):
+            eng = TE.ServeEngine(cfg, params, TE.ServeConfig(**scfg),
+                                 gate=gate, mesh=mesh, device="cpu")
+            return TE.DeviceContinuousBatcher(
+                eng, eos_token=-1, max_tokens=MAX_TOKENS, sync_every=2,
+                prefill_chunk=4, **kw)
+
+        # a pilot's draft: the prompts and the streams the LM served them
+        pilot = out["device paged chunk 4"]["done"]
+        draft = train_draft([paged_prompts()[r] + pilot[r] for r in pilot],
+                            cfg.vocab_size)
+        cb = device(spec_k=2, draft=draft)
+        out["device paged spec"] = serve(cb, paged_prompts())
+        out["device paged spec"]["spec"] = cb.spec_stats()
+        shared = dict(PAGED, share_prefix=True)
+        out["share prefix"] = dict(
+            device=serve(device(shared), prefixed_prompts()),
+            host=serve(TE.ContinuousBatcher(
+                TE.ServeEngine(cfg, params, TE.ServeConfig(**shared),
+                               gate=gate, mesh=mesh, device="cpu"),
+                eos_token=-1, max_tokens=MAX_TOKENS), prefixed_prompts()))
+        plan = FaultPlan.parse("nan:1@2,exhaust:0:2@3")
+        out["device paged faults"] = serve(device(
+            max_retries=2, fault_injector=plan.injector()), paged_prompts())
+        tracer = Tracer(metrics=Metrics())
+        out["device paged traced"] = serve(device(tracer=tracer),
+                                           paged_prompts())
+        out["device paged traced"]["events"] = sorted(collections.Counter(
+            e["name"] for e in tracer.chrome_trace()["traceEvents"]).items())
+        out["device paged traced"]["violations"] = tracer.validate()
         return out
+
+
+    def data_routers(cfg, params, gate, mesh, faults=True):
+        \"\"\"The router over two data slices (``mesh``; None: the mesh-less
+        router with two shards): plain, and with ``faults`` two plans over
+        turns of 4 steps, a straggler at one strike: shard 0 slow at its
+        first turn (evicted, its work moved to shard 1) and shard 1
+        crashed at its second drain (no survivor); and both at their
+        second, where the crash moves shard 1's work to shard 0, which took
+        its turn already (shard 0 flagged, kept as the last one).\"\"\"
+        def router(**kw):
+            return TR.ShardedServe(
+                cfg, params, TE.ServeConfig(**PAGED), mesh, n_shards=2,
+                gate=gate, eos_token=-1, max_tokens=MAX_TOKENS, sync_every=2,
+                prefill_chunk=4, device="cpu", **kw)
+
+        r = router()
+        out = dict(router=routed(r, paged_prompts()), pools=[
+            sum(t.nbytes for t in b._pages.pools()) for b in r.batchers
+            if isinstance(b, TE.DeviceContinuousBatcher)])
+        for case, spec in (("router faults", "slow:0:60.0@0,crash:1@1"),
+                           ("router crash", "slow:0:60.0@1,crash:1@1")):
+            if faults:
+                out[case] = routed(router(
+                    fault_injector=FaultPlan.parse(spec).injector(),
+                    straggler_strikes=1, max_retries=2), paged_prompts(16),
+                    drain_chunk=4)
+        return out
+
+
+    def deadlines(cfg, params, gate, mesh, clock):
+        \"\"\"A device and a host batcher on ``mesh`` with a deadline, both
+        reading ``clock``.\"\"\"
+        def engine():
+            return TE.ServeEngine(cfg, params, TE.ServeConfig(**PAGED),
+                                  gate=gate, mesh=mesh, device="cpu")
+
+        return dict(
+            device=serve(TE.DeviceContinuousBatcher(
+                engine(), eos_token=-1, max_tokens=MAX_TOKENS, sync_every=2,
+                prefill_chunk=4, deadline_s=DEVICE_DEADLINE, clock=clock),
+                paged_prompts()),
+            host=serve(TE.ContinuousBatcher(
+                engine(), eos_token=-1, max_tokens=MAX_TOKENS,
+                deadline_s=HOST_DEADLINE, clock=clock), paged_prompts()))
 
 
     def shapes(params, mesh):
@@ -150,22 +270,13 @@ WORKER = textwrap.dedent("""
 
     def refusals(params, mesh):
         \"\"\"What a 2-rank world refuses: each case's exception and message.\"\"\"
-        from repro_torch.launch.mesh import data_submeshes, make_serve_mesh
+        from repro_torch.launch.mesh import make_serve_mesh
 
         scfg = TE.ServeConfig(**PAGED)
         rec = get_smoke_config("xlstm-125m")
-        data2 = SH.RankMesh(np.arange(2).reshape(2, 1), ("data", "model"))
         cases = {
             "tp_params": lambda: TE.ServeEngine(
                 CFG, params, scfg, mesh=mesh, tp_params=True, device="cpu"),
-            "data engine": lambda: TE.ServeEngine(
-                CFG, params, scfg, mesh=data2, device="cpu"),
-            "data router": lambda: TR.ShardedServe(
-                CFG, params, scfg, make_serve_mesh("2x1"), device="cpu"),
-            "data submeshes": lambda: data_submeshes(data2),
-            "deadline": lambda: TE.DeviceContinuousBatcher(
-                TE.ServeEngine(CFG, params, scfg, mesh=mesh, device="cpu"),
-                deadline_s=1.0),
             "recurrent": lambda: TE.ServeEngine(
                 rec, TM.init_params(rec, 0, "cpu"), TE.ServeConfig(**DENSE),
                 mesh=mesh, device="cpu"),
@@ -173,14 +284,54 @@ WORKER = textwrap.dedent("""
             "another device": lambda: SH.RankMesh(
                 np.arange(2).reshape(1, 2), ("data", "model"), "meta"),
         }
+        return outcomes(cases)
+
+
+    def outcomes(cases):
+        \"\"\"Each case's exception and message, or ``"no error"`` and what
+        it returned (a list, tuple or string; else "").\"\"\"
         out = {}
         for name, fn in cases.items():
             try:
-                fn()
-                out[name] = ("no error", "")
+                got = fn()
+                out[name] = ("no error", got if isinstance(
+                    got, (list, tuple, str)) else "")
             except Exception as e:  # the refusal is the result
                 out[name] = (type(e).__name__, str(e))
         return out
+
+
+    def builds(params, mesh):
+        \"\"\"What a 2-rank world builds on a 2x1 mesh of ranks, and what a
+        lone engine or batcher on it still refuses: each case's outcome.\"\"\"
+        from repro_torch.launch.mesh import data_submeshes
+
+        scfg = TE.ServeConfig(**PAGED)
+        data2 = SH.RankMesh(np.arange(2).reshape(2, 1), ("data", "model"))
+
+        def router():
+            r = TR.ShardedServe(CFG, params, scfg, data2, device="cpu")
+            return (r.n_shards, len(r.engines),
+                    [type(b).__name__ for b in r.batchers])
+
+        def submeshes():
+            return [(type(sm).__name__, [int(i) for i in sm.devices.ravel()],
+                     getattr(sm, "coords", None), sm.lead)
+                    for sm in data_submeshes(data2)]
+
+        def deadline():
+            cb = TE.DeviceContinuousBatcher(
+                TE.ServeEngine(CFG, params, scfg, mesh=mesh, device="cpu"),
+                deadline_s=1.0)
+            return type(cb._now).__name__
+
+        return outcomes({
+            "data engine": lambda: TE.ServeEngine(
+                CFG, params, scfg, mesh=data2, device="cpu"),
+            "data router": router,
+            "data submeshes": submeshes,
+            "deadline": deadline,
+        })
 
 
     def gate():
@@ -204,13 +355,23 @@ WORKER = textwrap.dedent("""
             mesh = make_serve_mesh("auto")
             g = gate()
             dense = torch.load(params_path)
+            moe = TM.init_params(MOE, 0, "cpu")
             res = dict(mesh=dict(mesh.shape), coords=mesh.coords,
                        shapes=shapes(dense, mesh),
                        dense=streams(CFG, dense, g, mesh),
-                       moe=streams(MOE, TM.init_params(MOE, 0, "cpu"), g,
-                                   mesh))
+                       moe=streams(MOE, moe, g, mesh, modes=False))
+            # two data slices: of one rank each, or of a model pair each
+            data = make_serve_mesh("2x1" if world == 2 else "2x2")
+            res["data"] = dict(mesh=dict(data.shape), coords=data.coords,
+                               dense=data_routers(CFG, dense, g, data,
+                                                  faults=world == 2))
             if world == 2:
+                res["data"]["moe"] = data_routers(MOE, moe, g, data,
+                                                  faults=False)
+                res["deadlines"] = deadlines(CFG, dense, g, mesh,
+                                             Ticks(rank))
                 res["refusals"] = refusals(dense, mesh)
+                res["builds"] = builds(dense, mesh)
             comm.shutdown()
         except BaseException:
             res = dict(error=traceback.format_exc())
@@ -265,32 +426,35 @@ _JAX_ROUTER = textwrap.dedent("""
     from repro.launch.mesh import make_serve_mesh
     from repro.serve import engine as JE, router as JR
 
-    assert jax.device_count() == 2
+    assert jax.device_count() == 4
     DS = load_dataset("unsw", n=2000)
     cfg = get_smoke_config("qwen2-1.5b")
     jp = JM.init_params(cfg, jax.random.PRNGKey(0))
     jg = plant(PlanterConfig(model="rf", size="S"), DS.X_train, DS.y_train,
                DS.X_test).mapped
     prompts = {int(k): v for k, v in json.loads(sys.argv[1]).items()}
-    r = JR.ShardedServe(
-        cfg, jp, JE.ServeConfig(max_batch=4, cache_len=32, page_size=8,
-                                attn_impl="jnp"),
-        make_serve_mesh("1x2"), gate=jg, eos_token=-1, max_tokens=3,
-        sync_every=2, prefill_chunk=4)
-    for rid, p in prompts.items():
-        r.submit(rid, p, features=DS.X_test[rid])
-    done = r.run(max_steps=400)
-    print("ROUTER", json.dumps(dict(
-        done={str(k): [int(t) for t in v] for k, v in done.items()},
-        assigned=r.assigned, dropped=r.dropped,
-        reasons={str(k): v for k, v in r.drop_reasons.items()})))
+    out = {}
+    for spec in ("1x2", "2x2"):
+        r = JR.ShardedServe(
+            cfg, jp, JE.ServeConfig(max_batch=4, cache_len=32, page_size=8,
+                                    attn_impl="jnp"),
+            make_serve_mesh(spec), gate=jg, eos_token=-1, max_tokens=3,
+            sync_every=2, prefill_chunk=4)
+        for rid, p in prompts.items():
+            r.submit(rid, p, features=DS.X_test[rid])
+        done = r.run(max_steps=400)
+        out[spec] = dict(
+            done={str(k): [int(t) for t in v] for k, v in done.items()},
+            assigned=r.assigned, dropped=r.dropped,
+            reasons={str(k): v for k, v in r.drop_reasons.items()})
+    print("ROUTER", json.dumps(out))
 """)
 
 
 @pytest.fixture(scope="module")
 def worlds(both, tmp_path_factory):
-    """The 2- and 4-rank worlds' results, the JAX 1x2 router's output and
-    the mesh-less port's streams, all started together."""
+    """The 2- and 4-rank worlds' results, the JAX 1x2 and 2x2 routers'
+    output and the mesh-less port's streams, all started together."""
     _, tp, _, tg = both
     tmp = tmp_path_factory.mktemp("ranks")
     params_path = tmp / "params.pt"
@@ -299,13 +463,18 @@ def worlds(both, tmp_path_factory):
         [sys.executable, "-c", _JAX_ROUTER, json.dumps(_paged_prompts())],
         env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
              "JAX_PLATFORMS": "cpu",
-             "XLA_FLAGS": "--xla_force_host_platform_device_count=2"},
+             "XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
     started = {m: _start_world(m, tmp, params_path) for m in (2, 4)}
     try:
-        meshless = dict(dense=W["streams"](CFG, tp, tg, None),
-                        moe=W["streams"](W["MOE"], TM.init_params(
-                            W["MOE"], 0, "cpu"), tg, None))
+        moe = TM.init_params(W["MOE"], 0, "cpu")
+        meshless = dict(
+            dense=W["streams"](CFG, tp, tg, None),
+            moe=W["streams"](W["MOE"], moe, tg, None, modes=False),
+            data=dict(dense=W["data_routers"](CFG, tp, tg, None),
+                      moe=W["data_routers"](W["MOE"], moe, tg, None,
+                                            faults=False)),
+            deadlines=W["deadlines"](CFG, tp, tg, None, W["Ticks"](0)))
         results = {m: _join_world(started[m]) for m in (2, 4)}
         out, err = jax_run.communicate(timeout=WORLD_TIMEOUT)
     finally:
@@ -329,21 +498,93 @@ def test_ranks_serve_the_meshless_streams_bitwise(worlds, m, family):
     """Every path over ``1 x m`` ranks, on every rank, is the mesh-less
     port's: the same streams, drops, reasons and routing, bitwise."""
     want = worlds["meshless"][family]
+    modes = {"device paged spec", "share prefix", "device paged faults",
+             "device paged traced"}  # the dense config's
     assert set(want) == {"generate", "host paged", "device paged chunk 1",
                          "device paged chunk 4", "device paged int8",
-                         "host dense", "device dense chunk 1", "router"}
+                         "host dense", "device dense chunk 1", "router"} | (
+                             modes if family == "dense" else set())
     for rank, res in enumerate(worlds["results"][m]):
         assert res["mesh"] == {"data": 1, "model": m}
         assert res["coords"] == {"data": 0, "model": rank}
+        assert set(res[family]) == set(want)
         for path, got in res[family].items():
             assert got == want[path], (family, m, rank, path)
     # the cases reach what they claim: served streams, a gate drop, the
-    # chunked and token-by-token runs alike
+    # chunked and token-by-token runs alike, accepted drafts, shared
+    # prefix pages, a quarantine, a valid trace with the same events
     assert want["host paged"]["done"] and want["host paged"]["dropped"]
     assert want["device paged chunk 4"]["done"] == \
         want["device paged chunk 1"]["done"]
     assert want["device paged int8"]["done"]
     assert len(want["generate"][0]) == W["GEN_TOKENS"]
+    if family != "dense":
+        return
+    spec = want["device paged spec"]
+    assert spec["spec"]["accepted"] > 0
+    assert spec["done"] == want["device paged chunk 4"]["done"]
+    shared = want["share prefix"]
+    assert shared["device"]["done"] and \
+        shared["device"]["done"] == shared["host"]["done"]
+    assert "quarantined" in want["device paged faults"]["reasons"].values()
+    traced = want["device paged traced"]
+    assert traced["done"] == want["device paged chunk 4"]["done"]
+    assert traced["events"] and traced["violations"] == []
+
+
+@pytest.mark.parametrize("m,family", [(2, "dense"), (2, "moe"),
+                                      (4, "dense")])
+def test_data_slices_over_ranks_serve_the_meshless_router_bitwise(
+        worlds, m, family):
+    """The router over two data slices of ranks (``2x1`` over 2 ranks,
+    ``2x2`` over 4: each slice a group of ranks) is the mesh-less router
+    with two shards on every rank: the streams, routing, drops, reasons,
+    hops and failovers, bitwise, and in the 2-rank world also under a
+    crash of the later shard and a straggler at one strike; each rank
+    holds its slice's pool split over the slice's ``model`` ranks."""
+    want = dict(worlds["meshless"]["data"][family])
+    if m == 4:  # the fault plans run in the 2-rank world
+        want.pop("router faults", None)
+        want.pop("router crash", None)
+    model = m // 2
+    for rank, res in enumerate(worlds["results"][m]):
+        data = res["data"]
+        assert data["mesh"] == {"data": 2, "model": model}
+        assert data["coords"] == {"data": rank // model,
+                                  "model": rank % model}
+        got = data[family]
+        assert set(got) == set(want)
+        for case in want:
+            if case != "pools":
+                assert got[case] == want[case], (m, family, rank, case)
+        # the one batcher this rank runs holds 1/model of a slice's pool
+        assert len(got["pools"]) == 1 and len(want["pools"]) == 2
+        assert got["pools"][0] * model == want["pools"][0]
+    plain = want["router"]
+    assert plain["done"] and all(plain["assigned"])
+    if "router faults" in want:
+        faults, crash = want["router faults"], want["router crash"]
+        assert [(s, why) for s, why, _ in faults["failover_log"]] == [
+            (0, "straggler"), (1, "crash-injected")]
+        assert "shard-failed" in faults["reasons"].values()
+        assert [(s, why) for s, why, _ in crash["failover_log"]] == [
+            (1, "crash-injected")]
+        for case in (faults, crash):
+            assert case["retries"] and case["done"]
+
+
+def test_deadlines_over_ranks_follow_rank_zeros_clock(worlds):
+    """A device and a host batcher on the ``1x2`` mesh of ranks with a
+    deadline, rank ``r``'s clock running ``1 + r / 2`` times as fast: on
+    both ranks the drops, reasons and streams are the mesh-less
+    batchers' under rank 0's clock, bitwise (one clock for the world:
+    the slice's lead reads it, the others take its value)."""
+    want = worlds["meshless"]["deadlines"]
+    for rank, res in enumerate(worlds["results"][2]):
+        assert res["deadlines"] == want, rank
+    for kind in ("device", "host"):
+        reasons = list(want[kind]["reasons"].values())
+        assert "deadline" in reasons and want[kind]["done"], kind
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -382,21 +623,45 @@ def test_each_rank_holds_its_shard(worlds, m):
 
 @pytest.mark.parametrize("case,exc,match", [
     ("tp_params", "NotImplementedError", "item 16"),
-    ("data engine", "NotImplementedError", "item 16"),
-    ("data router", "NotImplementedError", "item 16"),
-    ("data submeshes", "NotImplementedError", "item 16"),
-    ("deadline", "NotImplementedError", "item 16"),
     ("recurrent", "NotImplementedError", "item 16"),
     ("malformed", "ValueError", "DATAxMODEL"),
     ("another device", "ValueError", "another rank's device")])
 def test_ranks_refuse_what_is_not_ported(worlds, case, exc, match):
-    """Over ranks, ``tp_params``, data shards, deadlines and the recurrent
-    families raise ``NotImplementedError`` naming item 16; a malformed spec
-    and a mesh naming another device raise ``ValueError``; on both ranks
-    alike."""
+    """Over ranks, ``tp_params`` and the recurrent families raise
+    ``NotImplementedError`` naming queue A item 16 (``tp_params`` over
+    ranks, the families over ranks); a malformed spec and a mesh naming
+    another device raise ``ValueError``; on both ranks alike."""
     for res in worlds["results"][2]:
         got, msg = res["refusals"][case]
         assert got == exc and match in msg, (case, got, msg)
+
+
+@pytest.mark.parametrize("case", ["data engine", "data router",
+                                  "data submeshes", "deadline"])
+def test_ranks_build_what_now_serves(worlds, case):
+    """What the 2-rank world refused before data slices and deadlines
+    served over ranks: the router over a ``2x1`` mesh of ranks builds one
+    engine (its own slice) beside a stand-in; the slices are a rank mesh
+    of this rank's group and a foreign slice; a deadline batcher decides
+    by the slice's shared clock.  A lone engine on that mesh still
+    raises, naming the router."""
+    for rank, res in enumerate(worlds["results"][2]):
+        got, out = res["builds"][case]
+        if case == "data engine":
+            assert got == "ValueError" and "ShardedServe" in out, out
+            continue
+        assert got == "no error", out
+        if case == "data router":
+            kinds = ["_SliceStandIn", "_SliceStandIn"]
+            kinds[rank] = "DeviceContinuousBatcher"
+            assert out == (2, 1, kinds)
+        elif case == "data submeshes":
+            want = [("ForeignSlice", [0], None, 0),
+                    ("ForeignSlice", [1], None, 1)]
+            want[rank] = ("RankMesh", [rank], {"data": 0, "model": 0}, rank)
+            assert out == want
+        else:
+            assert out == "SharedClock"
 
 
 def test_two_rank_router_matches_the_jax_router(worlds, both):
@@ -404,7 +669,7 @@ def test_two_rank_router_matches_the_jax_router(worlds, both):
     the port's 2-rank router: routing, drops and the served set equal,
     each stream up to its first JAX near tie."""
     jp = both[0]
-    j = worlds["jax"]
+    j = worlds["jax"]["1x2"]
     prompts = _paged_prompts()
     done_j = {int(k): v for k, v in j["done"].items()}
     for res in worlds["results"][2]:
@@ -418,6 +683,27 @@ def test_two_rank_router_matches_the_jax_router(worlds, both):
             assert got["done"][rid][:upto] == done_j[rid][:upto], (rid, upto)
             compared += upto
         assert compared > 0
+
+
+def test_data_router_matches_the_jax_2x2_router(worlds, both):
+    """The JAX router on a 2x2 mesh of fake devices against the port's
+    router over the 2x2 mesh of 4 ranks (two slices of a model pair):
+    routing, drops and the served set equal, each stream up to its first
+    JAX near tie."""
+    jp = both[0]
+    j = worlds["jax"]["2x2"]
+    prompts = _paged_prompts()
+    done_j = {int(k): v for k, v in j["done"].items()}
+    upto = _near_tie_upto(jp, prompts, done_j)
+    assert sum(upto.values()) > 0
+    for res in worlds["results"][4]:
+        got = res["data"]["dense"]["router"]
+        assert sorted(got["done"]) == sorted(done_j)
+        assert got["assigned"] == j["assigned"]
+        assert got["dropped"] == j["dropped"]
+        assert got["reasons"] == {int(k): v for k, v in j["reasons"].items()}
+        for rid, n in upto.items():
+            assert got["done"][rid][:n] == done_j[rid][:n], (rid, n)
 
 
 def test_launcher_serves_over_ranks():

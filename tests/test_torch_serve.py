@@ -450,12 +450,13 @@ def test_launcher_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "2x2"], "item 16"),
-    (["--router", "--deadline-s", "1"], "item 16")])
+    (["--mesh", "1x4", "--tp-params"], "item 16"),
+    (["--arch", "recurrentgemma-9b", "--router"], "item 16")])
 def test_launcher_modes_not_ported_raise(argv, item, monkeypatch):
-    """Over the ranks of four visible cards, data shards (``--mesh 2x2``)
-    and deadlines (``--router``, whose mesh is ``auto``) wait for ROADMAP
-    queue A item 16, and raise before any rank starts."""
+    """Over the ranks of four visible cards, ``--tp-params`` and the
+    recurrent families (``--router``, whose mesh is ``auto``) wait for
+    ROADMAP queue A items 16b and 16c, and raise before any rank
+    starts."""
     from repro_torch.launch import serve
 
     monkeypatch.setattr(serve, "device_count", lambda dev: 4)
@@ -476,8 +477,7 @@ def test_auto_mesh_spreads_every_visible_card(monkeypatch, cards, want):
     if want is None:
         assert serve.serve_ranks("auto", cpu) == cards
         assert serve.serve_ranks("1x2", cpu) == 2
-        with pytest.raises(NotImplementedError, match="item 16"):
-            serve.serve_ranks("2x2", cpu)
+        assert serve.serve_ranks("2x2", cpu) == 4
     else:
         assert serve.serve_ranks("auto", cpu) == 0
         mesh = serve.serve_mesh("auto", cpu)
