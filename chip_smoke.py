@@ -414,7 +414,25 @@ Phases, in order; the first failure exits non-zero:
    mesh-less batcher's under rank 0's clock; ms a step and the
    exchange's ms a round.  Phase 16's
    launcher child (``--router``, so ``--mesh auto``) serves as a world of
-   one over NCCL.
+   one over NCCL.  (c) tensor parallelism over ranks (``tp_params``):
+   (a)'s world of one serves phase 11's batcher with every block split
+   into one part, so that the rank-ordered sums (``comm.reduce_sum``, wo
+   and w_down a layer) and the embedding's and the logits' gathers run
+   inside each step's graph: streams and drops bitwise phase 11's, the
+   collectives issued only at each key's warm-up and capture, a round's
+   launches exact; (b)'s two ranks also serve under ``tp_params`` (each
+   rank 6 query heads on 1 KV head, half of d_ff, the vocab and the
+   pool): both ranks alike, each stream phase 11's up to its first near
+   tie (its teacher-forced top-2 margin within 2 delta), the flip rate
+   printed; the column slices of qwen2-1.5b's q/k/v group, gate/up and
+   head and of qwen2-moe-a2.7b's experts' gate/up at m = 2 and 4 under
+   the whole weight's plan (``linear(plan_n=)``) bitwise those columns of
+   the whole launch; ``moe_down_combine``'s float32 output at E = 32 and
+   16 bitwise its plain version and, rounded, the bf16 launch; a TP
+   step's products of rank 0 at m = 2 and 4 under the whole plan and
+   their own plans beside cuBLAS, and the float32 MoE launches beside the
+   einsum pair, timed (``tp_products`` in the linear row, ``f32`` in the
+   MoE row of the JSON line).
 
 Bounds: bytes over 3.35 TB/s, or operations over the bf16 tensor-core
 peak or the int32 lane rate (64 lanes an SM x the SMs x ``clocks.max.sm``,
@@ -424,7 +442,11 @@ quick MoE run that prints no result line; ``--phase18``, ``--phase19``,
 ``--phase20``, ``--phase21``, ``--phase22`` and ``--phase23`` the same
 for phases 18, 19, 20, 21, 22 and 23 (``--phase22`` and ``--phase23``
 build phase 9's model without its host-batcher run; ``--phase23`` runs
-phase 11's first wave itself).
+phase 11's first wave itself).  ``--tp-cards`` needs four cards: it
+builds the kernels, runs the launcher in turns on one card, over
+``--mesh auto`` and under ``--tp-params`` at ``1x4`` and ``2x2``, and
+times ``reduce_sum`` over NCCL in a world of four (``tp_cards``; no
+result line).
 Each phase prints how far into the run it starts.
 
 Its last three lines are the kernels JSON (phases 18-20's
@@ -2100,12 +2122,16 @@ class ForcedRouting:
 
 
 def teacher_rows(run: ServeRun, done: Dict[Any, list], dev, impl: str,
-                 chunk: int = 32) -> Dict[tuple, torch.Tensor]:
+                 chunk: int = 32, engine=None) -> Dict[tuple, torch.Tensor]:
     """The served streams (prompt + generated) of ``sorted(done)`` through
     the ``impl`` attention on a fresh pool, ``chunk`` tokens a step:
     {(index in sorted(done), position): float32 logits} at every position
-    that predicts a generated token."""
+    that predicts a generated token; through ``engine``'s params and
+    tensor parallelism where given (every rank of its group alike)."""
     from repro_torch.arch import model as M
+
+    params = run.params if engine is None else engine.params
+    tp = None if engine is None else engine.tp
 
     rids = sorted(done)
     seqs = [run.prompts[r] + done[r] for r in rids]
@@ -2116,17 +2142,18 @@ def teacher_rows(run: ServeRun, done: Dict[Any, list], dev, impl: str,
     toks = np.zeros((B, L), np.int32)
     for b, s in enumerate(seqs):
         toks[b, : len(s)] = s
-    kv = M.init_paged_kv(run.cfg, B * n_ps, SERVE["page_size"], device=dev)
+    kv = M.init_paged_kv(run.cfg, B * n_ps, SERVE["page_size"], device=dev,
+                         tp=tp)
     rows = {}
     for t0 in range(0, L, chunk):
         n_new = np.array([min(chunk, max(0, len(s) - t0)) for s in seqs],
                          np.int32)
         lg, kv = M.paged_decode_step(
-            run.params, kv, tbl,
+            params, kv, tbl,
             torch.full((B,), t0, dtype=torch.int32, device=dev),
             torch.as_tensor(toks[:, t0:t0 + chunk], device=dev),
             torch.as_tensor(n_new, device=dev), run.cfg, attn_impl=impl,
-            all_positions=True)
+            all_positions=True, tp=tp)
         for b, r in enumerate(rids):  # positions predicting generated
             P = len(run.prompts[r])
             for j in range(int(n_new[b])):
@@ -3113,8 +3140,9 @@ class plain_products:
 
         self.mod = sys.modules["repro_torch.kernels.linear"]
         self.real = self.mod._forward
-        self.mod._forward = lambda x, ws, out: [linear_ref(x, w, out)
-                                                for w in ws]
+        # a plan (plan_n) is the kernel's: the plain version has none
+        self.mod._forward = lambda x, ws, out, plan_n=None: [
+            linear_ref(x, w, out) for w in ws]
 
     def __exit__(self, *exc):
         self.mod._forward = self.real
@@ -3947,7 +3975,9 @@ RANK_REQUESTS = 8  # (b): phase 9's requests with the shortest prompts
 # (b)'s deadline leg: tokens a request and steps a round, so that its
 # about 20 eager steps over the gathers (0.6-0.8 s each) pass a few drains
 DEADLINE_TOKENS, DEADLINE_ROUND = 8, 4
-RANK_TIMEOUT = 300  # seconds (b)'s ranks may take
+RANK_TIMEOUT = 480  # seconds (b)'s ranks may take
+# (c): generated positions of mesh-less streams teacher-forced through TP
+FORCED_POSITIONS = MIN_POSITIONS + 128
 
 
 def one_part_mesh():
@@ -3969,16 +3999,39 @@ def one_part_mesh():
     return OnePart(mesh.devices, mesh.axis_names, mesh.device, mesh.group)
 
 
+def one_part_tp(engine):
+    """(c)'s ``engine`` over a world of one with its params split into one
+    part.  ``tensor_parallel`` leaves a model group of one rank whole (no
+    TensorParallel, no collective); a TensorParallel of one part makes
+    each step run the row-parallel sums and the embedding's and logits'
+    gathers, so that one card captures them in its graph."""
+    from repro_torch.dist.sharding import TensorParallel, tp_layout, tp_place
+
+    if engine.tp is not None:
+        fail(f"(23c) tp_params over a model group of one rank split its "
+             f"params: {engine.tp.layout}")
+    engine.tp = TensorParallel(tp_layout(engine.cfg, 1), 0,
+                               engine.mesh.model_group)
+    engine.params = tp_place(engine.params, engine.tp, engine.device)
+    return engine
+
+
 def rank_batcher(run: ServeRun, dev, mesh, max_tokens: int = SERVE_TOKENS,
-                 sync_every: int = DEVICE_ROUND, **kw):
+                 sync_every: int = DEVICE_ROUND, tp_params: bool = False,
+                 one_part: bool = False, **kw):
     """Phase 11's device batcher (its ServeConfig and chunk; its tokens
     and round unless given) over an engine on ``mesh``, a mesh of ranks
-    (None: mesh-less); ``kw`` (a deadline, a clock, graph) go to it."""
+    (None: mesh-less), its params split over the ranks with
+    ``tp_params`` (into one part over a world of one with ``one_part``:
+    ``one_part_tp``); ``kw`` (a deadline, a clock, graph) go to it."""
     from repro_torch.serve.engine import (DeviceContinuousBatcher,
                                           ServeConfig, ServeEngine)
 
     engine = ServeEngine(run.cfg, run.params, ServeConfig(**SERVE),
-                         gate=run.gate, mesh=mesh, device=dev)
+                         gate=run.gate, mesh=mesh, tp_params=tp_params,
+                         device=dev)
+    if one_part:
+        engine = one_part_tp(engine)
     return DeviceContinuousBatcher(engine, eos_token=-1,
                                    max_tokens=max_tokens,
                                    sync_every=sync_every,
@@ -4048,6 +4101,18 @@ def pool_bytes(cb) -> int:
     return sum(t.nbytes for t in cb._pages.pools())
 
 
+def tensors(tree):
+    """Every tensor of a params tree (dicts and lists)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors(v)
+
+
 def free_port() -> int:
     import socket
 
@@ -4063,14 +4128,16 @@ def shortest(run: ServeRun, n: int) -> list:
 
 
 def gloo_rank(rank: int, world: int, port: int, seed: int, deadline: float,
-              out: str) -> None:
+              forced: Dict[int, list], out: str) -> None:
     """(b): one of ``world`` ranks sharing the card over gloo, spawned
     after phase 1 built the kernels: phase 9's model and gate from the
     seed, phase 11's device batcher over the ``1 x world`` mesh of ranks
     (eager: gloo does not capture) on the RANK_REQUESTS requests; the
     router over the ``world x 1`` mesh of ranks (a data slice a rank) on
     them; the ``1 x world`` batcher with ``deadline`` ticks of this rank's
-    ``Ticks``; their streams, drops, pool bytes, ms a step and the
+    ``Ticks``; (c) the 1x2 batcher under ``tp_params``, and ``forced``
+    (mesh-less streams) teacher-forced through TP and its controls
+    (``tp_deltas``); their streams, drops, pool bytes, ms a step and the
     router's exchange seconds pickled to ``out``."""
     import pickle
 
@@ -4095,6 +4162,21 @@ def gloo_rank(rank: int, world: int, port: int, seed: int, deadline: float,
     cb.run(max_steps=20000)
     torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
+    # (c): the same batcher with the params split over the two ranks
+    from repro_torch.kernels import ops
+
+    tpb = rank_batcher(run, dev, mesh, tp_params=True)
+    ops.reset_launch_counts()
+    tp = serve_rids(tpb, run, dev, rids)
+    tp.update(launches=ops.launch_counts(), steps=tpb.steps_executed,
+              ms_step=tp["seconds"] / tpb.steps_executed * 1e3,
+              pool=pool_bytes(tpb), graph=tpb.graph,
+              layout=tpb.engine.tp.layout.blocks(),
+              param_bytes=sum(t.nbytes for t in tensors(tpb.engine.params)),
+              forced=tp_deltas(run, dev, forced, dict(
+                  tp=tpb.engine, **{k: tp_control(tpb.engine, k)
+                                    for k in TP_CONTROLS})))
+    tpb = None
     data = make_serve_mesh(f"{world}x1")
     r = ShardedServe(run.cfg, run.params, ServeConfig(**SERVE), data,
                      gate=run.gate, eos_token=-1, max_tokens=SERVE_TOKENS,
@@ -4114,13 +4196,15 @@ def gloo_rank(rank: int, world: int, port: int, seed: int, deadline: float,
             dropped=list(cb.dropped), reasons=dict(cb.drop_reasons),
             pool=pool_bytes(cb), steps=cb.steps_executed,
             ms_step=seconds / cb.steps_executed * 1e3,
-            data_mesh=dict(data.shape), router=routed,
+            data_mesh=dict(data.shape), router=routed, tp=tp,
+            param_bytes=sum(t.nbytes for t in tensors(cb.engine.params)),
             deadline={k: timed[k] for k in ("done", "dropped", "reasons")}),
             f)
     comm.shutdown()
 
 
-def gloo_ranks(seed: int, deadline: float, world: int = 2):
+def gloo_ranks(seed: int, deadline: float, forced: Dict[int, list],
+               world: int = 2):
     """Spawn (b)'s ranks (``torch.multiprocessing``, spawn); returns what
     ``gloo_results`` waits on."""
     import tempfile
@@ -4130,14 +4214,16 @@ def gloo_ranks(seed: int, deadline: float, world: int = 2):
     tmp = tempfile.mkdtemp(prefix="phase23-")
     outs = [str(Path(tmp) / f"rank{r}.pkl") for r in range(world)]
     ctx = mp.start_processes(
-        gloo_rank_entry, args=(world, free_port(), seed, deadline, tmp),
+        gloo_rank_entry, args=(world, free_port(), seed, deadline, forced,
+                               tmp),
         nprocs=world, start_method="spawn", join=False)
     return ctx, outs
 
 
 def gloo_rank_entry(rank: int, world: int, port: int, seed: int,
-                    deadline: float, tmp: str) -> None:
-    gloo_rank(rank, world, port, seed, deadline,
+                    deadline: float, forced: Dict[int, list],
+                    tmp: str) -> None:
+    gloo_rank(rank, world, port, seed, deadline, forced,
               str(Path(tmp) / f"rank{rank}.pkl"))
 
 
@@ -4199,7 +4285,7 @@ def extra_events(rank: Dict[str, tuple], plain: Dict[str, tuple]) -> dict:
     return out
 
 
-def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
+def phase23(run: ServeRun, d, dev, card: str, seed: int) -> Dict[str, Any]:
     """Phase 23: one data shard over ranks.  (a) a world of one rank over
     NCCL in this process: phase 11's device batcher over the 1x1 mesh of
     ranks split into one part (``one_part_mesh``), its gathers captured in
@@ -4209,7 +4295,10 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
     batcher unsplit (the launcher's world of one) bitwise with no gather;
     ms a step of the three in turns; (b) two ranks sharing the card over gloo (spawned, eager), the
     RANK_REQUESTS shortest requests bitwise, each rank half the pool's
-    bytes.  Every check a hard failure."""
+    bytes; (c) tensor parallelism: (a)'s world of one and (b)'s ranks under
+    ``tp_params``, the column slices and the float32 MoE output bitwise,
+    the split products timed (returned: ``tp_kernels``).  Every check a
+    hard failure."""
     from repro_torch.dist import comm
     from repro_torch.launch.mesh import make_serve_mesh
 
@@ -4218,7 +4307,7 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
         d = drive_device(run, dev)
     comm.init("cuda", rank=0, world_size=1, local_rank=0, local_world_size=1,
               init_method=f"tcp://localhost:{free_port()}")
-    cb = whole = None
+    cb = whole = tpb = None
     try:
         mesh = one_part_mesh()
         cb = rank_batcher(run, dev, mesh)
@@ -4242,8 +4331,9 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
                  f"the host, captured {len(cb._steps) - keys} keys, or "
                  f"served other streams")
         counts, rsteps, tries, _ = round_counts(cb, run, dev, "(23a)")
+        plain_events = round_events(d.cb, run, dev, "(23a) plain")
         extra = extra_events(round_events(cb, run, dev, "(23a) events"),
-                             round_events(d.cb, run, dev, "(23a) plain"))
+                             plain_events)
         full = pool_bytes(d.cb)
         if pool_bytes(cb) != full:
             fail(f"(23a) a world of one holds {pool_bytes(cb)} pool bytes, "
@@ -4256,10 +4346,40 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
         if comm.launches or pool_bytes(whole) != full:
             fail(f"(23a) an unsplit world of one issued {comm.launches} "
                  f"gathers, holds {pool_bytes(whole)} pool bytes")
+        # (c) tensor parallelism over the world of one: every block split
+        # into one part (``one_part_tp``), so the sums and the gathers run
+        # in the graphs
+        tpb = rank_batcher(run, dev, make_serve_mesh("auto"), tp_params=True,
+                           one_part=True)
+        comm.reset_counts()
+        device_wave(tpb, run, dev)
+        same_run("(23c) tp_params over a world of one vs phase 11", d.cb,
+                 tpb)
+        tkeys = len(tpb._steps)
+        per_tp = 2 * run.cfg.n_layers + 2  # wo, w_down; embedding, logits
+        if not tpb.graph or any(fs.graph is None
+                                for fs in tpb._steps.values()):
+            fail("(23c) the tensor-parallel steps were not captured")
+        if comm.launches != 2 * per_tp * tkeys:
+            fail(f"(23c) {comm.launches} collectives issued for {tkeys} "
+                 f"captured keys (an eager warm-up and a capture of "
+                 f"{per_tp} each)")
+        comm.reset_counts()
+        device_wave(tpb, run, dev, tag="replayed")
+        replay = {r[1]: t for r, t in tpb.done.items()
+                  if isinstance(r, tuple) and r[0] == "replayed"}
+        if comm.launches or len(tpb._steps) != tkeys or replay != \
+                wave_streams(tpb):
+            fail(f"(23c) a replayed wave issued {comm.launches} collectives "
+                 f"from the host, captured {len(tpb._steps) - tkeys} keys, "
+                 f"or served other streams")
+        tcounts, trsteps, ttries, _ = round_counts(tpb, run, dev, "(23c)")
+        textra = extra_events(round_events(tpb, run, dev, "(23c) events"),
+                              plain_events)
         gc.collect()
-        t = {"n": [], "r": [], "u": []}
-        for key, b in (("n", d.cb), ("r", cb), ("u", whole), ("u", whole),
-                       ("r", cb), ("n", d.cb)):
+        t = {"n": [], "r": [], "u": [], "t": []}
+        for key, b in (("n", d.cb), ("r", cb), ("u", whole), ("t", tpb),
+                       ("t", tpb), ("u", whole), ("r", cb), ("n", d.cb)):
             t[key].append(timed_wave(b, run, dev))
         print(f"[23 a ranks] a world of 1 over {comm.placement().backend} in "
               f"this process, mesh {dict(mesh.shape)} of ranks on {dev}, "
@@ -4288,8 +4408,24 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
               f"{[round(x['tokens_s'], 1) for x in t['n']]} vs "
               f"{[round(x['tokens_s'], 1) for x in t['r']]} vs "
               f"{[round(x['tokens_s'], 1) for x in t['u']]} ({card})")
+        print(f"[23 c tensor parallel] tp_params over the world of one, "
+              f"split into one part by the script (the port leaves a model "
+              f"group of one rank whole): "
+              f"{tpb.engine.tp.layout.blocks()}; streams and drops bitwise "
+              f"phase 11's mesh-less batcher ({len(wave_streams(tpb))} "
+              f"served); {tkeys} shape keys captured with {per_tp} "
+              f"collectives a step inside each graph (a rank-ordered sum "
+              f"after wo and w_down a layer, the embedding's and the "
+              f"logits' gathers; the host issued {2 * per_tp * tkeys}, none "
+              f"in a replayed wave); a profiled round's launches {tcounts} "
+              f"over {trsteps} steps, exact on try {len(ttries)}; device "
+              f"events a step beyond the mesh-less round's (launches, ms): "
+              f"{textra}; warm waves in the turns above: ms per step run "
+              f"{[round(x['ms_step'], 4) for x in t['t']]}, tokens/s "
+              f"{[round(x['tokens_s'], 1) for x in t['t']]} ({card})")
     finally:
-        cb = whole = None  # their graphs hold the communicator's collectives
+        # their graphs hold the communicator's collectives
+        cb = whole = tpb = None
         gc.collect()
         comm.shutdown()
     torch.cuda.empty_cache()
@@ -4300,7 +4436,8 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
     # clock (the deadline is the ranks' argument), then, while the ranks
     # start, the mesh-less 2-shard router
     deadline, timed = deadline_reference(run, dev, rids)
-    started = gloo_ranks(seed, deadline)
+    forced = forced_streams(run, d.cb.done)
+    started = gloo_ranks(seed, deadline, forced)
     two = sharded(run, dev, 2)
     ref = serve_rids(two, run, dev, rids)
     ref["assigned"] = two.assigned
@@ -4337,6 +4474,8 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
                  f"{r['deadline']['reasons']}, the mesh-less batcher under "
                  f"rank 0's clock {timed['reasons']} (streams equal "
                  f"{r['deadline']['done'] == timed['done']})")
+    tp_line = check_tp_ranks(run, dev, res, want, want_drops, full,
+                             len(forced))
     t_b = time.perf_counter() - t0
     routed = [r["router"] for r in res]
     exch = [1e3 * float(np.median(g["exchange_s"])) for g in routed]
@@ -4366,7 +4505,628 @@ def phase23(run: ServeRun, d, dev, card: str, seed: int) -> None:
           f"over {res[0]['steps']} steps (the gathers stage through the "
           f"host: a check, not a speed); {t_b:.1f} s with the spawn "
           f"({card})")
+    print(f"[23 c tensor parallel] {tp_line} ({card})")
+    t0 = time.perf_counter()
+    tp = tp_kernels(run, dev)
+    print(f"[23 c kernels] {tp['line']} ({time.perf_counter() - t0:.1f} s; "
+          f"{card})")
     print(f"[23] phase 23 in {time.perf_counter() - t_all:.1f} s ({card})")
+    return tp
+
+
+def near_tie_upto(run: ServeRun, dev, want: Dict[Any, list]) -> Dict[Any, int]:
+    """Per request of ``want`` (mesh-less streams), the stream's length
+    before its first near tie: the first generated position whose
+    teacher-forced logits (the kernel path, ``teacher_rows``) have a top-2
+    margin within 2 delta (delta = LOGIT_TOL * max |logits|)."""
+    rows = teacher_rows(run, want, dev, "cuda")
+    rids = sorted(want)
+    upto = {r: len(want[r]) for r in rids}
+    for (b, t), lg in sorted(rows.items()):
+        r = rids[b]
+        j = t - (len(run.prompts[r]) - 1)
+        top2 = lg.topk(2).values
+        if (top2[0] - top2[1]).item() <= 2 * LOGIT_TOL * lg.abs().max().item():
+            upto[r] = min(upto[r], j)
+    return upto
+
+
+def tp_deltas(run: ServeRun, dev, done: Dict[Any, list],
+              engines: Dict[str, Any]) -> Dict[str, Dict[str, float]]:
+    """(c) ``done`` (mesh-less streams) teacher-forced through each TP
+    engine of ``engines`` (every rank of its group calls it) and through
+    the mesh-less kernel path on the same inputs: {name: each position's
+    max |tp - mesh-less| in deltas (LOGIT_TOL * max |mesh-less logits|),
+    its worst and mean, the greedy agreement and the share of positions
+    whose mesh-less top-2 margin lies within 2 delta}."""
+    plain = teacher_rows(run, done, dev, "cuda")
+    keys = sorted(plain)
+    c = torch.stack([plain[k] for k in keys])
+    del plain
+    delta = LOGIT_TOL * c.abs().amax(-1)
+    top2 = c.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1] <= 2 * delta).float().mean().item()
+    out = {}
+    for name, engine in engines.items():
+        tp = teacher_rows(run, done, dev, "cuda", engine=engine)
+        a = torch.stack([tp[k] for k in keys])
+        del tp
+        ratio = (a - c).abs().amax(-1) / delta
+        out[name] = {"positions": len(keys), "worst": ratio.max().item(),
+                     "mean": ratio.mean().item(),
+                     "agree": (a.argmax(-1) == c.argmax(-1)).float().mean()
+                     .item(), "near": near}
+        del a
+    return out
+
+
+def tp_control(engine, fault: str):
+    """(c)'s controls, which the teacher-forced gate must refuse:
+    ``engine``'s params under its TensorParallel with one fault.
+    ``"dropped"``: each row-parallel join keeps rank 0's partial alone
+    (every other rank's lost); ``"owner"``: each token's embedding row
+    comes from the wrong owner (each rank looks up the next rank's vocab
+    range).  Every rank still calls the same collectives."""
+    import types
+
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import TensorParallel
+
+    tp = engine.tp
+
+    class Faulty(TensorParallel):
+        def join(self, partial, dtype):
+            if fault != "dropped":
+                return super().join(partial, dtype)
+            return comm.gather(partial[None], 0, self.group)[0].to(dtype)
+
+        def embed(self, table, tokens):
+            if fault != "owner":
+                return super().embed(table, tokens)
+            return TensorParallel(self.layout, (self.index + 1) % self.m,
+                                  self.group).embed(table, tokens)
+
+    return types.SimpleNamespace(
+        params=engine.params, tp=Faulty(tp.layout, tp.index, tp.group))
+
+
+def flip_rate(a: dict, b: dict) -> tuple:
+    """(flips, positions) between two stream dicts: the token positions
+    that differ, a missing request or a length mismatch counting every
+    uncovered position as a flip (the JAX package's serve benchmark's
+    ``_flip_rate``)."""
+    flips = total = 0
+    for rid in set(a) | set(b):
+        x, y = list(a.get(rid, ())), list(b.get(rid, ()))
+        n = max(len(x), len(y))
+        total += n
+        flips += sum(1 for j in range(n)
+                     if j >= len(x) or j >= len(y) or x[j] != y[j])
+    return flips, total
+
+
+TP_CONTROLS = ("dropped", "owner")  # (c): faults the forced gate refuses
+
+
+def forced_streams(run: ServeRun, done: Dict[Any, list]) -> Dict[int, list]:
+    """(c)'s streams teacher-forced through TP: the mesh-less ``done`` of
+    phase 9's served requests with the shortest prompts, until they hold
+    FORCED_POSITIONS generated tokens."""
+    out, n = {}, 0
+    for r in shortest(run, len(run.prompts)):
+        if n >= FORCED_POSITIONS:
+            break
+        if r in done:
+            out[r], n = done[r], n + len(done[r])
+    return out
+
+
+def check_tp_ranks(run: ServeRun, dev, res: list, want: Dict[Any, list],
+                   want_drops: Dict[Any, str], full: int,
+                   n_forced: int) -> str:
+    """(c) (b)'s two gloo ranks under ``tp_params``: both ranks' streams,
+    drops and launches alike, eager, each half the pool's bytes and
+    less than the replicated params' bytes, a step's ``linear`` and
+    ``paged_attention`` launches exact, the served set and drops the
+    mesh-less batcher's, and each stream the mesh-less one up to its first
+    near tie (``near_tie_upto``); the flip rate against it printed; the
+    mesh-less streams of at least MIN_POSITIONS positions teacher-forced
+    through TP within phase 17's deltas of the mesh-less kernel path, and
+    each of TP_CONTROLS past them."""
+    got = [r["tp"] for r in res]
+    forced = got[0]["forced"]["tp"]
+    if (forced["worst"] > MOE_LOGIT_LIMIT or forced["mean"] > MOE_LOGIT_MEAN
+            or forced["positions"] < MIN_POSITIONS):
+        fail(f"(23c) teacher-forced under tp_params vs the mesh-less kernel "
+             f"path: {forced} (limits {MOE_LOGIT_LIMIT} / {MOE_LOGIT_MEAN} "
+             f"deltas, phase 17's rule for one rounding in a deep random "
+             f"model; at least {MIN_POSITIONS} positions)")
+    controls = {k: got[0]["forced"][k] for k in TP_CONTROLS}
+    for k, c in controls.items():
+        if c["worst"] <= MOE_LOGIT_LIMIT and c["mean"] <= MOE_LOGIT_MEAN:
+            fail(f"(23c) the {k} control passed the teacher-forced gate "
+                 f"({c}): the gate cannot tell a faulty join from TP")
+    for rank, g in enumerate(got):
+        if g["graph"] or g["pool"] * 2 != full:
+            fail(f"(23c) rank {rank} under tp_params: graph {g['graph']}, "
+                 f"{g['pool']} of the pool's {full} bytes")
+        if g["param_bytes"] >= res[rank]["param_bytes"]:
+            fail(f"(23c) rank {rank} holds {g['param_bytes']} param bytes "
+                 f"under tp_params, {res[rank]['param_bytes']} replicated")
+        for k, n in step_kernels(run.cfg).items():
+            if g["launches"][k] != n * g["steps"]:
+                fail(f"(23c) rank {rank} launched {g['launches']} in "
+                     f"{g['steps']} steps, not {k} {n} a step")
+        if any(g[k] != got[0][k] for k in ("done", "reasons", "launches",
+                                           "forced")):
+            fail(f"(23c) the two ranks under tp_params differ")
+        if set(g["done"]) != set(want) or g["reasons"] != want_drops:
+            fail(f"(23c) rank {rank} under tp_params served "
+                 f"{sorted(g['done'])}, dropped {g['reasons']}; the "
+                 f"mesh-less batcher {sorted(want)}, {want_drops}")
+    # On the random model most positions are near ties (the share is
+    # printed), often a stream's first: this rule may compare no token,
+    # and the teacher-forced gate above carries the check of TP's logits.
+    upto = near_tie_upto(run, dev, want)
+    for r, n in upto.items():
+        if got[0]["done"][r][:n] != want[r][:n]:
+            fail(f"(23c) request {r} under tp_params differs from the "
+                 f"mesh-less stream before its first near tie ({n} tokens)")
+    flips, total = flip_rate(got[0]["done"], want)
+    return (f"(b)'s 2 gloo ranks under tp_params ({got[0]['layout']}; "
+            f"{got[0]['param_bytes']} param bytes a rank, "
+            f"{res[0]['param_bytes']} replicated; {got[0]['pool']} of the "
+            f"pool's {full} bytes): streams, drops and launches alike on "
+            f"both ranks ({got[0]['launches']} over {got[0]['steps']} "
+            f"eager steps, {[round(g['ms_step'], 2) for g in got]} ms a "
+            f"step); served set and drops the mesh-less batcher's; the "
+            f"near-tie rule compared {sum(upto.values())} of "
+            f"{sum(len(v) for v in want.values())} tokens, all equal "
+            f"({sum(n < len(want[r]) for r, n in upto.items())} requests "
+            f"with a near tie, the random model's logits being flat); flip "
+            f"rate vs the mesh-less streams {flips / max(1, total):.6f} "
+            f"({flips} of {total} positions); the mesh-less streams of "
+            f"{n_forced} requests teacher-forced through TP and the "
+            f"mesh-less kernel path over {forced['positions']} positions: "
+            f"worst {forced['worst']:.3f} delta, mean {forced['mean']:.3f} "
+            f"(limits {MOE_LOGIT_LIMIT} / {MOE_LOGIT_MEAN}), greedy "
+            f"agreement {forced['agree']:.4f}, {forced['near']:.3f} of the "
+            f"positions with a mesh-less top-2 margin within 2 delta; the "
+            f"controls past the limits: " + "; ".join(
+                f"{k} worst {c['worst']:.3f}, mean {c['mean']:.3f}"
+                for k, c in controls.items()))
+
+
+TP_GROUPS = (2, 4)  # (c): model groups of the column slices and timings
+TP_EXPERTS = (32, 16)  # (c): qwen2-moe-a2.7b's 64 experts over 2 and 4
+
+
+def tp_column_slices(run: ServeRun, dev, x: torch.Tensor) -> list:
+    """(c) qwen2-1.5b's layer 0 q/k/v group and gate/up at M = ``len(x)``
+    and its head at the device batcher's 16 rows, then qwen2-moe-a2.7b's
+    experts' gate/up (random, [2048, 64 x 1,408]) at M = ``len(x)``: each
+    rank's column slices (``tp_place``) under the whole weight's plan
+    bitwise those columns of the whole launch, at every m of TP_GROUPS.
+    Returns what was checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import TensorParallel, tp_layout, tp_place
+    from repro_torch.kernels import ops
+
+    cfg, layer, head = run.cfg, run.params["layers"][0], run.params["head"]
+    B = SERVE["max_batch"]
+    mix, mlp = layer["mixer"], layer["mlp"]
+    whole = {"qkv": ops.linear_group(x, [mix["wq"], mix["wk"], mix["wv"]]),
+             "gate_up": ops.linear_group(x, [mlp["w_gate"], mlp["w_up"]]),
+             "head": [ops.linear(x[:B], head, torch.float32)]}
+    moe = get_config(MOE_ARCH)
+    E, F, D = moe.n_experts_padded, moe.d_ff, moe.d_model
+    xm, wg = linear_case(dev, len(x), D, E * F, SEED + 231)
+    wu = linear_case(dev, 1, D, E * F, SEED + 232)[1]
+    whole["experts"] = ops.linear_group(xm, [wg, wu])
+    checked = []
+    for m in TP_GROUPS:
+        lay = tp_layout(cfg, m)
+        hd = lay.head_dim
+        for r in range(m):
+            tp = TensorParallel(lay, r)
+            part = tp_place({"layers": [layer], "head": head}, tp)
+            pm, pl = part["layers"][0]["mixer"], part["layers"][0]["mlp"]
+            got = {"qkv": ops.linear_group(
+                       x, [pm["wq"], pm["wk"], pm["wv"]],
+                       plan_n=(lay.n_q * hd, lay.n_kv * hd, lay.n_kv * hd)),
+                   "gate_up": ops.linear_group(
+                       x, [pl["w_gate"], pl["w_up"]], plan_n=lay.d_ff),
+                   "head": [ops.linear(x[:B], part["head"], torch.float32,
+                                       plan_n=lay.vocab_padded)]}
+            names = {"qkv": [("layers", "mixer", n) for n in
+                             ("wq", "wk", "wv")],
+                     "gate_up": [("layers", "mlp", n) for n in
+                                 ("w_gate", "w_up")],
+                     "head": [("head",)]}
+            ws = {"qkv": [mix["wq"], mix["wk"], mix["wv"]],
+                  "gate_up": [mlp["w_gate"], mlp["w_up"]], "head": [head]}
+            n_e = E * F // m
+            got["experts"] = ops.linear_group(
+                xm, [wg[:, r * n_e:(r + 1) * n_e].contiguous(),
+                     wu[:, r * n_e:(r + 1) * n_e].contiguous()],
+                plan_n=E * F)
+            for key in got:
+                for j, out in enumerate(got[key]):
+                    if key == "experts":
+                        start, n = r * n_e, n_e
+                    else:  # a leaf held whole: all its columns
+                        _, start, n = tp.slice_of(
+                            names[key][j], ws[key][j].shape) or (
+                                1, 0, ws[key][j].shape[1])
+                    if not torch.equal(out, whole[key][j][:, start:start + n]):
+                        fail(f"(23c) rank {r} of {m}: {key}[{j}]'s column "
+                             f"slice [{start}, {start + n}) under the whole "
+                             f"plan differs from the whole launch's columns")
+            del part
+        checked.append(m)
+    return [f"q/k/v, gate/up and head of {cfg.name}, the experts' gate/up "
+            f"of {MOE_ARCH} ({D} x {E} x {F}) at m = {checked}"]
+
+
+def tp_linear_step(cfg, dev, m: int) -> Dict[str, Any]:
+    """(c) rank 0's products of a TP step of ``cfg`` over ``m`` ranks,
+    L2-cold (rotating over copies of the weights past COLD_BYTES), random
+    weights: each layer's q/k/v and gate/up column slices under the whole
+    weight's plan and under their own, wo's and w_down's row slices
+    (float32 out, their own plan) at the device batcher's rows, the head's
+    slice at its 16 rows: each launch (under the whole plan and its own)
+    within ``linear_limit`` of the plain version on the same inputs;
+    events, cuBLAS's (each ``x @ w``, the float32 ones
+    ``torch.mm(out_dtype=float32)``) and the byte bound, each summed over
+    a step (the layers' four launches each, and the head)."""
+    from test_torch_cuda import linear_limit
+
+    from repro_torch.dist.sharding import tp_layout
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.linear import linear_hbm_bytes
+
+    lay = tp_layout(cfg, m)
+    hd, B = lay.head_dim, SERVE["max_batch"]
+    Mr = B * DEVICE_CHUNK
+    q, kv, ff = lay.q_heads * hd, lay.kv_heads * hd, lay.d_ff // m
+    units = [  # name, M, K, [(N, whole N)], float32 out
+        ("qkv", Mr, cfg.d_model, [(q, lay.n_q * hd), (kv, lay.n_kv * hd),
+                                  (kv, lay.n_kv * hd)], False),
+        ("wo", Mr, q, [(cfg.d_model, None)], True),
+        ("gate_up", Mr, cfg.d_model, [(ff, lay.d_ff), (ff, lay.d_ff)], False),
+        ("w_down", Mr, ff, [(cfg.d_model, None)], True),
+        ("head", B, cfg.d_model, [(lay.vocab_padded // m,
+                                   lay.vocab_padded)], True)]
+    per = {}
+    for i, (name, M, K, ns, f32) in enumerate(units):
+        out = torch.float32 if f32 else None
+        ws = [linear_case(dev, 1, K, n, SEED + 2300 + 10 * i + j)[1]
+              for j, (n, _) in enumerate(ns)]
+        w_bytes = sum(w.numel() * 2 for w in ws)
+        copies = [ws] + [[w.clone() for w in ws] for _ in range(
+            int(np.ceil(COLD_BYTES / w_bytes)) - 1)]
+        x = linear_case(dev, M, K, 8, SEED + 2309 + 10 * i)[0]
+        whole = [nw for _, nw in ns]
+        worst = 0.0
+        for plan in ([whole, None] if any(whole) else [None]):
+            got = ops.linear_group(x, ws, out, plan_n=plan)
+            for j, (w, g) in enumerate(zip(ws, got)):
+                want = ref.linear_ref(x, w, out)
+                err = (g.float() - want.float()).abs()
+                limit = linear_limit(x, w, want, f32)
+                if (err > limit).any():
+                    fail(f"(23c) m = {m}: {name}[{j}] [{M}, {K}] x "
+                         f"[{K}, {w.shape[1]}] (plan_n {plan}): "
+                         f"{int((err > limit).sum())} elements past the "
+                         f"limit of the plain version")
+                worst = max(worst, (err / limit.clamp_min(1e-30)).max()
+                            .item())
+            del got
+        lib = linear_library(x, f32)
+        n_bytes = 2 * M * K + sum(linear_hbm_bytes(M, K, w.shape[1],
+                                                   4 if f32 else 2)
+                                  - 2 * M * K for w in ws)
+        per[name] = {
+            "M": M, "K": K, "N": [n for n, _ in ns], "whole_N": whole,
+            "ms": time_ms(rotating(copies, lambda c: ops.linear_group(
+                x, c, out, plan_n=whole))),
+            "own_plan_ms": time_ms(rotating(copies, lambda c: ops.linear_group(
+                x, c, out))),
+            "library_ms": (time_ms(rotating(copies, lambda c: [lib(w) for w
+                                                             in c]))
+                           if lib else None),
+            "plain_ms": time_ms(lambda: [ref.linear_ref(x, w, out)
+                                         for w in ws], reps=5, warmup=1),
+            "bound_ms": n_bytes / PEAK_BYTES * 1e3, "worst_of_limit": worst}
+        del copies, ws
+    torch.cuda.empty_cache()
+    step = {}
+    for key in ("ms", "own_plan_ms", "library_ms", "plain_ms", "bound_ms"):
+        vals = [per[n][key] for n in ("qkv", "wo", "gate_up", "w_down")]
+        step[key] = (None if None in vals or per["head"][key] is None else
+                     cfg.n_layers * sum(vals) + per["head"][key])
+    return {"m": m, "step": step, "per_product": per,
+            "launches_a_step": 4 * cfg.n_layers + 1, "bound_by": "bytes",
+            "worst_of_limit": max(v["worst_of_limit"] for v in per.values())}
+
+
+def tp_moe_f32(dev) -> Dict[str, Any]:
+    """(c) ``moe_down_combine``'s float32 output at qwen2-moe-a2.7b's step
+    shape (M = 128 rows, F 1,408, D 2,048, each row's top-4 of the 60 real
+    experts, ``test_torch_cuda.combine_case``) over rank 0's experts, E in
+    TP_EXPERTS: bitwise its plain version (``out_dtype=float32``), and
+    rounded, bitwise the bf16 launch; events and device time of the
+    kernel, its plain version, the einsum pair (the down product in bf16,
+    the weighted sum in float32) and the bound of what these inputs
+    need."""
+    from test_torch_cuda import combine_case
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe import moe_down_combine_bytes
+
+    cfg = get_config(MOE_ARCH)
+    M, E, F, D = (SERVE["max_batch"] * DEVICE_CHUNK, cfg.n_experts_padded,
+                  cfg.d_ff, cfg.d_model)
+    c_all = combine_case(SEED + 23, M, E, cfg.n_experts,
+                         cfg.n_experts_active, dev, None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    h_all = torch.randn((M, E, F), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w_all = (torch.randn((E, F, D), generator=gen, device=dev)
+             / np.sqrt(F)).to(torch.bfloat16)
+    out = {}
+    for El in TP_EXPERTS:
+        h, w, c = (h_all[:, :El].contiguous(), w_all[:El].contiguous(),
+                   c_all[:, :El].contiguous())
+        f32 = torch.float32
+        got = ops.moe_down_combine(h, w, c, out_dtype=f32)
+        if not torch.equal(got, ref.moe_down_combine_ref(h, w, c, f32)):
+            fail(f"(23c) moe_down_combine's float32 output at E = {El} "
+                 f"differs from its plain version")
+        if not torch.equal(got.to(torch.bfloat16),
+                           ops.moe_down_combine(h, w, c)):
+            fail(f"(23c) moe_down_combine's float32 output at E = {El}, "
+                 f"rounded, differs from the bf16 launch")
+        pairs = int((c != 0).sum())
+
+        def library():  # the down product in bf16, the combine in float32
+            y = torch.einsum("mef,efd->med", h, w)
+            return torch.einsum("med,me->md", y.float(), c.float())
+
+        n_bytes = moe_down_combine_bytes(h, w, c) + 2 * M * D  # float32 out
+        t_bytes = n_bytes / PEAK_BYTES * 1e3
+        t_ops = 2 * pairs * F * D / PEAK_BF16_FLOPS * 1e3
+        out[El] = {
+            "M": M, "E": El, "F": F, "D": D, "pairs": pairs,
+            "experts_picked": int((c != 0).any(0).sum()), "bitwise": True,
+            "ms": time_ms(lambda: ops.moe_down_combine(h, w, c,
+                                                       out_dtype=f32)),
+            "device_ms": device_ms(lambda: ops.moe_down_combine(
+                h, w, c, out_dtype=f32), spins=True),
+            "plain_ms": time_ms(lambda: ref.moe_down_combine_ref(
+                h, w, c, f32), reps=3, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library, spins=True)}
+    del h_all, w_all
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_kernels(run: ServeRun, dev) -> Dict[str, Any]:
+    """(c)'s kernels on one card: the column slices (``tp_column_slices``),
+    the float32 MoE output (``tp_moe_f32``) and the TP step's products
+    (``tp_linear_step``), with the line phase 23 prints."""
+    x = linear_case(dev, SERVE["max_batch"] * DEVICE_CHUNK,
+                    run.cfg.d_model, 8, SEED + 230)[0]
+    checked = tp_column_slices(run, dev, x)
+    lin = {m: tp_linear_step(run.cfg, dev, m) for m in TP_GROUPS}
+    moe = tp_moe_f32(dev)
+
+    def r4(v):
+        return None if v is None else round(v, 4)
+
+    steps = "; ".join(
+        f"m = {m}: whole plan {r4(v['step']['ms'])} ms, own plans "
+        f"{r4(v['step']['own_plan_ms'])}, cuBLAS "
+        f"{r4(v['step']['library_ms'])}, plain "
+        f"{r4(v['step']['plain_ms'])}, bound {r4(v['step']['bound_ms'])}"
+        for m, v in lin.items())
+    moes = "; ".join(
+        f"E = {E}: {r4(v['ms'])} ms (device {r4(v['device_ms'])}), plain "
+        f"{r4(v['plain_ms'])}, einsum pair {r4(v['library_ms'])} (device "
+        f"{r4(v['library_device_ms'])}), bound {r4(v['bound_ms'])} "
+        f"({v['bound_by']}; {v['pairs']} routed pairs)"
+        for E, v in moe.items())
+    line = (f"column slices under the whole plan bitwise the whole launch's "
+            f"columns: {checked[0]}; moe_down_combine's float32 output "
+            f"bitwise its plain version and, rounded, the bf16 launch at E = "
+            f"{list(moe)}; rank 0's TP step products (q/k/v, gate/up and "
+            f"the head under the whole plan and their own, wo's and "
+            f"w_down's row slices in float32) each within linear_limit of "
+            f"the plain version (worst "
+            f"{max(v['worst_of_limit'] for v in lin.values()):.4f} of it); "
+            f"their times (events, L2-cold, "
+            f"{4 * run.cfg.n_layers + 1} launches a step): {steps}; the "
+            f"float32 MoE launch at qwen2-moe-a2.7b's step shape: {moes}")
+    return {"line": line, "linear": lin, "moe": moe}
+
+
+# ------------------------------------------------- --tp-cards (four cards)
+TP_CARDS_ARGS = ("--arch", "qwen2-1.5b", "--continuous", "--page-size", "16",
+                 "--requests", "1024", "--tokens", "32", "--prompt-len",
+                 "16", "--batch", "16")
+TP_CARDS_RUNS = (("one", ("--router",)), ("auto", ("--mesh", "auto")),
+                 ("tp1x4", ("--mesh", "1x4", "--tp-params")),
+                 ("tp2x2", ("--mesh", "2x2", "--tp-params")))
+TP_CARDS_TIMEOUT = 420  # seconds a launcher run may take
+SUM_ROWS, SUM_CALLS = 16 * 8, 50  # a step's rows (batch x chunk); calls
+
+
+def launcher_run(tag: str, extra, out: Path, one_card: bool
+                 ) -> Dict[str, Any]:
+    """One ``launch.serve`` run of ``--tp-cards`` (on card 0 alone with
+    ``one_card``, else over every card): its log and streams under
+    ``out``; tokens/s, the seconds and steps it printed, ms a step run
+    and rank 0's slice's ms a step where it printed one."""
+    import os
+    import re
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if one_card:
+        env["CUDA_VISIBLE_DEVICES"] = "0"
+    streams = out / f"{tag}.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *TP_CARDS_ARGS,
+           *extra, "--streams-out", str(streams)]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=TP_CARDS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    (out / f"{tag}.log").write_text(p.stdout + p.stderr)
+    if p.returncode:
+        fail(f"[tp cards] {tag} ({' '.join(extra)}) exited {p.returncode}: "
+             f"{(p.stdout + p.stderr)[-3000:]}")
+    lines = p.stdout.splitlines()
+    served = next(x for x in lines if x.startswith("[router] served"))
+    m = re.search(r"(\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, \d+ "
+                  r"steps with work of (\d+) run", served)
+    if m is None:
+        fail(f"[tp cards] {tag}: no tokens/s in {served!r}")
+    tokens, seconds, tok_s, steps = (int(m[1]), float(m[2]), float(m[3]),
+                                     int(m[4]))
+    slice_ms = [float(re.search(r"([\d.]+) ms a step run of rank 0's "
+                                r"slice", x)[1]) for x in lines
+                if "ms a step run of rank 0's slice" in x]
+    return {"args": list(extra), "tokens": tokens, "seconds": seconds,
+            "tokens_s": tok_s, "steps_run": steps,
+            "ms_step": seconds * 1e3 / steps, "slice_ms_step": slice_ms,
+            "wall_s": wall, "served": served.split(" — ")[0],
+            "layout": [x for x in lines if x.startswith(
+                "tensor parallel over")],
+            "streams": json.loads(streams.read_text())}
+
+
+def sum_rank(rank: int, world: int, port: int, out: str) -> None:
+    """``--tp-cards``: one of ``world`` ranks over NCCL, a card a rank:
+    ``comm.reduce_sum`` of a ``[SUM_ROWS, 1536]`` float32 partial (the
+    row-parallel join of qwen2-1.5b's step) over the model group of the
+    1x4 and 2x2 meshes, and ``dist.all_reduce`` of the same (the library
+    call; the port does not use it), each call timed on the host clock
+    around a synchronise, their medians pickled to ``out``."""
+    import pickle
+
+    import torch.distributed as tdist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    here = comm.init("cuda", rank=rank, world_size=world, local_rank=rank,
+                     local_world_size=world,
+                     init_method=f"tcp://localhost:{port}")
+    dev = here.device
+    t = torch.ones((SUM_ROWS, 1536), dtype=torch.float32, device=dev)
+
+    def median_ms(fn) -> float:
+        times = []
+        for i in range(SUM_CALLS + 3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            if i >= 3:  # warm-up
+                times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    res = {}
+    for spec in ("1x4", "2x2"):
+        group = make_serve_mesh(spec).model_group
+        got = comm.reduce_sum(t, group)
+        m = tdist.get_world_size(group)
+        if not torch.equal(got, torch.full_like(t, float(m))):
+            raise RuntimeError(f"reduce_sum over {spec}'s model group of "
+                               f"{m} ranks gave {got.flatten()[:4]}")
+        res[spec] = {"m": m, "reduce_sum_ms": median_ms(
+            lambda: comm.reduce_sum(t, group)), "all_reduce_ms": median_ms(
+            lambda: tdist.all_reduce(t.clone(), group=group))}
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    comm.shutdown()
+
+
+def tp_cards(card: str, out: Path) -> None:
+    """``--tp-cards`` (four cards): ``launch.serve`` at TP_CARDS_ARGS in
+    turns, one card, ``--mesh auto``, ``1x4 --tp-params`` and ``2x2
+    --tp-params``, then in the reverse order: tokens/s and ms a step of
+    each, the flip rate of each TP run against the first ``auto`` run and
+    of ``auto`` against one card; then ``reduce_sum``'s ms over NCCL in a
+    world of four ranks (``sum_rank``).  Logs, streams and the summary go
+    under ``out``."""
+    import pickle
+    import subprocess
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        fail(f"--tp-cards needs four cards, this machine has {n}")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip().splitlines()
+    out.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    order = list(TP_CARDS_RUNS) + list(reversed(TP_CARDS_RUNS))
+    for i, (name, extra) in enumerate(order):
+        tag = f"{name}{1 + (i >= len(TP_CARDS_RUNS))}"
+        runs[tag] = r = launcher_run(tag, extra, out, name == "one")
+        print(f"[tp cards] {tag} ({' '.join(extra)}): {r['served']}; "
+              f"{r['tokens_s']} tokens/s, {r['ms_step']:.4f} ms a step run "
+              f"({r['steps_run']} steps), rank 0's slice "
+              f"{r['slice_ms_step']} ms a step; {r['wall_s']:.1f} s wall; "
+              f"{r['layout']}", flush=True)
+    flips = {}
+    for tag, r in runs.items():
+        ref = "one1" if tag.startswith("auto") else "auto1"
+        if tag in (ref, "one2"):
+            continue
+        f, total = flip_rate(r["streams"], runs[ref]["streams"])
+        flips[f"{tag} vs {ref}"] = {"flips": f, "positions": total,
+                                    "rate": f / max(1, total)}
+    tmp = tempfile.mkdtemp(prefix="tp-cards-")
+    outs = [str(Path(tmp) / f"rank{r}.pkl") for r in range(4)]
+    ctx = mp.start_processes(sum_rank_entry, args=(4, free_port(), tmp),
+                             nprocs=4, start_method="spawn", join=False)
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > RANK_TIMEOUT:
+                fail(f"[tp cards] the NCCL ranks ran past {RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    sums = [pickle.loads(Path(o).read_bytes()) for o in outs]
+    summary = {
+        "cards": cards, "runs": {k: {x: v for x, v in r.items()
+                                     if x != "streams"}
+                                 for k, r in runs.items()},
+        "flip_rates": flips, "reduce_sum": sums}
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(f"[tp cards] flip rates: {json.dumps(flips)}")
+    print(f"[tp cards] reduce_sum of [{SUM_ROWS}, 1536] float32 over NCCL, "
+          f"median of {SUM_CALLS} calls a rank (ms; all_reduce beside it): "
+          f"{json.dumps(sums)}")
+    print(f"[tp cards] {cards} ({card})")
+
+
+def sum_rank_entry(rank: int, world: int, port: int, tmp: str) -> None:
+    sum_rank(rank, world, port, str(Path(tmp) / f"rank{rank}.pkl"))
 
 
 def timed_wave(cb, run: ServeRun, dev) -> Dict[str, float]:
@@ -5086,7 +5846,8 @@ class witness_products:
                 y = (w.t() @ x2.t()).t()
             return y.reshape(*x.shape[:-1], w.shape[1])
 
-        self.mod._forward = lambda x, ws, out: [one(x, w, out) for w in ws]
+        self.mod._forward = lambda x, ws, out, plan_n=None: [
+            one(x, w, out) for w in ws]
 
     def __exit__(self, *exc):
         self.mod._forward = self.real
@@ -7182,6 +7943,15 @@ def main() -> None:
                     help="build the kernels and run phase 23 alone "
                          "(one data shard over ranks); prints no result "
                          "line")
+    ap.add_argument("--tp-cards", action="store_true",
+                    help="four cards: build the kernels, then run the "
+                         "launcher in turns on one card, over --mesh auto "
+                         "and under --tp-params at 1x4 and 2x2 (tokens/s, "
+                         "ms a step, flip rates) and time reduce_sum over "
+                         "NCCL; prints no result line")
+    ap.add_argument("--out", default=str(ROOT / "build" / "tp_cards"),
+                    help="--tp-cards: the directory of its logs, streams "
+                         "and summary.json")
     args = ap.parse_args()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7244,6 +8014,10 @@ def main() -> None:
         return
     if args.phase23:
         phase23(serve_run(dev, args.seed), None, dev, card, args.seed)
+        print(card)
+        return
+    if args.tp_cards:
+        tp_cards(card, Path(args.out))
         print(card)
         return
     starts(t_run, "2")
@@ -7518,7 +8292,8 @@ def main() -> None:
     starts(t_run, "22")
     phase22(serve, dev, card, two)
     starts(t_run, "23")
-    phase23(serve, d, dev, card, args.seed)
+    tp = phase23(serve, d, dev, card, args.seed)
+    lin_row["tp_products"] = tp["linear"]
     pa_row["launches"] = serve.launches["paged_attention"]
     rows.append(pa_row)
     lin_row["launches"] = serve.launches["linear"]
@@ -7530,6 +8305,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     starts(t_run, "17")
     moe_row, lin_row["moe_products"] = phase17(dev, args.seed, card)
+    moe_row["f32"] = tp["moe"]
     rows.append(moe_row)
     gc.collect()
     torch.cuda.empty_cache()

@@ -95,10 +95,19 @@ its ``SeqSplit`` (the pool's ``split``, the state's ``"split"``); the
 steps then find each row's cell in the whole cache, write the rows this
 rank owns and gather the parts before each layer's attention
 (``nn.attention``).  The params are replicated and every rank runs the
-same launches on the same inputs.
+same launches on the same inputs.  With ``tp`` (a ``dist.sharding.
+TensorParallel``: the params split over the ``model`` group by
+``dist.sharding.tp_place``) the pool and the ring hold this rank's KV
+heads over the whole sequence (nothing is split over it), and the steps
+run each rank's heads, columns and experts (``nn.attention``,
+``nn.mlp``, ``nn.moe``), look the tokens up in a vocab-parallel embedding
+(``TensorParallel.embed``: the owner's row selected from a gather) and
+gather the head's logits in rank order (``TensorParallel.logits``), so
+every rank samples the same logits.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -291,7 +300,7 @@ def check_rank_family(cfg: ArchConfig) -> None:
     if cfg.family not in RANK_FAMILIES or cfg.block_pattern:
         raise NotImplementedError(
             f"serving the {cfg.family} family over ranks is not ported: "
-            f"ROADMAP queue A item 16 (the families over ranks); "
+            f"ROADMAP queue A item 16c (the families over ranks); "
             f"{'/'.join(RANK_FAMILIES)} serve")
 
 
@@ -316,19 +325,29 @@ def _zeros(shape, dtype, device, mesh, spec):
     return sh.place(torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _tp_cfg(cfg: ArchConfig, tp) -> ArchConfig:
+    """``cfg`` with this rank's KV heads under ``tp`` (the caches' shape:
+    every position of the rank's heads)."""
+    return dataclasses.replace(cfg, n_kv_heads=tp.layout.kv_heads)
+
+
 def init_paged_kv(cfg: ArchConfig, n_pages: int, page_size: int,
                   kv_dtype: str = "bf16",
                   device: Union[str, torch.device] = "cuda",
-                  mesh=None) -> PagedKV:
+                  mesh=None, tp=None) -> PagedKV:
     """The physical page pool, ``[n_layers, n_pages, page, KV, hd]`` bf16,
     or int8 with float32 scale planes ``[..., KV, 1]``, zero-filled.
     Attention stacks only: a ``block_pattern`` config raises the JAX
     package's ``ValueError``.  On ``mesh`` it is placed by
     ``paged_cache_pspec``: on a mesh of ranks this rank's slice, marked
-    with its ``split``."""
+    with its ``split``; with ``tp`` (on a mesh of ranks) the pool of this
+    rank's KV heads, unsplit."""
     check_paged(cfg)
     device = tensor_device(device)
     ranks = check_ranks(cfg, mesh)
+    if tp is not None:
+        return init_paged_kv(_tp_cfg(cfg, tp), n_pages, page_size, kv_dtype,
+                             device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
     planes = [(shape, COMPUTE_DTYPE)] * 2
     if kv_dtype == "int8":
@@ -391,7 +410,7 @@ def _macro_state(cfg: ArchConfig, batch: int, cache_len: int,
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       kv_dtype: str = "bf16",
                       device: Union[str, torch.device] = "cuda",
-                      mesh=None) -> Params:
+                      mesh=None, tp=None) -> Params:
     """The dense decode state: ``pos``, one global position (a 0-dim int32
     tensor on the device, advanced in place by ``decode_step``), and the
     ring cache ``kv = (k, v)``, ``[n_layers, batch, cache_len, KV, hd]``
@@ -402,8 +421,13 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     bf16 zeros (``encode_cross`` computes them), an int8 request kept
     bf16, as in the JAX package.  On ``mesh`` it is placed by
     ``cache_shardings``: on a mesh of ranks the ring is this rank's slice of
-    the cells, and ``state["split"]`` its ``SeqSplit``."""
+    the cells, and ``state["split"]`` its ``SeqSplit``; with ``tp`` (on a
+    mesh of ranks) the ring of this rank's KV heads, unsplit."""
     device = tensor_device(device)
+    if tp is not None:
+        check_ranks(cfg, mesh)
+        return init_decode_state(_tp_cfg(cfg, tp), batch, cache_len,
+                                 kv_dtype, device)
     if mesh is not None:
         if not check_ranks(cfg, mesh):
             state = init_decode_state(cfg, batch, cache_len, kv_dtype, device)
@@ -458,9 +482,11 @@ def _rope(cfg: ArchConfig, pos: torch.Tensor):
 
 
 def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
-         moe_impl: str = "dense", with_aux: bool = False):
+         moe_impl: str = "dense", with_aux: bool = False, tp=None):
     """``(x + the layer's MLP or MoE block, its aux loss)``: the aux loss
-    is a 0-dim float32 tensor for MoE with ``with_aux``, else None."""
+    is a 0-dim float32 tensor for MoE with ``with_aux``, else None.
+    ``tp``: this rank's columns and experts (the serve steps, the dense
+    dispatch)."""
     if cfg.d_ff == 0:
         return x, None
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -472,15 +498,30 @@ def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
         else:
             out, aux = moe_block(p["moe"], h, n_experts=cfg.n_experts,
                                  top_k=cfg.n_experts_active, act=cfg.act,
-                                 with_aux=with_aux)
+                                 with_aux=with_aux, tp=tp)
         return x + out, aux
-    return x + mlp_block(p["mlp"], h, cfg.act), None
+    split = tp if tp is not None and tp.layout.mlp else None
+    return x + mlp_block(p["mlp"], h, cfg.act, split), None
 
 
-def lm_head(params: Params, x: torch.Tensor, norm_eps: float) -> torch.Tensor:
-    """Final norm + vocab projection, float32 logits."""
+def _embed(params: Params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The tokens' embedding rows (a vocab-parallel table's under ``tp``:
+    the owner's rows, exact)."""
+    if tp is None or not tp.layout.vocab:
+        return params["embed"][tokens.long()]
+    return tp.embed(params["embed"], tokens)
+
+
+def lm_head(params: Params, x: torch.Tensor, norm_eps: float,
+            tp=None) -> torch.Tensor:
+    """Final norm + vocab projection, float32 logits; a vocab-parallel
+    head under ``tp`` plans its columns as the whole head's and gathers
+    the logits in rank order, the same on every rank."""
     x = rms_norm(x, params["ln_f"], norm_eps)
-    return ops.linear(x, params["head"], out_dtype=torch.float32)
+    if tp is None or not tp.layout.vocab:
+        return ops.linear(x, params["head"], out_dtype=torch.float32)
+    return tp.logits(ops.linear(x, params["head"], out_dtype=torch.float32,
+                                plan_n=tp.layout.vocab_padded))
 
 
 def _mixer_fwd(lp: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
@@ -754,7 +795,7 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
                       pos: torch.Tensor, tokens: torch.Tensor,
                       n_new: torch.Tensor, cfg: ArchConfig, *,
                       sample_greedy: bool = False, attn_impl: str = "auto",
-                      all_positions: bool = False):
+                      all_positions: bool = False, tp=None):
     """Chunked multi-token decode/prefill through the paged KV cache.
 
     ``tokens [B, C]`` carries up to ``C`` new tokens per slot (``n_new[b]``
@@ -768,6 +809,7 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     drop and its row is garbage, never read.  A pool split over ranks
     (``kv.split``) holds this rank's offsets of every page: each layer
     writes the rows this rank owns and gathers the pool before attending.
+    ``tp``: tensor parallelism over ranks (the module docstring).
     """
     if not isinstance(kv, PagedKV):
         raise TypeError(f"paged_decode_step expects the PagedKV from "
@@ -791,7 +833,7 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
     rows = A.write_rows(page_ids, page_off, N_pages, page,
                         kv.split)  # every layer
     rope = _rope(cfg, positions)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     windows = layer_windows(cfg)
     layers: List[Params] = params["layers"]
     for i, lp_i in enumerate(layers):
@@ -803,17 +845,17 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
             n_heads=cfg.q_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim_, window=int(windows[i]),
             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, rope=rope,
-            impl=attn_impl)
+            impl=attn_impl, tp=tp)
         x = x + out
-        x = _ffn(lp_i, cfg, x)[0]
+        x = _ffn(lp_i, cfg, x, tp=tp)[0]
     if all_positions:
-        logits = lm_head(params, x, cfg.norm_eps)  # [B, C, Vp]
+        logits = lm_head(params, x, cfg.norm_eps, tp)  # [B, C, Vp]
     else:
         # each slot's last valid position only, before the vocab
         # projection (rms_norm and the head are per position)
         last = torch.clamp(n_new.long() - 1, 0, C - 1)
         x = x[torch.arange(B, device=dev), last][:, None]
-        logits = lm_head(params, x, cfg.norm_eps)[:, 0]
+        logits = lm_head(params, x, cfg.norm_eps, tp)[:, 0]
     if sample_greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32), kv
     return logits, kv
@@ -821,21 +863,21 @@ def paged_decode_step(params: Params, kv: PagedKV, block_tbl: torch.Tensor,
 
 def _decode_mixer(lp: Params, cfg: ArchConfig, x: torch.Tensor, window: int,
                   kv: PagedKV, slot: torch.Tensor, rope, gqa_impl: str,
-                  attn_impl: str, commit) -> torch.Tensor:
+                  attn_impl: str, commit, tp=None) -> torch.Tensor:
     """One decode step through one attention layer of the ring cache."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     out, _ = A.decode_attention_block(
         lp["mixer"], h, kv, slot, n_heads=cfg.q_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_, window=window,
         qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, rope=rope,
-        gqa_impl=gqa_impl, impl=attn_impl, commit=commit)
+        gqa_impl=gqa_impl, impl=attn_impl, commit=commit, tp=tp)
     return x + out
 
 
 def decode_step(params: Params, state: Params, tokens: torch.Tensor,
                 cfg: ArchConfig, *, gqa_impl: str = "repeat",
                 sample_greedy: bool = False, attn_impl: str = "auto",
-                commit: Optional[torch.Tensor] = None):
+                commit: Optional[torch.Tensor] = None, tp=None):
     """One token for every sequence of the batch through the dense ring
     cache of ``init_decode_state``; ``tokens [B, 1]``, every slot at the
     state's one position ``pos``.
@@ -856,7 +898,9 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     (``nn.attention.cross_decode_attention``; read, never written), then
     the MLP.  A ring split over ranks (``state["split"]``) holds this
     rank's part of the cells: the rank owning cell ``pos % S`` writes it,
-    and each layer gathers the ring before attending.
+    and each layer gathers the ring before attending.  ``tp``: tensor
+    parallelism over ranks (the module docstring; the dense and MoE
+    families).
     """
     if cfg.block_pattern:
         x = _decode_macros(params, state, tokens, cfg, gqa_impl, attn_impl,
@@ -874,7 +918,7 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     slot = torch.remainder(pos.long(), S).reshape(1)
     tbl = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
     rope = _rope(cfg, positions)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     encdec = cfg.family == "encdec"
     windows = np.zeros(cfg.n_layers, np.int32) if encdec else \
         layer_windows(cfg)
@@ -883,21 +927,21 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
                           None if sv is None else sv[i], tbl, positions,
                           split)
         x = _decode_mixer(lp_i, cfg, x, int(windows[i]), kv, slot, rope,
-                          gqa_impl, attn_impl, commit)
+                          gqa_impl, attn_impl, commit, tp)
         if encdec:
             cp = params["cross_layers"][i]
             h = rms_norm(x, cp["ln1"], cfg.norm_eps)
             x = x + A.cross_decode_attention(
                 cp["mixer"], h, state["cross"][0][i], state["cross"][1][i],
                 n_heads=cfg.n_heads, head_dim=cfg.head_dim_)
-        x = _ffn(lp_i, cfg, x)[0]
-    return _decode_out(params, state, x, cfg, sample_greedy, commit)
+        x = _ffn(lp_i, cfg, x, tp=tp)[0]
+    return _decode_out(params, state, x, cfg, sample_greedy, commit, tp)
 
 
 def _decode_out(params: Params, state: Params, x: torch.Tensor,
-                cfg: ArchConfig, sample_greedy: bool, commit):
+                cfg: ArchConfig, sample_greedy: bool, commit, tp=None):
     """The step's head, then ``pos`` advanced (or kept, without commit)."""
-    logits = lm_head(params, x, cfg.norm_eps)[:, 0]
+    logits = lm_head(params, x, cfg.norm_eps, tp)[:, 0]
     state["pos"].add_(1 if commit is None else commit.to(torch.int32))
     if sample_greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32), state

@@ -20,6 +20,12 @@ shardings need.  The port places a leaf on a mesh of ranks
   never adds).  NCCL gathers into one buffer (``all_gather_into_tensor``,
   which a CUDA graph captures); gloo gathers with ``all_gather``, which
   takes a card's tensors too (gloo stages them through the host itself);
+* :func:`reduce_sum` adds every rank's float32 tensor in rank order, the
+  row-parallel join of tensor parallelism: a gather into one buffer, then
+  ``parts[0] + parts[1] + ...`` elementwise, so every rank gets the same
+  bits and a row's sum does not depend on the other rows (NCCL's
+  ``all_reduce`` picks ring, tree or NVLS by the message's size, which
+  would make a row's bits depend on the batch);
 * :func:`new_groups` makes the groups of a mesh of ranks (one a data
   slice), every rank making every group in the same order;
 * :class:`SharedClock` is one clock for the ranks of a group: one rank
@@ -28,8 +34,8 @@ shardings need.  The port places a leaf on a mesh of ranks
 * :func:`exchange` gives every rank each rank's host object
   (``all_gather_object``), outside any CUDA graph capture.
 
-``launches`` counts the gathers issued since ``reset_counts``, as the
-kernels' wrappers count their launches.
+``launches`` counts the gathers and sums issued since ``reset_counts``,
+as the kernels' wrappers count their launches.
 """
 from __future__ import annotations
 
@@ -43,14 +49,14 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["TIMEOUT_S", "Placement", "choose_backend", "init", "shutdown",
-           "active", "placement", "gather", "warm_up", "reset_counts",
+           "active", "placement", "gather", "reduce_sum", "warm_up", "reset_counts",
            "launches", "new_groups", "SharedClock", "exchange"]
 
 # every world waits this long at most for a peer, so a rank out of
 # lockstep fails instead of hanging
 TIMEOUT_S = 120.0
 
-launches = 0  # gathers issued since the last reset
+launches = 0  # gathers and sums issued since the last reset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,23 +177,43 @@ def warm_up(device: torch.device, group=None) -> None:
     dist.all_reduce(t, group=group)
 
 
-def gather(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order (the
-    ranks of ``group``), the same bits on every rank."""
+def _parts(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``t`` (of ``group``) in rank order, one collective:
+    NCCL gathers into one buffer (``all_gather_into_tensor``, which a
+    CUDA graph captures); gloo with ``all_gather``."""
     global launches
     launches += 1
     m = dist.get_world_size(group)
     t = t.contiguous()
-    backend = dist.get_backend(group)
-    if backend == "nccl":
+    if dist.get_backend(group) == "nccl":
         out = torch.empty((m,) + tuple(t.shape), dtype=t.dtype,
                           device=t.device)
         dist.all_gather_into_tensor(out, t, group=group)
-        parts_ = out.unbind(0)
-    else:
-        parts_ = [torch.empty_like(t) for _ in range(m)]
-        dist.all_gather(parts_, t, group=group)
-    return torch.cat(parts_, dim=dim)
+        return list(out.unbind(0))
+    parts_ = [torch.empty_like(t) for _ in range(m)]
+    dist.all_gather(parts_, t, group=group)
+    return parts_
+
+
+def gather(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (the
+    ranks of ``group``), the same bits on every rank."""
+    return torch.cat(_parts(t, group), dim=dim)
+
+
+def reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's float32 ``t`` (of ``group``), added in rank
+    order, ``((t_0 + t_1) + t_2) + ...`` elementwise: the same bits on
+    every rank, and each element's independent of the tensor's shape."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"reduce_sum adds float32 partials, got {t.dtype}")
+    parts_ = _parts(t, group)
+    if len(parts_) == 1:
+        return parts_[0]
+    out = parts_[0] + parts_[1]
+    for p in parts_[2:]:
+        out.add_(p)
+    return out
 
 
 def new_groups(rows: Sequence[Sequence[int]]) -> List[Any]:

@@ -41,6 +41,19 @@ from its ``model`` row before the attention.  A mesh of several data
 slices makes a process group a slice; a slice this rank is not in is a
 :class:`ForeignSlice`.
 
+**Tensor parallelism over ranks.**  With ``tp_params`` a rank mesh splits
+the weights over its ``model`` group by whole heads, not by the JAX rules
+(which can cut a head: qwen2-1.5b's ``wk`` has 256 columns, two heads,
+which 4 chips would halve): :func:`tp_layout` says which blocks split
+(:class:`TPLayout`), :class:`TensorParallel` is one rank's part of it and
+:func:`tp_place` keeps that rank's slice of each leaf.  Query heads split
+when ``m`` divides them, KV heads with them when ``m`` divides them too,
+or each rank holds the one KV head its query heads read when the KV
+heads divide ``m`` (duplicated over ``m / KV`` ranks); an attention block
+whose heads divide neither way is replicated, as ``_validated`` drops an
+axis that does not divide.  The MLP's and the shared experts' ``d_ff``,
+the experts and the padded vocab split where ``m`` divides them.
+
 The port keeps a model's layers as a list of per-layer dicts, where the
 JAX package stacks them.  ``param_spec`` takes a leaf's JAX key and its
 stacked shape (``repro_torch.tree``'s view), so it is the JAX rule
@@ -63,7 +76,8 @@ from ..tree import SEP, leaves, map_leaves
 __all__ = ["MODEL_AXIS", "Mesh", "RankMesh", "ForeignSlice", "SeqSplit",
            "PartitionSpec",
            "P", "NamedSharding",
-           "place", "data_axis", "param_spec", "param_pspecs",
+           "TPLayout", "TensorParallel", "tp_layout", "tensor_parallel",
+           "tp_place", "place", "data_axis", "param_spec", "param_pspecs",
            "param_shardings", "batch_pspec", "cache_pspec", "cache_shardings",
            "paged_cache_pspec", "paged_kv_shardings", "serve_pspec",
            "serve_state_shardings", "queue_pspec"]
@@ -306,6 +320,211 @@ class ForeignSlice:
     @property
     def lead(self) -> int:
         return int(np.asarray(self.devices).ravel()[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """Which blocks of a config split over a ``model`` group of ``m``
+    ranks (:func:`tp_layout`) and the whole sizes their slices come from.
+    ``q_heads`` / ``kv_heads`` are a rank's heads (every head where
+    ``attn`` is False); ``kv_share`` ranks hold each KV head (1 unless the
+    KV heads are duplicated)."""
+
+    m: int
+    head_dim: int
+    n_q: int  # the config's query heads (q_heads)
+    n_kv: int
+    attn: bool
+    q_heads: int
+    kv_heads: int
+    kv_share: int
+    d_ff: int  # the MLP's (0: none, or experts)
+    mlp: bool
+    n_experts: int  # padded (0: no experts)
+    experts: bool
+    shared_d_ff: int
+    shared: bool
+    vocab_padded: int
+    vocab: bool
+
+    def blocks(self) -> str:
+        """One line: each block and whether it splits or replicates."""
+        def say(name, split, part=""):
+            return f"{name} {'split' + part if split else 'replicated'}"
+
+        out = [say("attention", self.attn,
+                   f" ({self.q_heads} q / {self.kv_heads} kv heads a rank"
+                   + (f", each kv head on {self.kv_share} ranks"
+                      if self.kv_share > 1 else "") + ")")]
+        if self.d_ff:
+            out.append(say("mlp", self.mlp, f" (d_ff {self.d_ff // self.m}"
+                           " a rank)"))
+        if self.n_experts:
+            out.append(say("experts", self.experts,
+                           f" ({self.n_experts // self.m} a rank)"))
+            out.append(say("router", False))
+        if self.shared_d_ff:
+            out.append(say("shared experts", self.shared,
+                           f" (d_ff {self.shared_d_ff // self.m} a rank)"))
+        out.append(say("embedding and head", self.vocab,
+                       f" ({self.vocab_padded // self.m} rows a rank)"))
+        return f"tensor parallel over {self.m} rank(s): " + "; ".join(out)
+
+
+def tp_layout(cfg, m: int) -> TPLayout:
+    """The head-aligned layout of ``cfg`` over a ``model`` group of ``m``
+    ranks (the module docstring)."""
+    m = int(m)
+    if m < 1:
+        raise ValueError(f"a model group holds at least one rank, got {m}")
+    nq, nkv = cfg.q_heads, cfg.n_kv_heads
+    attn = nq % m == 0 and (nkv % m == 0 or m % nkv == 0)
+    if attn:
+        q, kv = nq // m, (nkv // m if nkv % m == 0 else 1)
+        share = 1 if nkv % m == 0 else m // nkv
+    else:
+        q, kv, share = nq, nkv, 1
+    d_ff = 0 if cfg.n_experts else cfg.d_ff
+    E = cfg.n_experts_padded
+    shared = cfg.shared_d_ff if cfg.n_experts and cfg.n_shared_experts else 0
+    return TPLayout(
+        m=m, head_dim=cfg.head_dim_, n_q=nq, n_kv=nkv, attn=attn, q_heads=q,
+        kv_heads=kv, kv_share=share, d_ff=d_ff,
+        mlp=bool(d_ff) and d_ff % m == 0, n_experts=E,
+        experts=bool(E) and E % m == 0, shared_d_ff=shared,
+        shared=bool(shared) and shared % m == 0,
+        vocab_padded=cfg.vocab_padded, vocab=cfg.vocab_padded % m == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """Rank ``index`` of a ``model`` group of ``layout.m`` ranks
+    (``group``; None: the world, or no world where only shapes are made):
+    the slice of each leaf it holds (``slice_of``) and the whole sizes a
+    column slice plans its product by."""
+
+    layout: TPLayout
+    index: int
+    group: Any = None
+
+    @property
+    def m(self) -> int:
+        return self.layout.m
+
+    @property
+    def kv_head(self) -> int:
+        """This rank's first KV head."""
+        lay = self.layout
+        return (self.index * lay.kv_heads if lay.kv_share == 1
+                else self.index // lay.kv_share)
+
+    def slice_of(self, names: Sequence[str], shape: Sequence[int]
+                 ) -> Optional[Tuple[int, int, int]]:
+        """``(dim, start, length)`` of the leaf at ``names`` (the port's
+        tree path, e.g. ``("layers", "mixer", "wq")``) that this rank
+        holds, or None where it holds the leaf whole."""
+        lay, r = self.layout, self.index
+        name = names[-1] if names else ""
+        nd = len(shape)
+        hd = lay.head_dim
+        if name == "embed" and nd == 2 and lay.vocab:
+            n = shape[0] // lay.m
+            return 0, r * n, n
+        if name == "head" and nd == 2 and lay.vocab:
+            n = shape[1] // lay.m
+            return 1, r * n, n
+        if "mixer" in names and lay.attn:
+            q, kv = lay.q_heads * hd, lay.kv_heads * hd
+            if name in ("wq", "bq"):
+                return nd - 1, r * q, q
+            if name in ("wk", "wv", "bk", "bv"):
+                return nd - 1, self.kv_head * hd, kv
+            if name == "wo":
+                return 0, r * q, q
+            return None
+        if "moe" in names and "shared" not in names:
+            if not lay.experts or name not in ("w_gate", "w_up", "w_down"):
+                return None  # the router and norms replicate
+            if nd == 3:  # [E, ., .]: the masters' layout and w_down
+                n = shape[0] // lay.m
+                return 0, r * n, n
+            n = shape[1] // lay.m  # the flat [D, E * F] compute copy
+            return 1, r * n, n
+        split = lay.shared if "shared" in names else lay.mlp
+        if split and ("mlp" in names or "shared" in names):
+            if name in ("w_gate", "w_up"):
+                n = shape[1] // lay.m
+                return 1, r * n, n
+            if name == "w_down":
+                n = shape[0] // lay.m
+                return 0, r * n, n
+        return None
+
+    # --- the step's collectives over the group (``dist.comm``)
+    def join(self, partial: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The row-parallel join: every rank's float32 ``partial`` added in
+        rank order (``comm.reduce_sum``), rounded once to ``dtype``."""
+        from . import comm
+
+        return comm.reduce_sum(partial, self.group).to(dtype)
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+              ) -> torch.Tensor:
+        """The rows of ``tokens`` from a vocab-parallel embedding (this
+        rank's ``table`` rows): each rank looks up the tokens in its range,
+        and each token's row is selected from its owner's part of a
+        rank-ordered gather, never summed, so its bits are the whole
+        table's row."""
+        from . import comm
+
+        rows = table.shape[0]
+        t = tokens.long()
+        own = (t - self.index * rows).clamp(0, rows - 1)
+        parts = comm.gather(table[own][None], 0, self.group)  # [m, ..., D]
+        owner = torch.div(t, rows, rounding_mode="floor").clamp(0, self.m - 1)
+        at = owner[None, ..., None].expand(1, *t.shape, table.shape[1])
+        return parts.gather(0, at)[0]
+
+    def logits(self, local: torch.Tensor) -> torch.Tensor:
+        """A vocab-parallel head's logits whole: every rank's columns
+        gathered along the last dim in rank order."""
+        from . import comm
+
+        return comm.gather(local, local.dim() - 1, self.group)
+
+
+def tensor_parallel(cfg, mesh: "RankMesh") -> Optional[TensorParallel]:
+    """This rank's :class:`TensorParallel` of ``cfg`` over its ``model``
+    group of the rank mesh; None where the group is one rank, which
+    holds every leaf whole and has nothing to join (as ``seq_split``
+    leaves its cache whole)."""
+    m = int(mesh.shape.get(MODEL_AXIS, 1))
+    if m == 1:
+        return None
+    return TensorParallel(tp_layout(cfg, m), mesh.axis_index(MODEL_AXIS)
+                          if MODEL_AXIS in mesh.axis_names else 0,
+                          mesh.model_group)
+
+
+def tp_place(tree, tp: TensorParallel,
+             device: Union[str, torch.device, None] = None, _path=()):
+    """``tree`` (the port's params, compute copies or masters) with each
+    leaf this rank's slice by ``tp.slice_of``, on ``device`` (None: where
+    it is): a copy of the slice alone, so the whole leaf is not kept
+    alive; a whole leaf already on ``device`` is the same tensor."""
+    if isinstance(tree, dict):
+        return {k: tp_place(v, tp, device, _path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tp_place(v, tp, device, _path) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    dev = tree.device if device is None else torch.device(device)
+    cut = tp.slice_of(_path, tree.shape)
+    if cut is None:
+        return tree.to(dev)
+    dim, start, n = cut
+    return tree.narrow(dim, start, n).to(dev, copy=True).contiguous()
 
 
 class NamedSharding:

@@ -54,7 +54,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "moe": {
         "moe_weight_map": [_P, _I, _I, _I, _P],
         "moe_grid": [],
-        "moe_down_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "moe_down_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P],
     },
 }
 

@@ -5,7 +5,8 @@
 //                     bf16( h[m, e, :] @ W_down[e] ) * c[m, e] )
 //
 // with h [M, E, F], W_down [E, F, D], c [M, E] and out [M, D] bf16, every
-// sum in float32.  It is JAX's "bsef,efd->bsed" rounded to bf16 followed by
+// sum in float32 (with out_f32, out is the float32 sum before its rounding:
+// a rank's partial over its experts under tensor parallelism).  It is JAX's "bsef,efd->bsed" rounded to bf16 followed by
 // "bsed,bse->bsd" (src/repro/nn/moe.py:73-75), in the order the plain
 // version (`kernels/ref.py` `moe_down_combine_ref`) fixes:
 //
@@ -173,10 +174,11 @@ struct __align__(64) Params {
   const __nv_bfloat16* h;  // [M, E, F]
   const __nv_bfloat16* c;  // [M, E]
   __nv_bfloat16* ys;  // [M, E, D] scratch
-  __nv_bfloat16* out;  // [M, D]
+  void* out;  // [M, D] bf16, or float32 with out_f32
   int* counters;  // [0] the next item; [1 + j] columns of down items done
                   // in column tile j (of 128)
   int M, E, F, D, tiles;  // tiles: column tiles of 128
+  int out_f32;
 };
 
 __device__ __forceinline__ float bf_lo(uint32_t w) {
@@ -592,12 +594,20 @@ __device__ void combine_item(const Params& p, Smem& s, const Desc& d) {
       }
     }
   }
+  if (p.out_f32) {
+    float4* o = reinterpret_cast<float4*>(static_cast<float*>(p.out) +
+                                          (size_t)m * D + col);
+    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    return;
+  }
   uint4 o;
   o.x = pack_bf16(acc[0], acc[1]);
   o.y = pack_bf16(acc[2], acc[3]);
   o.z = pack_bf16(acc[4], acc[5]);
   o.w = pack_bf16(acc[6], acc[7]);
-  *reinterpret_cast<uint4*>(p.out + (size_t)m * D + col) = o;
+  *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) +
+                            (size_t)m * D + col) = o;
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
@@ -738,13 +748,14 @@ int moe_grid() {
   return grid;
 }
 
-// h [M, E, F], c [M, E], out [M, D] bf16, contiguous, 16-byte aligned;
+// h [M, E, F], c [M, E] bf16, out [M, D] bf16 (float32 with out_f32),
+// contiguous, 16-byte aligned;
 // wmaps from `moe_weight_map` for W_down [E, F, D]; ys an [M, E, D] bf16
 // scratch; counters 1 + ceil(D / 128) int32 zeros.  F a multiple of 32, D
 // of 8, E of 8 up to 256 (checked by the caller).
 int moe_down_combine(const void* h, const void* wmaps, const void* c, void* ys,
                      void* counters, void* out, int M, int E, int F, int D,
-                     void* stream) {
+                     int out_f32, void* stream) {
   if (M == 0) return (int)cudaGetLastError();
   if (M < 0 || E < 8 || E % 8 || E > kMaxE || F < kFC || F % kFC || D < 8 ||
       D % 8)
@@ -757,13 +768,14 @@ int moe_down_combine(const void* h, const void* wmaps, const void* c, void* ys,
   p.h = (const __nv_bfloat16*)h;
   p.c = (const __nv_bfloat16*)c;
   p.ys = (__nv_bfloat16*)ys;
-  p.out = (__nv_bfloat16*)out;
+  p.out = out;
   p.counters = (int*)counters;
   p.M = M;
   p.E = E;
   p.F = F;
   p.D = D;
   p.tiles = (D + kTD - 1) / kTD;
+  p.out_f32 = out_f32;
   moe_down_combine_kernel<<<grid, kThreads, kSmemBytes,
                             (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

@@ -20,7 +20,10 @@ memory.  ``plan(K, N)`` fixes the slices from ``(K, N)`` alone, and the
 instruction shape is the same for every M, so no M changes the order of
 any row's sums.  ``linear_group`` computes up to three products of one
 ``x`` in one launch (q/k/v, gate/up), each with its own plan, so each
-output is bitwise its lone launch.
+output is bitwise its lone launch.  A column slice of a weight (a rank's
+heads or columns under tensor parallelism) takes the whole weight's plan
+with ``plan_n`` (its whole N), so its outputs are bitwise those columns
+of the whole product.
 
 The trainer's forward products are the same launches.  Their gradient
 (``linear_backward``, through the registered operator ``DOTS_OP``) is two
@@ -135,17 +138,21 @@ def _weight_map(lib, w: torch.Tensor) -> ctypes.Array:
     return m
 
 
-def _group(lib, ws: Sequence[torch.Tensor]) -> tuple:
+def _group(lib, ws: Sequence[torch.Tensor],
+           plan_n: Sequence[Optional[int]]) -> tuple:
     """(maps, Ns, KSs, Ss) as the ctypes arrays a launch passes, and the
-    map buffers they point to."""
-    key = tuple((w.device.index, w.data_ptr(), *w.shape) for w in ws)
+    map buffers they point to; each weight's plan from its K and its
+    ``plan_n`` entry (None: its own N)."""
+    key = tuple((w.device.index, w.data_ptr(), *w.shape, n)
+                for w, n in zip(ws, plan_n))
     rec = _GROUPS.get(key)
     if rec is None:
         if len(_GROUPS) >= _MAX_GROUPS:
             _GROUPS.clear()
         G = len(ws)
         maps = [_weight_map(lib, w) for w in ws]
-        plans = [plan(*w.shape) for w in ws]
+        plans = [plan(w.shape[0], w.shape[1] if n is None else n)
+                 for w, n in zip(ws, plan_n)]
         rec = ((ctypes.c_void_p * G)(*[ctypes.addressof(m) for m in maps]),
                (ctypes.c_int * G)(*[w.shape[1] for w in ws]),
                (ctypes.c_int * G)(*[p[0] for p in plans]),
@@ -154,8 +161,26 @@ def _group(lib, ws: Sequence[torch.Tensor]) -> tuple:
     return rec
 
 
+def _plan_ns(ws: Sequence[torch.Tensor], plan_n) -> Tuple[Optional[int], ...]:
+    """``plan_n`` as one entry a weight (None: the weight's own N); an
+    entry is the N of the whole weight a column slice comes from, at
+    least the slice's N."""
+    if plan_n is None or isinstance(plan_n, int):
+        plan_n = [plan_n] * len(ws)
+    plan_n = tuple(None if n is None else int(n) for n in plan_n)
+    if len(plan_n) != len(ws):
+        raise ValueError(f"plan_n has {len(plan_n)} entries for {len(ws)} "
+                         f"weights")
+    for w, n in zip(ws, plan_n):
+        if n is not None and n < w.shape[1]:
+            raise ValueError(f"plan_n {n} is less than the weight's N "
+                             f"{w.shape[1]}")
+    return plan_n
+
+
 def _forward(x: torch.Tensor, ws: Sequence[torch.Tensor],
-             out_dtype: Optional[torch.dtype]) -> List[torch.Tensor]:
+             out_dtype: Optional[torch.dtype],
+             plan_n=None) -> List[torch.Tensor]:
     """The products without a gradient: the kernel, one launch, for a CUDA
     tensor; the plain version of each for a CPU tensor."""
     global launches
@@ -174,7 +199,7 @@ def _forward(x: torch.Tensor, ws: Sequence[torch.Tensor],
     if M == 0:
         return shaped
     lib = _build.load("linear")
-    maps, Ns, KSs, Ss, _ = _group(lib, ws)
+    maps, Ns, KSs, Ss, _ = _group(lib, ws, _plan_ns(ws, plan_n))
     G = len(ws)
     err = lib.linear(x2.data_ptr(), M, K, G, maps,
                      (ctypes.c_void_p * G)(*[o.data_ptr() for o in outs]),
@@ -259,23 +284,32 @@ def _linear_group_flops(x_shape, w_shapes, out_dtype=None, *args,
 
 
 def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                 out_dtype: Optional[torch.dtype] = None
-                 ) -> List[torch.Tensor]:
+                 out_dtype: Optional[torch.dtype] = None,
+                 plan_n=None) -> List[torch.Tensor]:
     """``[x @ w for w in ws]`` (x [..., K], each w [K, N_w]) in one launch
     on the card, each output bitwise what ``linear(x, w)`` gives; on the CPU
     the plain version of each.  In x's type, or float32 with ``out_dtype =
-    torch.float32``.  Where autograd records (grad mode on and x or a w
-    requiring grad), the call is the operator ``DOTS_OP``, with a gradient;
-    the forward is the same launch."""
+    torch.float32``.  ``plan_n`` (an int, or one entry a weight, None for
+    its own N) plans a weight that is a column slice by its whole
+    weight's N, so that its outputs are bitwise those columns of the whole
+    launch (``_group``'s cache key holds it).  Where autograd records
+    (grad mode on and x or a w requiring grad), the call is the operator
+    ``DOTS_OP``, with a gradient; the forward is the same launch (a serving
+    ``plan_n`` takes no gradient)."""
     if torch.is_grad_enabled() and (x.requires_grad
                                     or any(w.requires_grad for w in ws)):
+        if plan_n is not None:
+            raise ValueError("plan_n plans the column slices of serving; "
+                             "a product with a gradient plans its own N")
         return list(_linear_group_op(x.contiguous(), list(ws), out_dtype))
-    return _forward(x, ws, out_dtype)
+    return _forward(x, ws, out_dtype, plan_n)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           plan_n: Optional[int] = None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]``: in x's type, or with ``out_dtype =
-    torch.float32`` the float32 product of the bf16 values (the LM head).
-    On the card both are contiguous bf16 and K and N multiples of 8."""
-    return linear_group(x, [w], out_dtype)[0]
+    torch.float32`` the float32 product of the bf16 values (the LM head);
+    ``plan_n`` as ``linear_group``'s.  On the card both are contiguous
+    bf16 and K and N multiples of 8."""
+    return linear_group(x, [w], out_dtype, plan_n)[0]

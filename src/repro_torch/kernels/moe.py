@@ -23,7 +23,10 @@ keep every row's accumulators in registers (a thread 2 columns x R rows,
 R in ``R_BUCKETS``), each element's F chain one fmaf chain in one thread,
 so the plain version is matched bit for bit on the CUDA cores.  Then
 combine items of ``COMBINE_ROWS`` rows x 128 columns add each row's
-experts in ascending order over the whole card.  The list is built on the
+experts in ascending order over the whole card.  With ``out_dtype=torch.float32``
+the combine writes its float32 sums unrounded (a rank's partial over its
+experts under tensor parallelism; the cross-rank sum rounds once).  The
+list is built on the
 card from ``combine`` alone; ``plan`` reckons the same list on the host,
 for tests and reports.  An expert whose combine weight is 0 adds nothing,
 which is the plain version's bits for every finite product (ROADMAP
@@ -183,15 +186,19 @@ def _weight_maps(lib, w: torch.Tensor) -> ctypes.Array:
     return maps
 
 
-def _launch(h: torch.Tensor, w_down: torch.Tensor,
-            combine: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch: ``(out [M, D], ys [M, E, D])`` bf16, ``ys`` the
-    kernel's scratch of each routed pair's ``y`` (the others unwritten)."""
+def _launch(h: torch.Tensor, w_down: torch.Tensor, combine: torch.Tensor,
+            out_dtype: Optional[torch.dtype] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch: ``(out [M, D], ys [M, E, D])``, ``out`` bf16 (float32
+    with ``out_dtype=torch.float32``), ``ys`` bf16, the kernel's scratch of
+    each routed pair's ``y`` (the others unwritten)."""
     global launches
     _check(h, w_down, combine)
+    f32 = _out_f32(out_dtype)
     M, E, F = h.shape
     D = w_down.shape[2]
-    out = torch.empty((M, D), dtype=torch.bfloat16, device=h.device)
+    out = torch.empty((M, D), dtype=torch.float32 if f32 else torch.bfloat16,
+                      device=h.device)
     ys = torch.empty((M, E, D), dtype=torch.bfloat16, device=h.device)
     if M == 0:
         return out, ys
@@ -202,11 +209,17 @@ def _launch(h: torch.Tensor, w_down: torch.Tensor,
     err = lib.moe_down_combine(h.data_ptr(), _weight_maps(lib, w_down),
                                combine.data_ptr(), ys.data_ptr(),
                                counters.data_ptr(), out.data_ptr(), M, E, F,
-                               D, stream_ptr(h.device))
+                               D, int(f32), stream_ptr(h.device))
     _build.check(lib, err, f"moe_down_combine (h {tuple(h.shape)}, w_down "
                  f"{tuple(w_down.shape)})")
     launches += 1
     return out, ys
+
+
+def _out_f32(out_dtype: Optional[torch.dtype]) -> bool:
+    if out_dtype not in (None, torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bf16 or float32, got {out_dtype}")
+    return out_dtype == torch.float32
 
 
 def moe_down_combine_backward(h: torch.Tensor, w_down: torch.Tensor,
@@ -259,11 +272,12 @@ def _expert_out_flops(h_shape, w_shape, *args, **kwargs) -> int:
     return 2 * M * E * F * w_shape[2]
 
 
-def _plain(h: torch.Tensor, w_down: torch.Tensor, combine: torch.Tensor
+def _plain(h: torch.Tensor, w_down: torch.Tensor, combine: torch.Tensor,
+           out_dtype: Optional[torch.dtype] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, y)`` of the plain version (``ref.moe_down_combine_ref``)."""
     y = _expert_out(h, w_down)
-    return moe_combine_ref(y, combine), y
+    return moe_combine_ref(y, combine, out_dtype), y
 
 
 class _DownCombine(torch.autograd.Function):
@@ -290,15 +304,22 @@ class _DownCombine(torch.autograd.Function):
 
 
 def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
-                     combine: torch.Tensor) -> torch.Tensor:
+                     combine: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``h [M, E, F]``, ``w_down [E, F, D]``, ``combine [M, E]`` bf16 ->
-    ``[M, D]`` bf16: the kernel for CUDA tensors (one launch, after the
-    counters' zeroing), the plain version for CPU tensors.  Where autograd
-    records (grad mode on and an input requiring grad), the call carries
-    a gradient (``_DownCombine``); the forward is the same launch."""
+    ``[M, D]`` bf16, or with ``out_dtype=torch.float32`` the float32 sums
+    before that rounding: the kernel for CUDA tensors (one launch, after
+    the counters' zeroing), the plain version for CPU tensors.  Where
+    autograd records (grad mode on and an input requiring grad), the call
+    carries a gradient (``_DownCombine``, bf16 out); the forward is the
+    same launch."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (h, w_down, combine)):
+        if _out_f32(out_dtype):
+            raise ValueError("the float32 partial is a serving output; the "
+                             "call with a gradient gives bf16")
         return _DownCombine.apply(h, w_down, combine)
     if h.device.type in ("cpu", "meta"):
-        return _plain(h, w_down, combine)[0]
-    return _launch(h, w_down, combine)[0]
+        _out_f32(out_dtype)
+        return _plain(h, w_down, combine, out_dtype)[0]
+    return _launch(h, w_down, combine, out_dtype)[0]

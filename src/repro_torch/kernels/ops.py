@@ -108,28 +108,34 @@ paged_attention = _paged_attention.paged_attention
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           plan_n: Optional[int] = None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]`` with each row's bits independent of the
     other rows (``linear.linear``); ``out_dtype=torch.float32`` for the
-    LM head.  Carries a gradient where autograd records
+    LM head and a row-parallel partial; ``plan_n`` the whole N of a column
+    slice.  Carries a gradient where autograd records
     (``linear.linear_backward``: ``torch.matmul``)."""
-    return _linear.linear(x, w, out_dtype)
+    return _linear.linear(x, w, out_dtype, plan_n)
 
 
 def linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                 out_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+                 out_dtype: Optional[torch.dtype] = None,
+                 plan_n=None) -> List[torch.Tensor]:
     """``[x @ w for w in ws]`` (up to three weights) in one launch, each
     output bitwise its own ``linear(x, w)`` (``linear.linear_group``), with
     a gradient as ``linear``."""
-    return _linear.linear_group(x, ws, out_dtype)
+    return _linear.linear_group(x, ws, out_dtype, plan_n)
 
 
 def moe_down_combine(h: torch.Tensor, w_down: torch.Tensor,
-                     combine: torch.Tensor) -> torch.Tensor:
+                     combine: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The MoE block's expert down product and combine, ``h [M, E, F]``,
-    ``w_down [E, F, D]``, ``combine [M, E]`` bf16 -> ``[M, D]`` bf16, each
-    row's bits independent of the other rows (``moe.moe_down_combine``)."""
-    return _moe.moe_down_combine(h, w_down, combine)
+    ``w_down [E, F, D]``, ``combine [M, E]`` bf16 -> ``[M, D]`` bf16 (or
+    the float32 sum before its rounding, with ``out_dtype=torch.float32``),
+    each row's bits independent of the other rows
+    (``moe.moe_down_combine``)."""
+    return _moe.moe_down_combine(h, w_down, combine, out_dtype)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -289,10 +289,14 @@ def linear_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 def moe_down_combine_ref(h: torch.Tensor, w_down: torch.Tensor,
-                         combine: torch.Tensor) -> torch.Tensor:
+                         combine: torch.Tensor,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
     """The JAX MoE block's ``"bsef,efd->bsed"`` rounded to bf16, then
     ``"bsed,bse->bsd"`` with float32 accumulation, on ``h [M, E, F]``,
-    ``w_down [E, F, D]`` and ``combine [M, E]`` bf16 -> ``[M, D]`` bf16.
+    ``w_down [E, F, D]`` and ``combine [M, E]`` bf16 -> ``[M, D]`` bf16, or
+    with ``out_dtype=torch.float32`` the float32 sum before that rounding
+    (a rank's partial over its experts under tensor parallelism).
 
     XLA leaves the order of each float32 sum open; this version fixes it,
     so that the kernel can be held to it bit for bit: ``y[m, e]`` is
@@ -300,7 +304,7 @@ def moe_down_combine_ref(h: torch.Tensor, w_down: torch.Tensor,
     ``out[m]`` is ``out + y[m, e] * combine[m, e]`` for e = 0, 1, ...,
     E-1.  Each product of two bf16 values is exact in float32, so every
     step rounds once.  Each row's result depends on that row alone."""
-    return moe_combine_ref(moe_expert_out_ref(h, w_down), combine)
+    return moe_combine_ref(moe_expert_out_ref(h, w_down), combine, out_dtype)
 
 
 def moe_expert_out_ref(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
@@ -315,12 +319,14 @@ def moe_expert_out_ref(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     return y.to(torch.bfloat16)
 
 
-def moe_combine_ref(y: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
-    """``out [M, D]`` bf16 of ``moe_down_combine_ref`` from its ``y``: the
-    experts added in ascending order in float32, rounded once."""
+def moe_combine_ref(y: torch.Tensor, combine: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``out [M, D]`` of ``moe_down_combine_ref`` from its ``y``: the
+    experts added in ascending order in float32, rounded once to bf16
+    (kept float32 with ``out_dtype=torch.float32``)."""
     M, E, D = y.shape
     yf, cf = y.float(), combine.float()
     out = torch.zeros((M, D), dtype=torch.float32, device=y.device)
     for e in range(E):
         out.add_(yf[:, e] * cf[:, e, None])
-    return out.to(torch.bfloat16)
+    return out if out_dtype == torch.float32 else out.to(torch.bfloat16)

@@ -76,10 +76,13 @@ environment; one card is a world of one), the KV cache split over
 each a group of ``MODEL`` ranks that splits its cache over ``model``,
 with one clock for the world's deadlines and evictions
 (``serve.router``); ``--ranks N`` runs N ranks on this host (gloo on the
-CPU, or on a card they share).  Rank 0 prints.  Over ranks,
-``--tp-params`` and the recurrent, VLM and enc-dec families raise
-``NotImplementedError`` before any rank starts (ROADMAP queue A item
-16).  Every
+CPU, or on a card they share).  Rank 0 prints.  Over ranks
+``--tp-params`` splits each slice's weights over its ``model`` ranks by
+whole heads, columns and experts (``dist.sharding.tp_layout``, printed
+once: which blocks split and which replicate), with the row-parallel
+partials joined by a rank-ordered sum and the logits gathered; the
+recurrent, VLM and enc-dec families raise ``NotImplementedError`` before
+any rank starts (ROADMAP queue A item 16c).  Every
 ``--arch`` of the JAX launcher serves: a VLM decodes text only and an
 enc-dec model's decode keeps its ``cross`` planes zero, as the JAX
 package's do (ROADMAP C.13, C.14); ``--page-size`` with an enc-dec or
@@ -91,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import json
 import os
 import socket
 import sys
@@ -111,7 +115,7 @@ from ..dist.sharding import Mesh
 from ..dist.stragglers import PreemptionHandler
 from ..nn import attn_backend as AB
 from ..obs import Metrics, Tracer
-from ..serve.engine import (NOT_PORTED, ContinuousBatcher,
+from ..serve.engine import (ContinuousBatcher,
                             DeviceContinuousBatcher, ServeConfig, ServeEngine)
 from ..serve.faults import FaultPlan, preempt_snapshot, warm_restart
 from ..serve.router import ShardedServe
@@ -192,9 +196,6 @@ def _serve_over_ranks(argv, args, dev, n: int):
     this process built the kernels, each running the launcher.  Returns
     this process's streams (None where it spawned the ranks).  What does
     not serve over ranks raises before any rank starts."""
-    if args.tp_params:
-        raise NotImplementedError(f"--tp-params over {n} ranks: "
-                                  + NOT_PORTED["rank_tp"])
     M.check_rank_family(get_smoke_config(args.arch) if args.smoke
                         else get_config(args.arch))
     if "WORLD_SIZE" in os.environ or n == 1:
@@ -286,7 +287,11 @@ def main(argv=None):
     ap.add_argument("--tp-params", action="store_true",
                     help="router on a mesh: place each shard's params by "
                          "the JAX rules (tensor-parallel) instead of "
-                         "replicated")
+                         "replicated; over ranks split them over each "
+                         "slice's model ranks by whole heads")
+    ap.add_argument("--streams-out", default=None,
+                    help="write the served streams to this JSON file "
+                         "(rank 0): {request id: tokens}")
     ap.add_argument("--ranks", type=int, default=0,
                     help="serve the router over this many ranks on this "
                          "host (gloo on the CPU or on a shared card), one "
@@ -435,6 +440,9 @@ def main(argv=None):
                           **ft)
         print(f"router: {cb.n_shards} shard(s) over mesh "
               f"{dict(mesh.shape)} on {dev}")
+        tp = next((e.tp for e in cb.engines if e.tp is not None), None)
+        if tp is not None:
+            print(tp.layout.blocks())
     elif args.batcher == "device":
         cb = DeviceContinuousBatcher(
             engine, eos_token=-1, max_tokens=args.tokens,
@@ -498,10 +506,21 @@ def main(argv=None):
                   f"rank 0's slice; the host exchange {len(ex)} rounds, ms "
                   f"a round median {np.median(ex):.3f} (min "
                   f"{ex.min():.3f}, max {ex.max():.3f})")
+        tp = next((e.tp for e in cb.engines if e.tp is not None), None)
+        if tp is not None:
+            mine = cb.batchers[mesh.coords["data"]]
+            print(f"  tensor parallel over {tp.m} rank(s): "
+                  f"{dt * 1e3 / mine.steps_executed:.3f} ms a step run of "
+                  f"rank 0's slice")
     # one digest of every stream, to hold one run against another
     digest = zlib.crc32(repr(sorted((repr(r), [int(t) for t in v])
                                     for r, v in done.items())).encode())
     print(f"  streams: crc32 {digest:08x}")
+    if args.streams_out and (not comm.active()
+                             or comm.placement().rank == 0):
+        with open(args.streams_out, "w") as f:
+            json.dump({str(r): [int(t) for t in v] for r, v in done.items()},
+                      f)
     if args.spec_k:
         drafted = sum(b._spec_prop for b in shards)
         accepted = sum(b._spec_acc for b in shards)

@@ -23,6 +23,14 @@ ring's cells): the write keeps the rows this rank owns, and before the
 attention ``gathered`` puts the parts back together in rank order
 (``dist.comm.gather``), so the unchanged backend reads the bits the
 mesh-less step reads.
+
+Under tensor parallelism (``tp``, a ``dist.sharding.TensorParallel``
+whose layout splits the heads) each rank projects its own query and KV
+heads (column slices, planned as the whole weights, so bitwise those
+columns of the mesh-less launch), writes and reads a cache of its KV
+heads over the whole sequence, attends over its heads, and ``wo``'s row
+slice gives a float32 partial that ``tp.join`` adds over the ranks in
+rank order and rounds once.
 """
 from __future__ import annotations
 
@@ -65,10 +73,19 @@ def init_attention(gen: Optional[torch.Generator], d_model: int, n_heads: int,
 
 
 def _project_qkv(p: Dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
-                 head_dim: int, rope, qk_norm: bool, norm_eps: float):
+                 head_dim: int, rope, qk_norm: bool, norm_eps: float,
+                 tp=None):
+    """q, k, v of ``x``: ``n_heads`` / ``n_kv_heads`` are the weights'
+    heads (a rank's, with ``tp``, whose whole heads plan the launch)."""
     dt = x.dtype
     B, S, _ = x.shape
-    q, k, v = ops.linear_group(x, [p["wq"], p["wk"], p["wv"]])
+    ws = [p["wq"], p["wk"], p["wv"]]
+    if tp is None:
+        q, k, v = ops.linear_group(x, ws)
+    else:
+        lay = tp.layout
+        q, k, v = ops.linear_group(x, ws, plan_n=(
+            lay.n_q * head_dim, lay.n_kv * head_dim, lay.n_kv * head_dim))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -320,6 +337,24 @@ def _paged_write(kv: PagedKV, k: torch.Tensor, v: torch.Tensor) -> PagedKV:
     return kv
 
 
+def _tp_heads(tp, n_heads: int, n_kv_heads: int):
+    """``(tp, n_heads, n_kv_heads)`` of a step's attention: a rank's heads
+    where ``tp``'s layout splits them, else the block whole (``tp``
+    None)."""
+    if tp is None or not tp.layout.attn:
+        return None, n_heads, n_kv_heads
+    return tp, tp.layout.q_heads, tp.layout.kv_heads
+
+
+def _out_proj(p: Dict, out: torch.Tensor, tp) -> torch.Tensor:
+    """``out @ wo``; a rank's row slice gives a float32 partial, joined
+    over the ranks and rounded once."""
+    if tp is None:
+        return ops.linear(out, p["wo"])
+    return tp.join(ops.linear(out, p["wo"], out_dtype=torch.float32),
+                   out.dtype)
+
+
 def paged_decode_attention_block(
     p: Dict,
     x: torch.Tensor,  # [B, C, D] chunk of current tokens' activations
@@ -333,6 +368,7 @@ def paged_decode_attention_block(
     norm_eps: float,
     rope,
     impl: str = "auto",
+    tp=None,
 ) -> Tuple[torch.Tensor, PagedKV]:
     """Chunked decode attention through the paged (block-table) KV cache.
 
@@ -343,19 +379,21 @@ def paged_decode_attention_block(
     outside the backend, so the pools are the same whichever attends.
     ``rope`` is the step's ``(cos, sin)`` (``nn.common.rope_cos_sin`` of
     ``kv.pos``; None for a model without RoPE), computed once a step for
-    every layer.  Returns ``(out [B, C, D], kv)``.
+    every layer.  ``tp`` runs this rank's heads (the module docstring).
+    Returns ``(out [B, C, D], kv)``.
     """
     if not isinstance(kv, PagedKV) or kv.rows is None:
         raise TypeError(f"paged_decode_attention_block expects a PagedKV "
                         f"with its view attached, got {type(kv)}")
     B, C, _ = x.shape
+    tp, n_heads, n_kv_heads = _tp_heads(tp, n_heads, n_kv_heads)
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rope,
-                           qk_norm, norm_eps)
+                           qk_norm, norm_eps, tp)
     kv = _paged_write(kv, k, v)
     attend = AB.get(AB.resolve(impl, x.device))
     out = attend(q, gathered(kv), n_heads=n_heads, head_dim=head_dim,
                  window=window)
-    out = ops.linear(out.reshape(B, C, n_heads * head_dim), p["wo"])
+    out = _out_proj(p, out.reshape(B, C, n_heads * head_dim), tp)
     return out, kv
 
 
@@ -424,6 +462,7 @@ def decode_attention_block(
     gqa_impl: str = "repeat",
     impl: str = "auto",
     commit: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, PagedKV]:
     """One decode step through the dense ring cache: insert K/V at
     ``pos % S`` (in place; ``commit`` False drops the insert), then attend
@@ -433,8 +472,8 @@ def decode_attention_block(
     ``gqa_impl`` is the JAX package's choice of score einsum, ``"repeat"``
     (K/V broadcast to every query head) or ``"grouped"``; both compute the
     same function, and here both reach the same backend, which reads each
-    K/V row once for all the heads of its group.  Returns ``(out [B, 1, D],
-    kv)``.
+    K/V row once for all the heads of its group.  ``tp`` runs this rank's
+    heads (the module docstring).  Returns ``(out [B, 1, D], kv)``.
     """
     if gqa_impl not in GQA_IMPLS:
         raise ValueError(f"gqa_impl must be one of {GQA_IMPLS}, got "
@@ -443,11 +482,12 @@ def decode_attention_block(
         raise TypeError(f"decode_attention_block expects the dense_view of "
                         f"a layer, got {type(kv)}")
     B = x.shape[0]
+    tp, n_heads, n_kv_heads = _tp_heads(tp, n_heads, n_kv_heads)
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rope,
-                           qk_norm, norm_eps)
+                           qk_norm, norm_eps, tp)
     _ring_write(kv, k, v, slot, commit)
     attend = AB.get(AB.resolve(impl, x.device))
     out = attend(q, gathered(kv), n_heads=n_heads, head_dim=head_dim,
                  window=window)
-    out = ops.linear(out.reshape(B, 1, n_heads * head_dim), p["wo"])
+    out = _out_proj(p, out.reshape(B, 1, n_heads * head_dim), tp)
     return out, kv

@@ -18,10 +18,20 @@ def init_mlp(gen: Optional[torch.Generator], d_model: int, d_ff: int,
     }
 
 
-def mlp_block(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_block(p: Dict, x: torch.Tensor, act: str = "silu",
+              tp=None) -> torch.Tensor:
     """``act(x W_gate) * (x W_up) W_down`` in ``x.dtype``; the products
     are the row-invariant kernel on the card, gate and up in one launch
-    (``ops.linear_group``)."""
-    gate, up = ops.linear_group(x, [p["w_gate"], p["w_up"]])
+    (``ops.linear_group``).  With ``tp`` (a ``dist.sharding.
+    TensorParallel``) ``p`` holds this rank's ``d_ff`` slice: gate/up are
+    column slices planned as the whole weights, and ``w_down``'s row slice
+    gives a float32 partial that ``tp.join`` adds over the ranks in rank
+    order and rounds once."""
+    if tp is None:
+        gate, up = ops.linear_group(x, [p["w_gate"], p["w_up"]])
+        return ops.linear(ACTIVATIONS[act](gate) * up, p["w_down"])
+    gate, up = ops.linear_group(x, [p["w_gate"], p["w_up"]],
+                                plan_n=p["w_gate"].shape[1] * tp.m)
     h = ACTIVATIONS[act](gate) * up
-    return ops.linear(h, p["w_down"])
+    return tp.join(ops.linear(h, p["w_down"], out_dtype=torch.float32),
+                   x.dtype)

@@ -18,6 +18,16 @@ keep each token's top-k.  On the card its products are ``ops.linear``
 bits depend on that row alone.  ``moe_block_sparse`` is the GShard
 capacity dispatch, in plain torch: no path of the card launches it.
 
+Under tensor parallelism (``moe_block``'s ``tp``, a ``dist.sharding.
+TensorParallel``) the router stays whole, so every rank routes alike,
+bitwise; a rank whose layout splits the experts runs its experts' gate/up
+(a column slice of the flat ``[D, E * F]`` on expert boundaries, planned
+as the whole) and ``moe_down_combine`` over its experts and their
+columns of ``combine``, a float32 partial that ``tp.join`` adds over the
+ranks in rank order and rounds once; the shared experts follow
+``nn.mlp``'s.  The block's and the shared MLP's outputs are each rounded
+to bf16 before they are added, as on one card.
+
 Routing follows JAX op by op: float32 logits of the bf16 product, padding
 experts (qwen2-moe pads 60 to 64) at -1e30, a float32 softmax, ``top_k``
 with the values descending and ties to the lower expert index (as
@@ -110,11 +120,12 @@ def topk_weights(gates: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
 
 
 def moe_block(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
-              act: str = "silu", with_aux: bool = True
+              act: str = "silu", with_aux: bool = True, tp=None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(output [B, S, D] in x's type, aux loss [] float32)`` of ``x [B, S,
     D]`` (any leading shape); with ``with_aux=False`` the aux loss is not
-    computed (None), as the serve steps discard it."""
+    computed (None), as the serve steps discard it.  ``tp``: this rank's
+    experts and shared columns (the module docstring)."""
     fn = ACTIVATIONS[act]
     lead, D = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, D)
@@ -129,12 +140,24 @@ def moe_block(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     w_gate, w_up = _flat(p["w_gate"]), _flat(p["w_up"])
     if w_gate.dtype != x.dtype:
         w_gate, w_up = w_gate.to(x.dtype), w_up.to(x.dtype)
-    h_gate, h_up = ops.linear_group(x2, [w_gate, w_up])
-    h = (fn(h_gate) * h_up).reshape(x2.shape[0], E, -1)
-    out = ops.moe_down_combine(h, p["w_down"].to(x.dtype),
-                               combine.to(x.dtype))
+    experts = tp if tp is not None and tp.layout.experts else None
+    if experts is None:
+        h_gate, h_up = ops.linear_group(x2, [w_gate, w_up])
+        h = (fn(h_gate) * h_up).reshape(x2.shape[0], E, -1)
+        out = ops.moe_down_combine(h, p["w_down"].to(x.dtype),
+                                   combine.to(x.dtype))
+    else:
+        El = E // tp.m
+        h_gate, h_up = ops.linear_group(x2, [w_gate, w_up],
+                                        plan_n=w_gate.shape[1] * tp.m)
+        h = (fn(h_gate) * h_up).reshape(x2.shape[0], El, -1)
+        mine = combine[:, tp.index * El:(tp.index + 1) * El]
+        out = tp.join(ops.moe_down_combine(
+            h, p["w_down"].to(x.dtype), mine.to(x.dtype).contiguous(),
+            out_dtype=torch.float32), x.dtype)
     if "shared" in p:
-        out = out + mlp_block(p["shared"], x2, act)
+        shared = tp if tp is not None and tp.layout.shared else None
+        out = out + mlp_block(p["shared"], x2, act, shared)
     return out.reshape(*lead, D), aux
 
 

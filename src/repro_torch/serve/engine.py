@@ -69,9 +69,19 @@ slice's one clock (``_decision_clock``: its lead rank's, broadcast), so
 the ranks stay in lockstep and serve the mesh-less engine's streams
 bitwise.  Over NCCL the device batcher captures each step with its
 gathers in the CUDA graph; over gloo it runs the step eagerly.  Several
-data slices over ranks serve through the router (``serve.router``);
-``tp_params`` over ranks raises ``NotImplementedError`` from
-``NOT_PORTED`` (queue A item 16).
+data slices over ranks serve through the router (``serve.router``).
+
+With ``tp_params`` over a mesh of ranks the params split over the
+slice's ``model`` group by whole heads, columns and experts
+(``dist.sharding.tp_layout`` / ``tp_place``; ``self.tp`` is this rank's
+``TensorParallel``; None over a ``model`` group of one rank, which
+serves replicated), and the pools and rings hold the rank's KV heads:
+each rank computes its own part of every split block, a rank-ordered
+sum (``dist.comm.reduce_sum``) joins the row-parallel partials and the
+head's logits are gathered, so every rank ends each layer with the same
+bits and samples the same logits; over NCCL the device batcher's graph
+captures the sums and gathers.  Its streams are the replicated engine's
+up to the row-parallel sums' other association (ROADMAP C.19, C.21).
 """
 from __future__ import annotations
 
@@ -99,18 +109,11 @@ from .faults import PoolExhaust
 from .pages import PagePool
 from .pages import page_demand as _page_demand
 
-NOT_PORTED = {
-    "rank_tp": "tp_params over ranks (row-parallel reductions, a "
-               "vocab-parallel head) is not ported: ROADMAP queue A item 16 "
-               "(tp_params over ranks); the params replicate over ranks",
-}
-
-
-def _check_mesh(mesh, device: torch.device, tp_params: bool = False) -> None:
+def _check_mesh(mesh, device: torch.device) -> None:
     """A mesh's chips must live on the device that serves: a placement
     moves no tensor to another device.  An engine or a batcher on a mesh
-    of ranks serves one data slice with its params replicated; several
-    slices serve through the router."""
+    of ranks serves one data slice; several slices serve through the
+    router."""
     md = torch.device(mesh.device)
     if md.type == "cuda" and md.index is None:
         md = torch.device("cuda", torch.cuda.current_device())
@@ -125,8 +128,6 @@ def _check_mesh(mesh, device: torch.device, tp_params: bool = False) -> None:
                 f"a lone engine or batcher serves one data slice, not the "
                 f"rank mesh {dict(mesh.shape)}: serve its slices through "
                 f"the router (serve.router.ShardedServe)")
-        if tp_params:
-            raise NotImplementedError(NOT_PORTED["rank_tp"])
 
 
 def _decision_clock(mesh, clock: Callable[[], float]) -> Callable[[], float]:
@@ -390,15 +391,24 @@ class ServeEngine:
         self.cfg = cfg
         self.mesh = mesh
         self.tp_params = bool(tp_params)
+        self.tp = None  # this rank's TensorParallel over ranks
         if mesh is not None:
             # placed once: replicated over the shard's chips, or with
             # tp_params each leaf by the JAX rules; on logical chips a leaf
             # is validated and held whole either way, so the TP streams are
-            # the replicated streams bitwise (ROADMAP C.19)
-            _check_mesh(mesh, self.device, self.tp_params)
-            M.check_ranks(cfg, mesh)
-            params = SH.place(params, SH.param_shardings(params, mesh)
-                              if tp_params else SH.NamedSharding(mesh, SH.P()))
+            # the replicated streams bitwise (ROADMAP C.19); over ranks a
+            # leaf is this rank's slice by the head-aligned layout, or whole
+            # where the model group is one rank
+            _check_mesh(mesh, self.device)
+            ranks = M.check_ranks(cfg, mesh)
+            if ranks and self.tp_params:
+                self.tp = SH.tensor_parallel(cfg, mesh)
+            if self.tp is not None:
+                params = SH.tp_place(params, self.tp, self.device)
+            else:
+                params = SH.place(params, SH.param_shardings(params, mesh)
+                                  if tp_params and not ranks
+                                  else SH.NamedSharding(mesh, SH.P()))
         self.params = params
         self.scfg = scfg
         self.gate = gate
@@ -417,7 +427,7 @@ class ServeEngine:
         if self._state is None:
             self._state = M.init_decode_state(
                 self.cfg, self.scfg.max_batch, self.scfg.cache_len,
-                device=self.device, mesh=self.mesh)
+                device=self.device, mesh=self.mesh, tp=self.tp)
         return self._state
 
     @state.setter
@@ -439,7 +449,7 @@ class ServeEngine:
         labels = self._gate(features)
         logits, self._state = M.decode_step(
             self.params, self.state, self._ints(tokens), self.cfg,
-            attn_impl=self.scfg.attn_impl)
+            attn_impl=self.scfg.attn_impl, tp=self.tp)
         if not block:
             return logits, labels
         return (logits.cpu().numpy(),
@@ -466,7 +476,7 @@ class ServeEngine:
             self._gate(feats)
             nxt, self._state = M.decode_step(
                 self.params, self.state, tok, self.cfg, sample_greedy=True,
-                attn_impl=self.scfg.attn_impl)
+                attn_impl=self.scfg.attn_impl, tp=self.tp)
             nxt = nxt[:, None]
             tok = dprompts[:, i + 1: i + 2] if i + 1 < P else nxt
             if i + 1 >= P:
@@ -490,7 +500,7 @@ class ServeEngine:
             self._paged_kv = M.init_paged_kv(
                 self.cfg, self.scfg.n_pages, self.scfg.page_size,
                 kv_dtype=self.scfg.kv_dtype, device=self.device,
-                mesh=self.mesh)
+                mesh=self.mesh, tp=self.tp)
         return self._paged_kv
 
     def copy_page(self, src: int, dst: int) -> None:
@@ -509,7 +519,8 @@ class ServeEngine:
         out, self._paged_kv = M.paged_decode_step(
             self.params, self.paged_kv, self._ints(block_tbl),
             self._ints(pos), self._ints(tokens), self._ints(n_new), self.cfg,
-            sample_greedy=sample_greedy, attn_impl=self.scfg.attn_impl)
+            sample_greedy=sample_greedy, attn_impl=self.scfg.attn_impl,
+            tp=self.tp)
         return out
 
     def step_paged(self, tokens: np.ndarray, block_tbl: np.ndarray,
@@ -812,7 +823,7 @@ class _FusedStep:
         out, _ = M.paged_decode_step(
             eng.params, b._pages, tbl, pos, chunk, c, eng.cfg,
             sample_greedy=greedy, attn_impl=scfg.attn_impl,
-            all_positions=bool(SK))
+            all_positions=bool(SK), tp=eng.tp)
         if not SK:
             nxt = out if greedy else S.sample_tokens(
                 out, seed, gen, scfg.temperature, scfg.top_k, scfg.top_p)
@@ -1008,7 +1019,8 @@ class _DenseStep(_FusedStep):
         tok = torch.where(free, 0, last)[:, None]
         out, _ = M.decode_step(eng.params, b._decode, tok, eng.cfg,
                                sample_greedy=greedy,
-                               attn_impl=scfg.attn_impl, commit=work)
+                               attn_impl=scfg.attn_impl, commit=work,
+                               tp=eng.tp)
         nxt = out if greedy else S.sample_tokens(
             out, seed, gen, scfg.temperature, scfg.top_k, scfg.top_p)
         live = active & ~gdrop
@@ -1153,7 +1165,7 @@ class DeviceContinuousBatcher:
                                           scfg.page_size,
                                           kv_dtype=scfg.kv_dtype,
                                           device=engine.device,
-                                          mesh=self.mesh)
+                                          mesh=self.mesh, tp=engine.tp)
             self.pool = scfg.make_pool()
         else:
             # the batcher's own dense decode state, ``pos`` included, at
@@ -1161,7 +1173,7 @@ class DeviceContinuousBatcher:
             self._decode = M.init_decode_state(engine.cfg, scfg.max_batch,
                                                scfg.cache_len,
                                                device=engine.device,
-                                               mesh=self.mesh)
+                                               mesh=self.mesh, tp=engine.tp)
         self.seeds: dict = {}
         self.queue: collections.deque = collections.deque()
         self.done: dict = {}

@@ -30,7 +30,10 @@ same queues at the same rounds.  A decision that reads the time reads
 world rank 0's clock, broadcast (``dist.comm.SharedClock``); a batcher
 reads its slice's lead rank's.  So the router serves the mesh-less
 router's streams with ``n_shards`` = DATA bitwise, on every rank; the
-caller prints rank 0's results.
+caller prints rank 0's results.  With ``tp_params`` each slice's engine
+splits its weights over the slice's ``model`` ranks (``ServeEngine``'s
+tensor parallelism), and every rank of a slice serves that slice's
+streams alike.
 
 Routing and drain semantics:
 

@@ -168,3 +168,51 @@ def test_every_product_of_the_step_goes_through_ops_linear(both,
     assert calls[-1] == (((D, CFG.vocab_padded),), torch.bfloat16,
                          torch.float32)
     assert all(dt == torch.bfloat16 and od is None for _, dt, od in calls[:-1])
+
+
+class _FakeLib:
+    """``linear_weight_map`` without a card: the map buffers stay zero."""
+
+    def linear_weight_map(self, *args):
+        return 0
+
+
+@pytest.mark.parametrize("K,N,m", [(1536, 1536, 2), (1536, 256, 4),
+                                   (1536, 8960, 4), (1536, 152064, 2)])
+def test_plan_n_plans_a_column_slice_as_the_whole(K, N, m):
+    """A column slice ``[K, N / m]`` with ``plan_n = N`` launches with the
+    whole weight's ``(KS, S)`` (so its outputs are bitwise those columns
+    of the whole launch), without it with its own; ``_group``'s cache key
+    holds ``plan_n``, so the two are two records of one weight; a
+    ``plan_n`` below the slice's N, or of another length, raises."""
+    lin = _kernel_module()
+    w = torch.zeros((K, N // m), dtype=torch.bfloat16)
+    lin._GROUPS.clear()
+    try:
+        whole = lin._group(_FakeLib(), [w], lin._plan_ns([w], N))
+        own = lin._group(_FakeLib(), [w], lin._plan_ns([w], None))
+        assert (whole[2][0], whole[3][0]) == lin.plan(K, N)
+        assert (own[2][0], own[3][0]) == lin.plan(K, N // m)
+        assert whole[1][0] == own[1][0] == N // m
+        keys = sorted(lin._GROUPS, key=repr)
+        assert len(keys) == 2 and {k[0][-1] for k in keys} == {None, N}
+    finally:
+        lin._GROUPS.clear()
+    assert lin._plan_ns([w, w], (N, None)) == (N, None)
+    with pytest.raises(ValueError, match="less than"):
+        lin._plan_ns([w], N // m - 8)
+    with pytest.raises(ValueError, match="entries"):
+        lin._plan_ns([w], (N, N))
+
+
+def test_plan_n_on_the_cpu_is_the_plain_version():
+    """On the CPU ``plan_n`` changes nothing (the plain version has no
+    plan); a product with a gradient refuses it."""
+    x, w = (torch.as_tensor(a).to(torch.bfloat16)
+            for a in _linear_case(0, 3, 64, 32))
+    assert torch.equal(ops.linear(x, w, plan_n=64), ref.linear_ref(x, w))
+    assert torch.equal(ops.linear_group(x, [w, w], torch.float32,
+                                        plan_n=(64, None))[1],
+                       ref.linear_ref(x, w, torch.float32))
+    with pytest.raises(ValueError, match="plan_n"):
+        ops.linear(x, w.clone().requires_grad_(), plan_n=64)

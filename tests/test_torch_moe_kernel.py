@@ -171,3 +171,36 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     assert torch.equal(moe.moe_down_combine(h, w, c),
                        ref.moe_down_combine_ref(h, w, c))
     assert moe.launches == before
+
+
+@pytest.mark.parametrize("E", [16, 8])
+def test_float32_output_rounds_to_the_bf16_bits(E):
+    """``out_dtype=float32`` (a rank's partial over its experts under
+    tensor parallelism): the plain version's float32 sum, which rounds to
+    the bf16 version's bits; the wrapper on the CPU is that plain version;
+    another dtype, or the float32 output with a gradient, raises."""
+    rng = np.random.default_rng(E)
+    h = torch.as_tensor(rng.standard_normal((7, E, 32)),
+                        dtype=torch.float32).to(torch.bfloat16)
+    w = torch.as_tensor(rng.standard_normal((E, 32, 24)) / 6,
+                        dtype=torch.float32).to(torch.bfloat16)
+    c = combine_case(2, 7, E, E, 2)
+    f32 = ref.moe_down_combine_ref(h, w, c, torch.float32)
+    assert f32.dtype == torch.float32
+    assert torch.equal(f32.to(torch.bfloat16), ref.moe_down_combine_ref(h, w, c))
+    assert torch.equal(moe.moe_down_combine(h, w, c, torch.float32), f32)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        moe.moe_down_combine(h, w, c, torch.float16)
+    with pytest.raises(ValueError, match="serving output"):
+        moe.moe_down_combine(h.requires_grad_(), w, c, torch.float32)
+
+
+def test_float32_output_reaches_the_cuda_source():
+    """The launch passes ``out_f32`` (the ctypes signature holds one more
+    int than the four shapes) and the combine writes float32 with it."""
+    from repro_torch.kernels import _build
+
+    sig = _build.SIGNATURES["moe"]["moe_down_combine"]
+    assert sig.count(_build._I) == 5
+    src = CSRC.read_text()
+    assert "int out_f32, void* stream" in src and "if (p.out_f32)" in src

@@ -17,19 +17,35 @@ every pool, ring and param leaf, 1/m of the pool's bytes.  Two data
 slices of ranks (``2x1`` in the 2-rank world, ``2x2`` in the 4-rank one)
 behind the router serve the mesh-less router's with two shards, also
 under a crash and a straggler; deadlines over the ``1x2`` mesh follow
-rank 0's clock whatever the other rank's reads.  The refusals
-(``tp_params`` and the recurrent families over ranks, a malformed spec,
-a mesh on another device) and what now builds run in the 2-rank world.
+rank 0's clock whatever the other rank's reads.  The refusals (the
+recurrent families over ranks, a malformed spec, a mesh on another
+device) and what now builds run in the 2-rank world.
+
+Tensor parallelism (``tp_params``) in the same worlds: the smoke config
+(its 3 heads split over neither 2 nor 4 ranks: the attention replicated,
+the MLP and vocab split), a narrow config whose heads split (4 query
+heads on 2 KV heads, d_model 64: 1 KV head a rank over 2, each KV head
+on 2 ranks over 4) and the MoE smoke config (its experts split) serve
+every path of ``streams`` on every rank alike, bitwise within TP (host ==
+device, chunk 4 == chunk 1, speculative == greedy, shared prefix ==
+unshared), and against the replicated mesh-less port with the same
+routing, drops and served set and each stream equal up to its first near
+tie (the mesh-less port's teacher-forced top-2 margin within twice the
+logit tolerance); each rank holds its layout's slices and the pool of
+its KV heads; the 2x2 rank router runs TP in each slice's model pair.
 
 Against the JAX package: its router on ``1x2`` and ``2x2`` meshes of
-fake XLA devices (a subprocess) against the 2-rank router and the 2x2
-rank router, under the near-tie rule of ``test_torch_serve.py``.  Then
-the launcher: ``--ranks 2`` prints the 1x2 mesh and the mesh-less run's
-streams.
+fake XLA devices (a subprocess; on the 2x2 mesh also with ``tp_params``,
+for the smoke and the narrow config) against the 2-rank router and the
+2x2 rank router (replicated and TP), under the near-tie rule of
+``test_torch_serve.py``.  Then the launcher: ``--ranks 2`` prints the
+1x2 mesh and the mesh-less run's streams; with ``--tp-params`` the
+layout, and streams whose served set is the mesh-less run's.
 
 Both worlds and the JAX subprocess start together; every world and
 subprocess has a timeout, so a rank out of lockstep fails the test.
 """
+import dataclasses
 import json
 import os
 import pickle
@@ -43,9 +59,13 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from repro.arch import model as JM  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro_torch.arch import model as TM  # noqa: E402
+from repro_torch.arch.convert import params_from_arrays  # noqa: E402
 from repro_torch.dist import sharding as SH  # noqa: E402
-from test_torch_serve import CFG, both  # noqa: E402,F401
+from test_torch_serve import (CFG, _near_tie_bound, _top2_margin,  # noqa: E402
+                              both)  # noqa: F401
 from test_torch_serve_mesh import _near_tie_upto, _paged_prompts  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,7 +75,7 @@ WORLD_TIMEOUT = 300  # seconds a world may take in all
 # ``python -c`` process that imports the port alone) and, mesh-less, by
 # the test itself.
 WORKER = textwrap.dedent("""
-    import collections, os, pickle, sys, traceback
+    import collections, dataclasses, os, pickle, sys, traceback
     import numpy as np
     import torch
     from repro_torch.arch import model as TM
@@ -72,6 +92,8 @@ WORKER = textwrap.dedent("""
     DS = load_dataset("unsw", n=2000)
     CFG = get_smoke_config("qwen2-1.5b")
     MOE = get_smoke_config("qwen2-moe-a2.7b")
+    # the smoke config with heads that split over 2 and 4 ranks
+    NARROW = dataclasses.replace(CFG, n_heads=4, n_kv_heads=2, d_model=64)
     MAX_TOKENS = 3
     DENSE_TOKENS = 6  # 10 requests of 6 tokens pass the ring's 16 cells
     PAGED = dict(max_batch=4, cache_len=32, page_size=8)
@@ -129,13 +151,14 @@ WORKER = textwrap.dedent("""
         return out
 
 
-    def streams(cfg, params, gate, mesh, modes=True):
+    def streams(cfg, params, gate, mesh, modes=True, tp=False):
         \"\"\"Every serve path of the slice on ``mesh`` (None: mesh-less);
         ``modes``: speculative decoding, a shared prefix, a fault plan and a
-        traced run too.\"\"\"
+        traced run too; ``tp``: the params split over the ranks
+        (``tp_params``).\"\"\"
         out = {}
         eng = TE.ServeEngine(cfg, params, TE.ServeConfig(**DENSE), gate=gate,
-                             mesh=mesh, device="cpu")
+                             mesh=mesh, tp_params=tp, device="cpu")
         prompts = np.random.default_rng(0).integers(1, 97, (4, 4))
         out["generate"] = eng.generate(prompts, GEN_TOKENS,
                                        features=DS.X_test[:4]).tolist()
@@ -144,7 +167,8 @@ WORKER = textwrap.dedent("""
                 ("dense", DENSE, dense_prompts(), DENSE_TOKENS)):
             def engine():
                 return TE.ServeEngine(cfg, params, TE.ServeConfig(**scfg),
-                                      gate=gate, mesh=mesh, device="cpu")
+                                      gate=gate, mesh=mesh, tp_params=tp,
+                                      device="cpu")
 
             out[f"host {kind}"] = serve(TE.ContinuousBatcher(
                 engine(), eos_token=-1, max_tokens=tokens), prompts)
@@ -156,12 +180,13 @@ WORKER = textwrap.dedent("""
         # the int8 pool: its scale planes written and gathered as the K/V
         out["device paged int8"] = serve(TE.DeviceContinuousBatcher(
             TE.ServeEngine(cfg, params, TE.ServeConfig(**PAGED, kv_int8=True),
-                           gate=gate, mesh=mesh, device="cpu"),
+                           gate=gate, mesh=mesh, tp_params=tp, device="cpu"),
             eos_token=-1, max_tokens=MAX_TOKENS, sync_every=2,
             prefill_chunk=4), paged_prompts())
         r = TR.ShardedServe(cfg, params, TE.ServeConfig(**PAGED), mesh,
                             gate=gate, eos_token=-1, max_tokens=MAX_TOKENS,
-                            sync_every=2, prefill_chunk=4, device="cpu")
+                            sync_every=2, prefill_chunk=4, tp_params=tp,
+                            device="cpu")
         out["router"] = serve(r, paged_prompts())
         out["router"]["assigned"] = r.assigned
         if not modes:
@@ -169,7 +194,8 @@ WORKER = textwrap.dedent("""
 
         def device(scfg=PAGED, **kw):
             eng = TE.ServeEngine(cfg, params, TE.ServeConfig(**scfg),
-                                 gate=gate, mesh=mesh, device="cpu")
+                                 gate=gate, mesh=mesh, tp_params=tp,
+                                 device="cpu")
             return TE.DeviceContinuousBatcher(
                 eng, eos_token=-1, max_tokens=MAX_TOKENS, sync_every=2,
                 prefill_chunk=4, **kw)
@@ -186,7 +212,8 @@ WORKER = textwrap.dedent("""
             device=serve(device(shared), prefixed_prompts()),
             host=serve(TE.ContinuousBatcher(
                 TE.ServeEngine(cfg, params, TE.ServeConfig(**shared),
-                               gate=gate, mesh=mesh, device="cpu"),
+                               gate=gate, mesh=mesh, tp_params=tp,
+                               device="cpu"),
                 eos_token=-1, max_tokens=MAX_TOKENS), prefixed_prompts()))
         plan = FaultPlan.parse("nan:1@2,exhaust:0:2@3")
         out["device paged faults"] = serve(device(
@@ -200,19 +227,20 @@ WORKER = textwrap.dedent("""
         return out
 
 
-    def data_routers(cfg, params, gate, mesh, faults=True):
+    def data_routers(cfg, params, gate, mesh, faults=True, tp=False):
         \"\"\"The router over two data slices (``mesh``; None: the mesh-less
         router with two shards): plain, and with ``faults`` two plans over
         turns of 4 steps, a straggler at one strike: shard 0 slow at its
         first turn (evicted, its work moved to shard 1) and shard 1
         crashed at its second drain (no survivor); and both at their
         second, where the crash moves shard 1's work to shard 0, which took
-        its turn already (shard 0 flagged, kept as the last one).\"\"\"
+        its turn already (shard 0 flagged, kept as the last one); ``tp``:
+        each slice's params split over its model ranks.\"\"\"
         def router(**kw):
             return TR.ShardedServe(
                 cfg, params, TE.ServeConfig(**PAGED), mesh, n_shards=2,
                 gate=gate, eos_token=-1, max_tokens=MAX_TOKENS, sync_every=2,
-                prefill_chunk=4, device="cpu", **kw)
+                prefill_chunk=4, tp_params=tp, device="cpu", **kw)
 
         r = router()
         out = dict(router=routed(r, paged_prompts()), pools=[
@@ -268,6 +296,54 @@ WORKER = textwrap.dedent("""
             and all(a is b for a, b in zip(mine, given)))
 
 
+    def tp_slices(params, mesh):
+        \"\"\"Under ``tp_params`` this rank's layout, index and param leaves
+        (the narrow config's, values and all) and its pool, int8 pool and
+        ring shapes.\"\"\"
+        def engine(**kw):
+            return TE.ServeEngine(NARROW, params, TE.ServeConfig(**kw),
+                                  mesh=mesh, tp_params=True, device="cpu")
+
+        eng = engine(**PAGED)
+        return dict(
+            layout=eng.tp.layout, index=eng.tp.index, params=eng.params,
+            pool=[tuple(t.shape) for t in eng.paged_kv.pools()],
+            int8=[tuple(t.shape) for t in
+                  engine(**PAGED, kv_int8=True).paged_kv.pools()],
+            ring=[tuple(t.shape) for t in engine(**DENSE).state["kv"]],
+            split=eng.paged_kv.split)
+
+
+    def one_rank_tp(params, mesh):
+        \"\"\"``tp_params`` on this rank's data slice of ``mesh`` (a model
+        group of one rank): the engine's TensorParallel (None) and whether
+        it holds every param leaf whole.\"\"\"
+        from repro_torch.launch.mesh import data_submeshes
+
+        mine = data_submeshes(mesh)[mesh.coords["data"]]
+        eng = TE.ServeEngine(CFG, params, TE.ServeConfig(**PAGED), mesh=mine,
+                             tp_params=True, device="cpu")
+        mine = [p for leaf in leaves(eng.params) for p in leaf.parts]
+        given = [p for leaf in leaves(params) for p in leaf.parts]
+        return dict(tp=eng.tp, whole=len(mine) == len(given) and all(
+            torch.equal(a, b) for a, b in zip(mine, given)))
+
+
+    def sums(rank, world):
+        \"\"\"``comm.reduce_sum`` of a float32 tensor each rank makes from
+        its rank (rank 0 ones, the others ``2 ** -24`` a half ulp of 1.0,
+        the last 0), and the launches it counted.\"\"\"
+        from repro_torch.dist import comm
+
+        v = 1.0 if rank == 0 else (0.0 if rank == world - 1 and world > 2
+                                   else 2.0 ** -24)
+        t = torch.full((3, 5), v, dtype=torch.float32)
+        comm.reset_counts()
+        out = comm.reduce_sum(t)
+        return dict(sum=out.tolist(), launches=comm.launches,
+                    dtype=str(out.dtype))
+
+
     def refusals(params, mesh):
         \"\"\"What a 2-rank world refuses: each case's exception and message.\"\"\"
         from repro_torch.launch.mesh import make_serve_mesh
@@ -275,8 +351,6 @@ WORKER = textwrap.dedent("""
         scfg = TE.ServeConfig(**PAGED)
         rec = get_smoke_config("xlstm-125m")
         cases = {
-            "tp_params": lambda: TE.ServeEngine(
-                CFG, params, scfg, mesh=mesh, tp_params=True, device="cpu"),
             "recurrent": lambda: TE.ServeEngine(
                 rec, TM.init_params(rec, 0, "cpu"), TE.ServeConfig(**DENSE),
                 mesh=mesh, device="cpu"),
@@ -341,9 +415,10 @@ WORKER = textwrap.dedent("""
                      DS.X_train, DS.y_train, DS.X_test).mapped
 
 
-    def rank_main(rank, world, store, params_path, out_path):
+    def rank_main(rank, world, store, params_path, narrow_path, out_path):
         \"\"\"One rank of a gloo world on the CPU: every path over the
-        ``1 x world`` mesh of ranks, its results pickled to ``out_path``.\"\"\"
+        ``1 x world`` mesh of ranks, replicated and under ``tp_params``,
+        its results pickled to ``out_path``.\"\"\"
         try:
             torch.set_num_threads(1)
             from repro_torch.dist import comm
@@ -355,19 +430,35 @@ WORKER = textwrap.dedent("""
             mesh = make_serve_mesh("auto")
             g = gate()
             dense = torch.load(params_path)
+            narrow = torch.load(narrow_path)
             moe = TM.init_params(MOE, 0, "cpu")
             res = dict(mesh=dict(mesh.shape), coords=mesh.coords,
-                       shapes=shapes(dense, mesh),
+                       sums=sums(rank, world), shapes=shapes(dense, mesh),
                        dense=streams(CFG, dense, g, mesh),
                        moe=streams(MOE, moe, g, mesh, modes=False))
+            res["tp"] = dict(
+                narrow=streams(NARROW, narrow, g, mesh, tp=True),
+                dense=streams(CFG, dense, g, mesh, modes=False, tp=True),
+                moe=streams(MOE, moe, g, mesh, modes=False, tp=True),
+                slices=tp_slices(narrow, mesh))
             # two data slices: of one rank each, or of a model pair each
             data = make_serve_mesh("2x1" if world == 2 else "2x2")
             res["data"] = dict(mesh=dict(data.shape), coords=data.coords,
                                dense=data_routers(CFG, dense, g, data,
                                                   faults=world == 2))
+            if world == 4:  # TP inside each slice's model pair
+                res["data"]["tp"] = {
+                    name: data_routers(cfg, p, g, data, faults=False,
+                                       tp=True)
+                    for name, cfg, p in (("dense", CFG, dense),
+                                         ("narrow", NARROW, narrow))}
             if world == 2:
                 res["data"]["moe"] = data_routers(MOE, moe, g, data,
                                                   faults=False)
+                # TP over model groups of one rank: nothing split
+                res["data"]["tp"] = dict(dense=data_routers(
+                    CFG, dense, g, data, faults=False, tp=True))
+                res["one_rank_tp"] = one_rank_tp(dense, data)
                 res["deadlines"] = deadlines(CFG, dense, g, mesh,
                                              Ticks(rank))
                 res["refusals"] = refusals(dense, mesh)
@@ -381,9 +472,11 @@ WORKER = textwrap.dedent("""
 W = {}
 exec(WORKER, W)  # the mesh-less runs and the constants
 PAGED, DENSE = W["PAGED"], W["DENSE"]
+JAX_NARROW = dataclasses.replace(jax_smoke("qwen2-1.5b"), n_heads=4,
+                                 n_kv_heads=2, d_model=64)
 
 
-def _start_world(world, tmp, params_path):
+def _start_world(world, tmp, params_path, narrow_path):
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     code = WORKER + "\nrank_main(int(sys.argv[1]), int(sys.argv[2]), " \
         "*sys.argv[3:])\n"
@@ -392,7 +485,8 @@ def _start_world(world, tmp, params_path):
         out = tmp / f"world{world}_rank{r}.pkl"
         procs.append((subprocess.Popen(
             [sys.executable, "-c", code, str(r), str(world),
-             str(tmp / f"store{world}"), str(params_path), str(out)],
+             str(tmp / f"store{world}"), str(params_path), str(narrow_path),
+             str(out)],
             env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), out))
     return procs
@@ -417,7 +511,7 @@ def _join_world(procs):
 
 
 _JAX_ROUTER = textwrap.dedent("""
-    import json, sys
+    import dataclasses, json, sys
     import jax
     from repro.arch import model as JM
     from repro.configs import get_smoke_config
@@ -432,18 +526,23 @@ _JAX_ROUTER = textwrap.dedent("""
     jp = JM.init_params(cfg, jax.random.PRNGKey(0))
     jg = plant(PlanterConfig(model="rf", size="S"), DS.X_train, DS.y_train,
                DS.X_test).mapped
+    narrow = dataclasses.replace(cfg, n_heads=4, n_kv_heads=2, d_model=64)
+    jn = JM.init_params(narrow, jax.random.PRNGKey(0))
     prompts = {int(k): v for k, v in json.loads(sys.argv[1]).items()}
     out = {}
-    for spec in ("1x2", "2x2"):
+    for key, spec, c, p, tp in (("1x2", "1x2", cfg, jp, False),
+                                ("2x2", "2x2", cfg, jp, False),
+                                ("2x2 tp", "2x2", cfg, jp, True),
+                                ("2x2 tp narrow", "2x2", narrow, jn, True)):
         r = JR.ShardedServe(
-            cfg, jp, JE.ServeConfig(max_batch=4, cache_len=32, page_size=8,
-                                    attn_impl="jnp"),
+            c, p, JE.ServeConfig(max_batch=4, cache_len=32, page_size=8,
+                                 attn_impl="jnp"),
             make_serve_mesh(spec), gate=jg, eos_token=-1, max_tokens=3,
-            sync_every=2, prefill_chunk=4)
+            sync_every=2, prefill_chunk=4, tp_params=tp)
         for rid, p in prompts.items():
             r.submit(rid, p, features=DS.X_test[rid])
         done = r.run(max_steps=400)
-        out[spec] = dict(
+        out[key] = dict(
             done={str(k): [int(t) for t in v] for k, v in done.items()},
             assigned=r.assigned, dropped=r.dropped,
             reasons={str(k): v for k, v in r.drop_reasons.items()})
@@ -454,26 +553,37 @@ _JAX_ROUTER = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def worlds(both, tmp_path_factory):
     """The 2- and 4-rank worlds' results, the JAX 1x2 and 2x2 routers'
-    output and the mesh-less port's streams, all started together."""
+    output (the 2x2 replicated and ``tp_params``) and the mesh-less
+    port's streams, all started together; the narrow config's JAX params
+    (``jn``) beside them."""
     _, tp, _, tg = both
     tmp = tmp_path_factory.mktemp("ranks")
     params_path = tmp / "params.pt"
     torch.save(tp, params_path)
+    jn = JM.init_params(JAX_NARROW, jax.random.PRNGKey(0))
+    narrow = params_from_arrays(jax.tree.map(np.asarray, jn), W["NARROW"],
+                                "cpu")
+    narrow_path = tmp / "narrow.pt"
+    torch.save(narrow, narrow_path)
     jax_run = subprocess.Popen(
         [sys.executable, "-c", _JAX_ROUTER, json.dumps(_paged_prompts())],
         env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
              "JAX_PLATFORMS": "cpu",
              "XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
-    started = {m: _start_world(m, tmp, params_path) for m in (2, 4)}
+    started = {m: _start_world(m, tmp, params_path, narrow_path)
+               for m in (2, 4)}
     try:
         moe = TM.init_params(W["MOE"], 0, "cpu")
         meshless = dict(
             dense=W["streams"](CFG, tp, tg, None),
             moe=W["streams"](W["MOE"], moe, tg, None, modes=False),
+            narrow=W["streams"](W["NARROW"], narrow, tg, None),
             data=dict(dense=W["data_routers"](CFG, tp, tg, None),
                       moe=W["data_routers"](W["MOE"], moe, tg, None,
-                                            faults=False)),
+                                            faults=False),
+                      narrow=W["data_routers"](W["NARROW"], narrow, tg,
+                                               None, faults=False)),
             deadlines=W["deadlines"](CFG, tp, tg, None, W["Ticks"](0)))
         results = {m: _join_world(started[m]) for m in (2, 4)}
         out, err = jax_run.communicate(timeout=WORLD_TIMEOUT)
@@ -488,7 +598,8 @@ def worlds(both, tmp_path_factory):
             jax_run.communicate()
     assert jax_run.returncode == 0, out + err
     line = [x for x in out.splitlines() if x.startswith("ROUTER ")][-1]
-    return dict(results=results, meshless=meshless,
+    return dict(results=results, meshless=meshless, jn=jn,
+                params=dict(dense=tp, moe=moe, narrow=narrow),
                 jax=json.loads(line[len("ROUTER "):]))
 
 
@@ -622,15 +733,14 @@ def test_each_rank_holds_its_shard(worlds, m):
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("tp_params", "NotImplementedError", "item 16"),
     ("recurrent", "NotImplementedError", "item 16"),
     ("malformed", "ValueError", "DATAxMODEL"),
     ("another device", "ValueError", "another rank's device")])
 def test_ranks_refuse_what_is_not_ported(worlds, case, exc, match):
-    """Over ranks, ``tp_params`` and the recurrent families raise
-    ``NotImplementedError`` naming queue A item 16 (``tp_params`` over
-    ranks, the families over ranks); a malformed spec and a mesh naming
-    another device raise ``ValueError``; on both ranks alike."""
+    """Over ranks the recurrent families raise ``NotImplementedError``
+    naming queue A item 16 (the families over ranks); a malformed spec and
+    a mesh naming another device raise ``ValueError``; on both ranks
+    alike."""
     for res in worlds["results"][2]:
         got, msg = res["refusals"][case]
         assert got == exc and match in msg, (case, got, msg)
@@ -706,35 +816,320 @@ def test_data_router_matches_the_jax_2x2_router(worlds, both):
             assert got["done"][rid][:n] == done_j[rid][:n], (rid, n)
 
 
-def test_launcher_serves_over_ranks():
-    """``launch.serve --ranks 2`` on the CPU: a gloo world of 2, the 1x2
-    mesh, and the mesh-less ``--router`` run's streams (their CRC32)."""
+# ------------------------------------------------ tensor parallelism
+TP_CFGS = {"narrow": W["NARROW"], "dense": CFG, "moe": W["MOE"]}
+# the paths whose streams are teacher-forced through the paged cache, and
+# their prompts (the int8 pool's through an int8 pool)
+TP_PAGED = ("host paged", "device paged chunk 1", "device paged chunk 4",
+            "device paged int8", "router", "device paged spec",
+            "device paged faults", "device paged traced")
+
+
+def _port_upto(cfg, params, prompts, done, kv_dtype="bf16"):
+    """Per request, the mesh-less port's stream's length before its first
+    near tie: the stream teacher-forced through the mesh-less port's paged
+    step (one chunked call), the first generated position whose top-2
+    margin is within ``_near_tie_bound``; the port's argmax is the stream
+    up to there."""
+    rids = sorted(done)
+    seqs = [list(prompts[r]) + list(done[r]) for r in rids]
+    B, L, page = len(seqs), max(len(x) for x in seqs), PAGED["page_size"]
+    n_ps = -(-L // page)
+    toks = np.zeros((B, L), np.int32)
+    for b, x in enumerate(seqs):
+        toks[b, :len(x)] = x
+    logits, _ = TM.paged_decode_step(
+        params, TM.init_paged_kv(cfg, B * n_ps, page, kv_dtype=kv_dtype,
+                                 device="cpu"),
+        torch.arange(B * n_ps, dtype=torch.int32).reshape(B, n_ps),
+        torch.zeros(B, dtype=torch.int32), torch.as_tensor(toks),
+        torch.tensor([len(x) for x in seqs], dtype=torch.int32), cfg,
+        all_positions=True)
+    logits = logits.numpy()
+    out = {}
+    for b, r in enumerate(rids):
+        P = len(prompts[r])
+        lg = logits[b, P - 1: P - 1 + len(done[r])]
+        near = np.nonzero(_top2_margin(lg) <= _near_tie_bound(lg))[0]
+        out[r] = int(near[0]) if len(near) else len(done[r])
+        assert (lg.argmax(-1)[:out[r]] == np.asarray(done[r][:out[r]])).all()
+    return out
+
+
+def _generate_upto(cfg, params, streams):
+    """``_port_upto`` for ``generate()``'s streams: the prompts and the
+    streams teacher-forced through the mesh-less dense step."""
+    prompts = np.random.default_rng(0).integers(1, 97, (4, 4))
+    seq = np.concatenate([prompts, np.asarray(streams)], 1)
+    P, n = prompts.shape[1], len(streams[0])
+    st = TM.init_decode_state(cfg, len(seq), DENSE["cache_len"],
+                              device="cpu")
+    upto = [n] * len(seq)
+    for i in range(seq.shape[1] - 1):
+        lg, st = TM.decode_step(params, st, torch.as_tensor(seq[:, i:i + 1]),
+                                cfg)
+        j = i + 1 - P
+        if j < 0:
+            continue
+        lg = lg.numpy()
+        near = _top2_margin(lg) <= _near_tie_bound(lg)
+        for b in range(len(seq)):
+            if near[b]:
+                upto[b] = min(upto[b], j)
+            if j < upto[b]:
+                assert lg[b].argmax() == seq[b, i + 1]
+    return upto
+
+
+def _tp_prompts(path):
+    return (W["prefixed_prompts"]() if path == "share prefix"
+            else W["paged_prompts"]())
+
+
+def _same_served(got, want):
+    """The served set, drops and reasons (and a router's routing) of a
+    path equal."""
+    assert sorted(got["done"]) == sorted(want["done"])
+    for k in ("dropped", "reasons", "assigned"):
+        assert got.get(k) == want.get(k), k
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("family", list(TP_CFGS))
+def test_tp_over_ranks_serves_the_meshless_port_up_to_near_ties(
+        worlds, m, family):
+    """Every path of ``streams`` under ``tp_params`` over ``1 x m`` ranks:
+    every rank alike, bitwise within TP (host == device, chunk 4 == chunk
+    1, and for the narrow config speculative == greedy, shared prefix
+    host == device, traced == untraced), and against the replicated
+    mesh-less port the same served set, drops, reasons and routing, each
+    stream (``generate()`` and the paged paths) equal up to its first
+    near tie of the mesh-less port's teacher-forced logits."""
+    cfg, params = TP_CFGS[family], worlds["params"][family]
+    want = worlds["meshless"][family]
+    got = [res["tp"][family] for res in worlds["results"][m]]
+    for rank, g in enumerate(got):
+        assert g == got[0], (family, m, rank)
+    g = got[0]
+    assert set(g) <= set(want) and ("device paged spec" in g) == (
+        family == "narrow")
+    assert g["device paged chunk 4"]["done"] == \
+        g["device paged chunk 1"]["done"] == g["host paged"]["done"]
+    assert g["device dense chunk 1"]["done"] == g["host dense"]["done"]
+    if "device paged spec" in g:
+        assert g["device paged spec"]["spec"]["accepted"] > 0
+        for path in ("device paged spec", "device paged traced"):
+            assert g[path]["done"] == g["device paged chunk 4"]["done"]
+        assert g["share prefix"]["device"]["done"] == \
+            g["share prefix"]["host"]["done"]
+        assert g["device paged traced"]["violations"] == []
+    compared = 0
+    for path in set(g) - {"generate"}:
+        pairs = ([(g[path][k], want[path][k]) for k in ("device", "host")]
+                 if path == "share prefix" else [(g[path], want[path])])
+        for a, b in pairs:
+            _same_served(a, b)
+            if path in TP_PAGED or path == "share prefix":
+                kv = "int8" if path == "device paged int8" else "bf16"
+                for r, n in _port_upto(cfg, params, _tp_prompts(path),
+                                       b["done"], kv).items():
+                    assert a["done"][r][:n] == b["done"][r][:n], (path, r)
+                    compared += n
+    upto = _generate_upto(cfg, params, want["generate"])
+    for b, n in enumerate(upto):
+        assert g["generate"][b][:n] == want["generate"][b][:n], b
+        compared += n
+    assert compared > 0
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_reduce_sum_adds_in_rank_order(worlds, m):
+    """``comm.reduce_sum`` adds the ranks' float32 tensors in rank order,
+    ``((t_0 + t_1) + t_2) + t_3``, the same bits on every rank, one
+    collective: over 4 ranks ``1 + 2^-24 + 2^-24 + 0`` is 1.0 (each
+    half ulp rounds to even), where the sum from the last rank would be
+    ``1 + 2^-23``; over 2 ranks it is ``1 + 2^-24`` = 1.0 too."""
+    ts = [np.float32(1.0)] + [np.float32(2.0 ** -24)] * (m - 1)
+    if m > 2:
+        ts[-1] = np.float32(0.0)
+    left = ts[0]
+    for t in ts[1:]:
+        left = np.float32(left + t)
+    right = ts[-1]
+    for t in reversed(ts[:-1]):
+        right = np.float32(t + right)
+    assert m == 2 or left != right
+    for res in worlds["results"][m]:
+        got = res["sums"]
+        assert got["dtype"] == "torch.float32" and got["launches"] == 1
+        assert got["sum"] == [[float(left)] * 5] * 3
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_tp_each_rank_holds_its_layouts_slices(worlds, m):
+    """Under ``tp_params`` each rank holds its layout's slices of the
+    narrow config (``tp_layout``: 2 query heads on 1 KV head a rank over
+    2, 1 on a shared KV head over 4): the distinct slices of every leaf,
+    put together in rank order, are the leaf bitwise; its page pool, int8
+    pool (the scale planes by head too) and ring hold every position of
+    its KV heads (nothing split over the sequence)."""
+    from test_torch_sharding import _pieces, _walk
+
+    cfg = W["NARROW"]
+    lay = SH.tp_layout(cfg, m)
+    sl = [res["tp"]["slices"] for res in worlds["results"][m]]
+    n_pages = PAGED["max_batch"] * PAGED["cache_len"] // PAGED["page_size"]
+    pool = (cfg.n_layers, n_pages, PAGED["page_size"], lay.kv_heads,
+            cfg.head_dim_)
+    ring = (cfg.n_layers, DENSE["max_batch"], DENSE["cache_len"],
+            lay.kv_heads, cfg.head_dim_)
+    assert lay.attn and lay.kv_heads == 1
+    for r, x in enumerate(sl):
+        assert x["layout"] == lay and x["index"] == r and x["split"] is None
+        assert x["pool"] == [pool] * 2 and x["ring"] == [ring] * 2
+        assert x["int8"] == [pool] * 2 + [pool[:-1] + (1,)] * 2
+    flat = [list(_walk(x["params"])) for x in sl]
+    split = 0
+    for i, (names, t) in enumerate(_walk(worlds["params"]["narrow"])):
+        pieces = _pieces(lay, names, t.shape)
+        if pieces[0] is None:
+            assert all(torch.equal(f[i][1], t) for f in flat), names
+            continue
+        split += 1
+        distinct = dict.fromkeys(pieces)
+        parts = [flat[pieces.index(p)][i][1] for p in distinct]
+        assert torch.equal(torch.cat(parts, pieces[0][0]), t), names
+    assert split > 0
+
+
+def test_tp_over_model_groups_of_one_rank_serves_replicated(worlds):
+    """``tp_params`` over the 2x1 mesh of 2 ranks (a data slice a rank,
+    model groups of one rank) splits nothing: no ``TensorParallel``,
+    every param leaf whole, and the router's streams, routing, drops and
+    pools bitwise the replicated 2x1 router's, with no collective of
+    tensor parallelism in its steps."""
+    for res in worlds["results"][2]:
+        assert res["one_rank_tp"] == dict(tp=None, whole=True)
+        got, want = res["data"]["tp"]["dense"], res["data"]["dense"]
+        assert got["router"] == want["router"]
+        assert got["pools"] == want["pools"]
+
+
+@pytest.mark.parametrize("name", ["dense", "narrow"])
+def test_tp_data_slices_over_ranks(worlds, name):
+    """The router over the 2x2 mesh of 4 ranks with ``tp_params`` (TP in
+    each slice's model pair): every rank alike, the mesh-less 2-shard
+    router's routing, drops and served set, each stream its own up to its
+    first near tie; each rank's pool holds its KV heads."""
+    cfg, params = TP_CFGS[name], worlds["params"][name]
+    want = worlds["meshless"]["data"][name]["router"]
+    got = [res["data"]["tp"][name] for res in worlds["results"][4]]
+    for g in got:
+        assert g["router"] == got[0]["router"]
+        kv = SH.tp_layout(cfg, 2).kv_heads
+        assert len(g["pools"]) == 1
+        assert g["pools"][0] * cfg.n_kv_heads == \
+            worlds["meshless"]["data"][name]["pools"][0] * kv
+    g = got[0]["router"]
+    _same_served(g, want)
+    for r, n in _port_upto(cfg, params, W["paged_prompts"](),
+                           want["done"]).items():
+        assert g["done"][r][:n] == want["done"][r][:n], r
+
+
+@pytest.mark.parametrize("name", ["dense", "narrow"])
+def test_tp_router_matches_the_jax_2x2_tp_router(worlds, both, name):
+    """The JAX router on a 2x2 mesh of fake devices with ``tp_params``
+    against the port's TP router over the 2x2 mesh of 4 ranks: routing,
+    drops and the served set equal, each stream up to its first JAX near
+    tie (teacher-forced through the JAX model of the config)."""
+    jp, jcfg = ((both[0], None) if name == "dense"
+                else (worlds["jn"], JAX_NARROW))
+    j = worlds["jax"]["2x2 tp" + ("" if name == "dense" else " narrow")]
+    prompts = _paged_prompts()
+    done_j = {int(k): v for k, v in j["done"].items()}
+    upto = _near_tie_upto(jp, prompts, done_j, jcfg)
+    assert sum(upto.values()) > 0
+    for res in worlds["results"][4]:
+        got = res["data"]["tp"][name]["router"]
+        assert sorted(got["done"]) == sorted(done_j)
+        assert got["assigned"] == j["assigned"]
+        assert got["dropped"] == j["dropped"]
+        assert got["reasons"] == {int(k): v for k, v in j["reasons"].items()}
+        for rid, n in upto.items():
+            assert got["done"][rid][:n] == done_j[rid][:n], (rid, n)
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """``launch.serve --router --page-size 8 --requests 16`` on the CPU over
+    ``--ranks 2``, over ``--ranks 2 --tp-params`` and mesh-less, at once:
+    each run's stdout lines, and its ``--streams-out`` file's streams
+    under ``(name, "streams")``."""
+    tmp = tmp_path_factory.mktemp("launched")
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
             "--device", "cpu", "--router", "--page-size", "8",
             "--requests", "16"]
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
-    runs = [subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True)
-            for cmd in (base + ["--ranks", "2"], base)]
-    outs = []
-    for p in runs:
-        try:
+    cmds = {"ranked": base + ["--ranks", "2"],
+            "tp": base + ["--ranks", "2", "--tp-params"], "meshless": base}
+    cmds = {k: cmd + ["--streams-out", str(tmp / f"{k}.json")]
+            for k, cmd in cmds.items()}
+    runs = {k: subprocess.Popen(cmd, env=env, cwd=REPO,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+            for k, cmd in cmds.items()}
+    outs = {}
+    try:
+        for k, p in runs.items():
             out, err = p.communicate(timeout=WORLD_TIMEOUT)
-        finally:
+            assert p.returncode == 0, out + err
+            outs[k] = out.splitlines()
+            outs[k, "streams"] = json.loads((tmp / f"{k}.json").read_text())
+    finally:
+        for p in runs.values():
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-        assert p.returncode == 0, out + err
-        outs.append(out.splitlines())
-    ranked, meshless = outs
+    return outs
+
+
+def _served(lines):
+    return [x for x in lines if x.startswith("[router] served")][0] \
+        .split(" — ")[0]
+
+
+def test_launcher_serves_over_ranks(launched):
+    """``launch.serve --ranks 2`` on the CPU: a gloo world of 2, the 1x2
+    mesh, and the mesh-less ``--router`` run's streams (their CRC32)."""
+    ranked, meshless = launched["ranked"], launched["meshless"]
     assert "ranks: a world of 2 over gloo (the ranks run on the CPU); rank 0 "\
         "on cpu" in ranked
     assert "router: 1 shard(s) over mesh {'data': 1, 'model': 2} on cpu" \
         in ranked
     crc = [[x for x in o if x.strip().startswith("streams: crc32")]
-           for o in outs]
+           for o in (ranked, meshless)]
     assert len(crc[0]) == 1 and crc[0] == crc[1]
-    served = [[x for x in o if x.startswith("[router] served")][0]
-              .split(" — ")[0] for o in outs]
-    assert served[0] == served[1]
+    assert _served(ranked) == _served(meshless)
     assert sum(x.startswith("router:") for x in ranked) == 1  # rank 0 alone
+    # --streams-out: rank 0 writes every stream, the mesh-less run's
+    streams = launched["ranked", "streams"]
+    assert streams == launched["meshless", "streams"]
+    assert len(streams) == int(_served(ranked).split()[2])
+
+
+def test_launcher_serves_tp_params_over_ranks(launched):
+    """``launch.serve --ranks 2 --tp-params`` on the CPU: the layout
+    printed once (the smoke config's attention replicated, its MLP and
+    vocab split), the mesh-less run's served and dropped counts and its
+    set of streams, a step's ms printed."""
+    tp = launched["tp"]
+    assert tp.count("tensor parallel over 2 rank(s): attention replicated; "
+                    "mlp split (d_ff 48 a rank); embedding and head split "
+                    "(128 rows a rank)") == 1
+    assert _served(tp) == _served(launched["meshless"])
+    timing = [x for x in tp if "ms a step run of rank 0's slice" in x]
+    assert len(timing) == 1 and "tensor parallel over 2 rank(s): " in \
+        timing[0]
+    assert set(launched["tp", "streams"]) == \
+        set(launched["meshless", "streams"])

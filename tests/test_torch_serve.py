@@ -450,13 +450,13 @@ def test_launcher_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "1x4", "--tp-params"], "item 16"),
-    (["--arch", "recurrentgemma-9b", "--router"], "item 16")])
+    (["--arch", "internvl2-2b", "--router", "--tp-params"], "item 16c"),
+    (["--arch", "recurrentgemma-9b", "--router"], "item 16c")])
 def test_launcher_modes_not_ported_raise(argv, item, monkeypatch):
-    """Over the ranks of four visible cards, ``--tp-params`` and the
-    recurrent families (``--router``, whose mesh is ``auto``) wait for
-    ROADMAP queue A items 16b and 16c, and raise before any rank
-    starts."""
+    """Over the ranks of four visible cards, the VLM (with or without
+    ``--tp-params``) and the recurrent families (``--router``, whose mesh
+    is ``auto``) wait for ROADMAP queue A item 16c, and raise before any
+    rank starts."""
     from repro_torch.launch import serve
 
     monkeypatch.setattr(serve, "device_count", lambda dev: 4)

@@ -288,11 +288,12 @@ def test_launcher_serves_a_mesh_of_logical_chips(capsys):
 
 
 # ------------------------------------------------------------ vs JAX
-def _near_tie_upto(jp, prompts, done):
+def _near_tie_upto(jp, prompts, done, jcfg=None):
     """Per request, the stream's length before its first JAX near tie
-    (teacher-forced through the JAX model, one chunked call), checking the
-    JAX argmax is the stream up to there."""
-    jcfg = jax_smoke("qwen2-1.5b")
+    (teacher-forced through the JAX model of ``jcfg``, the qwen2-1.5b
+    smoke config by default, one chunked call), checking the JAX argmax
+    is the stream up to there."""
+    jcfg = jcfg or jax_smoke("qwen2-1.5b")
     rids = sorted(done)
     seqs = [list(prompts[r]) + list(done[r]) for r in rids]
     B, L, page = len(seqs), max(len(x) for x in seqs), 8

@@ -7,6 +7,7 @@ smoke configs' decode states, ``tests/test_dist.py``'s rule tests and
 ``tests/test_router.py``'s mesh helpers.  Tolerance: none — a spec is a
 tuple of axis names, equal or not.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -330,3 +331,187 @@ def test_production_mesh_needs_its_chips():
     np.testing.assert_array_equal(
         make_smoke_mesh(2, 2, chips=4, device="cpu").devices,
         np.arange(4).reshape(2, 2))
+
+
+# ------------------------------------------- tensor parallelism over ranks
+TP_ARCHS = ("qwen2-1.5b", "qwen2-moe-a2.7b", "qwen3-32b")
+# the smoke config whose heads split over 2 and 4 ranks
+NARROW = dataclasses.replace(get_smoke_config("qwen2-1.5b"), n_heads=4,
+                             n_kv_heads=2, d_model=64)
+
+
+@functools.lru_cache(maxsize=None)
+def _compute_meta(arch):
+    """The port's serve params (compute copies) at full width, on meta."""
+    return TM.init_params(get_config(arch), 0, "meta")
+
+
+def _walk(tree, path=()):
+    """(path names, tensor) of every leaf of a port params tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, path + (k,))
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _walk(v, path)
+    else:
+        yield path, tree
+
+
+def _pieces(layout, names, shape):
+    """Each rank's (dim, start, length) of a leaf, in rank order."""
+    return [SH.TensorParallel(layout, r).slice_of(names, shape)
+            for r in range(layout.m)]
+
+
+def _assert_tiles(pieces, shape):
+    """The distinct pieces, in rank order, tile their dim exactly once."""
+    if all(p is None for p in pieces):
+        return
+    assert None not in pieces
+    dims = {p[0] for p in pieces}
+    assert len(dims) == 1
+    dim = dims.pop()
+    distinct = list(dict.fromkeys(pieces))
+    at = 0
+    for _, start, n in distinct:
+        assert start == at and n > 0
+        at += n
+    assert at == shape[dim]
+
+
+@pytest.mark.parametrize("m", [2, 4, 8])
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_layout_at_full_width(arch, m):
+    """The head-aligned layout of every leaf at full width (meta tensors):
+    each rank holds whole heads (query heads split when m divides them;
+    KV heads split with them, or each rank the one its query heads read,
+    or the block replicated), d_ff, the experts and the padded vocab
+    split where m divides them, the router and every norm whole; the
+    distinct pieces of each leaf tile it in rank order; ``tp_place``
+    gives each rank's leaf its piece's shape."""
+    cfg = get_config(arch)
+    lay = SH.tp_layout(cfg, m)
+    params = _compute_meta(arch)
+    hd = cfg.head_dim_
+    want_attn = cfg.q_heads % m == 0 and (cfg.n_kv_heads % m == 0
+                                          or m % cfg.n_kv_heads == 0)
+    assert lay.attn == want_attn
+    if lay.attn:
+        assert lay.q_heads * m == cfg.q_heads
+        assert lay.kv_heads * m == cfg.n_kv_heads or (
+            lay.kv_heads == 1 and lay.kv_share * cfg.n_kv_heads == m)
+        # a rank's query heads read only its KV heads
+        g = cfg.q_heads // cfg.n_kv_heads
+        for r in range(m):
+            tp = SH.TensorParallel(lay, r)
+            reads = {(r * lay.q_heads + i) // g for i in range(lay.q_heads)}
+            assert reads <= set(range(tp.kv_head, tp.kv_head + lay.kv_heads))
+    split = 0
+    for names, t in _walk(params):
+        pieces = _pieces(lay, names, t.shape)
+        _assert_tiles(pieces, t.shape)
+        name = names[-1]
+        if name in ("router", "q_norm", "k_norm") or name.startswith("ln"):
+            assert pieces[0] is None, names
+        if name in ("wq", "wk", "wv", "wo") and lay.attn:
+            n = (lay.q_heads if name in ("wq", "wo") else lay.kv_heads) * hd
+            assert pieces[0][2] == n, names
+        split += pieces[0] is not None
+    assert split > 0
+    for r in (0, m - 1):
+        mine = SH.tp_place(params, SH.TensorParallel(lay, r))
+        for (names, t), (_, got) in zip(_walk(params), _walk(mine)):
+            cut = SH.TensorParallel(lay, r).slice_of(names, t.shape)
+            want = list(t.shape)
+            if cut is not None:
+                want[cut[0]] = cut[2]
+            assert list(got.shape) == want, names
+    # what splits at these widths
+    E = cfg.n_experts_padded
+    assert lay.vocab and (lay.experts == (E > 0))
+    assert lay.mlp == (cfg.d_ff % m == 0 and not E)
+    if arch == "qwen2-1.5b":
+        assert (lay.attn, lay.q_heads, lay.kv_heads, lay.kv_share) == {
+            2: (True, 6, 1, 1), 4: (True, 3, 1, 2),
+            8: (False, 12, 2, 1)}[m]
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", ["narrow", "qwen2-moe-a2.7b"])
+def test_tp_place_pieces_rebuild_each_leaf(arch, m):
+    """Each rank's slices (``tp_place``, real values), put together in
+    rank order (a duplicated KV head once), are the leaf bitwise; a leaf
+    held whole is the very tensor given."""
+    cfg = (NARROW if arch == "narrow" else get_smoke_config(arch))
+    params = TM.init_params(cfg, 0, "cpu")
+    lay = SH.tp_layout(cfg, m)
+    ranks = [SH.tp_place(params, SH.TensorParallel(lay, r))
+             for r in range(m)]
+    flat = [list(_walk(p)) for p in ranks]
+    for i, (names, t) in enumerate(_walk(params)):
+        pieces = _pieces(lay, names, t.shape)
+        if pieces[0] is None:
+            assert all(f[i][1] is t for f in flat), names
+            continue
+        seen, parts = set(), []
+        for r, p in enumerate(pieces):
+            if p not in seen:
+                seen.add(p)
+                parts.append(flat[r][i][1])
+        assert torch.equal(torch.cat(parts, pieces[0][0]), t), names
+
+
+def test_tp_layout_of_the_smoke_configs():
+    """The CPU worlds' configs: qwen2-1.5b's smoke config (3 q heads on 1
+    KV head) replicates its attention over 2 and 4 ranks and splits its
+    MLP and vocab; the narrow config splits its heads (1 KV head a rank
+    over 2, each KV head on 2 ranks over 4); the MoE smoke config its 16
+    experts and its shared MLP; a model group of 1 splits every block
+    into one part; ``blocks()`` names each block."""
+    smoke = get_smoke_config("qwen2-1.5b")
+    for m in (2, 4):
+        lay = SH.tp_layout(smoke, m)
+        assert not lay.attn and lay.mlp and lay.vocab
+        assert "attention replicated" in lay.blocks()
+    n2, n4 = SH.tp_layout(NARROW, 2), SH.tp_layout(NARROW, 4)
+    assert (n2.q_heads, n2.kv_heads, n2.kv_share) == (2, 1, 1)
+    assert (n4.q_heads, n4.kv_heads, n4.kv_share) == (1, 1, 2)
+    moe = SH.tp_layout(get_smoke_config("qwen2-moe-a2.7b"), 2)
+    assert moe.attn and moe.experts and moe.shared and not moe.mlp
+    assert "experts split (8 a rank)" in moe.blocks()
+    one = SH.tp_layout(smoke, 1)
+    assert one.attn and one.mlp and one.vocab and one.q_heads == 3
+    with pytest.raises(ValueError):
+        SH.tp_layout(smoke, 0)
+
+
+class _StubRanks:
+    """The parts of a ``RankMesh`` that ``tensor_parallel`` reads: a
+    ``data x model`` shape, this rank's model coordinate, no group."""
+
+    axis_names = ("data", "model")
+    model_group = None
+
+    def __init__(self, data: int, model: int, index: int = 0):
+        self.shape = {"data": data, "model": model}
+        self.index = index
+
+    def axis_index(self, axis) -> int:
+        assert axis == "model"
+        return self.index
+
+
+@pytest.mark.parametrize("data,model", [(1, 1), (2, 1), (4, 1), (1, 2),
+                                        (2, 2)])
+def test_tensor_parallel_needs_a_model_group_of_several_ranks(data, model):
+    """``tensor_parallel`` gives no ``TensorParallel`` over a model group
+    of one rank (a world of one, ``--mesh 4x1``): every leaf stays whole
+    and a step runs no collective of tensor parallelism; over two ranks
+    it gives this rank's index in the layout of ``m`` ranks."""
+    tp = SH.tensor_parallel(NARROW, _StubRanks(data, model, model - 1))
+    if model == 1:
+        assert tp is None
+    else:
+        assert tp.layout == SH.tp_layout(NARROW, model)
+        assert tp.index == model - 1 and tp.m == model
